@@ -77,6 +77,10 @@ def pytest_configure(config):
         "markers",
         "smoke: <10-min core tier (one fast module per subsystem; "
         "run with -m smoke)")
+    config.addinivalue_line(
+        "markers",
+        "cuda: needs an NVIDIA GPU with nvcc (the PyTorch port's CUDA "
+        "kernels); skipped elsewhere")
 
 
 def pytest_collection_modifyitems(config, items):

@@ -1,0 +1,71 @@
+"""The port's CUDA kernels on the card (marker ``cuda``; skipped without
+one). They reuse chip_smoke.py's cases at a smaller geometry than its
+Llama-3-8B one. Run them on a machine with an NVIDIA Hopper card and
+nvcc, from the repository root (the package conftest imports JAX, which
+the card's machine need not have):
+
+    python -m pytest --noconftest -p no:cacheprovider \\
+        tests/test_torch_cuda_kernels.py
+"""
+import pytest
+import torch
+
+import chip_smoke as smoke
+
+pytestmark = pytest.mark.cuda
+
+GEOM = dict(H=8, Hkv=2, Dh=128, ps=16)
+CASES = {
+    "serving_mix": dict(slots=[(40, 40), (70, 333), (1, 1), (1, 200),
+                               (0, 0), (1, 130)], pps=24, n_pad=2),
+    "degenerate": dict(slots=[(5, 5), (0, 0), (1, 17), (3, 40), (0, 0),
+                              (1, 16)], pps=4, n_pad=2, shuffle=True,
+                       nan_garbage=True),
+    "group_1": dict(slots=[(9, 300), (1, 65)], pps=20),
+    "group_8": dict(slots=[(11, 150), (0, 0), (1, 33)], pps=10, n_pad=1),
+}
+# H per case: G = H / Hkv query heads share a kv head (1, 4 or 8)
+HEADS = {"group_1": 2, "group_8": 16}
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU with nvcc (runs on the card)")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda")
+
+
+@pytest.mark.parametrize("name", sorted(CASES))
+def test_kernel_matches_plain_version(cuda, name):
+    """f32 within TILED_ULP_BOUND of the f64 evaluation, bf16 within the
+    smoke's stated bounds, padding rows zero, outputs finite."""
+    geom = dict(GEOM, H=HEADS.get(name, GEOM["H"]))
+    smoke.check_case(name, smoke.make_case(**CASES[name], **geom,
+                                           device=cuda))
+
+
+@pytest.mark.parametrize("H", [2, 8, 16])
+def test_kernel_rows_are_batch_invariant(cuda, H):
+    """Bitwise: per-slot streams equal the mixed batch's rows, and a span
+    attended in two chunks equals the whole span (rows regroup across
+    blocks differently in each)."""
+    case = smoke.make_case(**CASES["serving_mix"], **dict(GEOM, H=H),
+                           device=cuda)
+    smoke.check_row_invariance(case, split_slot=1, split=29)
+
+
+def test_kernel_counts_launches_and_rejects_bad_input(cuda):
+    from paddle_tpu_torch.ops.kernels.ragged_paged_attention import (
+        ragged_paged_attention_packed as rpa)
+    case = smoke.make_case(**CASES["group_1"], **GEOM, device=cuda)
+    before = rpa.launches
+    smoke.run_rpa(case, "auto")
+    smoke.run_rpa(case, "reference")
+    assert rpa.launches == before + 1
+    with pytest.raises(TypeError, match="int32"):
+        smoke.run_rpa(dict(case, q_len=case["q_len"].long()), "kernel")
+    with pytest.raises(ValueError, match="head_dim"):
+        smoke.run_rpa(smoke.make_case(**CASES["group_1"],
+                                      **dict(GEOM, Dh=96), device=cuda),
+                      "kernel")
