@@ -15,7 +15,8 @@ Phases (any failed check raises; nothing is caught):
    Dh 128, page 16): (a) a serving mix of prefill spans, decode rows and
    padding tokens, (b) long-context decode over 16,384-token tables,
    (c) empty slots, shuffled tables and NaN in the trash page and in
-   stale page rows. The f32 kernel is held to TILED_ULP_BOUND ulps at
+   stale page rows, (d) the serving phase's mixed tick at the engine's
+   own geometry (8 slots, 34 pages a slot, 273 pages). The f32 kernel is held to TILED_ULP_BOUND ulps at
    row scale against the plain version evaluated in f64 on the same
    inputs; the bf16 kernel to ``BF16_PLAIN_ULPS`` against the bf16 plain
    version and to ``BF16_EXACT_ULPS`` against the f64 evaluation on the
@@ -64,8 +65,10 @@ BF16_EXACT_ULPS = 1
 # vs plain attention: max |dlogit| relative to the largest logit of the
 # live rows. The per-layer attention difference (a few bf16 ulps, see
 # above) is amplified through the random residual stack: measured 0.060
-# on an H100 80GB HBM3 (700 W) with this script; the bound leaves 2.5x.
-LOGITS_REL_TOL = 0.15
+# on an H100 80GB HBM3 (700 W) with this script; the bound leaves 1.7x.
+# The kernel itself is held to the ulp bounds above on the same tick's
+# geometry (case d); this check covers the tick around it.
+LOGITS_REL_TOL = 0.1
 H100_BYTES_PER_S = 3.35e12       # HBM3, NVIDIA data sheet (SXM, 700 W)
 H100_BF16_FLOPS = 989e12         # dense bf16 tensor-core peak (SXM)
 
@@ -316,19 +319,38 @@ CASE_A = dict(slots=[(64, 64), (173, 941), (300, 1021), (1, 1), (1, 77),
 CASE_B = dict(slots=[(1, 16384)] * 4, pps=1024)
 CASE_C = dict(slots=[(5, 5), (0, 0), (1, 17), (3, 40), (0, 0), (1, 16)],
               pps=4, n_pad=2, shuffle=True, nan_garbage=True)
+# one engine tick at the serving phase's geometry (8 slots, 34 pages of
+# 16 a slot): slots 0-2 decode over 300/77/500 cached tokens, slot 3
+# prefills 200 tokens behind a 64-token cached prefix, slot 4 a whole
+# 90-token prompt, slots 5-7 idle
+TICK_S, TICK_PPS = 8, 34
+TICK_DECODE = {0: 300, 1: 77, 2: 500}
+TICK_SPANS = [(3, 64, 200), (4, 0, 90)]          # (slot, start, take)
+
+
+def _tick_slots():
+    slots = [(0, 0)] * TICK_S
+    for s, n in TICK_DECODE.items():
+        slots[s] = (1, n + 1)
+    for s, start, take in TICK_SPANS:
+        slots[s] = (take, start + take)
+    return slots
+
+
+CASE_D = dict(slots=_tick_slots(), pps=TICK_PPS)
 
 
 def kernel_phase() -> dict:
     from paddle_tpu_torch.ops.kernels import ragged_paged_attention as rpa
     rec = {}
     for name, spec in (("a_serving_mix", CASE_A), ("b_long_context", CASE_B),
-                       ("c_degenerate", CASE_C)):
+                       ("c_degenerate", CASE_C), ("d_engine_tick", CASE_D)):
         case = make_case(**spec, **GEOM, seed=len(rec))
         errs = check_case(name, case)
         log(f"kernel case {name}: " + " ".join(
             f"{k}={v:.4g}" for k, v in errs.items()))
         rec[name] = dict(errs)
-        if name != "c_degenerate":
+        if name in ("a_serving_mix", "b_long_context"):
             c16 = cast(case, torch.bfloat16)
             ms = time_ms(lambda: run_rpa(c16, "kernel"))
             plain_ms = time_ms(lambda: run_rpa(c16, "reference"), reps=5)
@@ -366,44 +388,6 @@ def _requests(vocab: int, seed: int = 0):
         prompts[b] = np.concatenate(
             [prefix, rng.randint(0, vocab, 100).astype(np.int32)])
     return prompts, [int(n) for n in rng.randint(8, 33, size=16)]
-
-
-def mixed_tick_meta(S, ps, pps, device, seed=0):
-    """One mixed tick's packed stream: slots 0-2 decode over 300/77/500
-    cached tokens, slot 3 prefills 200 tokens behind a 64-token cached
-    prefix, slot 4 prefills a whole 90-token prompt, slots 5-7 idle."""
-    rng = np.random.RandomState(seed)
-    tables = np.arange(1, 1 + S * pps, dtype=np.int32).reshape(S, pps)
-    decode = {0: 300, 1: 77, 2: 500}
-    spans = [(3, 64, 200), (4, 0, 90)]
-    T = S + sum(t for _, _, t in spans)
-    tok = rng.randint(0, 128256, T).astype(np.int32)
-    tok_slot = np.full(T, S, np.int32)
-    tok_pos = np.zeros(T, np.int32)
-    tok_qoff = np.zeros(T, np.int32)
-    q_len = np.zeros(S, np.int32)
-    kv_len = np.zeros(S, np.int32)
-    last = np.zeros(S, np.int32)
-    for s, n in decode.items():
-        tok_slot[s], tok_pos[s] = s, n
-        q_len[s], kv_len[s], last[s] = 1, n + 1, s
-    idx = S
-    for s, start, take in spans:
-        tok_slot[idx:idx + take] = s
-        tok_pos[idx:idx + take] = np.arange(start, start + take)
-        tok_qoff[idx:idx + take] = np.arange(take)
-        q_len[s], kv_len[s], last[s] = take, start + take, idx + take - 1
-        idx += take
-    real = tok_slot < S
-    tok_page = np.where(real, tables[np.minimum(tok_slot, S - 1),
-                                     tok_pos // ps], 0)
-    tok_off = np.where(real, tok_pos % ps, 0)
-    meta = {k: torch.as_tensor(v.astype(np.int32), device=device)
-            for k, v in dict(tok_slot=tok_slot, tok_pos=tok_pos,
-                             tok_page=tok_page, tok_off=tok_off,
-                             tok_qoff=tok_qoff, q_len=q_len, kv_len=kv_len,
-                             last=last, tables=tables).items()}
-    return torch.as_tensor(tok, device=device), meta
 
 
 def serving_phase() -> dict:
@@ -463,27 +447,35 @@ def serving_phase() -> dict:
         f"(= {L} layers x {steps}); prefix hits {c['prefix_hits']}")
 
     # one mixed tick, kernel vs plain attention, same weights and pools
-    S, ps, pps = 8, 16, 34
+    S, ps, pps = TICK_S, 16, TICK_PPS
     pools = llama.init_serving_pages(cfg, 1 + S * pps, ps)
     g = torch.Generator(device="cuda").manual_seed(1)
     for t in pools.values():
         t.copy_(torch.randn(t.shape, generator=g, device="cuda"))
-    tok, meta = mixed_tick_meta(S, ps, pps, "cuda")
+    rng = np.random.RandomState(0)
+    tok, meta = llama.pack_tick(
+        [(s, rng.randint(cfg.vocab_size), n)
+         for s, n in TICK_DECODE.items()],
+        [(s, rng.randint(0, cfg.vocab_size, take), start)
+         for s, start, take in TICK_SPANS],
+        np.arange(1, 1 + S * pps, dtype=np.int32).reshape(S, pps), ps,
+        "cuda")
     res = {}
     for impl in ("kernel", "reference"):
         kp, vp = (t.clone() for t in pools.values())
         res[impl] = llama.serving_tick(params, tok, meta, kp, vp, cfg,
                                        attn_impl=impl)
     live = meta["q_len"] > 0
+    n_live = len(TICK_DECODE) + len(TICK_SPANS)
     lk, lr = res["kernel"][1][live], res["reference"][1][live]
-    assert torch.isfinite(lk).all() and lk.shape == (5, cfg.vocab_size)
+    assert torch.isfinite(lk).all() and lk.shape == (n_live, cfg.vocab_size)
     diff = float((lk - lr).abs().max())
     scale = float(lr.abs().max())
     same = int((res["kernel"][0] == res["reference"][0])[live].sum())
     assert diff <= LOGITS_REL_TOL * scale, (diff, scale)
     log(f"serving tick kernel vs reference: max |dlogit| {diff:.4g} "
         f"(logit scale {scale:.4g}, bound {LOGITS_REL_TOL} x scale), "
-        f"greedy tokens equal on {same}/5 live slots")
+        f"greedy tokens equal on {same}/{n_live} live slots")
 
     agree = []
     for i in (0, 5, 9):

@@ -35,7 +35,8 @@ from ..ops.kernels.ragged_paged_attention import (
 
 __all__ = ["LlamaConfig", "init_params", "params_from_jax", "rms_norm",
            "rope", "init_kv_cache", "forward_with_cache", "generate",
-           "init_serving_pages", "serving_tick", "serving_tick_block"]
+           "init_serving_pages", "pack_tick", "serving_tick",
+           "serving_tick_block"]
 
 
 @dataclasses.dataclass
@@ -304,6 +305,58 @@ def init_serving_pages(cfg: LlamaConfig, total_pages: int, page_size: int,
             "v_pages": torch.zeros(shape, dtype=cfg.dtype, device=dev)}
 
 
+def pack_tick(decode, spans, tables, page_size: int, device=None):
+    """The packed stream and metadata of one ragged tick, as
+    ``serving_tick`` takes them.
+
+    tables: int ``[S, pps]``, one page-table row per slot. decode:
+    ``[(slot, token, pos)]``, a decode row at packed index ``slot``
+    whose token sits at position ``pos``. spans: ``[(slot, tokens,
+    start)]``, prompt tokens at positions ``start, start + 1, ...``,
+    packed in order after the ``S`` decode positions. Idle decode
+    positions are padding (``tok_slot == S``); the KV of padding and of
+    positions past the table lands on the trash page (page 0).
+
+    Returns ``(tokens [T], meta)`` as int32 tensors on ``device``; the
+    caller adds ``tail_live`` when it fuses a decode tail."""
+    tables = np.asarray(tables, np.int32)
+    S, pps = tables.shape
+    T = S + sum(len(t) for _, t, _ in spans)
+    tok = np.zeros((T,), np.int32)
+    tok_slot = np.full((T,), S, np.int32)
+    tok_pos = np.zeros((T,), np.int32)
+    tok_qoff = np.zeros((T,), np.int32)
+    q_len = np.zeros((S,), np.int32)
+    kv_len = np.zeros((S,), np.int32)
+    last = np.zeros((S,), np.int32)
+    for slot, t, pos in decode:
+        tok[slot], tok_slot[slot], tok_pos[slot] = t, slot, pos
+        q_len[slot], kv_len[slot], last[slot] = 1, pos + 1, slot
+    idx = S
+    for slot, t, start in spans:
+        take = len(t)
+        tok[idx:idx + take] = t
+        tok_slot[idx:idx + take] = slot
+        tok_pos[idx:idx + take] = np.arange(start, start + take)
+        tok_qoff[idx:idx + take] = np.arange(take)
+        q_len[slot], kv_len[slot] = take, start + take
+        last[slot] = idx + take - 1
+        idx += take
+    real = tok_slot < S
+    page_i = tok_pos // page_size
+    tok_page = np.where(real & (page_i < pps),
+                        tables[np.minimum(tok_slot, S - 1),
+                               np.minimum(page_i, pps - 1)], 0)
+    tok_off = np.where(real, tok_pos % page_size, 0)
+    dev = resolve_device(device)
+    meta = {k: torch.from_numpy(np.ascontiguousarray(v, np.int32)).to(dev)
+            for k, v in dict(tok_slot=tok_slot, tok_pos=tok_pos,
+                             tok_page=tok_page, tok_off=tok_off,
+                             tok_qoff=tok_qoff, q_len=q_len, kv_len=kv_len,
+                             last=last, tables=tables).items()}
+    return torch.from_numpy(tok).to(dev), meta
+
+
 @torch.no_grad()
 def serving_tick(params, tokens, meta, k_pages, v_pages, cfg: LlamaConfig,
                  decode_tail: int = 0, attn_impl: str = "auto"):
@@ -312,7 +365,7 @@ def serving_tick(params, tokens, meta, k_pages, v_pages, cfg: LlamaConfig,
 
     tokens ``[T]`` int32 — the tick's packed stream. ``meta`` — int32
     tensors on the pools' device describing the packing, as in the JAX
-    tick: ``tok_slot [T]`` (``S`` = padding token), ``tok_pos [T]``
+    tick (``pack_tick`` builds both): ``tok_slot [T]`` (``S`` = padding token), ``tok_pos [T]``
     (absolute position), ``tok_page``/``tok_off [T]`` (where its KV
     lands; the trash page for padding), ``tok_qoff [T]`` (offset in its
     slot's span), ``q_len``/``kv_len [S]``, ``last [S]`` (packed index

@@ -69,8 +69,6 @@ class ServingEngine:
     admission backpressure.
     max_prompt_len / max_new_tokens_cap: per-request ceilings (they size
     the fixed page-table width).
-    attn_impl: the ragged attention's ``impl`` — ``"auto"`` (the kernel
-    on CUDA, the plain version on CPU), ``"kernel"`` or ``"reference"``.
     prefix_cache: True (default) keeps full prompt-KV pages registered
     across requests (refcounted, LRU-evicted under page pressure), so a
     shared prompt prefix is prefilled once.
@@ -84,7 +82,7 @@ class ServingEngine:
     def __init__(self, params, cfg, *, device=None, max_batch: int = 8,
                  page_size: int = 16, total_pages: Optional[int] = None,
                  max_prompt_len: int = 64, max_new_tokens_cap: int = 64,
-                 attn_impl: str = "auto", max_queue: Optional[int] = None,
+                 max_queue: Optional[int] = None,
                  tick_interval_s: float = 0.0,
                  decode_block_size: int = 1, prefix_cache: bool = True,
                  prefill_chunk: Optional[int] = None,
@@ -96,16 +94,12 @@ class ServingEngine:
         if prefill_chunk is not None and int(prefill_chunk) < 1:
             raise ValueError(f"prefill_chunk must be >= 1, got "
                              f"{prefill_chunk}")
-        if attn_impl not in ("auto", "kernel", "reference"):
-            raise ValueError(f"attn_impl must be auto|kernel|reference, "
-                             f"got {attn_impl!r}")
         self._dev = resolve_device(device)
         if params["embed"].device != self._dev:
             raise ValueError(f"params live on {params['embed'].device}, "
                              f"the engine runs on {self._dev}")
         self._params = params
         self._cfg = cfg
-        self._attn_impl = attn_impl
         # optional pacing between ticks (0 = back to back)
         self._tick_interval = float(tick_interval_s)
         self._decode_block = int(decode_block_size)
@@ -337,57 +331,26 @@ class ServingEngine:
         COMPLETING their prompt this tick (mid-prefill slots sit the
         tail out on the trash page)."""
         S = self.scheduler.max_batch
-        ps = self.pool.page_size
-        pps = self.scheduler.pages_per_slot
-        span_tok = sum(take for _, _, _, take in spans)
-        T = S + span_tok
-        tok = np.zeros((T,), np.int32)
-        tok_slot = np.full((T,), S, np.int32)   # S = padding sentinel
-        tok_pos = np.zeros((T,), np.int32)
-        tok_qoff = np.zeros((T,), np.int32)
-        q_len = np.zeros((S,), np.int32)
-        kv_len = np.zeros((S,), np.int32)
-        last = np.zeros((S,), np.int32)
         tail_live = np.zeros((S,), bool)
         tabs = np.stack([self.scheduler.effective_row(s)
-                         for s in range(S)]).astype(np.int32)
-        for slot, req in live:
-            tok[slot] = self._cur_tok[slot]
-            tok_slot[slot] = slot
-            tok_pos[slot] = self.scheduler.lengths[slot]
-            q_len[slot] = 1
-            kv_len[slot] = self.scheduler.lengths[slot] + 1
-            last[slot] = slot
+                         for s in range(S)])
+        for slot, _ in live:
             tail_live[slot] = True
-        idx = S
         for slot, req, start, take in spans:
-            tok[idx:idx + take] = req.prompt[start:start + take]
-            tok_slot[idx:idx + take] = slot
-            tok_pos[idx:idx + take] = np.arange(start, start + take)
-            tok_qoff[idx:idx + take] = np.arange(take)
-            q_len[slot] = take
-            kv_len[slot] = start + take
-            last[slot] = idx + take - 1
             tail_live[slot] = start + take >= req.prompt.size
-            idx += take
         if not tail_live.any():
             tail = 0    # nobody would advance
-        # page/offset per packed token (padding -> trash page)
-        real = tok_slot < S
-        page_i = np.minimum(tok_pos // ps, pps - 1)
-        tok_page = np.where(
-            real & (tok_pos // ps < pps),
-            tabs[np.minimum(tok_slot, S - 1), page_i], PagePool.TRASH)
-        tok_off = np.where(real, tok_pos % ps, 0)
-        meta = {k: self._to_dev(v.astype(np.int32)) for k, v in dict(
-            tok_slot=tok_slot, tok_pos=tok_pos, tok_page=tok_page,
-            tok_off=tok_off, tok_qoff=tok_qoff, q_len=q_len,
-            kv_len=kv_len, last=last, tables=tabs).items()}
+        tok, meta = llama.pack_tick(
+            [(slot, self._cur_tok[slot], self.scheduler.lengths[slot])
+             for slot, _ in live],
+            [(slot, req.prompt[start:start + take], start)
+             for slot, req, start, take in spans],
+            tabs, self.pool.page_size, self._dev)
         meta["tail_live"] = self._to_dev(tail_live)
         t0 = time.perf_counter()
         toks, _, self._kp, self._vp = llama.serving_tick(
-            self._params, self._to_dev(tok), meta, self._kp, self._vp,
-            self._cfg, decode_tail=tail, attn_impl=self._attn_impl)
+            self._params, tok, meta, self._kp, self._vp, self._cfg,
+            decode_tail=tail)
         toks = toks.cpu().numpy()       # the one host read-back per tick
         self.metrics.inc("model_steps", 1 + tail)
         if toks.ndim == 1:
@@ -427,7 +390,7 @@ class ServingEngine:
             self._params, self._to_dev(self._cur_tok),
             self._to_dev(self.scheduler.lengths),
             self._to_dev(self.scheduler.tables), self._kp, self._vp,
-            self._cfg, num_steps=k, attn_impl=self._attn_impl)
+            self._cfg, num_steps=k)
         toks = toks.cpu().numpy()
         self.metrics.inc("model_steps", k)
         self.metrics.inc("decode_steps", k)

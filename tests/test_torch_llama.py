@@ -144,6 +144,28 @@ def test_serving_tick_matches_jax(jparams, tparams):
                                atol=1e-5)
 
 
+def test_pack_tick_matches_hand_packing():
+    """``pack_tick`` (the engine's packing) builds the mixed tick above
+    exactly as packed by hand, and sends a position past the table to
+    the trash page."""
+    tok, meta, _, _ = _mixed_tick()
+    S, ps = 3, 4
+    got_tok, got = TL.pack_tick(
+        [(0, tok[0], 7)], [(1, tok[S:S + 5], 4), (2, tok[S + 5:], 0)],
+        meta["tables"], ps, "cpu")
+    np.testing.assert_array_equal(
+        got_tok.numpy(), np.where(meta["tok_slot"] < S, tok, 0))
+    assert sorted(got) == sorted(k for k in meta if k != "tail_live")
+    for k, v in got.items():
+        assert v.dtype == torch.int32, k
+        np.testing.assert_array_equal(v.numpy(), meta[k], err_msg=k)
+    pps = meta["tables"].shape[1]
+    _, past = TL.pack_tick([(0, 1, pps * ps)], [], meta["tables"], ps,
+                           "cpu")
+    assert int(past["tok_page"][0]) == 0
+    assert int(past["kv_len"][0]) == pps * ps + 1
+
+
 def test_serving_tick_block_matches_jax(jparams, tparams):
     """The fused decode block: three greedy steps for two live slots and
     one dead (all-trash) slot."""

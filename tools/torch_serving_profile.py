@@ -55,34 +55,13 @@ def _decode_block(params, cfg, pools):
 
 
 def _mixed_tick(params, cfg, pools):
-    start, take = 128, 256
-    T = S + take
-    tables = _tables().cpu().numpy()
-    tok_slot = np.full(T, S, np.int32)
-    tok_pos = np.zeros(T, np.int32)
-    tok_qoff = np.zeros(T, np.int32)
-    q_len = np.zeros(S, np.int32)
-    kv_len = np.zeros(S, np.int32)
-    last = np.arange(S, dtype=np.int32)
-    for s in range(S - 1):                        # decode rows
-        tok_slot[s], tok_pos[s] = s, 300
-        q_len[s], kv_len[s] = 1, 301
-    s = S - 1                                     # the prefill span
-    tok_slot[S:] = s
-    tok_pos[S:] = np.arange(start, start + take)
-    tok_qoff[S:] = np.arange(take)
-    q_len[s], kv_len[s], last[s] = take, start + take, T - 1
-    real = tok_slot < S
-    tok_page = np.where(real, tables[np.minimum(tok_slot, S - 1),
-                                     tok_pos // PS], 0)
-    tok_off = np.where(real, tok_pos % PS, 0)
-    meta = {k: torch.as_tensor(v.astype(np.int32), device="cuda")
-            for k, v in dict(tok_slot=tok_slot, tok_pos=tok_pos,
-                             tok_page=tok_page, tok_off=tok_off,
-                             tok_qoff=tok_qoff, q_len=q_len, kv_len=kv_len,
-                             last=last, tables=tables).items()}
-    tok = torch.randint(0, cfg.vocab_size, (T,), dtype=torch.int32,
-                        device="cuda")
+    rng = np.random.RandomState(0)
+    # 7 decode rows at position 300, then the last slot's prefill span:
+    # 256 tokens behind a 128-token cached prefix
+    tok, meta = llama.pack_tick(
+        [(s, rng.randint(cfg.vocab_size), 300) for s in range(S - 1)],
+        [(S - 1, rng.randint(0, cfg.vocab_size, 256), 128)],
+        _tables().cpu().numpy(), PS, "cuda")
 
     def step():
         llama.serving_tick(params, tok, meta, pools["k_pages"],
