@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving path on one NVIDIA H100 and check it.
+"""Drive the PyTorch port's serving and training paths on one NVIDIA H100
+and check them.
 
 Run from the repository root with no arguments:
 
@@ -30,7 +31,25 @@ Phases (any failed check raises; nothing is caught):
    and their logits are compared; the engine's greedy tokens are
    compared with the port's ``generate()`` for three requests
    (reported, not required: cuBLAS does not promise row invariance
-   across batch shapes).
+   across batch shapes);
+5. the train-step kernels against their plain versions at the
+   Llama-3-8B training geometry (B 1, T 2048, H 32, Hkv 8, Dh 128,
+   D 4096): flash attention forward and dq/dk/dv (T = S = 2048, S > T,
+   and T = S not a multiple of 64), RMSNorm forward, dx and dw, RoPE
+   forward and backward at theta 500000. As in phase 3, f32 kernels are
+   held to the plain version evaluated in f64 on the same (pre-scaled)
+   inputs and bf16 kernels to the bf16 plain version and to the f64
+   evaluation on the same bf16 values, each to the bound stated beside
+   it; two backward launches must give bitwise equal dq, dk, dv and dw.
+   Kernel, plain-version and library-call times are printed;
+6. training: ``make_train_step`` on ``llama3_8b`` at full width and
+   depth (32 layers, bf16, seeded random weights, AdamW state in bf16),
+   B 1, T 2048, ``TRAIN_STEPS`` steps on one fixed batch. Every kernel's
+   launch count must equal its per-step formula times the steps, the
+   loss must be finite and fall, and the first step's loss must agree
+   with the plain versions' loss on the same state within
+   ``TRAIN_LOSS_REL``. Step ms, tokens/s, MFU (``bench.py``'s
+   accounting) and peak memory are printed.
 
 The last two lines of standard output are the card's name and power
 limit, then ``{"ok": true, "device": {...}}``; the line before them is
@@ -69,6 +88,14 @@ BF16_EXACT_ULPS = 1
 # The kernel itself is held to the ulp bounds above on the same tick's
 # geometry (case d); this check covers the tick around it.
 LOGITS_REL_TOL = 0.1
+TRAIN_STEPS = 4
+# first train step's loss (kernels) vs the plain versions' loss on the
+# same state, relative: the plain flash attention rounds scores,
+# probabilities and PV to bf16 where the kernel keeps f32, and 32 random
+# layers carry that difference to the logits; the loss averages 2048
+# tokens' cross entropy. Measured 6.5e-6 on an H100 80GB HBM3 (700 W)
+# with this script; the bound leaves two orders of magnitude.
+TRAIN_LOSS_REL = 1e-3
 H100_BYTES_PER_S = 3.35e12       # HBM3, NVIDIA data sheet (SXM, 700 W)
 H100_BF16_FLOPS = 989e12         # dense bf16 tensor-core peak (SXM)
 
@@ -492,6 +519,461 @@ def serving_phase() -> dict:
                 model_steps=steps, logits_max_abs_diff=diff)
 
 
+# ---------------------------------------------------------------------------
+# train-step kernels: flash attention, RMSNorm, RoPE
+# ---------------------------------------------------------------------------
+
+# Bounds of the train-step kernels, in ulps of the dtype at each row's
+# output scale (``tiled_ulp_error`` over rows of Dh for attention and
+# RoPE, of D for RMSNorm; dw is one row; dq is measured per head, over
+# all T rows: a causal row that sees few keys has a dq near 0 made of
+# dS terms that cancel (row 0 at S = T sees one key and its exact dq is
+# 0), so its error is no fraction of its own size: at their own rows'
+# scale the first card runs read 6.8 and 53 bf16 ulps from f64 on such
+# rows, for two seeds). Keys: (kernel output, check).
+#   f32:   the f32 kernel vs the plain version evaluated in f64 on the same
+#          (pre-scaled) inputs;
+#   plain: the bf16 kernel vs the bf16 plain version;
+#   exact: the bf16 kernel vs the f64 evaluation on the same bf16 values.
+TRAIN_BOUNDS = {
+    # forward: f32 online softmax and f32 sums over 64-key tiles, as the
+    # ragged kernel (whose bound this is); bf16 as phase 3: the plain
+    # version rounds scores, p and PV to bf16, the kernel only its output
+    ("o", "f32"): 16, ("o", "plain"): 8, ("o", "exact"): 1,
+    # backward: dS = p (dP - delta) cancels, and dq sums dS k over up to
+    # 2048 keys, dk and dv sum over the G = 4 heads' 2048 rows each (the
+    # plain version's own f32 evaluation reads 24-43 ulps from f64 here).
+    # bf16: the plain backward rounds dP, dS and every product to bf16,
+    # the kernel only its outputs, as in the forward
+    ("dq", "f32"): 32, ("dq", "plain"): 8, ("dq", "exact"): 1,
+    ("dk", "f32"): 64, ("dk", "plain"): 8, ("dk", "exact"): 1,
+    ("dv", "f32"): 64, ("dv", "plain"): 8, ("dv", "exact"): 1,
+    # RMSNorm: one f32 row reduction and an elementwise pass; the bf16
+    # plain version computes in f32 and rounds once, as the kernel does
+    ("y", "f32"): 4, ("y", "plain"): 1, ("y", "exact"): 1,
+    ("dx", "f32"): 4, ("dx", "plain"): 1, ("dx", "exact"): 1,
+    # dw sums 2048 rows in f32 (chunks of 16, then the chunks in order)
+    ("dw", "f32"): 16, ("dw", "plain"): 16, ("dw", "exact"): 16,
+    # RoPE: the same f32 angle on both sides (expf/logf of the same
+    # inputs), cosf / sinf within 2 ulps, two products and a sum
+    ("rope", "f32"): 4, ("rope", "plain"): 1, ("rope", "exact"): 1,
+    # rotation by +p then -p: cos^2 + sin^2 = 1 to f32 rounding, plus one
+    # rounding per rotation in bf16
+    ("rope_inverse", "f32"): 4, ("rope_inverse", "bf16"): 2,
+}
+F32_EPS = torch.finfo(torch.float32).eps
+BF16_EPS = torch.finfo(torch.bfloat16).eps
+TRAIN_GEOM = dict(H=32, Hkv=8, Dh=128, D=4096, theta=500000.0)
+# flash cases: (T, S); S > T has the bottom-right offset, 1000 is not a
+# multiple of the 64-row tile
+FLASH_CASES = {"t2048": (2048, 2048), "s_gt_t": (1500, 2048),
+               "t1000": (1000, 1000)}
+
+
+def row_ulps(got, ref, width: int, eps: float) -> float:
+    """Max error in ``eps`` units at each row's scale, rows of ``width``."""
+    from paddle_tpu_torch.ops.kernels.ragged_paged_attention import (
+        tiled_ulp_error)
+    return tiled_ulp_error(got.reshape(-1, width), ref.reshape(-1, width),
+                           eps=eps)
+
+
+def check_bounds(name: str, errs: dict) -> None:
+    bad = {k: v for k, v in errs.items()
+           if k in TRAIN_BOUNDS and not v <= TRAIN_BOUNDS[k]}
+    assert not bad, (name, {k: (v, TRAIN_BOUNDS[k]) for k, v in bad.items()})
+
+
+def _randn(shape, gen, scale=1.0):
+    return torch.randn(shape, generator=gen, device="cuda") * scale
+
+
+def _flash_run(q, k, v, do, impl, scale):
+    """o and (dq, dk, dv) of flash attention on pre-scaled q (sm_scale
+    1), the gradient reported for the unscaled q (x scale)."""
+    from paddle_tpu_torch.ops.kernels.flash_attention import flash_attention
+    leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+    if impl == "kernel":
+        o = flash_attention(*leaves, causal=True, sm_scale=scale,
+                            impl="kernel")
+        grads = torch.autograd.grad(o, leaves, do)
+        return (o.detach(),) + tuple(grads)
+    qs = (leaves[0] * scale).to(q.dtype)   # as the kernel pre-scales
+    o = flash_attention(qs, leaves[1], leaves[2], causal=True, sm_scale=1.0,
+                        impl="reference")
+    dqs, dk, dv = torch.autograd.grad(o, (qs, leaves[1], leaves[2]), do)
+    return o.detach(), dqs * scale, dk, dv
+
+
+def _errs(names, got, f64, plain, widths):
+    """f32 or bf16 error entries of one set of outputs; ``widths`` gives
+    each output's row width."""
+    out = {}
+    bf16 = got[0].dtype == torch.bfloat16
+    for n, a, e, p, width in zip(names, got, f64, plain, widths):
+        assert torch.isfinite(a).all(), f"{n}: non-finite kernel output"
+        if bf16:
+            out[(n, "plain")] = row_ulps(a, p, width, BF16_EPS)
+            out[(n, "exact")] = row_ulps(a, e, width, BF16_EPS)
+            out[(n, "max_abs_err")] = float((a.float() - p.float()).abs()
+                                            .max())
+        else:
+            out[(n, "f32")] = row_ulps(a, e, width, F32_EPS)
+            out[(n, "f32_plain_f32")] = row_ulps(p, e, width, F32_EPS)
+    return out
+
+
+def check_flash(T: int, S: int, seed: int) -> dict:
+    """Flash attention forward and backward, f32 and bf16, at the 8B
+    attention geometry; determinism of the backward (bitwise)."""
+    gm = TRAIN_GEOM
+    H, Hkv, Dh = gm["H"], gm["Hkv"], gm["Dh"]
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    q = _randn((1, T, H, Dh), gen)
+    k = _randn((1, S, Hkv, Dh), gen)
+    v = _randn((1, S, Hkv, Dh), gen)
+    do = _randn((1, T, H, Dh), gen)
+    scale = 1.0 / math.sqrt(Dh)
+    names = ("o", "dq", "dk", "dv")
+    errs = {}
+    for dt in (torch.float32, torch.bfloat16):
+        ins = [t.to(dt) for t in (q, k, v, do)]
+        got = _flash_run(*ins, "kernel", scale)
+        if dt == torch.bfloat16:
+            again = _flash_run(*ins, "kernel", scale)
+            for n, a, b in zip(names[1:], got[1:], again[1:]):
+                assert torch.equal(a, b), f"flash {n} not deterministic"
+            del again
+        plain = _flash_run(*ins, "reference", scale)
+        # the f64 evaluation on the same values, q pre-scaled as the
+        # kernel rounds it
+        qs = (ins[0].float() * scale).to(dt).double()
+        f64 = _flash_run(qs, *(t.double() for t in ins[1:]), "reference",
+                         1.0)
+        f64 = (f64[0], f64[1] * scale) + f64[2:]
+        # dq is measured per head (rows of T x Dh), see TRAIN_BOUNDS
+        got, plain, f64 = ((x[0], x[1].transpose(1, 2).contiguous())
+                           + tuple(x[2:]) for x in (got, plain, f64))
+        errs.update(_errs(names, got, f64, plain, (Dh, T * Dh, Dh, Dh)))
+        del got, plain, f64
+    torch.cuda.empty_cache()
+    return errs
+
+
+def check_rms_norm(seed: int = 10) -> dict:
+    from paddle_tpu_torch.ops.kernels import fused_norm_rope as nr
+    D = TRAIN_GEOM["D"]
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    x = _randn((2048, D), gen, 2.0)
+    w = 1.0 + _randn((D,), gen, 0.1)
+    g = _randn((2048, D), gen)
+    errs = {}
+    for dt in (torch.float32, torch.bfloat16):
+        xd, wd, gd = x.to(dt), w.to(dt), g.to(dt)
+        y, r = nr.rms_norm_fwd(xd, wd, 1e-5, "kernel")
+        dx, dw = nr.rms_norm_bwd(xd, wd, r, gd, "kernel")
+        py, _ = nr.rms_norm_fwd(xd, wd, 1e-5, "reference")
+        pdx, pdw = nr.rms_norm_bwd(xd, wd, r, gd, "reference")
+        ey, er = nr.rms_norm_fwd(xd.double(), wd.double(), 1e-5,
+                                 "reference")
+        edx, edw = nr.rms_norm_bwd(xd.double(), wd.double(), er,
+                                   gd.double(), "reference")
+        errs.update(_errs(("y", "dx"), (y, dx), (ey, edx), (py, pdx),
+                          (D, D)))
+        # dw is f32 whatever the input type: counted in f32 ulps
+        tag = "f32" if dt == torch.float32 else "plain"
+        errs[("dw", tag)] = row_ulps(dw, pdw if tag == "plain" else edw, D,
+                                     F32_EPS)
+        if dt == torch.bfloat16:
+            errs[("dw", "exact")] = row_ulps(dw, edw, D, F32_EPS)
+            dx2, dw2 = nr.rms_norm_bwd(xd, wd, r, gd, "kernel")
+            assert torch.equal(dx, dx2) and torch.equal(dw, dw2), \
+                "rms_norm backward not deterministic"
+    return errs
+
+
+def check_rope(seed: int = 11) -> dict:
+    from paddle_tpu_torch.ops.kernels import fused_norm_rope as nr
+    gm = TRAIN_GEOM
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    q = _randn((1, 2048, gm["H"], gm["Dh"]), gen)
+    k = _randn((1, 2048, gm["Hkv"], gm["Dh"]), gen)
+    pos = torch.arange(2048, dtype=torch.int32, device="cuda")[None]
+    th = gm["theta"]
+    errs = {}
+    for dt in (torch.float32, torch.bfloat16):
+        qd, kd = q.to(dt), k.to(dt)
+        got = nr.rope_rotate(qd, kd, pos, th, "kernel")
+        plain = nr.rope_rotate(qd, kd, pos, th, "reference")
+        f64 = nr.rope_rotate(qd.double(), kd.double(), pos, th, "reference")
+        e = _errs(("rope_q", "rope_k"), got, f64, plain,
+                  (gm["Dh"], gm["Dh"]))
+        for tag in ("f32", "plain", "exact", "max_abs_err"):
+            if ("rope_q", tag) in e:
+                errs[("rope", tag)] = max(e[("rope_q", tag)],
+                                          e[("rope_k", tag)])
+        back = nr.rope_rotate(*got, -pos, th, "kernel")
+        eps = F32_EPS if dt == torch.float32 else BF16_EPS
+        errs[("rope_inverse", "f32" if dt == torch.float32 else "bf16")] = \
+            max(row_ulps(b, a, gm["Dh"], eps)
+                for a, b in zip((qd, kd), back))
+    return errs
+
+
+def train_kernel_bounds() -> dict:
+    """Least time of each train-step kernel at the smoke's bf16 shapes
+    (T = S = 2048): bytes (each input read once, each output written once)
+    over 3.35 TB/s against operations over the bf16 peak."""
+    gm = TRAIN_GEOM
+    T, H, Hkv, Dh, D = 2048, gm["H"], gm["Hkv"], gm["Dh"], gm["D"]
+    pairs = H * T * (T + 1) / 2           # visible (query, key) pairs
+    qb, kb, st = T * H * Dh * 2, T * Hkv * Dh * 2, H * T * 4
+
+    def bound(nbytes, flops):
+        tb = nbytes / H100_BYTES_PER_S * 1e3
+        to = flops / H100_BF16_FLOPS * 1e3
+        return (max(tb, to), "bytes" if tb >= to else "operations")
+
+    return {
+        # QK and PV: 2 flops per multiply-add, Dh of each per pair
+        "flash_attention_fwd": bound(2 * qb + 2 * kb + st, 4 * Dh * pairs),
+        # recomputed scores, dP and dq
+        "flash_attention_bwd_dq": bound(3 * qb + 2 * kb + 2 * st,
+                                        6 * Dh * pairs),
+        # recomputed scores, dP, dV and dK
+        "flash_attention_bwd_dkv": bound(2 * qb + 4 * kb + 2 * st,
+                                         8 * Dh * pairs),
+        "fused_rms_norm_fwd": bound(2 * T * D * 2 + D * 2 + T * 4,
+                                    4 * T * D),
+        "fused_rms_norm_bwd": bound(3 * T * D * 2 + D * 2 + T * 4 + D * 4,
+                                    10 * T * D),
+        "fused_rope": bound(2 * (qb + kb) + T * 4, 6 * T * (H + Hkv) * Dh),
+    }
+
+
+def train_kernel_times() -> dict:
+    """bf16 kernel, plain-version and library times (ms) at T = S = 2048.
+    Library calls (yardsticks only; the port calls none of them):
+    ``scaled_dot_product_attention`` causal with GQA, forward and its
+    backward; ``F.rms_norm``, forward and its backward; RoPE has none."""
+    import torch.nn.functional as F
+    from paddle_tpu_torch.ops.kernels import flash_attention as fa
+    from paddle_tpu_torch.ops.kernels import fused_norm_rope as nr
+    gm = TRAIN_GEOM
+    H, Hkv, Dh, D = gm["H"], gm["Hkv"], gm["Dh"], gm["D"]
+    T = 2048
+    bf = torch.bfloat16
+    gen = torch.Generator(device="cuda").manual_seed(20)
+    q = _randn((1, T, H, Dh), gen).to(bf)
+    k = _randn((1, T, Hkv, Dh), gen).to(bf)
+    v = _randn((1, T, Hkv, Dh), gen).to(bf)
+    do = _randn((1, T, H, Dh), gen).to(bf)
+    scale = 1.0 / math.sqrt(Dh)
+    out = {}
+    o, lse = fa.flash_attention_fwd(q, k, v, True, scale)
+    _, delta = fa.flash_attention_bwd_dq(q, k, v, o, do, lse, True, scale)
+    leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+    po = fa._dense_reference(*leaves, True, scale)
+    pgrad = lambda: torch.autograd.grad(po, leaves, do, retain_graph=True)
+    tq, tk, tv, tdo = (t.transpose(1, 2).contiguous() for t in (q, k, v, do))
+    sl = [t.detach().requires_grad_() for t in (tq, tk, tv)]
+    so = F.scaled_dot_product_attention(*sl, is_causal=True,
+                                        enable_gqa=True)
+    with torch.no_grad():
+        out["flash_attention_fwd"] = (
+            time_ms(lambda: fa.flash_attention_fwd(q, k, v, True, scale)),
+            time_ms(lambda: fa._dense_reference(q, k, v, True, scale),
+                    reps=5),
+            time_ms(lambda: F.scaled_dot_product_attention(
+                tq, tk, tv, is_causal=True, enable_gqa=True)))
+    plain_bwd = time_ms(pgrad, reps=5)
+    lib_bwd = time_ms(lambda: torch.autograd.grad(so, sl, tdo,
+                                                  retain_graph=True))
+    out["flash_attention_bwd_dq"] = (
+        time_ms(lambda: fa.flash_attention_bwd_dq(q, k, v, o, do, lse, True,
+                                                  scale)),
+        plain_bwd, lib_bwd)
+    out["flash_attention_bwd_dkv"] = (
+        time_ms(lambda: fa.flash_attention_bwd_dkv(q, k, v, do, lse, delta,
+                                                   True, scale)),
+        plain_bwd, lib_bwd)
+    del po, so, leaves, sl
+    x = _randn((T, D), gen, 2.0).to(bf)
+    w = (1.0 + _randn((D,), gen, 0.1)).to(bf)
+    g = _randn((T, D), gen).to(bf)
+    _, r = nr.rms_norm_fwd(x, w, 1e-5, "kernel")
+    xl, wl = x.detach().requires_grad_(), w.detach().requires_grad_()
+    ly = F.rms_norm(xl, (D,), wl, 1e-5)
+    with torch.no_grad():
+        out["fused_rms_norm_fwd"] = (
+            time_ms(lambda: nr.rms_norm_fwd(x, w, 1e-5, "kernel")),
+            time_ms(lambda: nr.rms_norm_fwd(x, w, 1e-5, "reference")),
+            time_ms(lambda: F.rms_norm(x, (D,), w, 1e-5)))
+        out["fused_rms_norm_bwd"] = (
+            time_ms(lambda: nr.rms_norm_bwd(x, w, r, g, "kernel")),
+            time_ms(lambda: nr.rms_norm_bwd(x, w, r, g, "reference")),
+            None)
+    out["fused_rms_norm_bwd"] = out["fused_rms_norm_bwd"][:2] + (time_ms(
+        lambda: torch.autograd.grad(ly, (xl, wl), g, retain_graph=True)),)
+    pos = torch.arange(T, dtype=torch.int32, device="cuda")[None]
+    th = gm["theta"]
+    out["fused_rope"] = (
+        time_ms(lambda: nr.rope_rotate(q, k, pos, th, "kernel")),
+        time_ms(lambda: nr.rope_rotate(q, k, pos, th, "reference")),
+        None)
+    torch.cuda.empty_cache()
+    return out
+
+
+TRAIN_KERNELS = (
+    # name, source, the TPU kernel it replaces
+    ("flash_attention_fwd", "paddle_tpu_torch/csrc/flash_attention.cu",
+     "paddle_tpu/ops/pallas/flash_attention.py:83"),
+    ("flash_attention_bwd_dq", "paddle_tpu_torch/csrc/flash_attention.cu",
+     "paddle_tpu/ops/pallas/flash_attention.py:83"),
+    ("flash_attention_bwd_dkv", "paddle_tpu_torch/csrc/flash_attention.cu",
+     "paddle_tpu/ops/pallas/flash_attention.py:83"),
+    ("fused_rms_norm_fwd", "paddle_tpu_torch/csrc/fused_rms_norm.cu",
+     "paddle_tpu/ops/pallas/fused_norm_rope.py:127"),
+    ("fused_rms_norm_bwd", "paddle_tpu_torch/csrc/fused_rms_norm.cu",
+     "paddle_tpu/ops/pallas/fused_norm_rope.py:136"),
+    ("fused_rope", "paddle_tpu_torch/csrc/fused_rope.cu",
+     "paddle_tpu/ops/pallas/fused_norm_rope.py:45"),
+)
+
+
+def train_kernel_phase() -> dict:
+    """All train-kernel comparisons and timings; every error must be
+    within ``TRAIN_BOUNDS``. Returns per-kernel records."""
+    errs = {}
+    for name, (T, S) in FLASH_CASES.items():
+        e = check_flash(T, S, seed=len(errs))
+        log(f"flash case {name} (T={T}, S={S}): " + " ".join(
+            f"{a}/{b}={v:.4g}" for (a, b), v in e.items()))
+        check_bounds(f"flash {name}", e)
+        errs[name] = e
+    log("flash backward: two launches bitwise equal (dq, dk, dv)")
+    for name, fn in (("rms_norm", check_rms_norm), ("rope", check_rope)):
+        e = fn()
+        log(f"{name}: " + " ".join(f"{a}/{b}={v:.4g}"
+                                   for (a, b), v in e.items()))
+        check_bounds(name, e)
+        errs[name] = e
+    log("rms_norm backward: two launches bitwise equal (dx, dw)")
+    times = train_kernel_times()
+    bounds = train_kernel_bounds()
+    fe, re, pe = errs["t2048"], errs["rms_norm"], errs["rope"]
+    max_err = {
+        "flash_attention_fwd": fe[("o", "max_abs_err")],
+        "flash_attention_bwd_dq": fe[("dq", "max_abs_err")],
+        "flash_attention_bwd_dkv": max(fe[("dk", "max_abs_err")],
+                                       fe[("dv", "max_abs_err")]),
+        "fused_rms_norm_fwd": re[("y", "max_abs_err")],
+        "fused_rms_norm_bwd": re[("dx", "max_abs_err")],
+        "fused_rope": pe[("rope", "max_abs_err")],
+    }
+    rec = {}
+    for name, _, _ in TRAIN_KERNELS:
+        ms, plain_ms, lib_ms = times[name]
+        b, by = bounds[name]
+        rec[name] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                         bound_ms=b, bound_by=by, max_abs_err=max_err[name])
+        log(f"kernel {name} bf16: kernel {ms:.4f} ms, plain "
+            f"{plain_ms:.4f} ms, library "
+            f"{'-' if lib_ms is None else f'{lib_ms:.4f}'} ms, bound "
+            f"{b:.4f} ms ({by}), max |err| vs plain {max_err[name]:.4g}")
+    return rec
+
+
+# ---------------------------------------------------------------------------
+# training
+# ---------------------------------------------------------------------------
+
+def train_launches() -> dict:
+    from paddle_tpu_torch.ops.kernels import flash_attention as fa
+    from paddle_tpu_torch.ops.kernels import fused_norm_rope as nr
+    return {"flash_attention_fwd": fa.flash_attention_fwd,
+            "flash_attention_bwd_dq": fa.flash_attention_bwd_dq,
+            "flash_attention_bwd_dkv": fa.flash_attention_bwd_dkv,
+            "fused_rms_norm_fwd": nr.rms_norm_fwd,
+            "fused_rms_norm_bwd": nr.rms_norm_bwd,
+            "fused_rope": nr.rope_rotate}
+
+
+def per_step_launches(L: int) -> dict:
+    """Launches of each kernel in one train step with per-layer remat:
+    every layer's forward runs twice (forward, recompute), its backward
+    once; the final norm is outside the remat."""
+    return {"flash_attention_fwd": 2 * L, "flash_attention_bwd_dq": L,
+            "flash_attention_bwd_dkv": L, "fused_rms_norm_fwd": 4 * L + 1,
+            "fused_rms_norm_bwd": 2 * L + 1, "fused_rope": 3 * L}
+
+
+def count_params(cfg) -> int:
+    """``bench.py``'s parameter count (embeddings, lm_head, projections;
+    norms excluded)."""
+    D, L, V = cfg.hidden_size, cfg.num_hidden_layers, cfg.vocab_size
+    H, Hkv, Dh, Fi = (cfg.num_attention_heads, cfg.num_key_value_heads,
+                      cfg.head_dim, cfg.intermediate_size)
+    return V * D * 2 + L * (D * H * Dh + 2 * D * Hkv * Dh + H * Dh * D
+                            + 3 * D * Fi)
+
+
+def train_phase(num_layers=None) -> dict:
+    import dataclasses
+    from paddle_tpu_torch.models import llama
+    cfg = llama.LlamaConfig.llama3_8b()
+    if num_layers is not None:
+        cfg.num_hidden_layers = num_layers
+    L, B, T = cfg.num_hidden_layers, 1, 2048
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    step, init = llama.make_train_step(cfg)
+    state = init(torch.Generator(device="cuda").manual_seed(0))
+    batch = llama.make_batch(cfg, B, T)
+    torch.cuda.synchronize()
+    log(f"train: llama3_8b ({L} layers) state initialised in "
+        f"{time.perf_counter() - t0:.1f} s, "
+        f"{torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB on the card")
+    plain_cfg = dataclasses.replace(cfg, use_flash_attention="reference",
+                                    use_fused_norm_rope="reference")
+    with torch.no_grad():
+        plain_loss = float(llama.loss_fn(state["params"], batch, plain_cfg))
+    counters = train_launches()
+    for fn in counters.values():
+        fn.launches = 0
+    losses, times = [], []
+    for _ in range(TRAIN_STEPS):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        state, loss = step(state, batch)
+        losses.append(float(loss))          # synchronises
+        times.append(time.perf_counter() - t1)
+    launches = {n: fn.launches for n, fn in counters.items()}
+    peak = torch.cuda.max_memory_allocated()
+    want = {n: c * TRAIN_STEPS for n, c in per_step_launches(L).items()}
+    assert launches == want, (launches, want)
+    assert all(math.isfinite(x) for x in losses), losses
+    assert losses[-1] < losses[0], losses
+    rel = abs(losses[0] - plain_loss) / abs(plain_loss)
+    assert rel <= TRAIN_LOSS_REL, (losses[0], plain_loss, rel)
+    dt = float(np.median(times[1:]))
+    flops = (6 * count_params(cfg) + 6 * L * cfg.hidden_size * T) * B * T
+    mfu = flops / dt / H100_BF16_FLOPS
+    log(f"train on {torch.cuda.get_device_name(0)}: losses "
+        + ", ".join(f"{x:.6f}" for x in losses)
+        + f"; plain versions' loss on the same state {plain_loss:.6f} "
+        f"(relative difference {rel:.3g}, bound {TRAIN_LOSS_REL}); step "
+        f"{dt * 1e3:.1f} ms (median of steps 2-{TRAIN_STEPS}; first "
+        f"{times[0] * 1e3:.1f} ms), {B * T / dt:.1f} tokens/s, MFU "
+        f"{mfu:.4f} of {H100_BF16_FLOPS / 1e12:.0f} TFLOP/s; peak memory "
+        f"{peak / 2 ** 30:.2f} GiB; launches per step "
+        + ", ".join(f"{n}={c // TRAIN_STEPS}" for n, c in launches.items()))
+    return dict(launches=launches, losses=losses, plain_loss=plain_loss,
+                step_ms=dt * 1e3, tokens_per_s=B * T / dt, mfu=mfu,
+                peak_gib=peak / 2 ** 30)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -515,7 +997,10 @@ def main() -> int:
                 log(f"ptxas {name}: {ln.strip()}")
 
     rec = kernel_phase()
+    train_rec = train_kernel_phase()
     serving = serving_phase()
+    torch.cuda.empty_cache()
+    train = train_phase()
 
     a = rec["a_serving_mix"]
     kernels = [{
@@ -531,6 +1016,15 @@ def main() -> int:
         "bound_by": a["bound_by"],
         "library_ms": a["library_ms"],
     }]
+    for name, source, replaces in TRAIN_KERNELS:
+        r = train_rec[name]
+        kernels.append(dict(name=name, route="cuda", source=source,
+                            replaces=replaces,
+                            launches=train["launches"][name],
+                            max_abs_err=r["max_abs_err"], ms=r["ms"],
+                            plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
+                            bound_by=r["bound_by"],
+                            library_ms=r["library_ms"]))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

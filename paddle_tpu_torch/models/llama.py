@@ -16,27 +16,41 @@ Port of ``paddle_tpu/models/llama.py``:
   ``serving_tick`` / ``serving_tick_block``, whose attention is the
   ragged paged-attention kernel (``ops/kernels/ragged_paged_attention``).
 
-PyTorch runs eagerly, so the layer scan is a Python loop and the pools
-are updated in place instead of being returned as new arrays.
+* the training path ``forward`` -> ``loss_fn`` -> ``make_train_step``
+  (one device, no mesh): per-layer remat through
+  ``torch.utils.checkpoint``, the fused RMSNorm / RoPE kernels
+  (``ops/kernels/fused_norm_rope``) and the flash-attention kernels
+  (``ops/kernels/flash_attention``) as ``LlamaConfig`` asks, the fused
+  cross-entropy (``ops/fused``) and AdamW with optax's arithmetic.
+
+PyTorch runs eagerly, so the layer scan is a Python loop and the pools,
+params and optimizer state are updated in place instead of being
+returned as new arrays.
 """
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Dict, Optional
+from typing import Any, Dict, Optional
 
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from ..device import resolve_device
+from ..ops.fused import fused_softmax_cross_entropy
+from ..ops.kernels.flash_attention import flash_attention
+from ..ops.kernels.fused_norm_rope import fused_rms_norm, fused_rope
 from ..ops.kernels.ragged_paged_attention import (
     ragged_paged_attention_packed)
 
 __all__ = ["LlamaConfig", "init_params", "params_from_jax", "rms_norm",
            "rope", "init_kv_cache", "forward_with_cache", "generate",
            "init_serving_pages", "pack_tick", "serving_tick",
-           "serving_tick_block"]
+           "serving_tick_block", "decoder_layer", "forward", "loss_fn",
+           "AdamW", "default_train_optimizer", "make_train_step",
+           "make_batch", "params_to_numpy"]
 
 
 @dataclasses.dataclass
@@ -51,6 +65,14 @@ class LlamaConfig:
     rms_norm_eps: float = 1e-5
     rope_theta: float = 10000.0
     dtype: torch.dtype = torch.bfloat16
+    # per-layer activation recompute in the training path
+    remat: bool = True
+    # the training path's kernels: True / "auto" — the Hopper kernel for
+    # CUDA tensors, its plain version for CPU tensors; "kernel" — strict
+    # (raises instead of any fallback); "reference" — the plain version.
+    # use_fused_norm_rope=False runs the unfused rms_norm / rope instead.
+    use_flash_attention: Any = True
+    use_fused_norm_rope: Any = "auto"
 
     @property
     def head_dim(self) -> int:
@@ -141,7 +163,12 @@ def params_from_jax(np_tree, device=None) -> Dict:
 
 
 def _layer(params, i: int) -> Dict[str, torch.Tensor]:
-    return {k: v[i] for k, v in params["layers"].items()}
+    """Layer ``i``'s weights, from stacked layers (a dict of ``[L, ...]``
+    tensors) or from per-layer leaves (a list of dicts, the trainer's)."""
+    layers = params["layers"]
+    if isinstance(layers, (list, tuple)):
+        return layers[i]
+    return {k: v[i] for k, v in layers.items()}
 
 
 # ---------------------------------------------------------------------------
@@ -173,20 +200,54 @@ def rope(q, k, positions, theta, head_dim):
     return rot(q), rot(k)
 
 
-def _block(lp, h, positions, cfg: LlamaConfig, attn_fn):
+def _kernel_impl(flag) -> str:
+    """A ``LlamaConfig`` kernel switch as a kernel entry's ``impl``."""
+    if flag is True or flag == "auto":
+        return "auto"
+    if flag is False or flag == "reference":
+        return "reference"
+    if flag == "kernel":
+        return "kernel"
+    raise ValueError(f"kernel switch must be True/'auto', 'kernel' or "
+                     f"False/'reference', got {flag!r}")
+
+
+def _fused_nr_on(cfg: LlamaConfig) -> Optional[str]:
+    """The fused rmsnorm/rope kernels' ``impl`` for the training path, or
+    None for the unfused formulation (``use_fused_norm_rope=False``)."""
+    v = cfg.use_fused_norm_rope
+    if v is False or v == "off":
+        return None
+    return _kernel_impl(v)
+
+
+def _norm_fn(cfg: LlamaConfig, nr_impl: Optional[str]):
+    if nr_impl is None:
+        return lambda x, w: rms_norm(x, w, cfg.rms_norm_eps)
+    return lambda x, w: fused_rms_norm(x, w, cfg.rms_norm_eps, nr_impl)
+
+
+def _block(lp, h, positions, cfg: LlamaConfig, attn_fn,
+           nr_impl: Optional[str] = None):
     """One transformer block on ``[B, T, D]``; ``attn_fn(q, k, v)`` is
-    the only thing the oracle and serving paths vary."""
+    the only thing the oracle, serving and training paths vary, and
+    ``nr_impl`` (training) routes rmsnorm/rope through the fused
+    kernels."""
     B, T, _ = h.shape
     H, Hkv, Dh = cfg.num_attention_heads, cfg.num_key_value_heads, \
         cfg.head_dim
-    x = rms_norm(h, lp["attn_norm"], cfg.rms_norm_eps)
+    norm = _norm_fn(cfg, nr_impl)
+    x = norm(h, lp["attn_norm"])
     q = (x @ lp["wq"]).reshape(B, T, H, Dh)
     k = (x @ lp["wk"]).reshape(B, T, Hkv, Dh)
     v = (x @ lp["wv"]).reshape(B, T, Hkv, Dh)
-    q, k = rope(q, k, positions, cfg.rope_theta, Dh)
+    if nr_impl is None:
+        q, k = rope(q, k, positions, cfg.rope_theta, Dh)
+    else:
+        q, k = fused_rope(q, k, positions, cfg.rope_theta, nr_impl)
     o = attn_fn(q, k, v)
     h = h + o.reshape(B, T, H * Dh) @ lp["wo"]
-    x = rms_norm(h, lp["mlp_norm"], cfg.rms_norm_eps)
+    x = norm(h, lp["mlp_norm"])
     return h + (F.silu(x @ lp["w_gate"]) * (x @ lp["w_up"])) @ lp["w_down"]
 
 
@@ -205,18 +266,9 @@ def init_kv_cache(cfg: LlamaConfig, batch_size: int, max_len: int,
 
 
 def _causal_attention(q, k, v):
-    """Plain causal GQA over fresh keys (bottom-right mask), the
-    formulation of ``flash_attention._dense_reference``."""
-    _, T, H, Dh = q.shape
-    S, Hkv = k.shape[1], k.shape[2]
-    if Hkv != H:
-        k = k.repeat_interleave(H // Hkv, dim=2)
-        v = v.repeat_interleave(H // Hkv, dim=2)
-    scores = torch.einsum("bthd,bshd->bhts", q, k) * (1.0 / math.sqrt(Dh))
-    mask = torch.ones((T, S), dtype=torch.bool, device=q.device).tril(S - T)
-    scores = torch.where(mask, scores.float(), -1e30)
-    probs = torch.softmax(scores, dim=-1).to(q.dtype)
-    return torch.einsum("bhts,bshd->bthd", probs, v)
+    """Plain causal GQA over fresh keys (bottom-right mask): the flash
+    entry's plain version, ``flash_attention._dense_reference``."""
+    return flash_attention(q, k, v, causal=True, impl="reference")
 
 
 def _cached_attention(q, ck, cv, pos0: int):
@@ -466,3 +518,220 @@ def serving_tick_block(params, tok, lengths, tables, k_pages, v_pages,
     if num_steps == 1:
         toks = toks[:, None]
     return toks, k_pages, v_pages
+
+
+# ---------------------------------------------------------------------------
+# training: forward, loss, AdamW, the train step
+# ---------------------------------------------------------------------------
+
+def _train_attn_fn(cfg: LlamaConfig):
+    impl = _kernel_impl(cfg.use_flash_attention)
+    return lambda q, k, v: flash_attention(q, k, v, causal=True, impl=impl)
+
+
+def decoder_layer(lp, h, cfg: LlamaConfig, positions=None):
+    """One transformer block of the training path on ``[B, T, D]``;
+    ``lp`` holds this layer's weights, ``positions`` defaults to
+    ``arange(T)`` per row."""
+    B, T, _ = h.shape
+    if positions is None:
+        positions = torch.arange(T, device=h.device).expand(B, T)
+    return _block(lp, h, positions, cfg, _train_attn_fn(cfg),
+                  nr_impl=_fused_nr_on(cfg))
+
+
+def _scan_layers(params, h, cfg: LlamaConfig, remat: bool = False,
+                 positions=None):
+    for i in range(cfg.num_hidden_layers):
+        lp = _layer(params, i)
+        if remat:
+            # per-layer remat: only each layer's input is kept for the
+            # backward, which recomputes the layer first
+            h = checkpoint(decoder_layer, lp, h, cfg, positions,
+                           use_reentrant=False)
+        else:
+            h = decoder_layer(lp, h, cfg, positions)
+    return h
+
+
+def forward(params, tokens, cfg: LlamaConfig):
+    """tokens ``[B, T]`` -> logits ``[B, T, V]`` in ``cfg.dtype`` (one
+    device, one pipeline stage)."""
+    h = params["embed"].to(cfg.dtype)[tokens.long()]
+    h = _scan_layers(params, h, cfg, remat=cfg.remat)
+    h = _norm_fn(cfg, _fused_nr_on(cfg))(h, params["final_norm"])
+    return h @ params["lm_head"]
+
+
+def loss_fn(params, batch, cfg: LlamaConfig):
+    """Mean next-token cross entropy through the fused op: the logits
+    stay in the model dtype, no f32 log-softmax is saved."""
+    logits = forward(params, batch["tokens"], cfg)
+    return fused_softmax_cross_entropy(logits, batch["labels"]).mean()
+
+
+def _tree_leaves(tree):
+    if isinstance(tree, dict):
+        return [x for k in tree for x in _tree_leaves(tree[k])]
+    if isinstance(tree, (list, tuple)):
+        return [x for t in tree for x in _tree_leaves(t)]
+    return [tree]
+
+
+def _tree_map(fn, tree):
+    if isinstance(tree, dict):
+        return {k: _tree_map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [_tree_map(fn, t) for t in tree]
+    return fn(tree)
+
+
+class AdamW:
+    """AdamW with the arithmetic of optax 0.2.6's
+    ``adamw(lr, b1, b2, eps, weight_decay)``: moments in the param dtype,
+    the same order of operations, and Python constants rounded to the
+    param dtype first, as JAX does with weak-typed scalars.
+
+    ``update_(params, state)`` reads each leaf's ``.grad``, updates the
+    leaf, its moments and ``state["count"]`` in place, and frees the
+    gradient, one tensor at a time (never ``foreach``: at 8B that would
+    hold temporaries for every parameter at once)."""
+
+    def __init__(self, learning_rate: float = 3e-4, b1: float = 0.9,
+                 b2: float = 0.999, eps: float = 1e-8,
+                 weight_decay: float = 1e-4):
+        self.lr, self.b1, self.b2 = learning_rate, b1, b2
+        self.eps, self.weight_decay = eps, weight_decay
+
+    def init(self, params) -> Dict:
+        zeros = lambda p: torch.zeros_like(p, requires_grad=False)
+        return {"count": 0, "mu": _tree_map(zeros, params),
+                "nu": _tree_map(zeros, params)}
+
+    @torch.no_grad()
+    def update_(self, params, state) -> None:
+        count = state["count"] + 1
+        one = torch.tensor(1.0, dtype=torch.float32)
+        # optax's 1 - decay**count, in f32
+        bc1 = float(one - torch.tensor(self.b1) ** count)
+        bc2 = float(one - torch.tensor(self.b2) ** count)
+        for p, mu, nu in zip(_tree_leaves(params),
+                             _tree_leaves(state["mu"]),
+                             _tree_leaves(state["nu"])):
+            g = p.grad
+            if g is None:
+                raise RuntimeError("AdamW.update_: a parameter has no grad")
+
+            def c(x, dt=p.dtype):
+                return float(torch.tensor(x, dtype=dt))
+
+            # mu = (1 - b1) g + b1 mu ; nu = (1 - b2) g^2 + b2 nu
+            mu.mul_(c(self.b1)).add_(g * c(1 - self.b1))
+            nu.mul_(c(self.b2)).add_(g.square().mul_(c(1 - self.b2)))
+            p.grad = None
+            del g
+            # mu_hat / (sqrt(nu_hat) + eps) + wd p, scaled by -lr
+            u = mu / c(bc1)
+            denom = (nu / c(bc2)).sqrt_().add_(c(self.eps))
+            u.div_(denom)
+            del denom
+            u.add_(p * c(self.weight_decay)).mul_(c(-self.lr))
+            p.add_(u)
+        state["count"] = count
+
+
+def default_train_optimizer() -> AdamW:
+    """The optimizer ``make_train_step`` builds when none is given:
+    ``optax.adamw(3e-4, b1=0.9, b2=0.95, weight_decay=0.1)``."""
+    return AdamW(3e-4, b1=0.9, b2=0.95, weight_decay=0.1)
+
+
+def _train_params(params, dev) -> Dict:
+    """Params as the trainer holds them: every tensor a leaf that needs
+    a gradient, each layer's weights leaves of their own (rows of the
+    stacked tensors, sharing their storage). A ``stacked[i]`` select of
+    one stacked leaf would make autograd allocate a gradient of the whole
+    stack for every layer."""
+    def leaf(x):
+        return x.detach().to(dev).requires_grad_(True)
+
+    layers = params["layers"]
+    if isinstance(layers, dict):
+        n = next(iter(layers.values())).shape[0]
+        layers = [{k: v[i] for k, v in layers.items()} for i in range(n)]
+    return {"embed": leaf(params["embed"]),
+            "layers": [{k: leaf(v) for k, v in lp.items()}
+                       for lp in layers],
+            "final_norm": leaf(params["final_norm"]),
+            "lm_head": leaf(params["lm_head"])}
+
+
+def params_to_numpy(params) -> Dict:
+    """Params (stacked or per-layer) as the JAX pytree of numpy arrays:
+    layers stacked on a leading ``L`` axis; bf16 comes back as f32
+    (exact)."""
+    def conv(x):
+        x = x.detach().to("cpu")
+        return (x.float() if x.dtype == torch.bfloat16 else x).numpy()
+
+    layers = params["layers"]
+    if isinstance(layers, (list, tuple)):
+        layers = {k: torch.stack([lp[k].detach() for lp in layers])
+                  for k in layers[0]}
+    return {"embed": conv(params["embed"]),
+            "layers": {k: conv(v) for k, v in layers.items()},
+            "final_norm": conv(params["final_norm"]),
+            "lm_head": conv(params["lm_head"])}
+
+
+def make_train_step(cfg: LlamaConfig, *, device=None, optimizer=None,
+                    mesh=None, zero_stage: int = 0):
+    """The train step (forward, backward, AdamW) on one device.
+
+    Returns ``(step_fn, init_fn)``. ``init_fn(source)`` builds the state
+    ``{"params", "opt", "step"}`` from a ``torch.Generator`` (random init,
+    ``init_params``) or from a params dict (``params_from_jax``, stacked
+    or per layer). ``step_fn(state, batch)`` makes one update IN PLACE
+    (params, moments and step are the state's own tensors, never doubly
+    resident) and returns ``(state, loss)``, the loss of the params
+    before the update as a 0-d f32 tensor.
+
+    A mesh, ZeRO stages and pipeline stages belong to the parallel
+    training slice and raise ``NotImplementedError``.
+    """
+    if mesh is not None or zero_stage:
+        raise NotImplementedError(
+            "the port's train step runs on one device: mesh, ZeRO and "
+            "pipeline stages are not ported yet")
+    dev = resolve_device(device)
+    opt = default_train_optimizer() if optimizer is None else optimizer
+
+    def init_fn(source):
+        if isinstance(source, torch.Generator):
+            source = init_params(cfg, source, dev)
+        params = _train_params(source, dev)
+        return {"params": params, "opt": opt.init(params), "step": 0}
+
+    def step_fn(state, batch):
+        loss = loss_fn(state["params"], batch, cfg)
+        loss.backward()
+        opt.update_(state["params"], state["opt"])
+        state["step"] += 1
+        return state, loss.detach()
+
+    return step_fn, init_fn
+
+
+def make_batch(cfg: LlamaConfig, batch_size: int, seq_len: int,
+               device=None, generator: Optional[torch.Generator] = None):
+    """Synthetic next-token batch: int32 tokens ``[B, T]`` and their
+    labels (the tokens shifted by one), drawn from ``generator`` (seed 0
+    on the device when none is given)."""
+    dev = resolve_device(device)
+    if generator is None:
+        generator = torch.Generator(device=dev).manual_seed(0)
+    toks = torch.randint(0, cfg.vocab_size, (batch_size, seq_len + 1),
+                         generator=generator, device=dev,
+                         dtype=torch.int32)
+    return {"tokens": toks[:, :-1].contiguous(),
+            "labels": toks[:, 1:].contiguous()}

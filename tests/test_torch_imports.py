@@ -12,7 +12,9 @@ import sys
 import chip_smoke
 import paddle_tpu_torch
 from paddle_tpu_torch.models import llama
-from paddle_tpu_torch.ops.kernels import _build, ragged_paged_attention
+from paddle_tpu_torch.ops.kernels import (
+    _build, flash_attention, fused_norm_rope, ragged_paged_attention)
+from paddle_tpu_torch.ops.fused import fused_softmax_cross_entropy
 from paddle_tpu_torch.serving import ServingEngine
 bad = sorted(m for m in sys.modules
              if m.split('.')[0] in ('jax', 'jaxlib', 'paddle_tpu'))
@@ -41,6 +43,8 @@ def test_entry_points_raise_without_cuda_or_device():
         lambda: llama.params_from_jax({}),
         lambda: llama.init_serving_pages(cfg, 4, 4),
         lambda: llama.init_kv_cache(cfg, 1, 8),
+        lambda: llama.make_train_step(cfg),
+        lambda: llama.make_batch(cfg, 1, 8),
         lambda: ServingEngine({"embed": torch.zeros(1)}, cfg),
     ]
     for call in calls:
