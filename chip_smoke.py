@@ -49,7 +49,29 @@ Phases (any failed check raises; nothing is caught):
    loss must be finite and fall, and the first step's loss must agree
    with the plain versions' loss on the same state within
    ``TRAIN_LOSS_REL``. Step ms, tokens/s, MFU (``bench.py``'s
-   accounting) and peak memory are printed.
+   accounting) and peak memory are printed;
+7. the decode kernels against their plain versions at the Llama-3-8B
+   geometry. Paged attention (both modes, o, m and l) at ``bench.py``'s
+   mix (32 streams of 64-2016 tokens, page 32) and at the engine's (8
+   slots, page 16, one 16k sequence), over shuffled tables with NaN in
+   the trash page and past every length; a sequence alone and under
+   another page placement must give the same bits. The int8 matmul at
+   the five weight shapes for M = 1, 8, 32, 256 and 4096, with rows
+   bitwise equal across M and order. Bounds as in phases 3 and 5 (f32
+   vs f64, bf16 vs the bf16 plain version and f64), stated beside each;
+   kernel, plain, bound and library (SDPA; cuBLAS bf16 on the
+   dequantized weight) times;
+8. the paged and int8 decode paths on ``llama3_8b`` (phase 4's params):
+   ``generate_paged`` in bf16 and with ``quantize_for_decode`` weights
+   at the bench mix (16 new tokens), ``serving_decode_block`` (8 slots,
+   4 steps) and ``ServingEngine(quantization="int8")`` on phase 4's
+   requests, each with its launch counts asserted; first decode step
+   kernel vs plain (attention, then the int8 product) from one shared
+   prefill; int8 vs bf16 logits within the JAX package's bound. Decode
+   ms/step against the weight-stream bound, tok/s and TTFT are printed.
+
+Phases run in the order 1, 2, 3, 5, 7, 4, 8, 6: phase 6 starts after the
+8B serving state is freed.
 
 The last two lines of standard output are the card's name and power
 limit, then ``{"ok": true, "device": {...}}``; the line before them is
@@ -58,6 +80,7 @@ is not available.
 """
 from __future__ import annotations
 
+import gc
 import json
 import math
 import subprocess
@@ -286,13 +309,16 @@ def check_row_invariance(case, split_slot: int, split: int) -> None:
 def time_ms(fn, reps: int = 20) -> float:
     """Median device time of ``fn`` in ms: CUDA events around each call,
     with a 256 MiB write between calls so every call starts with a cold
-    L2 (as each layer's pools do in the engine)."""
+    L2 (as each layer's pools do in the engine), then a ~0.5 ms device
+    sleep, so the host has queued the call before the first event fires
+    and its wrapper's host time never counts."""
     flush = torch.empty(64 * 2 ** 20, dtype=torch.int32, device="cuda")
     for _ in range(3):
         fn()
     times = []
     for _ in range(reps):
         flush.zero_()
+        torch.cuda._sleep(1_000_000)
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
         a.record()
@@ -417,19 +443,24 @@ def _requests(vocab: int, seed: int = 0):
     return prompts, [int(n) for n in rng.randint(8, 33, size=16)]
 
 
-def serving_phase() -> dict:
+def init_8b():
+    """llama3_8b's params (bf16, 32 layers) from seed 0 on the card."""
+    from paddle_tpu_torch.models import llama
+    cfg = llama.LlamaConfig.llama3_8b()
+    t0 = time.perf_counter()
+    params = llama.init_params(cfg, torch.Generator(device="cuda")
+                               .manual_seed(0))
+    torch.cuda.synchronize()
+    log(f"llama3_8b params initialised in {time.perf_counter() - t0:.1f} s, "
+        f"{torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB on the card")
+    return params, cfg
+
+
+def serving_phase(params, cfg) -> dict:
     from paddle_tpu_torch.models import llama
     from paddle_tpu_torch.ops.kernels import ragged_paged_attention as rpa
     from paddle_tpu_torch.serving import ServingEngine
 
-    cfg = llama.LlamaConfig.llama3_8b()
-    t0 = time.perf_counter()
-    gen = torch.Generator(device="cuda").manual_seed(0)
-    params = llama.init_params(cfg, gen)
-    torch.cuda.synchronize()
-    log(f"serving: llama3_8b params initialised in "
-        f"{time.perf_counter() - t0:.1f} s, "
-        f"{torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB on the card")
     L = cfg.num_hidden_layers
     eng = ServingEngine(params, cfg, max_batch=8, page_size=16,
                         max_prompt_len=512, max_new_tokens_cap=32,
@@ -886,6 +917,610 @@ def train_kernel_phase() -> dict:
 
 
 # ---------------------------------------------------------------------------
+# decode kernels: paged attention (with its softmax stats) and int8 matmul
+# ---------------------------------------------------------------------------
+
+PAGED_GEOM = dict(H=32, Hkv=8, Dh=128)
+# bench.py's paged mix: 32 streams of 64 + 1952 i / 31 tokens, page 32
+PAGED_BENCH = dict(lens=[64 + 1952 * i // 31 for i in range(32)], ps=32)
+# the engine's geometry: 8 slots, page 16, one 16k sequence among short ones
+PAGED_ENGINE = dict(lens=[16384, 300, 77, 5000, 1, 17, 1000, 8191], ps=16)
+# m and l (f32 kernel, and bf16 kernel on the same bf16 values) vs the f64
+# evaluation, in f32 ulps at each sequence's largest |m| or l: the scores
+# are f32 sums of Dh = 128 products in 16-byte chunks (a few ulps of
+# sum |q k|, which is ~2x |m| for these inputs), and l adds the online
+# rescaling's exp and one multiply per 64-key tile
+PAGED_STATS_ULPS = 16
+
+
+def make_paged_case(lens, ps, *, H, Hkv, Dh, seed=0, device="cuda"):
+    """Decode-attention inputs (f32): one query per sequence, its pages
+    shuffled over the pool, one spare table entry past every length (the
+    trash page 0), NaN in the trash page and in the slots past each
+    length inside its last page."""
+    rng = np.random.RandomState(seed)
+    g = torch.Generator(device=device).manual_seed(seed)
+    B = len(lens)
+    pps = max(-(-n // ps) for n in lens) + 1
+    P = 1 + B * pps
+    tables = rng.permutation(np.arange(1, P)).reshape(B, pps).astype(np.int32)
+    kp = torch.randn((Hkv, P, ps, Dh), generator=g, device=device)
+    vp = torch.randn((Hkv, P, ps, Dh), generator=g, device=device)
+    for b, n in enumerate(lens):
+        tables[b, -(-n // ps):] = 0
+        if n % ps:
+            page = tables[b, n // ps]
+            kp[:, page, n % ps:] = float("nan")
+            vp[:, page, n % ps:] = float("nan")
+    kp[:, 0] = float("nan")
+    vp[:, 0] = float("nan")
+    q = torch.randn((B, H, Dh), generator=g, device=device)
+    i32 = lambda a: torch.as_tensor(np.asarray(a, np.int32), device=device)
+    return dict(q=q, k_pages=kp, v_pages=vp, lengths=i32(lens),
+                page_indices=i32(tables))
+
+
+def run_paged(case, impl, stats=True, **kw):
+    from paddle_tpu_torch.ops.kernels import paged_attention as pa
+    fn = pa.paged_attention_stats if stats else pa.paged_attention
+    return fn(case["q"], case["k_pages"], case["v_pages"], case["lengths"],
+              case["page_indices"], impl=impl, **kw)
+
+
+def check_paged_case(name, case) -> dict:
+    """Kernel vs plain version, f32 and bf16, o, m and l; the plain-mode
+    kernel's o equals the stats mode's bitwise; outputs finite (NaN sits
+    in every unread slot)."""
+    from paddle_tpu_torch.ops.kernels.ragged_paged_attention import (
+        TILED_ULP_BOUND, tiled_ulp_error)
+    out = {}
+    k32 = run_paged(case, "kernel")
+    e64 = run_paged(cast(case, torch.float64), "reference")
+    torch.cuda.synchronize()
+    for t in k32:
+        assert torch.isfinite(t).all(), f"{name}: non-finite f32 output"
+    assert torch.equal(run_paged(case, "kernel", stats=False), k32[0])
+    for key, a, b in zip("oml", k32, e64):
+        out[f"f32_{key}_ulps"] = tiled_ulp_error(a, b, eps=F32_EPS)
+    assert out["f32_o_ulps"] <= TILED_ULP_BOUND, (name, out)
+    assert max(out["f32_m_ulps"], out["f32_l_ulps"]) <= PAGED_STATS_ULPS, \
+        (name, out)
+
+    c16 = cast(case, torch.bfloat16)
+    k16 = run_paged(c16, "kernel")
+    p16 = run_paged(c16, "reference")
+    for t in k16:
+        assert torch.isfinite(t).all(), f"{name}: non-finite bf16 output"
+    assert torch.equal(run_paged(c16, "kernel", stats=False), k16[0])
+    scale = 1.0 / math.sqrt(case["q"].shape[-1])
+    c64 = cast(c16, torch.float64)
+    c64["q"] = (c16["q"] * scale).to(torch.bfloat16).double()
+    exact = run_paged(c64, "reference", sm_scale=1.0)
+    out["bf16_vs_plain_ulps"] = tiled_ulp_error(k16[0], p16[0])
+    out["bf16_vs_exact_ulps"] = tiled_ulp_error(k16[0], exact[0],
+                                                eps=BF16_EPS)
+    out["bf16_m_ulps"] = tiled_ulp_error(k16[1], exact[1], eps=F32_EPS)
+    out["bf16_l_ulps"] = tiled_ulp_error(k16[2], exact[2], eps=F32_EPS)
+    out["bf16_max_abs_err"] = float((k16[0].float() - p16[0].float()).abs()
+                                    .max())
+    assert out["bf16_vs_plain_ulps"] <= BF16_PLAIN_ULPS, (name, out)
+    assert out["bf16_vs_exact_ulps"] <= BF16_EXACT_ULPS, (name, out)
+    assert max(out["bf16_m_ulps"], out["bf16_l_ulps"]) <= PAGED_STATS_ULPS, \
+        (name, out)
+    return out
+
+
+def check_paged_invariance(case) -> None:
+    """Bitwise (bf16, o, m and l): a sequence alone equals its row in the
+    batch, and moving every page to another id changes nothing."""
+    c = cast(case, torch.bfloat16)
+    full = run_paged(c, "kernel")
+    B = c["q"].shape[0]
+    for b in sorted({0, B // 2, B - 1}):
+        alone = run_paged(dict(
+            c, q=c["q"][b:b + 1].contiguous(),
+            lengths=c["lengths"][b:b + 1].contiguous(),
+            page_indices=c["page_indices"][b:b + 1].contiguous()), "kernel")
+        for a, f in zip(alone, full):
+            assert torch.equal(a, f[b:b + 1]), f"sequence {b} not invariant"
+    P = c["k_pages"].shape[1]
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    new_of_old = torch.cat([torch.zeros(1, dtype=torch.long, device="cuda"),
+                            torch.randperm(P - 1, generator=gen,
+                                           device="cuda") + 1])
+    moved = dict(c, page_indices=new_of_old[c["page_indices"].long()].int())
+    for key in ("k_pages", "v_pages"):
+        moved[key] = torch.empty_like(c[key])
+        moved[key][:, new_of_old] = c[key]
+    for a, f in zip(run_paged(moved, "kernel"), full):
+        assert torch.equal(a, f), "outputs depend on the page placement"
+
+
+def paged_bound_ms(case, stats: bool) -> tuple:
+    """Least time of one decode-attention call: q, the live K/V keys and
+    the metadata read once, o (and m, l) written once; 4·H·Dh operations
+    per live key, at the bf16 peak."""
+    q = case["q"]
+    B, H, Dh = q.shape
+    Hkv = case["k_pages"].shape[0]
+    es = q.element_size()
+    n = int(case["lengths"].sum())
+    nbytes = (2 * B * H * Dh * es + 2 * n * Hkv * Dh * es
+              + 4 * (B + case["page_indices"].numel())
+              + (8 * B * H if stats else 0))
+    t_bytes = nbytes / H100_BYTES_PER_S * 1e3
+    t_ops = 4.0 * n * H * Dh / H100_BF16_FLOPS * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                 else "operations")
+
+
+def paged_sdpa_yardstick(case):
+    """``scaled_dot_product_attention`` on the same decode attention: each
+    sequence's pages gathered dense (NaN zeroed) and a length mask, GQA
+    native. Setup outside the closure; the port never calls SDPA."""
+    import torch.nn.functional as F
+    q, kp, vp = case["q"], case["k_pages"], case["v_pages"]
+    B, H, Dh = q.shape
+    Hkv, _, ps, _ = kp.shape
+    tab = case["page_indices"].long()
+    S = tab.shape[1] * ps
+    k = torch.nan_to_num(kp[:, tab].reshape(Hkv, B, S, Dh).transpose(0, 1))
+    v = torch.nan_to_num(vp[:, tab].reshape(Hkv, B, S, Dh).transpose(0, 1))
+    k, v = k.contiguous(), v.contiguous()
+    mask = (torch.arange(S, device=q.device)[None, :]
+            < case["lengths"].long()[:, None])[:, None, None, :]
+    qs = q[:, :, None, :].contiguous()
+    return lambda: F.scaled_dot_product_attention(qs, k, v, attn_mask=mask,
+                                                  enable_gqa=True)
+
+
+def paged_kernel_phase() -> dict:
+    """Both paged-attention modes against the plain version at the 8B
+    geometry (bench mix, engine geometry), invariance, bf16 timings."""
+    rec = {}
+    for name, spec in (("bench_mix", PAGED_BENCH),
+                       ("engine_16k", PAGED_ENGINE)):
+        case = make_paged_case(**spec, **PAGED_GEOM, seed=30 + len(rec))
+        errs = check_paged_case(name, case)
+        log(f"paged case {name}: " + " ".join(
+            f"{k}={v:.4g}" for k, v in errs.items()))
+        check_paged_invariance(case)
+        c16 = cast(case, torch.bfloat16)
+        lib_ms = time_ms(paged_sdpa_yardstick(c16))
+        plain_ms = time_ms(lambda: run_paged(c16, "reference"), reps=5)
+        rec[name] = dict(errs, library_ms=lib_ms, plain_ms=plain_ms)
+        for stats in (False, True):
+            ms = time_ms(lambda: run_paged(c16, "kernel", stats=stats))
+            bound, by = paged_bound_ms(c16, stats)
+            key = "stats" if stats else "plain_mode"
+            rec[name][key] = dict(ms=ms, bound_ms=bound, bound_by=by)
+            log(f"paged case {name} bf16 ({'with' if stats else 'without'} "
+                f"stats): kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa "
+                f"{lib_ms:.4f} ms, bound {bound:.4f} ms ({by})")
+        del case, c16
+        torch.cuda.empty_cache()
+    log("paged kernel: sequences alone == in the batch, and any page "
+        "placement, bitwise (o, m, l); NaN in unread slots never reaches "
+        "an output")
+    return rec
+
+
+# the five (K, N) weight shapes of llama3_8b and the decode / prefill M
+INT8_SHAPES = {"wq_wo": (4096, 4096), "wk_wv": (4096, 1024),
+               "gate_up": (4096, 14336), "down": (14336, 4096),
+               "lm_head": (4096, 128256)}
+INT8_MS = (1, 8, 32, 256, 4096)
+INT8_F32_ROWS = 256
+# bf16 kernel vs the bf16 plain version and vs f64, in bf16 ulps at each
+# row's largest output: both sides are the exact sum rounded once to bf16
+# (half an ulp of the element each), the f32 sums being ~2^-16 ulp apart
+INT8_BF16_ULPS = 1
+# f32 kernel vs f64 on the first INT8_F32_ROWS rows, in f32 ulps at each
+# row's largest output: K / 16 chunk sums of 16 products, each chunk added
+# to the running total; the running total's rounding grows like
+# sqrt(K / 16) ulps of the partial sums (30 at K = 14336), and one row has
+# up to 128256 outputs for the tail to reach
+INT8_F32_ULPS = 128
+
+
+def int8_bound_ms(M: int, K: int, N: int) -> tuple:
+    """Least time of one int8 product: x, q and scale read once, out
+    written once (bf16 x and out), 2·M·K·N operations at the bf16 peak."""
+    t_bytes = (K * N + 2 * M * K + 2 * M * N + 4 * N) / H100_BYTES_PER_S * 1e3
+    t_ops = 2.0 * M * K * N / H100_BF16_FLOPS * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                 else "operations")
+
+
+def _row_ulps(got, ref, eps: float) -> float:
+    """``tiled_ulp_error`` on the card, for outputs of 10^8 elements."""
+    got, ref = got.double(), ref.double()
+    linf = ref.abs().amax(-1, keepdim=True).clamp(min=1e-30)
+    return float(((got - ref).abs() / (eps * linf)).max())
+
+
+def _int8pack_available() -> bool:
+    """Whether this torch has a CUDA kernel for
+    ``torch._weight_int8pack_mm`` (a yardstick only)."""
+    fn = getattr(torch, "_weight_int8pack_mm", None)
+    if fn is None:
+        return False
+    try:
+        fn(torch.zeros(1, 32, dtype=torch.bfloat16, device="cuda"),
+           torch.zeros(16, 32, dtype=torch.int8, device="cuda"),
+           torch.ones(16, dtype=torch.bfloat16, device="cuda"))
+        torch.cuda.synchronize()
+        return True
+    except (RuntimeError, NotImplementedError):
+        return False
+
+
+def check_int8(name: str, K: int, N: int, seed: int, timing: bool = True,
+               ms_list=INT8_MS) -> dict:
+    """One weight shape: a seeded random weight quantized by the port;
+    bf16 x of max(ms_list) rows. The bf16 kernel vs the bf16 plain
+    version and f64, the f32 kernel vs f64; every smaller M's output and
+    a reversed x give the same rows bitwise; kernel, plain, cuBLAS-bf16
+    (and int8pack, when the build has it) times per M."""
+    from paddle_tpu_torch.ops.fused.int8_matmul import (
+        quantize_weight_per_channel)
+    from paddle_tpu_torch.ops.kernels.int8_matmul import int8_matmul
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    w = torch.randn((K, N), generator=gen, device="cuda") / math.sqrt(K)
+    q, s = quantize_weight_per_channel(w.to(torch.bfloat16))
+    del w
+    M = max(ms_list)
+    x = torch.randn((M, K), generator=gen, device="cuda").to(torch.bfloat16)
+    full = int8_matmul(x, q, s, "kernel")
+    plain = int8_matmul(x, q, s, "reference")
+    exact = int8_matmul(x.double(), q, s, "reference")
+    torch.cuda.synchronize()
+    assert torch.isfinite(full).all(), f"{name}: non-finite output"
+    errs = {"bf16_vs_plain_ulps": _row_ulps(full, plain, BF16_EPS),
+            "bf16_vs_exact_ulps": _row_ulps(full, exact, BF16_EPS),
+            "bf16_max_abs_err": float((full.float() - plain.float()).abs()
+                                      .max())}
+    del plain
+    for m in ms_list:
+        assert torch.equal(int8_matmul(x[:m], q, s, "kernel"), full[:m]), \
+            f"{name}: rows at M={m} differ from M={M}"
+    assert torch.equal(int8_matmul(x.flip(0), q, s, "kernel"),
+                       full.flip(0)), f"{name}: rows depend on their place"
+    r = min(INT8_F32_ROWS, M)
+    xf = x[:r].float()
+    errs["f32_ulps"] = _row_ulps(int8_matmul(xf, q, s, "kernel"), exact[:r],
+                                 F32_EPS)
+    errs["f32_plain_ulps"] = _row_ulps(int8_matmul(xf, q, s, "reference"),
+                                       exact[:r], F32_EPS)
+    del exact, full
+    assert errs["bf16_vs_plain_ulps"] <= INT8_BF16_ULPS, (name, errs)
+    assert errs["bf16_vs_exact_ulps"] <= INT8_BF16_ULPS, (name, errs)
+    assert errs["f32_ulps"] <= INT8_F32_ULPS, (name, errs)
+    if not timing:
+        return errs
+    wb = (q.float() * s).to(torch.bfloat16)
+    pack = _int8pack_available()
+    qt = q.t().contiguous() if pack else None
+    sb = s.to(torch.bfloat16)
+    times = {}
+    for m in ms_list:
+        xm = x[:m].contiguous()
+        t = dict(ms=time_ms(lambda: int8_matmul(xm, q, s, "kernel")),
+                 plain_ms=time_ms(lambda: int8_matmul(xm, q, s, "reference")),
+                 library_ms=time_ms(lambda: xm @ wb))
+        if pack and m <= 32:        # seconds a call at prefill sizes
+            t["int8pack_ms"] = time_ms(
+                lambda: torch._weight_int8pack_mm(xm, qt, sb), reps=5)
+        t["bound_ms"], t["bound_by"] = int8_bound_ms(m, K, N)
+        times[m] = t
+    errs["times"] = times
+    torch.cuda.empty_cache()
+    return errs
+
+
+def int8_kernel_phase() -> dict:
+    rec = {}
+    for name, (K, N) in INT8_SHAPES.items():
+        e = check_int8(name, K, N, seed=40 + len(rec))
+        log(f"int8 {name} (K={K}, N={N}): " + " ".join(
+            f"{k}={v:.4g}" for k, v in e.items() if k != "times"))
+        for m, t in e["times"].items():
+            log(f"int8 {name} M={m}: kernel {t['ms']:.4f} ms, plain "
+                f"{t['plain_ms']:.4f} ms, cuBLAS bf16 {t['library_ms']:.4f} "
+                f"ms" + (f", int8pack {t['int8pack_ms']:.4f} ms"
+                         if "int8pack_ms" in t else "")
+                + f", bound {t['bound_ms']:.4f} ms ({t['bound_by']})")
+        rec[name] = e
+    log("int8 kernel: rows bitwise equal at M = " + ", ".join(
+        map(str, INT8_MS)) + " and in reversed order; torch int8pack CUDA "
+        f"kernel {'present' if _int8pack_available() else 'absent'}")
+    return rec
+
+
+def int8_step_record(rec: dict, M: int = 32) -> dict:
+    """The int8 products of one decode step at M rows: the seven
+    projections of a layer plus lm_head (times, bounds summed)."""
+    count = {"wq_wo": 2, "wk_wv": 2, "gate_up": 2, "down": 1, "lm_head": 1}
+    out = {}
+    for key in ("ms", "plain_ms", "library_ms", "bound_ms"):
+        out[key] = sum(n * rec[s]["times"][M][key] for s, n in count.items())
+    out["bound_by"] = "bytes" if all(
+        rec[s]["times"][M]["bound_by"] == "bytes" for s in count) \
+        else "operations"
+    out["max_abs_err"] = max(rec[s]["bf16_max_abs_err"] for s in count)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# paged and int8 decode paths on llama3_8b
+# ---------------------------------------------------------------------------
+
+BENCH_NEW = 16          # new tokens per stream in the bench mix
+# int8 vs bf16 prefill logits: the JAX package's form (tests/
+# test_int8_decode.py), max |dlogit| < c x max(std, 1). Its c = 0.2 is set
+# for a 4-layer, 64-wide model and 512 logits; here the quantization noise
+# of 32 random 4096-wide layers reaches 4.1 M logits, and the max of them
+# measured 0.32 x std on an H100 80GB HBM3 (700 W) with this script. 0.5
+# leaves 1.5x; unrelated logits (a broken quantizer) differ by several std.
+INT8_LOGIT_SPREAD = 0.5
+
+
+def bench_mix(vocab: int, seed: int = 7):
+    """bench.py's paged mix: 32 prompts of 64 + 1952 i / 31 tokens,
+    right-padded to 2048, page size 32."""
+    lens = np.asarray(PAGED_BENCH["lens"], np.int32)
+    rng = np.random.RandomState(seed)
+    prompt = np.zeros((lens.size, 2048), np.int32)
+    for i, n in enumerate(lens):
+        prompt[i, :n] = rng.randint(0, vocab, n)
+    return (torch.as_tensor(prompt, device="cuda"),
+            torch.as_tensor(lens, device="cuda"))
+
+
+def decode_counters() -> dict:
+    from paddle_tpu_torch.ops.kernels import int8_matmul as im
+    from paddle_tpu_torch.ops.kernels import paged_attention as pa
+    from paddle_tpu_torch.ops.kernels import ragged_paged_attention as rpa
+    return {"paged_attention": pa.paged_attention,
+            "paged_attention_stats": pa.paged_attention_stats,
+            "int8_matmul": im.int8_matmul,
+            "ragged_paged_attention": rpa.ragged_paged_attention_packed}
+
+
+def _zero_counts() -> None:
+    for fn in decode_counters().values():
+        fn.launches = 0
+
+
+def _counts() -> dict:
+    return {n: fn.launches for n, fn in decode_counters().items()}
+
+
+def compare_logits(name, got, ref, tol: float = LOGITS_REL_TOL) -> dict:
+    """max |dlogit| within ``tol`` x the logit scale; greedy tokens equal
+    on every row whose top-2 gap in ``ref`` exceeds that bound."""
+    assert torch.isfinite(got).all(), f"{name}: non-finite logits"
+    diff = float((got - ref).abs().max())
+    scale = float(ref.abs().max())
+    bound = tol * scale
+    top = ref.topk(2, dim=-1).values
+    sure = (top[:, 0] - top[:, 1]) > bound
+    same = got.argmax(-1) == ref.argmax(-1)
+    assert diff <= bound, (name, diff, scale)
+    assert bool(same[sure].all()), (name, "greedy token differs on a row "
+                                    "whose top-2 gap exceeds the bound")
+    log(f"{name}: max |dlogit| {diff:.4g} (logit scale {scale:.4g}, bound "
+        f"{tol} x scale); greedy equal on {int(same.sum())}/{same.numel()} "
+        f"rows ({int(sure.sum())} with top-2 gap above the bound, all equal)")
+    return dict(max_abs_diff=diff, scale=scale,
+                greedy_equal=int(same.sum()), rows=same.numel())
+
+
+def step_bytes(params, prompt_lens, new: int, cfg) -> tuple:
+    """Bytes one decode step of generate_paged reads: the weight stream
+    (``decode_weight_bytes``) and the live K/V (prompt plus half the
+    tail on average), bf16."""
+    from paddle_tpu_torch.quantization import decode_weight_bytes
+    kv_tok = (cfg.num_hidden_layers * cfg.num_key_value_heads
+              * cfg.head_dim * 2 * 2)
+    keys = int(prompt_lens.sum()) + prompt_lens.numel() * (new - 1) / 2
+    return decode_weight_bytes(params), keys * kv_tok
+
+
+def paged_decode_run(name, params, cfg, prompt, lens, ref_params=None,
+                     ref_attn="kernel") -> dict:
+    """From one shared prefill: the first decode step with the kernels vs
+    ``ref_params`` / ``ref_attn`` (the plain version under test), then
+    BENCH_NEW - 1 timed decode steps. Returns the prefill logits, the
+    comparison and ms per step."""
+    from paddle_tpu_torch.models import llama
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits0, cache = llama.prefill_paged(params, prompt, lens, cfg,
+                                         BENCH_NEW, PAGED_BENCH["ps"])
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    tok = logits0.argmax(-1)
+    lk = llama._decode_paged_step(params, tok, cache, cfg, "kernel")
+    cache["n_tail"] = 0
+    lr = llama._decode_paged_step(ref_params or params, tok, cache, cfg,
+                                  ref_attn)
+    cache["n_tail"] = 0
+    cmp = compare_logits(name, lk, lr)
+    times = []
+    for _ in range(BENCH_NEW - 1):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        tok = llama._decode_paged_step(params, tok, cache, cfg).argmax(-1)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t1)
+    del cache
+    torch.cuda.empty_cache()
+    return dict(cmp, logits0=logits0, prefill_s=prefill_s,
+                step_ms=float(np.median(times)) * 1e3)
+
+
+def paged_paths_phase(params, cfg) -> dict:
+    """generate_paged in bf16 and int8 at the bench mix,
+    serving_decode_block, and ServingEngine(quantization="int8"), each
+    with its launch counts asserted."""
+    from paddle_tpu_torch.models import llama
+    from paddle_tpu_torch.ops.fused.int8_matmul import Int8Weight
+    from paddle_tpu_torch.quantization import quantize_for_decode
+    L, new, ps = cfg.num_hidden_layers, BENCH_NEW, PAGED_BENCH["ps"]
+    prompt, lens = bench_mix(cfg.vocab_size)
+    B = lens.numel()
+    rec = {}
+
+    def drive(p, tag):
+        _zero_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = llama.generate_paged(p, prompt, lens, cfg, new, page_size=ps)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = _counts()
+        assert out.shape == (B, new) and out.dtype == torch.int32, out.shape
+        assert bool(((out >= 0) & (out < cfg.vocab_size)).all())
+        log(f"generate_paged {tag}: {B} streams x {new} tokens in "
+            f"{wall:.3f} s; launches {counts}")
+        return out, counts, wall
+
+    out16, c16, wall16 = drive(params, "bf16")
+    assert c16 == dict(paged_attention=0, paged_attention_stats=L * (new - 1),
+                       int8_matmul=0, ragged_paged_attention=0), c16
+    r16 = paged_decode_run("generate_paged bf16 first decode step, paged "
+                           "kernel vs plain attention", params, cfg, prompt,
+                           lens, ref_attn="reference")
+    w16, kv16 = step_bytes(params, lens, new, cfg)
+
+    t0 = time.perf_counter()
+    qparams = quantize_for_decode(params, cfg)
+    torch.cuda.synchronize()
+    quant_s = time.perf_counter() - t0
+    out8, c8, wall8 = drive(qparams, "int8")
+    assert c8 == dict(paged_attention=0, paged_attention_stats=L * (new - 1),
+                      int8_matmul=(7 * L + 1) * new,
+                      ragged_paged_attention=0), c8
+    plain8 = dict(qparams, lm_head=Int8Weight(qparams["lm_head"].q,
+                                              qparams["lm_head"].scale,
+                                              "reference"),
+                  layers={k: (Int8Weight(v.q, v.scale, "reference")
+                              if isinstance(v, Int8Weight) else v)
+                          for k, v in qparams["layers"].items()})
+    r8 = paged_decode_run("generate_paged int8 first decode step, int8 "
+                          "kernel vs plain int8 product", qparams, cfg,
+                          prompt, lens, ref_params=plain8)
+    w8, kv8 = step_bytes(qparams, lens, new, cfg)
+    lg16, lg8 = r16.pop("logits0"), r8.pop("logits0")
+    err = float((lg16 - lg8).abs().max())
+    spread = max(float(lg16.std()), 1.0)
+    match = float((out16 == out8).float().mean())
+    log(f"int8 vs bf16 prefill logits: max |dlogit| {err:.4g}, mean "
+        f"{float((lg16 - lg8).abs().mean()):.4g} (bound {INT8_LOGIT_SPREAD} "
+        f"x {spread:.4g}); greedy tokens equal on {match:.3f} of "
+        f"{B} x {new}")
+    assert err < INT8_LOGIT_SPREAD * spread, (err, spread)
+    for tag, r, w, kv in (("bf16", r16, w16, kv16), ("int8", r8, w8, kv8)):
+        r.update(weight_bytes=w, kv_bytes=kv,
+                 weight_bound_ms=w / H100_BYTES_PER_S * 1e3,
+                 bound_ms=(w + kv) / H100_BYTES_PER_S * 1e3,
+                 tokens_per_s=B / r["step_ms"] * 1e3)
+        log(f"paged decode {tag}: prefill {r['prefill_s']:.3f} s; decode "
+            f"{r['step_ms']:.3f} ms/step (median of {new - 1}), "
+            f"{r['tokens_per_s']:.1f} tokens/s; step reads "
+            f"{w / 1e9:.3f} GB of weights + {kv / 1e9:.3f} GB of KV: bound "
+            f"{r['weight_bound_ms']:.3f} ms (weights) / {r['bound_ms']:.3f} "
+            f"ms (weights + KV)")
+    rec["generate_paged"] = dict(bf16=dict(r16, launches=c16, wall_s=wall16),
+                                 int8=dict(r8, launches=c8, wall_s=wall8,
+                                           quantize_s=quant_s,
+                                           logit_err_vs_bf16=err,
+                                           token_match_vs_bf16=match))
+    del plain8, prompt, lens, out16, out8
+    torch.cuda.empty_cache()
+
+    rec["decode_block"] = decode_block_run(params, cfg)
+    rec["engine_int8"] = engine_int8_run(qparams, cfg)
+    del qparams
+    torch.cuda.empty_cache()
+    return rec
+
+
+def decode_block_run(params, cfg, steps: int = 4) -> dict:
+    """serving_decode_block over shared pools: 8 slots (one dead, all
+    trash) with 1-2000 cached tokens of random KV, ``steps`` steps."""
+    from paddle_tpu_torch.models import llama
+    L, ps = cfg.num_hidden_layers, 16
+    lengths = [300, 77, 500, 1000, 0, 16, 2000, 64]
+    pps = -(-(max(lengths) + steps) // ps)
+    S = len(lengths)
+    pools = llama.init_serving_pages(cfg, 1 + S * pps, ps)
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    for t in pools.values():
+        t.copy_(torch.randn(t.shape, generator=gen, device="cuda"))
+    tables = np.arange(1, 1 + S * pps, dtype=np.int32).reshape(S, pps)
+    tables[4] = 0
+    tok = torch.as_tensor(np.random.RandomState(2).randint(
+        cfg.vocab_size, size=S).astype(np.int32), device="cuda")
+    _zero_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    toks, _, _ = llama.serving_decode_block(
+        params, tok, torch.as_tensor(np.asarray(lengths, np.int32),
+                                     device="cuda"),
+        torch.as_tensor(tables, device="cuda"), pools["k_pages"],
+        pools["v_pages"], cfg, num_steps=steps)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = _counts()
+    assert counts["paged_attention"] == L * steps, counts
+    assert counts["paged_attention_stats"] == 0, counts
+    assert toks.shape == (S, steps) and bool(
+        ((toks >= 0) & (toks < cfg.vocab_size)).all())
+    log(f"serving_decode_block: {S} slots x {steps} steps in {wall:.3f} s "
+        f"({wall / steps * 1e3:.2f} ms/step); paged-attention launches "
+        f"{counts['paged_attention']} (= {L} layers x {steps})")
+    del pools
+    torch.cuda.empty_cache()
+    return dict(launches=counts, wall_s=wall, step_ms=wall / steps * 1e3)
+
+
+def engine_int8_run(qparams, cfg) -> dict:
+    """ServingEngine(quantization="int8") on phase 4's 16 requests."""
+    from paddle_tpu_torch.serving import ServingEngine
+    L = cfg.num_hidden_layers
+    eng = ServingEngine(qparams, cfg, quantization="int8", max_batch=8,
+                        page_size=16, max_prompt_len=512,
+                        max_new_tokens_cap=32, prefill_chunk=256,
+                        decode_block_size=4)
+    prompts, new = _requests(cfg.vocab_size)
+    eng.generate(np.arange(1, 41, dtype=np.int32), 4)      # warm-up
+    steps0 = eng.stats()["counters"]["model_steps"]
+    _zero_counts()
+    t0 = time.perf_counter()
+    handles = [eng.submit(p, n) for p, n in zip(prompts, new)]
+    outs = [h.result(timeout=600) for h in handles]
+    wall = time.perf_counter() - t0
+    counts = _counts()
+    snap = eng.stats()
+    eng.close()
+    steps = snap["counters"]["model_steps"] - steps0
+    for o, n in zip(outs, new):
+        assert o.shape == (n,) and ((o >= 0) & (o < cfg.vocab_size)).all()
+    assert counts["int8_matmul"] == (7 * L + 1) * steps, (counts, steps)
+    assert counts["ragged_paged_attention"] == L * steps, (counts, steps)
+    ttft = float(np.mean([h.ttft_s for h in handles]))
+    tokens = sum(new)
+    log(f"ServingEngine(quantization='int8'): {len(outs)} requests, "
+        f"{tokens} tokens in {wall:.3f} s = {tokens / wall:.1f} tok/s; "
+        f"mean TTFT {ttft:.4f} s; {steps} model steps; int8 launches "
+        f"{counts['int8_matmul']} (= (7 x {L} + 1) x {steps})")
+    return dict(launches=counts, tok_s=tokens / wall, mean_ttft_s=ttft,
+                model_steps=steps)
+
+
+# ---------------------------------------------------------------------------
 # training
 # ---------------------------------------------------------------------------
 
@@ -980,6 +1615,7 @@ def main() -> int:
         return 2
     from paddle_tpu_torch.ops.kernels import _build
 
+    t_start = time.perf_counter()
     smi = nvidia_smi_line()
     log(f"env: python {sys.version.split()[0]}, torch {torch.__version__}, "
         f"CUDA {torch.version.cuda}, {torch.cuda.get_device_name(0)}, "
@@ -998,7 +1634,14 @@ def main() -> int:
 
     rec = kernel_phase()
     train_rec = train_kernel_phase()
-    serving = serving_phase()
+    paged_rec = paged_kernel_phase()
+    int8_rec = int8_kernel_phase()
+    params, cfg = init_8b()
+    serving = serving_phase(params, cfg)
+    paths = paged_paths_phase(params, cfg)
+    # free the 8B serving state before the train step's 61 GiB peak
+    del params
+    gc.collect()
     torch.cuda.empty_cache()
     train = train_phase()
 
@@ -1025,6 +1668,32 @@ def main() -> int:
                             plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
                             bound_by=r["bound_by"],
                             library_ms=r["library_ms"]))
+    gp = paths["generate_paged"]
+    step = int8_step_record(int8_rec)
+    for name, replaces, launches, case, mode in (
+            ("paged_attention", "paddle_tpu/inference/paged_kv.py:201",
+             paths["decode_block"]["launches"]["paged_attention"],
+             paged_rec["engine_16k"], "plain_mode"),
+            ("paged_attention_stats", "paddle_tpu/inference/paged_kv.py:285",
+             gp["bf16"]["launches"]["paged_attention_stats"],
+             paged_rec["bench_mix"], "stats")):
+        kernels.append(dict(
+            name=name, route="cuda",
+            source="paddle_tpu_torch/csrc/paged_attention.cu",
+            replaces=replaces, launches=launches,
+            max_abs_err=case["bf16_max_abs_err"], ms=case[mode]["ms"],
+            plain_ms=case["plain_ms"], bound_ms=case[mode]["bound_ms"],
+            bound_by=case[mode]["bound_by"], library_ms=case["library_ms"]))
+    kernels.append(dict(
+        name="int8_matmul", route="cuda",
+        source="paddle_tpu_torch/csrc/int8_matmul.cu",
+        replaces="paddle_tpu/ops/pallas/int8_matmul.py:48",
+        launches=gp["int8"]["launches"]["int8_matmul"],
+        max_abs_err=step["max_abs_err"], ms=step["ms"],
+        plain_ms=step["plain_ms"], bound_ms=step["bound_ms"],
+        bound_by=step["bound_by"], library_ms=step["library_ms"]))
+    log(f"chip_smoke: all phases passed in "
+        f"{time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -12,7 +12,12 @@ Entry points run on ``cuda`` unless the caller passes ``device="cpu"``
 
 Ported so far: serving — ``serving.ServingEngine`` over
 ``models.llama.serving_tick`` / ``serving_tick_block`` and the ragged
-paged-attention kernel (``ops/kernels/ragged_paged_attention.py``).
+paged-attention kernel (``ops/kernels/ragged_paged_attention.py``); the
+one-device train step (``models.llama.make_train_step``); paged and
+weight-only int8 decode (``models.llama.generate_paged``, the serving
+steps, ``inference.GenerationPredictor``,
+``quantization.quantize_for_decode``) on the paged-attention and int8
+matmul kernels.
 """
 from .device import resolve_device
 

@@ -14,7 +14,16 @@ Port of ``paddle_tpu/models/llama.py``:
   ``generate`` (greedy), whose attention is plain causal GQA;
 * the serving tick over the shared page pools ``init_serving_pages`` /
   ``serving_tick`` / ``serving_tick_block``, whose attention is the
-  ragged paged-attention kernel (``ops/kernels/ragged_paged_attention``).
+  ragged paged-attention kernel (``ops/kernels/ragged_paged_attention``);
+* paged decode: ``prefill_paged`` / ``generate_paged`` (prompt pages by
+  pure reshape, a dense tail of generated tokens, attention through the
+  paged-attention stats kernel) and the single-request serving steps
+  ``serving_prefill`` / ``serving_prefill_chunk`` /
+  ``serving_decode_step`` / ``serving_decode_block`` over shared pools
+  (``ops/kernels/paged_attention``);
+* weight-only int8 decode: every projection and ``lm_head`` goes through
+  ``_mm``, which sends an ``Int8Weight`` (``quantization.decode``) to the
+  int8 matmul kernel (``ops/kernels/int8_matmul``).
 
 * the training path ``forward`` -> ``loss_fn`` -> ``make_train_step``
   (one device, no mesh): per-layer remat through
@@ -39,7 +48,12 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from ..device import resolve_device
+from ..inference.paged_kv import (paged_attention,
+                                  paged_attention_with_tail,
+                                  prompt_pages_from_dense,
+                                  write_prompt_pages, write_token_pages)
 from ..ops.fused import fused_softmax_cross_entropy
+from ..ops.fused.int8_matmul import Int8Weight
 from ..ops.kernels.flash_attention import flash_attention
 from ..ops.kernels.fused_norm_rope import fused_rms_norm, fused_rope
 from ..ops.kernels.ragged_paged_attention import (
@@ -48,8 +62,10 @@ from ..ops.kernels.ragged_paged_attention import (
 __all__ = ["LlamaConfig", "init_params", "params_from_jax", "rms_norm",
            "rope", "init_kv_cache", "forward_with_cache", "generate",
            "init_serving_pages", "pack_tick", "serving_tick",
-           "serving_tick_block", "decoder_layer", "forward", "loss_fn",
-           "AdamW", "default_train_optimizer", "make_train_step",
+           "serving_tick_block", "prefill_paged", "generate_paged",
+           "serving_prefill", "serving_prefill_chunk",
+           "serving_decode_step", "serving_decode_block", "decoder_layer",
+           "forward", "loss_fn", "AdamW", "default_train_optimizer", "make_train_step",
            "make_batch", "params_to_numpy"]
 
 
@@ -146,13 +162,22 @@ _TORCH_DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
 def params_from_jax(np_tree, device=None) -> Dict:
     """The JAX params pytree (``paddle_tpu.models.llama.init_params``
     output with every leaf as a numpy array) as the port's params, in
-    the same layouts and dtypes. bf16 goes through f32, which is
-    exact."""
+    the same layouts and dtypes. bf16 goes through f32, which is exact.
+    A weight-only int8 leaf pair (any object with ``.q`` and ``.scale``,
+    such as the JAX ``Int8Weight`` with numpy leaves) becomes an
+    ``Int8Weight`` with the same bits."""
     dev = resolve_device(device)
 
     def conv(x):
         if isinstance(x, dict):
             return {k: conv(v) for k, v in x.items()}
+        if hasattr(x, "q") and hasattr(x, "scale"):
+            q, scale = np.asarray(x.q), np.asarray(x.scale)
+            if q.dtype != np.int8 or scale.dtype != np.float32:
+                raise TypeError(f"int8 weight must be int8 q and float32 "
+                                f"scale, got {q.dtype}/{scale.dtype}")
+            return Int8Weight(torch.from_numpy(q.copy()).to(dev),
+                              torch.from_numpy(scale.copy()).to(dev))
         x = np.asarray(x)
         if x.dtype.name not in _TORCH_DTYPES:
             raise TypeError(f"unsupported param dtype {x.dtype}")
@@ -174,6 +199,16 @@ def _layer(params, i: int) -> Dict[str, torch.Tensor]:
 # ---------------------------------------------------------------------------
 # model math
 # ---------------------------------------------------------------------------
+
+def _mm(x, w):
+    """``x @ w`` for a dense weight; an ``Int8Weight`` (weight-only int8
+    decode, ``quantization/decode.py``) goes to the int8 matmul kernel
+    (its plain version for CPU tensors), with the scale applied to the
+    f32 sum."""
+    if isinstance(w, Int8Weight):
+        return w.dequant_matmul(x)
+    return x @ w
+
 
 def rms_norm(x, weight, eps):
     dt = x.dtype
@@ -238,17 +273,18 @@ def _block(lp, h, positions, cfg: LlamaConfig, attn_fn,
         cfg.head_dim
     norm = _norm_fn(cfg, nr_impl)
     x = norm(h, lp["attn_norm"])
-    q = (x @ lp["wq"]).reshape(B, T, H, Dh)
-    k = (x @ lp["wk"]).reshape(B, T, Hkv, Dh)
-    v = (x @ lp["wv"]).reshape(B, T, Hkv, Dh)
+    q = _mm(x, lp["wq"]).reshape(B, T, H, Dh)
+    k = _mm(x, lp["wk"]).reshape(B, T, Hkv, Dh)
+    v = _mm(x, lp["wv"]).reshape(B, T, Hkv, Dh)
     if nr_impl is None:
         q, k = rope(q, k, positions, cfg.rope_theta, Dh)
     else:
         q, k = fused_rope(q, k, positions, cfg.rope_theta, nr_impl)
     o = attn_fn(q, k, v)
-    h = h + o.reshape(B, T, H * Dh) @ lp["wo"]
+    h = h + _mm(o.reshape(B, T, H * Dh), lp["wo"])
     x = norm(h, lp["mlp_norm"])
-    return h + (F.silu(x @ lp["w_gate"]) * (x @ lp["w_up"])) @ lp["w_down"]
+    return h + _mm(F.silu(_mm(x, lp["w_gate"])) * _mm(x, lp["w_up"]),
+                   lp["w_down"])
 
 
 # ---------------------------------------------------------------------------
@@ -309,7 +345,7 @@ def forward_with_cache(params, tokens, cache, pos0: int,
 
         h = _block(_layer(params, i), h, positions, cfg, attn_fn)
     h = rms_norm(h[:, -1], params["final_norm"], cfg.rms_norm_eps)
-    return (h @ params["lm_head"]).float(), cache
+    return _mm(h, params["lm_head"]).float(), cache
 
 
 @torch.no_grad()
@@ -463,7 +499,7 @@ def serving_tick(params, tokens, meta, k_pages, v_pages, cfg: LlamaConfig,
 
         h = _block(_layer(params, i), h, positions, cfg, attn_fn)
     h = rms_norm(h[0], params["final_norm"], cfg.rms_norm_eps)   # [T, D]
-    logits = (h[meta["last"].long()] @ params["lm_head"]).float()
+    logits = _mm(h[meta["last"].long()], params["lm_head"]).float()
     toks = logits.argmax(-1).int()
     if not decode_tail:
         return toks, logits, k_pages, v_pages
@@ -518,6 +554,274 @@ def serving_tick_block(params, tok, lengths, tables, k_pages, v_pages,
     if num_steps == 1:
         toks = toks[:, None]
     return toks, k_pages, v_pages
+
+
+# ---------------------------------------------------------------------------
+# paged decode: prompt pages + dense tail (generate_paged)
+# ---------------------------------------------------------------------------
+
+def _prefill_attn_impl(cfg: LlamaConfig, attn_impl: str) -> str:
+    """The flash entry's ``impl`` for a prefill: an explicit
+    ``attn_impl`` wins, else ``cfg.use_flash_attention``."""
+    if attn_impl != "auto":
+        return _kernel_impl(attn_impl)
+    return _kernel_impl(cfg.use_flash_attention)
+
+
+def _int32(x, dev) -> torch.Tensor:
+    if isinstance(x, torch.Tensor):
+        return x.to(device=dev, dtype=torch.int32)
+    return torch.as_tensor(np.asarray(x, np.int32), device=dev)
+
+
+def _last_logits(params, h, lengths, cfg: LlamaConfig):
+    """f32 logits ``[B, V]`` at each row's last valid position of
+    ``h [B, T, D]``."""
+    idx = (lengths.long() - 1).clamp(min=0)
+    h_last = h[torch.arange(h.shape[0], device=h.device), idx]
+    h_last = rms_norm(h_last, params["final_norm"], cfg.rms_norm_eps)
+    return _mm(h_last, params["lm_head"]).float()
+
+
+@torch.no_grad()
+def prefill_paged(params, tokens, lengths, cfg: LlamaConfig,
+                  max_new_tokens: int, page_size: int = 16,
+                  attn_impl: str = "auto"):
+    """Ragged prefill: ``tokens [B, T0]`` right-padded, ``lengths [B]``
+    valid counts, on the params' device. Causal flash over the padded
+    prompt; each layer's prompt KV becomes pages by pure reshape
+    (``prompt_pages_from_dense``). Returns (f32 logits at each
+    sequence's last valid position ``[B, V]``, cache): the cache holds
+    the layer-stacked pages ``[L, Hkv, P, ps, Dh]``, the shared tables
+    ``[B, pps]``, ``prompt_lens``, an empty dense tail
+    ``[L, B, max_new_tokens, Hkv, Dh]`` per K and V, and ``n_tail``."""
+    dev = params["embed"].device
+    tokens = _int32(tokens, dev)
+    lengths = _int32(lengths, dev)
+    B, T0 = tokens.shape
+    L, Hkv, Dh = cfg.num_hidden_layers, cfg.num_key_value_heads, \
+        cfg.head_dim
+    impl = _prefill_attn_impl(cfg, attn_impl)
+    pps = -(-T0 // page_size)
+    shape = (L, Hkv, 1 + B * pps, page_size, Dh)
+    k_pages = torch.empty(shape, dtype=cfg.dtype, device=dev)
+    v_pages = torch.empty(shape, dtype=cfg.dtype, device=dev)
+    cell = {}
+    h = params["embed"].to(cfg.dtype)[tokens.long()]
+    positions = torch.arange(T0, device=dev).expand(B, T0)
+    for i in range(L):
+        def attn_fn(q, k, v, i=i):
+            kp, vp, cell["tables"] = prompt_pages_from_dense(
+                k.to(cfg.dtype), v.to(cfg.dtype), page_size)
+            k_pages[i], v_pages[i] = kp, vp
+            # causal flash over the fresh prompt keys; padding rows
+            # compute values that no valid row or page read sees
+            return flash_attention(q, k, v, causal=True, impl=impl)
+
+        h = _block(_layer(params, i), h, positions, cfg, attn_fn)
+    logits = _last_logits(params, h, lengths, cfg)
+    nt = max(int(max_new_tokens), 1)
+    tail = (L, B, nt, Hkv, Dh)
+    cache = {"k_pages": k_pages, "v_pages": v_pages,
+             "tables": cell["tables"], "prompt_lens": lengths,
+             "k_tail": torch.zeros(tail, dtype=cfg.dtype, device=dev),
+             "v_tail": torch.zeros(tail, dtype=cfg.dtype, device=dev),
+             "n_tail": 0}
+    return logits, cache
+
+
+@torch.no_grad()
+def _decode_paged_step(params, tok, cache, cfg: LlamaConfig,
+                       attn_impl: str = "auto"):
+    """One paged decode step: ``tok [B]`` -> f32 logits ``[B, V]``. The
+    token's KV is appended to the dense tail IN PLACE (no page write);
+    attention merges the paged prompt (the stats kernel) with the live
+    tail (``paged_attention_with_tail``). Advances ``cache["n_tail"]``."""
+    lens0, n = cache["prompt_lens"], cache["n_tail"]
+    h = params["embed"].to(cfg.dtype)[tok.long()][:, None]      # [B, 1, D]
+    positions = (lens0 + n)[:, None]
+    for i in range(cfg.num_hidden_layers):
+        kt, vt = cache["k_tail"][i], cache["v_tail"][i]
+
+        def attn_fn(q, k, v, i=i, kt=kt, vt=vt):
+            kt[:, n] = k[:, 0].to(kt.dtype)
+            vt[:, n] = v[:, 0].to(vt.dtype)
+            o = paged_attention_with_tail(
+                q[:, 0].contiguous(), cache["k_pages"][i],
+                cache["v_pages"][i], lens0, cache["tables"], kt, vt, n + 1,
+                impl=attn_impl)
+            return o[:, None].to(q.dtype)
+
+        h = _block(_layer(params, i), h, positions, cfg, attn_fn)
+    h = rms_norm(h[:, 0], params["final_norm"], cfg.rms_norm_eps)
+    cache["n_tail"] = n + 1
+    return _mm(h, params["lm_head"]).float()
+
+
+def _greedy_only(temperature: float) -> None:
+    if temperature:
+        raise NotImplementedError(
+            "sampling (temperature > 0) is not ported yet: the fused "
+            "sampler comes with a later slice of the port; this path "
+            "decodes greedily")
+
+
+@torch.no_grad()
+def generate_paged(params, prompt, lengths, cfg: LlamaConfig,
+                   max_new_tokens: int, *, page_size: int = 16,
+                   temperature: float = 0.0,
+                   eos_token_id: Optional[int] = None,
+                   attn_impl: str = "auto"):
+    """Batched greedy decode over the paged KV cache, on the params'
+    device. prompt: int ``[B, T0]`` right-padded; lengths: valid counts
+    ``[B]``. Returns the int32 ``[B, max_new_tokens]`` continuations
+    (positions after EOS repeat EOS when ``eos_token_id`` is set).
+    ``attn_impl`` (``"auto"`` | ``"kernel"`` | ``"reference"``) picks the
+    paged attention and, when not ``"auto"``, the prefill's flash
+    attention too."""
+    _greedy_only(temperature)
+    if max_new_tokens < 1:
+        raise ValueError(f"max_new_tokens must be >= 1, "
+                         f"got {max_new_tokens}")
+    logits, cache = prefill_paged(params, prompt, lengths, cfg,
+                                  max_new_tokens, page_size, attn_impl)
+    tok = logits.argmax(-1)
+    done = (torch.zeros_like(tok, dtype=torch.bool) if eos_token_id is None
+            else tok == eos_token_id)
+    out = [tok]
+    for _ in range(max_new_tokens - 1):
+        logits = _decode_paged_step(params, tok, cache, cfg, attn_impl)
+        tok = logits.argmax(-1)
+        if eos_token_id is not None:
+            tok = torch.where(done, eos_token_id, tok)
+            done = done | (tok == eos_token_id)
+        out.append(tok)
+    return torch.stack(out, dim=1).int()
+
+
+# ---------------------------------------------------------------------------
+# serving steps: one request's prefill, all slots' decode, shared pools
+# ---------------------------------------------------------------------------
+
+@torch.no_grad()
+def serving_prefill(params, tokens, length, table, k_pages, v_pages,
+                    cfg: LlamaConfig, attn_impl: str = "auto"):
+    """Prefill ONE request into its allocated pages.
+
+    tokens ``[1, Tb]`` right-padded; length: valid tokens; table
+    ``[pps]`` int32, the slot's page-table row (trailing entries may be
+    the trash page); k_pages/v_pages: the layer-stacked pools, updated
+    IN PLACE (padding positions write to the trash page). Returns
+    ``(logits [V] f32 at the last valid position, k_pages, v_pages)``."""
+    dev = k_pages.device
+    tokens = _int32(tokens, dev)
+    lengths = _int32(length, dev).reshape(1)
+    tables = _int32(table, dev).reshape(1, -1)
+    B, T0 = tokens.shape
+    impl = _prefill_attn_impl(cfg, attn_impl)
+    h = params["embed"].to(cfg.dtype)[tokens.long()]
+    positions = torch.arange(T0, device=dev).expand(B, T0)
+    for i in range(cfg.num_hidden_layers):
+        def attn_fn(q, k, v, kp=k_pages[i], vp=v_pages[i]):
+            write_prompt_pages(kp, vp, k, v, lengths, tables)
+            return flash_attention(q, k, v, causal=True, impl=impl)
+
+        h = _block(_layer(params, i), h, positions, cfg, attn_fn)
+    return _last_logits(params, h, lengths, cfg)[0], k_pages, v_pages
+
+
+@torch.no_grad()
+def serving_prefill_chunk(params, tokens, length, table, k_pages, v_pages,
+                          cfg: LlamaConfig, prefix_pages: int,
+                          attn_impl: str = "auto"):
+    """Prefill ONE chunk of a request's prompt at a page-aligned offset.
+
+    tokens ``[1, Tc]`` right-padded chunk; length: valid tokens IN the
+    chunk; table ``[pps]`` the slot's whole row; ``prefix_pages`` pages
+    already hold the request's earlier tokens, so the chunk starts at
+    position ``prefix_pages * page_size``. Each layer attends the
+    gathered prefix plus the chunk with the bottom-right causal flash
+    (every chunk query sees the whole prefix and its own causal window),
+    then the chunk's KV is written IN PLACE. Returns ``(logits [V] f32 at
+    the chunk's last valid position, k_pages, v_pages)``."""
+    dev = k_pages.device
+    prefix_pages = int(prefix_pages)
+    tokens = _int32(tokens, dev)
+    lengths = _int32(length, dev).reshape(1)
+    tables = _int32(table, dev).reshape(1, -1)
+    B, Tc = tokens.shape
+    Hkv, ps, Dh = k_pages.shape[1], k_pages.shape[-2], k_pages.shape[-1]
+    off = prefix_pages * ps
+    pref_ids = tables[0, :prefix_pages].long()
+    impl = _prefill_attn_impl(cfg, attn_impl)
+    h = params["embed"].to(cfg.dtype)[tokens.long()]
+    positions = (off + torch.arange(Tc, device=dev)).expand(B, Tc)
+
+    def gather_prefix(pages, dtype):
+        # [Hkv, n_pre, ps, Dh] -> [1, n_pre * ps, Hkv, Dh]
+        pre = pages[:, pref_ids].reshape(Hkv, off, Dh)
+        return pre.transpose(0, 1)[None].to(dtype)
+
+    for i in range(cfg.num_hidden_layers):
+        def attn_fn(q, k, v, kp=k_pages[i], vp=v_pages[i]):
+            if prefix_pages:
+                kc = torch.cat([gather_prefix(kp, k.dtype), k], dim=1)
+                vc = torch.cat([gather_prefix(vp, v.dtype), v], dim=1)
+            else:
+                kc, vc = k, v
+            write_prompt_pages(kp, vp, k, v, lengths, tables, offset=off)
+            return flash_attention(q, kc, vc, causal=True, impl=impl)
+
+        h = _block(_layer(params, i), h, positions, cfg, attn_fn)
+    return _last_logits(params, h, lengths, cfg)[0], k_pages, v_pages
+
+
+@torch.no_grad()
+def serving_decode_step(params, tok, lengths, tables, k_pages, v_pages,
+                        cfg: LlamaConfig, attn_impl: str = "auto"):
+    """One decode step for ALL slots: tok ``[S]`` each slot's current
+    token, lengths ``[S]`` tokens already in its cache (0 for dead slots,
+    whose all-trash table rows write to and read from the trash page;
+    their logits are discarded), tables ``[S, pps]``. Each token's KV
+    lands at position ``lengths[s]`` (IN PLACE), then the paged-attention
+    kernel covers ``lengths + 1`` positions. Returns ``(logits [S, V]
+    f32, k_pages, v_pages)``."""
+    dev = k_pages.device
+    tok = _int32(tok, dev)
+    lengths = _int32(lengths, dev)
+    tables = _int32(tables, dev)
+    h = params["embed"].to(cfg.dtype)[tok.long()][:, None]       # [S, 1, D]
+    positions = lengths[:, None]
+    for i in range(cfg.num_hidden_layers):
+        def attn_fn(q, k, v, kp=k_pages[i], vp=v_pages[i]):
+            write_token_pages(kp, vp, k[:, 0], v[:, 0], lengths, tables)
+            o = paged_attention(q[:, 0].contiguous(), kp, vp, lengths + 1,
+                                tables, impl=attn_impl)
+            return o[:, None].to(q.dtype)
+
+        h = _block(_layer(params, i), h, positions, cfg, attn_fn)
+    h = rms_norm(h[:, 0], params["final_norm"], cfg.rms_norm_eps)
+    return _mm(h, params["lm_head"]).float(), k_pages, v_pages
+
+
+def serving_decode_block(params, tok, lengths, tables, k_pages, v_pages,
+                         cfg: LlamaConfig, num_steps: int,
+                         attn_impl: str = "auto"):
+    """``num_steps`` greedy ``serving_decode_step`` calls. Returns
+    ``(toks [S, num_steps] int32, k_pages, v_pages)``; the host
+    truncates a sequence at EOS / max_new_tokens (positions past a
+    table's width land on the trash page)."""
+    dev = k_pages.device
+    tok = _int32(tok, dev)
+    lens = _int32(lengths, dev)
+    out = []
+    for _ in range(int(num_steps)):
+        logits, k_pages, v_pages = serving_decode_step(
+            params, tok, lens, tables, k_pages, v_pages, cfg, attn_impl)
+        tok = logits.argmax(-1).int()
+        lens = lens + 1
+        out.append(tok)
+    return torch.stack(out, dim=1), k_pages, v_pages
 
 
 # ---------------------------------------------------------------------------

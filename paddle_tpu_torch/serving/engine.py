@@ -42,6 +42,7 @@ import torch
 from ..device import resolve_device
 from ..inference.paged_kv import PagePool
 from ..models import llama
+from ..quantization.decode import is_quantized_params, quantize_for_decode
 from .metrics import ServingMetrics
 from .prefix_cache import PrefixCache
 from .scheduler import (CANCELLED, COMPLETED, REJECTED, TIMED_OUT,
@@ -77,6 +78,10 @@ class ServingEngine:
     decode_block_size: decode steps fused per tick.
     admission_window: 0 = strict FIFO admission; N lets up to N queued
     requests overtake a head whose page budget does not fit.
+    quantization: None / ``"none"`` (the params as given) or ``"int8"``
+    — weight-only int8 decode: the params are quantized at construction
+    (``quantization.quantize_for_decode``) unless they already are, and
+    every projection runs through the int8 matmul kernel.
     """
 
     def __init__(self, params, cfg, *, device=None, max_batch: int = 8,
@@ -86,7 +91,8 @@ class ServingEngine:
                  tick_interval_s: float = 0.0,
                  decode_block_size: int = 1, prefix_cache: bool = True,
                  prefill_chunk: Optional[int] = None,
-                 admission_window: int = 0):
+                 admission_window: int = 0,
+                 quantization: Optional[str] = None):
         if max_batch < 1:
             raise ValueError("max_batch must be >= 1")
         if decode_block_size < 1:
@@ -94,10 +100,15 @@ class ServingEngine:
         if prefill_chunk is not None and int(prefill_chunk) < 1:
             raise ValueError(f"prefill_chunk must be >= 1, got "
                              f"{prefill_chunk}")
+        if quantization not in (None, "none", "int8"):
+            raise ValueError(f"quantization must be None/'none'/'int8', "
+                             f"got {quantization!r}")
         self._dev = resolve_device(device)
         if params["embed"].device != self._dev:
             raise ValueError(f"params live on {params['embed'].device}, "
                              f"the engine runs on {self._dev}")
+        if quantization == "int8" and not is_quantized_params(params):
+            params = quantize_for_decode(params, cfg)
         self._params = params
         self._cfg = cfg
         # optional pacing between ticks (0 = back to back)

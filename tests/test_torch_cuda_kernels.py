@@ -123,3 +123,89 @@ def test_kernel_counts_launches_and_rejects_bad_input(cuda):
         smoke.run_rpa(smoke.make_case(**CASES["group_1"],
                                       **dict(GEOM, Dh=96), device=cuda),
                       "kernel")
+
+
+# ---------------------------------------------------------------------------
+# decode kernels: paged attention and int8 matmul
+# ---------------------------------------------------------------------------
+
+PAGED_CASES = {
+    "mixed_page_4": dict(lens=[1, 9, 64, 200, 33], ps=4),
+    "mixed_page_16": dict(lens=[700, 16, 1, 129], ps=16),
+}
+
+
+@pytest.mark.parametrize("G", [1, 4, 8])
+@pytest.mark.parametrize("name", sorted(PAGED_CASES))
+def test_paged_attention_matches_plain_version(cuda, name, G):
+    """Both modes, o, m and l, f32 vs f64 and bf16 vs the plain version
+    and f64 within the smoke's bounds; NaN in every unread slot; alone
+    and re-placed sequences bitwise equal."""
+    geom = dict(H=2 * G, Hkv=2, Dh=128)
+    case = smoke.make_paged_case(**PAGED_CASES[name], **geom, device=cuda)
+    smoke.check_paged_case(name, case)
+    smoke.check_paged_invariance(case)
+
+
+@pytest.mark.parametrize("K", [1032, 4096])
+@pytest.mark.parametrize("M", [1, 8, 33, 200])
+def test_int8_matmul_matches_plain_version(cuda, M, K):
+    """bf16 within one ulp of the plain version and f64, f32 within the
+    smoke's bound; rows bitwise equal at every M and in reverse order.
+    N = 208 leaves ragged column tiles; K = 1032 sums K in one part with a
+    ragged last stage, K = 4096 in 4 parts of 1024."""
+    smoke.check_int8(f"M{M}", K, 208, seed=M, timing=False,
+                     ms_list=(1, M))
+
+
+def test_decode_kernels_count_launches_and_reject_bad_input(cuda):
+    from paddle_tpu_torch.ops.kernels import int8_matmul as im
+    from paddle_tpu_torch.ops.kernels import paged_attention as pa
+    case = smoke.make_paged_case(**PAGED_CASES["mixed_page_16"], H=8,
+                                 Hkv=2, Dh=128, device=cuda)
+    x = torch.randn(4, 256, device=cuda).bfloat16()
+    q = torch.ones(256, 64, dtype=torch.int8, device=cuda)
+    s = torch.ones(64, device=cuda)
+    before = (pa.paged_attention.launches, pa.paged_attention_stats.launches,
+              im.int8_matmul.launches)
+    smoke.run_paged(case, "auto", stats=False)
+    smoke.run_paged(case, "auto")
+    smoke.run_paged(case, "reference")
+    im.int8_matmul(x, q, s)
+    im.int8_matmul(x, q, s, impl="reference")
+    assert (pa.paged_attention.launches, pa.paged_attention_stats.launches,
+            im.int8_matmul.launches) == tuple(b + 1 for b in before)
+    with pytest.raises(TypeError, match="int32"):
+        smoke.run_paged(dict(case, lengths=case["lengths"].long()), "kernel")
+    with pytest.raises(ValueError, match="head_dim"):
+        smoke.run_paged(smoke.make_paged_case(lens=[5], ps=4, H=2, Hkv=2,
+                                              Dh=96, device=cuda), "kernel")
+    with pytest.raises(ValueError, match="multiple of 16"):
+        im.int8_matmul(x, q[:, :40].contiguous(), s[:40], impl="kernel")
+    with pytest.raises(TypeError, match="int8"):
+        im.int8_matmul(x, q.float(), s, impl="kernel")
+
+
+def test_paged_decode_paths_on_two_layers(cuda):
+    """generate_paged with int8 weights and serving_decode_block on
+    llama3_8b's width with 2 layers: kernel launches per the formulas,
+    tokens in range."""
+    from paddle_tpu_torch.models import llama
+    from paddle_tpu_torch.quantization import quantize_for_decode
+    cfg = llama.LlamaConfig.llama3_8b()
+    cfg.num_hidden_layers = 2
+    params = llama.init_params(cfg, torch.Generator(device=cuda)
+                               .manual_seed(0))
+    qparams = quantize_for_decode(params, cfg)
+    prompt = torch.randint(0, cfg.vocab_size, (3, 40), device=cuda,
+                           generator=torch.Generator(device=cuda)
+                           .manual_seed(1), dtype=torch.int32)
+    lens = torch.tensor([40, 40, 40], dtype=torch.int32, device=cuda)
+    smoke._zero_counts()
+    paged = llama.generate_paged(qparams, prompt, lens, cfg, 5, page_size=16)
+    counts = smoke._counts()
+    assert counts["int8_matmul"] == (7 * 2 + 1) * 5, counts
+    assert counts["paged_attention_stats"] == 2 * 4, counts
+    assert paged.shape == (3, 5) and bool((paged >= 0).all()) \
+        and bool((paged < cfg.vocab_size).all())
+    smoke.decode_block_run(params, cfg, steps=2)

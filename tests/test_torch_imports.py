@@ -13,8 +13,12 @@ import chip_smoke
 import paddle_tpu_torch
 from paddle_tpu_torch.models import llama
 from paddle_tpu_torch.ops.kernels import (
-    _build, flash_attention, fused_norm_rope, ragged_paged_attention)
+    _build, flash_attention, fused_norm_rope, int8_matmul, paged_attention,
+    ragged_paged_attention)
 from paddle_tpu_torch.ops.fused import fused_softmax_cross_entropy
+from paddle_tpu_torch.ops.fused import int8_matmul
+from paddle_tpu_torch.quantization import decode
+from paddle_tpu_torch.inference import GenerationPredictor, paged_kv
 from paddle_tpu_torch.serving import ServingEngine
 bad = sorted(m for m in sys.modules
              if m.split('.')[0] in ('jax', 'jaxlib', 'paddle_tpu'))
@@ -33,9 +37,11 @@ def test_entry_points_raise_without_cuda_or_device():
     if torch.cuda.is_available():
         pytest.skip("CUDA is present here: the default device is the card")
     from paddle_tpu_torch import resolve_device
+    from paddle_tpu_torch.inference import GenerationPredictor
     from paddle_tpu_torch.models import llama
     from paddle_tpu_torch.serving import ServingEngine
     cfg = llama.LlamaConfig.tiny()
+    prompt = [[1, 2, 3]]
     calls = [
         lambda: resolve_device(),
         lambda: resolve_device("cuda"),
@@ -46,6 +52,11 @@ def test_entry_points_raise_without_cuda_or_device():
         lambda: llama.make_train_step(cfg),
         lambda: llama.make_batch(cfg, 1, 8),
         lambda: ServingEngine({"embed": torch.zeros(1)}, cfg),
+        lambda: llama.generate_paged(
+            llama.init_params(cfg, torch.Generator()), prompt, [3], cfg, 2),
+        lambda: GenerationPredictor({"embed": torch.zeros(1)}, cfg),
+        lambda: ServingEngine({"embed": torch.zeros(1)}, cfg,
+                              quantization="int8"),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="CUDA"):

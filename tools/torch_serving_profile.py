@@ -8,13 +8,17 @@ GPU and prints one JSON line per scenario:
 * ``decode_block``: ``serving_tick_block`` with 8 live slots over ~300
   cached tokens each, 4 fused steps (the engine's pure-decode tick);
 * ``mixed_tick``: ``serving_tick`` with 8 decode rows plus a 256-token
-  prefill span behind a 128-token cached prefix (an admission tick).
+  prefill span behind a 128-token cached prefix (an admission tick);
+* ``paged_decode_bf16`` / ``paged_decode_int8``: one ``generate_paged``
+  decode step (``_decode_paged_step``) at ``bench.py``'s mix (32 streams
+  of 64-2016 prompt tokens, page 32, the first tail slot), with bf16
+  weights and with ``quantize_for_decode`` weights.
 
 For each: host wall time per model step (ends in a synchronize), the
 device span of the step measured with CUDA events, the summed device
 time of its kernels from ``torch.profiler`` (and so the device's idle
-share of the span), the ragged paged-attention kernel's share, and the
-top kernels by device time.
+share of the span), the attention kernels' share (ragged or paged), the
+int8 matmul kernel's share, and the top kernels by device time.
 
     python3 tools/torch_serving_profile.py
 """
@@ -69,6 +73,22 @@ def _mixed_tick(params, cfg, pools):
     return step, 1
 
 
+def _paged_decode(params, cfg):
+    """A decode step of generate_paged from one prefill of the bench mix;
+    every call attends the prompt pages plus the first tail slot."""
+    import chip_smoke
+    prompt, lens = chip_smoke.bench_mix(cfg.vocab_size)
+    logits, cache = llama.prefill_paged(params, prompt, lens, cfg,
+                                        chip_smoke.BENCH_NEW,
+                                        chip_smoke.PAGED_BENCH["ps"])
+    tok = logits.argmax(-1)
+
+    def step():
+        cache["n_tail"] = 0
+        llama._decode_paged_step(params, tok, cache, cfg)
+    return step, 1
+
+
 def _kernel_times(prof):
     """{kernel name: (device µs, count)} from the profiler's averages."""
     from torch.autograd import DeviceType
@@ -106,7 +126,10 @@ def profile(name, step, n_steps, reps=3):
     kern = _kernel_times(prof)
     busy_ms = sum(t for t, _ in kern.values()) / 1e3
     attn_ms = sum(t for k, (t, _) in kern.items()
-                  if "rpa_packed_kernel" in k) / 1e3
+                  if "rpa_packed_kernel" in k
+                  or "paged_attention_kernel" in k) / 1e3
+    int8_ms = sum(t for k, (t, _) in kern.items()
+                  if "int8_mm_bf16_kernel" in k) / 1e3
     span = float(np.median(spans))
     top = sorted(kern.items(), key=lambda kv: -kv[1][0])[:8]
     return {
@@ -117,6 +140,7 @@ def profile(name, step, n_steps, reps=3):
         "idle_share": (max(0.0, 1.0 - busy_ms / span) if busy_ms
                        else None),
         "attention_ms_per_step": attn_ms / n_steps,
+        "int8_matmul_ms_per_step": int8_ms / n_steps,
         "top_kernels_ms": [[k[:90], round(t / 1e3, 4), c]
                            for k, (t, c) in top],
     }
@@ -138,6 +162,15 @@ def main() -> int:
                        ("mixed_tick", _mixed_tick)):
         step, n = make(params, cfg, pools)
         print(json.dumps(profile(name, step, n)), flush=True)
+    del pools, step
+    torch.cuda.empty_cache()
+    from paddle_tpu_torch.quantization import quantize_for_decode
+    for name, p in (("paged_decode_bf16", params),
+                    ("paged_decode_int8", quantize_for_decode(params, cfg))):
+        step, n = _paged_decode(p, cfg)
+        print(json.dumps(profile(name, step, n)), flush=True)
+        del step, p
+        torch.cuda.empty_cache()
     return 0
 
 
