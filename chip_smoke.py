@@ -111,6 +111,14 @@ BF16_EXACT_ULPS = 1
 # The kernel itself is held to the ulp bounds above on the same tick's
 # geometry (case d); this check covers the tick around it.
 LOGITS_REL_TOL = 0.1
+# the first decode step of generate_paged at the bench mix (32 rows,
+# 32 bf16 layers, random weights) from one shared prefill, kernel vs
+# plain (the paged kernel vs plain attention; the int8 kernel vs the
+# plain int8 product): max |dlogit| relative to the largest logit.
+# Measured 0.021 and 0.018 on an H100 80GB HBM3 (700 W) with this
+# script; the bound leaves 2.4x. The kernels themselves are held to the
+# ulp bounds of phase 7.
+DECODE_LOGITS_REL_TOL = 0.05
 TRAIN_STEPS = 4
 # first train step's loss (kernels) vs the plain versions' loss on the
 # same state, relative: the plain flash attention rounds scores,
@@ -1259,9 +1267,11 @@ BENCH_NEW = 16          # new tokens per stream in the bench mix
 # int8 vs bf16 prefill logits: the JAX package's form (tests/
 # test_int8_decode.py), max |dlogit| < c x max(std, 1). Its c = 0.2 is set
 # for a 4-layer, 64-wide model and 512 logits; here the quantization noise
-# of 32 random 4096-wide layers reaches 4.1 M logits, and the max of them
-# measured 0.32 x std on an H100 80GB HBM3 (700 W) with this script. 0.5
-# leaves 1.5x; unrelated logits (a broken quantizer) differ by several std.
+# of 32 random 4096-wide layers reaches 4.1 M logits. The logit std is
+# below 1 at this scale, so the floor of 1 sets the bound: the max of them
+# measured 0.31 (against that floor) on an H100 80GB HBM3 (700 W) with
+# this script, above 0.2. 0.5 leaves 1.6x; unrelated logits (a broken
+# quantizer) differ by the logit scale, about 5.
 INT8_LOGIT_SPREAD = 0.5
 
 
@@ -1296,7 +1306,7 @@ def _counts() -> dict:
     return {n: fn.launches for n, fn in decode_counters().items()}
 
 
-def compare_logits(name, got, ref, tol: float = LOGITS_REL_TOL) -> dict:
+def compare_logits(name, got, ref, tol: float = DECODE_LOGITS_REL_TOL) -> dict:
     """max |dlogit| within ``tol`` x the logit scale; greedy tokens equal
     on every row whose top-2 gap in ``ref`` exceeds that bound."""
     assert torch.isfinite(got).all(), f"{name}: non-finite logits"
@@ -1367,6 +1377,16 @@ def paged_paths_phase(params, cfg) -> dict:
     from paddle_tpu_torch.models import llama
     from paddle_tpu_torch.ops.fused.int8_matmul import Int8Weight
     from paddle_tpu_torch.quantization import quantize_for_decode
+
+    class PlainInt8Weight(Int8Weight):
+        """An int8 weight whose product is the plain version (the
+        comparison's side); it shares the leaves, and ``w[i]`` keeps
+        the class."""
+        __slots__ = ()
+
+        def dequant_matmul(self, x, impl: str = "reference"):
+            return super().dequant_matmul(x, impl="reference")
+
     L, new, ps = cfg.num_hidden_layers, BENCH_NEW, PAGED_BENCH["ps"]
     prompt, lens = bench_mix(cfg.vocab_size)
     B = lens.numel()
@@ -1402,10 +1422,9 @@ def paged_paths_phase(params, cfg) -> dict:
     assert c8 == dict(paged_attention=0, paged_attention_stats=L * (new - 1),
                       int8_matmul=(7 * L + 1) * new,
                       ragged_paged_attention=0), c8
-    plain8 = dict(qparams, lm_head=Int8Weight(qparams["lm_head"].q,
-                                              qparams["lm_head"].scale,
-                                              "reference"),
-                  layers={k: (Int8Weight(v.q, v.scale, "reference")
+    plain8 = dict(qparams, lm_head=PlainInt8Weight(qparams["lm_head"].q,
+                                                   qparams["lm_head"].scale),
+                  layers={k: (PlainInt8Weight(v.q, v.scale)
                               if isinstance(v, Int8Weight) else v)
                           for k, v in qparams["layers"].items()})
     r8 = paged_decode_run("generate_paged int8 first decode step, int8 "
@@ -1414,12 +1433,14 @@ def paged_paths_phase(params, cfg) -> dict:
     w8, kv8 = step_bytes(qparams, lens, new, cfg)
     lg16, lg8 = r16.pop("logits0"), r8.pop("logits0")
     err = float((lg16 - lg8).abs().max())
-    spread = max(float(lg16.std()), 1.0)
+    std = float(lg16.std())
+    spread = max(std, 1.0)
     match = float((out16 == out8).float().mean())
     log(f"int8 vs bf16 prefill logits: max |dlogit| {err:.4g}, mean "
-        f"{float((lg16 - lg8).abs().mean()):.4g} (bound {INT8_LOGIT_SPREAD} "
-        f"x {spread:.4g}); greedy tokens equal on {match:.3f} of "
-        f"{B} x {new}")
+        f"{float((lg16 - lg8).abs().mean()):.4g}; logit std {std:.4g}, "
+        f"bound {INT8_LOGIT_SPREAD} x max(std, 1) = "
+        f"{INT8_LOGIT_SPREAD * spread:.4g}; greedy tokens equal on "
+        f"{match:.3f} of {B} x {new}")
     assert err < INT8_LOGIT_SPREAD * spread, (err, spread)
     for tag, r, w, kv in (("bf16", r16, w16, kv16), ("int8", r8, w8, kv8)):
         r.update(weight_bytes=w, kv_bytes=kv,
@@ -1436,13 +1457,13 @@ def paged_paths_phase(params, cfg) -> dict:
                                  int8=dict(r8, launches=c8, wall_s=wall8,
                                            quantize_s=quant_s,
                                            logit_err_vs_bf16=err,
+                                           logit_std_bf16=std,
                                            token_match_vs_bf16=match))
-    del plain8, prompt, lens, out16, out8
+    del plain8, qparams, prompt, lens, out16, out8
     torch.cuda.empty_cache()
 
     rec["decode_block"] = decode_block_run(params, cfg)
-    rec["engine_int8"] = engine_int8_run(qparams, cfg)
-    del qparams
+    rec["engine_int8"] = engine_int8_run(params, cfg)
     torch.cuda.empty_cache()
     return rec
 
@@ -1486,14 +1507,22 @@ def decode_block_run(params, cfg, steps: int = 4) -> dict:
     return dict(launches=counts, wall_s=wall, step_ms=wall / steps * 1e3)
 
 
-def engine_int8_run(qparams, cfg) -> dict:
-    """ServingEngine(quantization="int8") on phase 4's 16 requests."""
+def engine_int8_run(params, cfg) -> dict:
+    """ServingEngine(quantization="int8") on phase 4's 16 requests, from
+    phase 4's bf16 params: the engine quantizes them at construction."""
+    from paddle_tpu_torch.quantization import is_quantized_params
     from paddle_tpu_torch.serving import ServingEngine
     L = cfg.num_hidden_layers
-    eng = ServingEngine(qparams, cfg, quantization="int8", max_batch=8,
+    assert not is_quantized_params(params)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    eng = ServingEngine(params, cfg, quantization="int8", max_batch=8,
                         page_size=16, max_prompt_len=512,
                         max_new_tokens_cap=32, prefill_chunk=256,
                         decode_block_size=4)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    assert is_quantized_params(eng._params), "the engine did not quantize"
     prompts, new = _requests(cfg.vocab_size)
     eng.generate(np.arange(1, 41, dtype=np.int32), 4)      # warm-up
     steps0 = eng.stats()["counters"]["model_steps"]
@@ -1515,9 +1544,10 @@ def engine_int8_run(qparams, cfg) -> dict:
     log(f"ServingEngine(quantization='int8'): {len(outs)} requests, "
         f"{tokens} tokens in {wall:.3f} s = {tokens / wall:.1f} tok/s; "
         f"mean TTFT {ttft:.4f} s; {steps} model steps; int8 launches "
-        f"{counts['int8_matmul']} (= (7 x {L} + 1) x {steps})")
+        f"{counts['int8_matmul']} (= (7 x {L} + 1) x {steps}); built "
+        f"(bf16 params quantized) in {build_s:.3f} s")
     return dict(launches=counts, tok_s=tokens / wall, mean_ttft_s=ttft,
-                model_steps=steps)
+                model_steps=steps, build_s=build_s)
 
 
 # ---------------------------------------------------------------------------

@@ -13,8 +13,6 @@ rounds the product before the scale; in f32 the two agree to rounding.
 """
 from __future__ import annotations
 
-from typing import Optional
-
 import torch
 
 # x [..., in] @ dequant(q, scale) in x's dtype; impl "auto" (the kernel
@@ -54,16 +52,13 @@ def quantize_weight_per_channel(w):
 
 class Int8Weight:
     """A weight-only-quantized matmul operand: ``q`` int8 ``[..., in,
-    out]`` and ``scale`` f32 ``[..., out]``. ``impl`` is the default of
-    ``dequant_matmul`` (``"auto"``; ``"reference"`` pins a copy that
-    shares the leaves to the plain version, for comparisons)."""
+    out]`` and ``scale`` f32 ``[..., out]``."""
 
-    __slots__ = ("q", "scale", "impl")
+    __slots__ = ("q", "scale")
 
-    def __init__(self, q, scale, impl: str = "auto"):
+    def __init__(self, q, scale):
         self.q = q
         self.scale = scale
-        self.impl = impl
 
     @property
     def shape(self):
@@ -82,7 +77,7 @@ class Int8Weight:
         return self.q.device
 
     def __getitem__(self, idx) -> "Int8Weight":
-        return Int8Weight(self.q[idx], self.scale[idx], self.impl)
+        return type(self)(self.q[idx], self.scale[idx])
 
     def __repr__(self):
         return (f"Int8Weight(q={tuple(self.q.shape)}, "
@@ -96,6 +91,5 @@ class Int8Weight:
         """Dense ``[..., in, out]`` approximation in ``dtype``."""
         return (self.q.float() * self.scale[..., None, :]).to(dtype)
 
-    def dequant_matmul(self, x, impl: Optional[str] = None):
-        return int8_weight_matmul(x, self.q, self.scale,
-                                  impl=self.impl if impl is None else impl)
+    def dequant_matmul(self, x, impl: str = "auto"):
+        return int8_weight_matmul(x, self.q, self.scale, impl=impl)

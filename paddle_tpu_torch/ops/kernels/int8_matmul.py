@@ -15,7 +15,9 @@ The kernel (``csrc/int8_matmul.cu``) takes K a multiple of 8 and N a
 multiple of 16 and raises on anything else: unlike the JAX entry it
 never drops quietly to a plain formulation for a shape it cannot tile.
 Its rows are batch invariant: a row's output is bitwise the same at any
-M and wherever it sits in x.
+M and wherever it sits in x. At M <= 64 in bf16 a launch keeps per-tile
+counters in a buffer shared by the launches of its (device, stream), so
+those launches must run in stream order, as launches on one stream do.
 
 impl: ``"auto"`` — the kernel for CUDA tensors, the plain version for
 CPU tensors; ``"kernel"`` — the kernel, raising on anything it cannot
@@ -55,17 +57,19 @@ def _lib():
     return lib
 
 
-# Per device: the decode kernel's per-column-tile counters. They start at
-# zero and every launch leaves them zero; launches on one stream run in
-# order, so one buffer serves them all.
+# Per (device, stream): the decode kernel's per-column-tile counters. They
+# start at zero and every launch leaves them zero. Launches on one stream
+# run in order, so one buffer serves them all; two streams would mix
+# their counts (a column tile's combine could be skipped), so each stream
+# has its own buffer.
 _counters = {}
 
 
-def _tile_counters(dev, n: int) -> torch.Tensor:
-    buf = _counters.get(dev)
+def _tile_counters(dev, stream: int, n: int) -> torch.Tensor:
+    buf = _counters.get((dev, stream))
     if buf is None or buf.numel() < n:
         buf = torch.zeros((max(n, 1024),), dtype=torch.int32, device=dev)
-        _counters[dev] = buf
+        _counters[(dev, stream)] = buf
     return buf
 
 
@@ -94,18 +98,21 @@ def _launch(x2, q, scale):
     out = torch.empty((M, N), dtype=x2.dtype, device=dev)
     lib = _lib()
     part = counters = None
-    if x2.dtype == torch.bfloat16 and M <= 64:
-        # the decode tile shape sums K in parts: an f32 workspace for them
-        S = lib.paddle_int8_matmul_splits(K, N)
-        if S > 1:
-            part = torch.empty((S, M, N), dtype=torch.float32, device=dev)
-            counters = _tile_counters(dev, -(-N // 128))
     with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream().cuda_stream
+        if x2.dtype == torch.bfloat16 and M <= 64:
+            # the decode tile shape sums K in parts: an f32 workspace for
+            # them
+            S = lib.paddle_int8_matmul_splits(K, N)
+            if S > 1:
+                part = torch.empty((S, M, N), dtype=torch.float32,
+                                   device=dev)
+                counters = _tile_counters(dev, stream, -(-N // 128))
         err = lib.paddle_int8_matmul(
             x2.data_ptr(), q.data_ptr(), scale.data_ptr(), out.data_ptr(),
             None if part is None else part.data_ptr(),
             None if counters is None else counters.data_ptr(), M, K, N,
-            _DTYPE_CODE[x2.dtype], torch.cuda.current_stream().cuda_stream)
+            _DTYPE_CODE[x2.dtype], stream)
     if err != 0:
         raise RuntimeError(f"int8 matmul kernel launch failed (error {err}) "
                            f"for M={M} K={K} N={N} {x2.dtype}")

@@ -28,8 +28,7 @@ __all__ = ["quantize_for_decode", "dequantize_for_decode",
 _LLAMA_LAYER_KEYS = ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down")
 
 
-def quantize_for_decode(params: Dict[str, Any], cfg, *,
-                        quantize_lm_head: bool = True) -> Dict[str, Any]:
+def quantize_for_decode(params: Dict[str, Any], cfg) -> Dict[str, Any]:
     """Llama params -> a new params dict whose projection weights are
     ``Int8Weight``s, on the params' device (the dense tensors it keeps
     are shared, not copied). Quantizing already-quantized params raises:
@@ -47,10 +46,8 @@ def quantize_for_decode(params: Dict[str, Any], cfg, *,
     layers = dict(layers)
     for k in _LLAMA_LAYER_KEYS:
         layers[k] = Int8Weight.quantize(layers[k])
-    out = dict(params, layers=layers)
-    if quantize_lm_head:
-        out["lm_head"] = Int8Weight.quantize(params["lm_head"])
-    return out
+    return dict(params, layers=layers,
+                lm_head=Int8Weight.quantize(params["lm_head"]))
 
 
 def dequantize_for_decode(params: Dict[str, Any],

@@ -186,6 +186,28 @@ def test_decode_kernels_count_launches_and_reject_bad_input(cuda):
         im.int8_matmul(x, q.float(), s, impl="kernel")
 
 
+def test_int8_matmul_on_two_streams(cuda):
+    """Decode launches on two streams at once each keep their own tile
+    counters: every output equals the one-stream result bitwise."""
+    from paddle_tpu_torch.ops.kernels import int8_matmul as im
+    g = torch.Generator(device=cuda).manual_seed(5)
+    x = torch.randn(8, 4096, generator=g, device=cuda).bfloat16()
+    q = torch.randint(-127, 128, (4096, 4096), generator=g, device=cuda,
+                      dtype=torch.int8)
+    s = torch.rand(4096, generator=g, device=cuda) / 127
+    want = im.int8_matmul(x, q, s, impl="kernel")
+    streams = [torch.cuda.Stream(), torch.cuda.Stream()]
+    torch.cuda.synchronize()
+    outs = {i: [] for i in range(2)}
+    for _ in range(20):
+        for i, st in enumerate(streams):
+            with torch.cuda.stream(st):
+                outs[i].append(im.int8_matmul(x, q, s, impl="kernel"))
+    torch.cuda.synchronize()
+    for o in outs[0] + outs[1]:
+        assert torch.equal(o, want)
+
+
 def test_paged_decode_paths_on_two_layers(cuda):
     """generate_paged with int8 weights and serving_decode_block on
     llama3_8b's width with 2 layers: kernel launches per the formulas,
