@@ -1267,11 +1267,11 @@ BENCH_NEW = 16          # new tokens per stream in the bench mix
 # int8 vs bf16 prefill logits: the JAX package's form (tests/
 # test_int8_decode.py), max |dlogit| < c x max(std, 1). Its c = 0.2 is set
 # for a 4-layer, 64-wide model and 512 logits; here the quantization noise
-# of 32 random 4096-wide layers reaches 4.1 M logits. The logit std is
-# below 1 at this scale, so the floor of 1 sets the bound: the max of them
-# measured 0.31 (against that floor) on an H100 80GB HBM3 (700 W) with
-# this script, above 0.2. 0.5 leaves 1.6x; unrelated logits (a broken
-# quantizer) differ by the logit scale, about 5.
+# of 32 random 4096-wide layers reaches 4.1 M logits. The bf16 logit std
+# measured 1.0002, so the std (not the floor of 1) sets the bound, and
+# the max of the 4.1 M differences measured 0.31 x std on an H100 80GB
+# HBM3 (700 W) with this script, above 0.2. 0.5 leaves 1.6x; unrelated
+# logits (a broken quantizer) differ by the logit scale, about 5 std.
 INT8_LOGIT_SPREAD = 0.5
 
 
@@ -1437,7 +1437,7 @@ def paged_paths_phase(params, cfg) -> dict:
     spread = max(std, 1.0)
     match = float((out16 == out8).float().mean())
     log(f"int8 vs bf16 prefill logits: max |dlogit| {err:.4g}, mean "
-        f"{float((lg16 - lg8).abs().mean()):.4g}; logit std {std:.4g}, "
+        f"{float((lg16 - lg8).abs().mean()):.4g}; logit std {std:.6g}, "
         f"bound {INT8_LOGIT_SPREAD} x max(std, 1) = "
         f"{INT8_LOGIT_SPREAD * spread:.4g}; greedy tokens equal on "
         f"{match:.3f} of {B} x {new}")
