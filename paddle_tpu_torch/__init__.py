@@ -17,7 +17,9 @@ one-device train step (``models.llama.make_train_step``); paged and
 weight-only int8 decode (``models.llama.generate_paged``, the serving
 steps, ``inference.GenerationPredictor``,
 ``quantization.quantize_for_decode``) on the paged-attention and int8
-matmul kernels.
+matmul kernels; Qwen2-MoE training with dropless experts
+(``models.qwen2_moe.make_train_step``, ``incubate.moe``) on the
+grouped-matmul kernels (``ops/kernels/grouped_matmul.py``).
 """
 from .device import resolve_device
 

@@ -66,7 +66,8 @@ __all__ = ["LlamaConfig", "init_params", "params_from_jax", "rms_norm",
            "serving_prefill", "serving_prefill_chunk",
            "serving_decode_step", "serving_decode_block", "decoder_layer",
            "forward", "loss_fn", "AdamW", "default_train_optimizer", "make_train_step",
-           "make_batch", "params_to_numpy"]
+           "make_batch", "params_to_numpy", "normal_init",
+           "one_device_trainer"]
 
 
 @dataclasses.dataclass
@@ -114,12 +115,25 @@ class LlamaConfig:
 # params
 # ---------------------------------------------------------------------------
 
+def normal_init(shape, fan_in: int, dtype, generator: torch.Generator,
+                dev) -> torch.Tensor:
+    """A ``dtype`` tensor of normal · 1/sqrt(fan_in) draws from
+    ``generator``, made one trailing matrix at a time, so the f32 draw
+    never holds more than one matrix beside the result."""
+    out = torch.empty(shape, dtype=dtype, device=dev)
+    flat = out.view(-1, *shape[-2:])
+    std = 1.0 / math.sqrt(fan_in)
+    for i in range(flat.shape[0]):
+        flat[i] = (torch.randn(shape[-2:], generator=generator, device=dev,
+                               dtype=torch.float32) * std).to(dtype)
+    return out
+
+
 def init_params(cfg: LlamaConfig, generator: torch.Generator,
                 device=None) -> Dict:
     """Random params, normal · 1/sqrt(fan_in) (norms at one), drawn
-    from ``generator`` (which must live on ``device``). The f32 draw is
-    made one layer at a time, so it never holds more than one layer's
-    weights in f32 beside the stacked result."""
+    from ``generator`` (which must live on ``device``) one matrix at a
+    time (``normal_init``)."""
     dev = resolve_device(device)
     D, Fi, V = cfg.hidden_size, cfg.intermediate_size, cfg.vocab_size
     H, Hkv, Dh = cfg.num_attention_heads, cfg.num_key_value_heads, \
@@ -127,14 +141,7 @@ def init_params(cfg: LlamaConfig, generator: torch.Generator,
     L = cfg.num_hidden_layers
 
     def init(shape, fan_in):
-        out = torch.empty(shape, dtype=cfg.dtype, device=dev)
-        flat = out.view(-1, *shape[-2:])
-        std = 1.0 / math.sqrt(fan_in)
-        for i in range(flat.shape[0]):
-            flat[i] = (torch.randn(shape[-2:], generator=generator,
-                                   device=dev, dtype=torch.float32)
-                       * std).to(cfg.dtype)
-        return out
+        return normal_init(shape, fan_in, cfg.dtype, generator, dev)
 
     layers = {
         "wq": init((L, D, H * Dh), D),
@@ -187,13 +194,21 @@ def params_from_jax(np_tree, device=None) -> Dict:
     return conv(dict(np_tree))
 
 
-def _layer(params, i: int) -> Dict[str, torch.Tensor]:
-    """Layer ``i``'s weights, from stacked layers (a dict of ``[L, ...]``
-    tensors) or from per-layer leaves (a list of dicts, the trainer's)."""
+def _select(tree, i: int):
+    """Row ``i`` of every tensor of a (nested) dict of stacked tensors."""
+    if isinstance(tree, dict):
+        return {k: _select(v, i) for k, v in tree.items()}
+    return tree[i]
+
+
+def _layer(params, i: int) -> Dict[str, Any]:
+    """Layer ``i``'s weights, from stacked layers (a dict, possibly
+    nested, of ``[L, ...]`` tensors) or from per-layer leaves (a list of
+    dicts, the trainer's)."""
     layers = params["layers"]
     if isinstance(layers, (list, tuple)):
         return layers[i]
-    return {k: v[i] for k, v in layers.items()}
+    return _select(layers, i)
 
 
 # ---------------------------------------------------------------------------
@@ -952,38 +967,43 @@ def default_train_optimizer() -> AdamW:
 
 def _train_params(params, dev) -> Dict:
     """Params as the trainer holds them: every tensor a leaf that needs
-    a gradient, each layer's weights leaves of their own (rows of the
-    stacked tensors, sharing their storage). A ``stacked[i]`` select of
-    one stacked leaf would make autograd allocate a gradient of the whole
-    stack for every layer."""
+    a gradient, each layer's weights (nested dicts too) leaves of their
+    own (rows of the stacked tensors, sharing their storage). A
+    ``stacked[i]`` select of one stacked leaf would make autograd
+    allocate a gradient of the whole stack for every layer."""
     def leaf(x):
         return x.detach().to(dev).requires_grad_(True)
 
     layers = params["layers"]
     if isinstance(layers, dict):
-        n = next(iter(layers.values())).shape[0]
-        layers = [{k: v[i] for k, v in layers.items()} for i in range(n)]
+        n = _tree_leaves(layers)[0].shape[0]
+        layers = [_select(layers, i) for i in range(n)]
     return {"embed": leaf(params["embed"]),
-            "layers": [{k: leaf(v) for k, v in lp.items()}
-                       for lp in layers],
+            "layers": [_tree_map(leaf, lp) for lp in layers],
             "final_norm": leaf(params["final_norm"]),
             "lm_head": leaf(params["lm_head"])}
 
 
+def _stack(layers):
+    """Per-layer (nested) dicts as one dict of ``[L, ...]`` stacks."""
+    if isinstance(layers[0], dict):
+        return {k: _stack([lp[k] for lp in layers]) for k in layers[0]}
+    return torch.stack([x.detach() for x in layers])
+
+
 def params_to_numpy(params) -> Dict:
-    """Params (stacked or per-layer) as the JAX pytree of numpy arrays:
-    layers stacked on a leading ``L`` axis; bf16 comes back as f32
-    (exact)."""
+    """Params (stacked or per-layer, nested layer dicts too) as the JAX
+    pytree of numpy arrays: layers stacked on a leading ``L`` axis; bf16
+    comes back as f32 (exact)."""
     def conv(x):
         x = x.detach().to("cpu")
         return (x.float() if x.dtype == torch.bfloat16 else x).numpy()
 
     layers = params["layers"]
     if isinstance(layers, (list, tuple)):
-        layers = {k: torch.stack([lp[k].detach() for lp in layers])
-                  for k in layers[0]}
+        layers = _stack(list(layers))
     return {"embed": conv(params["embed"]),
-            "layers": {k: conv(v) for k, v in layers.items()},
+            "layers": _tree_map(conv, layers),
             "final_norm": conv(params["final_norm"]),
             "lm_head": conv(params["lm_head"])}
 
@@ -1007,21 +1027,28 @@ def make_train_step(cfg: LlamaConfig, *, device=None, optimizer=None,
         raise NotImplementedError(
             "the port's train step runs on one device: mesh, ZeRO and "
             "pipeline stages are not ported yet")
+    return one_device_trainer(cfg, init_params, loss_fn, device, optimizer)
+
+
+def one_device_trainer(cfg, init, loss, device=None, optimizer=None):
+    """``(step_fn, init_fn)`` of a one-device train step for a model's
+    ``init(cfg, generator, device)`` and ``loss(params, batch, cfg)``
+    (see ``make_train_step``)."""
     dev = resolve_device(device)
     opt = default_train_optimizer() if optimizer is None else optimizer
 
     def init_fn(source):
         if isinstance(source, torch.Generator):
-            source = init_params(cfg, source, dev)
+            source = init(cfg, source, dev)
         params = _train_params(source, dev)
         return {"params": params, "opt": opt.init(params), "step": 0}
 
     def step_fn(state, batch):
-        loss = loss_fn(state["params"], batch, cfg)
-        loss.backward()
+        value = loss(state["params"], batch, cfg)
+        value.backward()
         opt.update_(state["params"], state["opt"])
         state["step"] += 1
-        return state, loss.detach()
+        return state, value.detach()
 
     return step_fn, init_fn
 

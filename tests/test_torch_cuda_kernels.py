@@ -231,3 +231,58 @@ def test_paged_decode_paths_on_two_layers(cuda):
     assert paged.shape == (3, 5) and bool((paged >= 0).all()) \
         and bool((paged < cfg.vocab_size).all())
     smoke.decode_block_run(params, cfg, steps=2)
+
+
+# ---------------------------------------------------------------------------
+# grouped matmul (dropless MoE) and the Qwen2-MoE train step
+# ---------------------------------------------------------------------------
+
+# a small dropless layer: 256 tokens, top-2 of 8 experts, D 256, F 136 (a
+# ragged last column tile, and a reduction of 136 = 4 x 32 + 8), tile_m 128
+GMM_SMALL = dict(S=256, k=2, E=8, D=256, F=136, tile_m=128)
+
+
+@pytest.mark.parametrize("kind", smoke.GMM_ROUTINGS)
+def test_grouped_matmul_matches_plain_version(cuda, kind):
+    """gmm forward and dlhs and tgmm: f32 vs the f64 evaluation, bf16 vs
+    the plain version and f64, within the smoke's GMM_BOUNDS; padding rows
+    and empty experts exactly 0; two launches and a shuffled tile order
+    give the same bits."""
+    smoke.check_gmm(kind, seed=3, geom=GMM_SMALL)
+
+
+def test_flash_attention_with_one_query_head_per_kv_head(cuda):
+    """Flash attention at G = 1 (H = Hkv = 16, Qwen2-MoE's geometry)."""
+    smoke.check_bounds("flash G=1", smoke.check_flash(
+        512, 512, seed=6, gm=smoke.QWEN_ATTN_GEOM), smoke.QWEN_FLASH_BOUNDS)
+
+
+def test_grouped_matmul_counts_launches_and_rejects_bad_input(cuda):
+    from paddle_tpu_torch.ops.kernels import grouped_matmul as gm
+    lhs = torch.randn(256, 64, device=cuda).bfloat16()
+    w = torch.randn(2, 64, 128, device=cuda).bfloat16()
+    g = torch.randn(256, 128, device=cuda).bfloat16()
+    te = torch.tensor([0, 1], dtype=torch.int32, device=cuda)
+    before = (gm.gmm.launches, gm.tgmm.launches)
+    gm.gmm(lhs, w, te)
+    gm.gmm(lhs, w, te, impl="reference")
+    gm.tgmm(lhs, g, te, 2)
+    gm.tgmm(lhs, g, te, 2, impl="reference")
+    assert (gm.gmm.launches, gm.tgmm.launches) == (before[0] + 1,
+                                                   before[1] + 1)
+    with pytest.raises(ValueError, match="tile_m"):
+        gm.gmm(lhs, w, torch.tensor([0, 0, 1, 1], dtype=torch.int32,
+                                    device=cuda), 64, impl="kernel")
+    with pytest.raises(TypeError, match="int32"):
+        gm.gmm(lhs, w, te.long(), impl="kernel")
+    with pytest.raises(TypeError, match="bfloat16"):
+        gm.gmm(lhs.half(), w.half(), te, impl="kernel")
+    with pytest.raises(ValueError, match="multiples of 8"):
+        gm.tgmm(lhs[:, :60].contiguous(), g, te, 2, impl="kernel")
+
+
+def test_qwen2_moe_train_step_on_two_layers(cuda):
+    """qwen2_moe.make_train_step (dropless) at Qwen1.5-MoE-A2.7B's width
+    with 2 layers: launches per the formula, the loss falls, the first
+    loss agrees with the plain versions' on the same state."""
+    smoke.qwen_train_phase(num_layers=2)

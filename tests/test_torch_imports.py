@@ -11,10 +11,11 @@ _PROBE = """
 import sys
 import chip_smoke
 import paddle_tpu_torch
-from paddle_tpu_torch.models import llama
+from paddle_tpu_torch.models import llama, qwen2_moe
 from paddle_tpu_torch.ops.kernels import (
-    _build, flash_attention, fused_norm_rope, int8_matmul, paged_attention,
-    ragged_paged_attention)
+    _build, flash_attention, fused_norm_rope, grouped_matmul, int8_matmul,
+    paged_attention, ragged_paged_attention)
+from paddle_tpu_torch.incubate.moe import functional
 from paddle_tpu_torch.ops.fused import fused_softmax_cross_entropy
 from paddle_tpu_torch.ops.fused import int8_matmul
 from paddle_tpu_torch.quantization import decode
@@ -38,9 +39,10 @@ def test_entry_points_raise_without_cuda_or_device():
         pytest.skip("CUDA is present here: the default device is the card")
     from paddle_tpu_torch import resolve_device
     from paddle_tpu_torch.inference import GenerationPredictor
-    from paddle_tpu_torch.models import llama
+    from paddle_tpu_torch.models import llama, qwen2_moe
     from paddle_tpu_torch.serving import ServingEngine
     cfg = llama.LlamaConfig.tiny()
+    qcfg = qwen2_moe.Qwen2MoeConfig.tiny(moe_impl="dropless")
     prompt = [[1, 2, 3]]
     calls = [
         lambda: resolve_device(),
@@ -57,6 +59,9 @@ def test_entry_points_raise_without_cuda_or_device():
         lambda: GenerationPredictor({"embed": torch.zeros(1)}, cfg),
         lambda: ServingEngine({"embed": torch.zeros(1)}, cfg,
                               quantization="int8"),
+        lambda: qwen2_moe.make_train_step(qcfg),
+        lambda: qwen2_moe.init_params(qcfg, torch.Generator()),
+        lambda: qwen2_moe.make_batch(qcfg, 1, 8),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="CUDA"):
