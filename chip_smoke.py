@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving and training paths (Llama-3-8B, and
-Qwen2-MoE dropless training) on one NVIDIA H100 and check them.
+"""Drive the PyTorch port's serving and training paths (Llama-3-8B,
+Qwen2-MoE dropless training) and ResNet-50 inference on one NVIDIA H100
+and check them.
 
 Run from the repository root with no arguments:
 
@@ -90,9 +91,27 @@ Phases (any failed check raises; nothing is caught):
    launches per the per-step formula, the loss finite and falling, the
    first step's loss within ``QWEN_TRAIN_LOSS_REL`` of the plain
    versions'; step ms, tokens/s, MFU and peak memory.
+11. the conv-epilogue kernel (the 1x1 conv after the conv-bn fold)
+   against its plain version at ResNet-50's 12 shapes at B 8
+   (``RESNET_B8_SITES``) and layer 4's two at B 1, relu on and off: f32
+   vs f64 and bf16 vs the bf16 plain version and f64
+   (``CONV_EPILOGUE_BOUNDS``); a second launch, and B 1 against the same
+   rows of B 8, bitwise; no write outside [M, N] (a NaN band around the
+   output). Kernel, plain, bound and library
+   (``torch._addmm_activation`` / ``torch.addmm``) times per shape and
+   summed over one forward's 33 sites;
+12. ResNet-50 inference: ``resnet50(num_classes=1000)`` at 224 x 224,
+   seeded random weights and BN statistics, eval, channels-last,
+   ``fold_conv_bn`` (53 sites). f32 folded vs unfolded (TF32 off) within
+   ``RESNET_F32_LOGITS_REL``; bf16 folded on the kernel vs on the plain
+   versions within ``RESNET_BF16_LOGITS_REL``; the 33 row-wise sites at
+   exactly ``RESNET_B8_SITES``, none copying its input; launches = 33 x
+   forwards; ms per forward, images/s and peak memory at B 8 and B 128,
+   folded and unfolded (conv -> BN -> relu on cuDNN).
 
-Phases run in the order 1, 2, 3, 5, 7, 4, 8, 6, 9, 10: phase 6 starts
-after the 8B serving state is freed, phases 9 and 10 after phase 6's.
+Phases run in the order 1, 2, 3, 5, 7, 4, 8, 6, 9, 10, 11, 12: phase 6
+starts after the 8B serving state is freed, phases 9 and 10 after phase
+6's.
 
 The last two lines of standard output are the card's name and power
 limit, then ``{"ok": true, "device": {...}}``; the line before them is
@@ -2152,6 +2171,405 @@ def qwen_train_phase(num_layers: int = QWEN_LAYERS) -> dict:
                      qwen_launches(), qwen_per_step_launches(num_layers),
                      QWEN_TRAIN_LOSS_REL, active)
 
+# ---------------------------------------------------------------------------
+# conv epilogue: the 1x1-conv kernel of the conv-bn fold (ResNet-50)
+# ---------------------------------------------------------------------------
+
+# ResNet-50's 1x1 / stride-1 sites at B 8, 224 x 224 (M = 8 x H x W):
+# (M, K, N, relu) -> sites a forward. Every bottleneck's conv1 (relu) and
+# conv3 (no relu), and layer 1's stride-1 downsample (no relu); phase 12
+# asserts that the folded model calls exactly these.
+RESNET_B8_SITES = {
+    (25088, 64, 64, True): 1, (25088, 64, 256, False): 4,
+    (25088, 256, 64, True): 2, (25088, 256, 128, True): 1,
+    (6272, 128, 512, False): 4, (6272, 512, 128, True): 3,
+    (6272, 512, 256, True): 1, (1568, 256, 1024, False): 6,
+    (1568, 1024, 256, True): 5, (1568, 1024, 512, True): 1,
+    (392, 512, 2048, False): 3, (392, 2048, 512, True): 2,
+}
+# layer 4's two shapes at B 1 (M = 49 = 7 x 7)
+RESNET_B1_LAYER4 = ((49, 512, 2048), (49, 2048, 512))
+# Bounds, in ulps of the dtype at each output row's largest reference value
+# (``_row_ulps``, rows of N):
+#   f32: the f32 kernel vs the plain version evaluated in f64: K / 16 chunk
+#        sums of 16 products added to the running total in order, the bias
+#        added to that f32 sum; K <= 2048, as the gmm f32 kernel's bound;
+#   plain / exact: the bf16 kernel vs the bf16 plain version (f32 sum and
+#        bias, one cast) and vs f64: both an f32 sum rounded once to bf16,
+#        half an ulp of the element each, the f32 sums ~2^-16 ulp apart
+#        (relu is 1-Lipschitz and adds nothing).
+CONV_EPILOGUE_BOUNDS = {"f32": 16, "plain": 1, "exact": 1}
+
+
+def conv_epilogue_bound_ms(M: int, K: int, N: int) -> tuple:
+    """Least time of one call: x [M, K] and w [K, N] in bf16 and the f32
+    bias read once, the [M, N] bf16 output written once; 2·M·K·N
+    operations."""
+    t_bytes = (2.0 * (M * K + K * N + M * N) + 4.0 * N) \
+        / H100_BYTES_PER_S * 1e3
+    t_ops = 2.0 * M * K * N / H100_BF16_FLOPS * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                 else "operations")
+
+
+def _mba_operands(M: int, K: int, N: int, gen):
+    return (_randn((M, K), gen), _randn((K, N), gen, 1 / math.sqrt(K)),
+            _randn((N,), gen))
+
+
+def check_conv_epilogue(M: int, K: int, N: int, seed: int,
+                        relus=(True, False)) -> dict:
+    """The kernel at one shape, relu on and off: f32 vs the f64
+    evaluation, bf16 vs the bf16 plain version and vs f64
+    (``CONV_EPILOGUE_BOUNDS``); a second launch gives the same bits."""
+    from paddle_tpu_torch.ops.kernels.conv_epilogue import (
+        matmul_bias_act, matmul_bias_act_reference)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    x, w, b = _mba_operands(M, K, N, gen)
+    errs = {}
+    for relu in relus:
+        for dt in (torch.float32, torch.bfloat16):
+            a, ww = x.to(dt), w.to(dt)
+            got = matmul_bias_act(a, ww, b, relu, impl="kernel")
+            torch.cuda.synchronize()
+            assert torch.isfinite(got).all(), (M, K, N, relu, dt)
+            assert torch.equal(matmul_bias_act(a, ww, b, relu,
+                                               impl="kernel"), got)
+            f64 = matmul_bias_act_reference(a.double(), ww.double(),
+                                            b.double(), relu)
+            if dt == torch.float32:
+                errs["f32"] = max(errs.get("f32", 0.0),
+                                  _row_ulps(got, f64, F32_EPS))
+                continue
+            plain = matmul_bias_act_reference(a, ww, b, relu)
+            errs["plain"] = max(errs.get("plain", 0.0),
+                                _row_ulps(got, plain, BF16_EPS))
+            errs["exact"] = max(errs.get("exact", 0.0),
+                                _row_ulps(got, f64, BF16_EPS))
+            errs["max_abs_err"] = max(errs.get("max_abs_err", 0.0), float(
+                (got.float() - plain.float()).abs().max()))
+    for key, bound in CONV_EPILOGUE_BOUNDS.items():
+        assert errs[key] <= bound, ((M, K, N), key, errs[key], bound)
+    return errs
+
+
+def check_conv_epilogue_rows(seed: int = 112) -> None:
+    """B 1 against B 8 at layer 4's shapes, bitwise, f32 and bf16: the
+    first image's 49 rows alone and the fourth image's (rows 147-195,
+    inside the second 128-row tile) equal the same rows of the M = 392
+    call."""
+    from paddle_tpu_torch.ops.kernels.conv_epilogue import matmul_bias_act
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    for M1, K, N in RESNET_B1_LAYER4:
+        x, w, b = _mba_operands(8 * M1, K, N, gen)
+        for dt in (torch.float32, torch.bfloat16):
+            a, ww = x.to(dt), w.to(dt)
+            full = matmul_bias_act(a, ww, b, impl="kernel")
+            for lo in (0, 3 * M1):
+                part = matmul_bias_act(a[lo:lo + M1].contiguous(), ww, b,
+                                       impl="kernel")
+                assert torch.equal(part, full[lo:lo + M1]), \
+                    (M1, K, N, dt, lo)
+
+
+def check_conv_epilogue_edges(seed: int = 113) -> None:
+    """No write outside [M, N]: the kernel's C entry writes into the middle
+    of a NaN-filled buffer with a band of 128 rows before and after; the
+    bands stay NaN and the output matches the wrapper's. Ragged M (49,
+    392, 1568) and N = 64."""
+    from paddle_tpu_torch.ops.kernels import conv_epilogue as ce
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    for M, K, N in ((49, 512, 2048), (392, 2048, 512), (1568, 1024, 256),
+                    (392, 64, 64), (25088, 64, 64)):
+        x, w, b = _mba_operands(M, K, N, gen)
+        for dt, code in ((torch.float32, 0), (torch.bfloat16, 1)):
+            a, ww = x.to(dt), w.to(dt)
+            band = 128 * N
+            buf = torch.full((M * N + 2 * band,), float("nan"), dtype=dt,
+                             device="cuda")
+            out = buf[band:band + M * N]
+            err = ce._lib().paddle_matmul_bias_act(
+                a.data_ptr(), ww.data_ptr(), b.data_ptr(), out.data_ptr(),
+                M, K, N, 1, code, torch.cuda.current_stream().cuda_stream)
+            assert err == 0, err
+            torch.cuda.synchronize()
+            assert buf[:band].isnan().all() and buf[band + M * N:].isnan(
+            ).all(), f"write outside [M, N] at {(M, K, N)} {dt}"
+            assert torch.equal(out.view(M, N), ce.matmul_bias_act(
+                a, ww, b, impl="kernel")), (M, K, N, dt)
+
+
+def _addmm_activation_works() -> bool:
+    """Whether this torch has ``torch._addmm_activation`` (cuBLASLt with a
+    bias + relu epilogue; a yardstick only) and it runs bf16 here."""
+    fn = getattr(torch, "_addmm_activation", None)
+    if fn is None:
+        return False
+    try:
+        a = torch.zeros(16, 16, dtype=torch.bfloat16, device="cuda")
+        fn(a[0], a, a, use_gelu=False)
+        torch.cuda.synchronize()
+        return True
+    except (RuntimeError, NotImplementedError, TypeError):
+        return False
+
+
+def conv_epilogue_times(seed: int = 114) -> dict:
+    """bf16 kernel, plain-version and library times (ms) and bounds at the
+    12 B-8 shapes, and their sums over one forward's 33 sites. The library
+    call (the port never calls it) adds the bias in bf16:
+    ``torch._addmm_activation(bias, x, w, use_gelu=False)`` for the relu
+    sites where this torch runs it, else ``torch.addmm`` then ``relu_``;
+    ``torch.addmm`` for the others."""
+    from paddle_tpu_torch.ops.kernels.conv_epilogue import (
+        matmul_bias_act, matmul_bias_act_reference)
+    fused = _addmm_activation_works()
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    keys = ("ms", "plain_ms", "library_ms", "bound_ms")
+    shapes, total = {}, dict.fromkeys(keys, 0.0)
+    for (M, K, N, relu), sites in RESNET_B8_SITES.items():
+        x, w, b = _mba_operands(M, K, N, gen)
+        a, ww, bb = x.bfloat16(), w.bfloat16(), b.bfloat16()
+        if not relu:
+            lib = lambda: torch.addmm(bb, a, ww)          # noqa: E731
+        elif fused:
+            lib = lambda: torch._addmm_activation(     # noqa: E731
+                bb, a, ww, use_gelu=False)
+        else:
+            lib = lambda: torch.addmm(bb, a, ww).relu_()  # noqa: E731
+        bound, by = conv_epilogue_bound_ms(M, K, N)
+        with torch.no_grad():
+            t = dict(
+                ms=time_ms(lambda: matmul_bias_act(a, ww, b, relu,
+                                                   impl="kernel")),
+                plain_ms=time_ms(lambda: matmul_bias_act_reference(
+                    a, ww, b, relu), reps=5),
+                library_ms=time_ms(lib), bound_ms=bound, bound_by=by,
+                sites=sites)
+        shapes[f"{M}x{K}x{N}{'_relu' if relu else ''}"] = t
+        for k in keys:
+            total[k] += sites * t[k]
+        del x, w, a, ww
+    torch.cuda.empty_cache()
+    # what bounds the forward's 33 launches: the side that bounds most of
+    # their summed bound
+    total["bound_by"] = max(("bytes", "operations"), key=lambda by: sum(
+        t["sites"] * t["bound_ms"] for t in shapes.values()
+        if t["bound_by"] == by))
+    return dict(shapes=shapes, per_forward=total, library=(
+        "torch._addmm_activation" if fused else "torch.addmm + relu_"))
+
+
+def conv_epilogue_phase() -> dict:
+    """Phase 11: the conv-epilogue kernel against its plain version at
+    ResNet-50's 12 B-8 shapes and layer 4's at B 1, relu on and off;
+    rows bitwise across M; no write outside the output; timings."""
+    errs = {}
+    shapes = [(M, K, N) for M, K, N, _ in RESNET_B8_SITES]
+    for i, (M, K, N) in enumerate(shapes + list(RESNET_B1_LAYER4)):
+        e = check_conv_epilogue(M, K, N, seed=100 + i)
+        errs[f"{M}x{K}x{N}"] = e
+        log(f"conv_epilogue {M}x{K}x{N}: " + " ".join(
+            f"{k}={v:.4g}" for k, v in sorted(e.items())))
+    check_conv_epilogue_rows()
+    check_conv_epilogue_edges()
+    log("conv_epilogue: rows at M 49 equal rows of M 392 bitwise (f32, "
+        "bf16); no write outside [M, N] (ragged M, N = 64); two launches "
+        "give the same bits")
+    times = conv_epilogue_times()
+    for name, t in times["shapes"].items():
+        log(f"kernel conv_epilogue {name} bf16 (x{t['sites']} a forward): "
+            f"kernel {t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, "
+            f"library {t['library_ms']:.4f} ms, bound {t['bound_ms']:.4f} "
+            f"ms ({t['bound_by']})")
+    pf = times["per_forward"]
+    log(f"conv_epilogue per B-8 forward (33 sites): kernel {pf['ms']:.4f} "
+        f"ms, plain {pf['plain_ms']:.4f} ms, library ({times['library']}) "
+        f"{pf['library_ms']:.4f} ms, bound {pf['bound_ms']:.4f} ms "
+        f"({pf['bound_by']})")
+    b8 = {k: v for k, v in errs.items() if not k.startswith("49x")}
+    return dict(pf, max_abs_err=max(
+        e["max_abs_err"] for e in b8.values()), errs=errs, times=times)
+
+
+# ---------------------------------------------------------------------------
+# ResNet-50 inference with the conv-bn fold
+# ---------------------------------------------------------------------------
+
+# folded bf16 (kernels) vs folded bf16 (plain versions) on one B-8 input:
+# max |dlogit| over the largest |logit|. The 33 kernel sites differ from
+# their plain versions by an ulp at most (phase 11), which 16 blocks of
+# bf16 convs and residual adds carry to the logits.
+RESNET_BF16_LOGITS_REL = 0.05
+# folded f32 (the f32 kernel) vs the unfolded f32 model (conv -> BN -> relu),
+# TF32 off: the fold's reassociation (w·s summed, not the sum scaled) and
+# other f32 summation orders through 53 convs, as the CPU tests' bound
+# against the JAX package.
+RESNET_F32_LOGITS_REL = 1e-4
+RESNET_IMAGE = 224
+RESNET_BATCHES = (8, 128)
+
+
+@torch.no_grad()
+def seed_resnet_bn_stats(model, seed: int) -> None:
+    """Means N(0, 0.1), variances U(0.5, 1.5), γ ≈ 1 and β ≈ 0 with noise
+    on every BatchNorm2D (the init leaves the identity, which makes the
+    fold trivial)."""
+    from paddle_tpu_torch.models.resnet import BatchNorm2D
+    gen = torch.Generator().manual_seed(seed)
+    for m in model.modules():
+        if isinstance(m, BatchNorm2D):
+            c = m.num_features
+            for t, v in ((m._mean, 0.1 * torch.randn(c, generator=gen)),
+                         (m._variance, torch.rand(c, generator=gen) + 0.5),
+                         (m.weight, 1 + 0.1 * torch.randn(c, generator=gen)),
+                         (m.bias, 0.1 * torch.randn(c, generator=gen))):
+                t.copy_(v)
+
+
+def make_resnet50(dtype=torch.bfloat16, seed: int = 0):
+    """``resnet50(num_classes=1000)`` on the card with seeded random
+    weights and BN statistics, eval, channels-last."""
+    from paddle_tpu_torch.models.resnet import resnet50
+    model = resnet50(num_classes=1000, dtype=torch.float32,
+                     generator=torch.Generator().manual_seed(seed))
+    seed_resnet_bn_stats(model, seed + 1)
+    return model.to(dtype=dtype, memory_format=torch.channels_last).eval()
+
+
+def resnet_input(B: int, dtype, seed: int = 5):
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    return torch.randn((B, 3, RESNET_IMAGE, RESNET_IMAGE), generator=gen,
+                       device="cuda").to(dtype)
+
+
+def time_forwards(model, x, reps: int) -> tuple:
+    """Host ms per forward over ``reps`` forwards ending in a synchronize
+    (after 3 warm-up forwards), and the peak memory of the run in GiB."""
+    with torch.no_grad():
+        for _ in range(3):
+            model(x)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            model(x)
+        torch.cuda.synchronize()
+    dt = (time.perf_counter() - t0) / reps
+    return dt * 1e3, torch.cuda.max_memory_allocated() / 2 ** 30
+
+
+def _rowwise_hooks(folded, seen: list):
+    """Forward hooks on the row-wise sites: each records (M, K, N, relu)
+    and checks that the [M, K] operand is a view of the activation."""
+    from paddle_tpu_torch.analysis import ConvBnAct
+
+    def hook(mod, args, out):
+        x = args[0]
+        b, c, h, w = x.shape
+        assert x.permute(0, 2, 3, 1).reshape(-1, c).data_ptr() == \
+            x.data_ptr() and x.is_contiguous(
+                memory_format=torch.channels_last), "a kernel site copied"
+        seen.append((b * h * w, c, mod.weight.shape[1], mod.relu))
+
+    return [m.register_forward_hook(hook) for m in folded.modules()
+            if isinstance(m, ConvBnAct) and m.rowwise]
+
+
+def resnet_phase() -> dict:
+    """Phase 12: ResNet-50 inference, folded, on the conv-epilogue kernel
+    at full width and depth (224 x 224, 1000 classes), B 8 and B 128."""
+    import collections
+    import copy
+    from paddle_tpu_torch.analysis import ConvBnAct, fold_conv_bn
+    from paddle_tpu_torch.ops.kernels import conv_epilogue as ce
+    # f32: folded (the f32 kernel) vs unfolded, TF32 off (set in main)
+    m32 = make_resnet50(torch.float32)
+    n_params = sum(p.numel() for p in m32.parameters())
+    f32_folded, fired = fold_conv_bn(m32)
+    assert fired == {"conv-bn-fold": 53}, fired
+    x32 = resnet_input(8, torch.float32)
+    with torch.no_grad():
+        ref32 = m32(x32)
+        got32 = f32_folded(x32)
+    torch.cuda.synchronize()
+    scale32 = float(ref32.abs().max())
+    rel32 = float((got32 - ref32).abs().max()) / scale32
+    assert torch.isfinite(got32).all() and rel32 <= RESNET_F32_LOGITS_REL, \
+        (rel32, RESNET_F32_LOGITS_REL)
+    top32 = ref32.argmax(-1)
+    log(f"resnet50 ({n_params / 1e6:.2f} M params): fold fired {fired}; "
+        f"f32 folded (kernel) vs unfolded logits max |d| {rel32:.3g} of "
+        f"the logit scale {scale32:.4g} (bound {RESNET_F32_LOGITS_REL}), "
+        f"top-1 equal on {int((got32.argmax(-1) == top32).sum())}/8")
+    del f32_folded, got32
+
+    model = copy.deepcopy(m32).to(torch.bfloat16)
+    del m32
+    folded, fired = fold_conv_bn(model)
+    plain, _ = fold_conv_bn(model, impl="reference")
+    assert fired == {"conv-bn-fold": 53}, fired
+    x8 = x32.to(torch.bfloat16)
+    rec = dict(fired=fired["conv-bn-fold"], params=n_params)
+
+    # the main path: every forward of the folded bf16 model, counted
+    ce.matmul_bias_act.launches = 0
+    ConvBnAct.input_copies = 0
+    seen: list = []
+    hooks = _rowwise_hooks(folded, seen)
+    with torch.no_grad():
+        logits = folded(x8)
+    for h in hooks:
+        h.remove()
+    forwards = 1
+    assert collections.Counter(seen) == RESNET_B8_SITES, \
+        collections.Counter(seen)
+    for B in RESNET_BATCHES:
+        x = resnet_input(B, torch.bfloat16)
+        ms, peak = time_forwards(folded, x, reps=20 if B == 8 else 10)
+        forwards += 3 + (20 if B == 8 else 10)
+        rec[f"folded_b{B}"] = dict(ms=ms, images_per_s=B / ms * 1e3,
+                                   peak_gib=peak)
+    launches = ce.matmul_bias_act.launches
+    assert launches == 33 * forwards, (launches, forwards)
+    assert ConvBnAct.input_copies == 0, ConvBnAct.input_copies
+    rec["launches"] = launches
+
+    with torch.no_grad():
+        ref = plain(x8)
+    torch.cuda.synchronize()
+    assert torch.isfinite(logits).all() and logits.shape == (8, 1000)
+    scale = float(ref.float().abs().max())
+    std = float(ref.float().std())
+    rel = float((logits.float() - ref.float()).abs().max()) / scale
+    assert rel <= RESNET_BF16_LOGITS_REL, (rel, RESNET_BF16_LOGITS_REL)
+    agree = int((logits.argmax(-1) == top32).sum())
+    log(f"resnet50 bf16 folded: kernels vs plain versions max |dlogit| "
+        f"{rel:.4g} of the logit scale {scale:.4g} (std {std:.4g}; bound "
+        f"{RESNET_BF16_LOGITS_REL}); top-1 equal to the f32 unfolded "
+        f"model's on {agree}/8; launches {launches} = 33 x {forwards} "
+        f"forwards; no kernel site copied its input")
+    rec.update(bf16_rel=rel, logit_scale=scale, logit_std=std,
+               f32_rel=rel32, top1_agree=agree)
+    del plain, folded
+    for B in RESNET_BATCHES:
+        x = resnet_input(B, torch.bfloat16)
+        ms, peak = time_forwards(model, x, reps=20 if B == 8 else 10)
+        rec[f"unfolded_b{B}"] = dict(ms=ms, images_per_s=B / ms * 1e3,
+                                     peak_gib=peak)
+    for B in RESNET_BATCHES:
+        f, u = rec[f"folded_b{B}"], rec[f"unfolded_b{B}"]
+        log(f"resnet50 bf16 B {B} at {RESNET_IMAGE}x{RESNET_IMAGE}: folded "
+            f"{f['ms']:.3f} ms/forward ({f['images_per_s']:.1f} images/s, "
+            f"peak {f['peak_gib']:.2f} GiB); unfolded (conv -> BN -> relu "
+            f"on cuDNN) {u['ms']:.3f} ms ({u['images_per_s']:.1f} images/s, "
+            f"peak {u['peak_gib']:.2f} GiB)")
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rec
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -2191,6 +2609,10 @@ def main() -> int:
     torch.cuda.empty_cache()
     gmm_rec = gmm_kernel_phase()
     qwen = qwen_train_phase()
+    gc.collect()
+    torch.cuda.empty_cache()
+    ce_rec = conv_epilogue_phase()
+    resnet = resnet_phase()
 
     a = rec["a_serving_mix"]
     kernels = [{
@@ -2248,6 +2670,14 @@ def main() -> int:
             max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"],
             bound_ms=r["bound_ms"], bound_by=r["bound_by"],
             library_ms=r["library_ms"]))
+    kernels.append(dict(
+        name="conv_epilogue", route="cuda",
+        source="paddle_tpu_torch/csrc/conv_epilogue.cu",
+        replaces="paddle_tpu/ops/pallas/conv_epilogue.py:46",
+        launches=resnet["launches"], max_abs_err=ce_rec["max_abs_err"],
+        ms=ce_rec["ms"], plain_ms=ce_rec["plain_ms"],
+        bound_ms=ce_rec["bound_ms"], bound_by=ce_rec["bound_by"],
+        library_ms=ce_rec["library_ms"]))
     log(f"chip_smoke: all phases passed in "
         f"{time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)

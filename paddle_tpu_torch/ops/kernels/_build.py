@@ -24,7 +24,8 @@ _PKG = Path(__file__).resolve().parents[2]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "kernels"
 KERNELS = ("ragged_paged_attention", "flash_attention", "fused_rms_norm",
-           "fused_rope", "paged_attention", "int8_matmul", "grouped_matmul")
+           "fused_rope", "paged_attention", "int8_matmul", "grouped_matmul",
+           "conv_epilogue")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

@@ -286,3 +286,58 @@ def test_qwen2_moe_train_step_on_two_layers(cuda):
     with 2 layers: launches per the formula, the loss falls, the first
     loss agrees with the plain versions' on the same state."""
     smoke.qwen_train_phase(num_layers=2)
+
+
+@pytest.mark.parametrize("relu", [True, False])
+@pytest.mark.parametrize("shape", [(392, 2048, 512), (25088, 64, 64)])
+def test_conv_epilogue_matches_plain_version(cuda, shape, relu):
+    """Two of ResNet-50's 1x1 shapes at B 8 (ragged M with K 2048; N 64):
+    f32 vs the f64 evaluation, bf16 vs the bf16 plain version and f64,
+    within the smoke's CONV_EPILOGUE_BOUNDS; two launches bitwise equal."""
+    smoke.check_conv_epilogue(*shape, seed=9, relus=(relu,))
+
+
+def test_conv_epilogue_rows_are_batch_invariant_and_writes_masked(cuda):
+    """B 1 rows equal the same rows at B 8 bitwise; nothing is written
+    outside [M, N] for ragged M and N = 64."""
+    smoke.check_conv_epilogue_rows(seed=10)
+    smoke.check_conv_epilogue_edges(seed=11)
+
+
+def test_conv_epilogue_counts_launches_and_rejects_bad_input(cuda):
+    from paddle_tpu_torch.ops.kernels import conv_epilogue as ce
+    x = torch.randn(49, 64, device=cuda, dtype=torch.bfloat16)
+    w = torch.randn(64, 64, device=cuda, dtype=torch.bfloat16)
+    b = torch.randn(64, device=cuda)
+    before = ce.matmul_bias_act.launches
+    ce.matmul_bias_act(x, w, b)
+    ce.matmul_bias_act(x, w, b, impl="reference")
+    assert ce.matmul_bias_act.launches == before + 1
+    with pytest.raises(ValueError, match="multiples of 8"):
+        ce.matmul_bias_act(x[:, :60], w[:60], b)
+    with pytest.raises(ValueError, match="contiguous"):
+        ce.matmul_bias_act(x[:, ::2], w[::2], b)
+    with pytest.raises(TypeError, match="bias"):
+        ce.matmul_bias_act(x, w, b.bfloat16())
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        ce.matmul_bias_act(x.half(), w.half(), b)
+
+
+def test_folded_resnet50_runs_its_1x1_sites_on_the_kernel(cuda):
+    """One folded bf16 forward at B 2, 64 x 64: 33 launches, no input
+    copied, logits within the smoke's bound of the plain versions'."""
+    from paddle_tpu_torch.analysis import ConvBnAct, fold_conv_bn
+    from paddle_tpu_torch.ops.kernels import conv_epilogue as ce
+    model = smoke.make_resnet50(torch.bfloat16)
+    folded, fired = fold_conv_bn(model)
+    plain, _ = fold_conv_bn(model, impl="reference")
+    assert fired == {"conv-bn-fold": 53}
+    x = torch.randn(2, 3, 64, 64, device=cuda).bfloat16()
+    before, copies = ce.matmul_bias_act.launches, ConvBnAct.input_copies
+    with torch.no_grad():
+        got, ref = folded(x), plain(x)
+    assert ce.matmul_bias_act.launches == before + 33
+    assert ConvBnAct.input_copies == copies
+    scale = float(ref.float().abs().max())
+    assert float((got.float() - ref.float()).abs().max()) <= \
+        smoke.RESNET_BF16_LOGITS_REL * scale

@@ -11,10 +11,13 @@ _PROBE = """
 import sys
 import chip_smoke
 import paddle_tpu_torch
-from paddle_tpu_torch.models import llama, qwen2_moe
+from paddle_tpu_torch.models import llama, qwen2_moe, resnet
 from paddle_tpu_torch.ops.kernels import (
-    _build, flash_attention, fused_norm_rope, grouped_matmul, int8_matmul,
-    paged_attention, ragged_paged_attention)
+    _build, conv_epilogue, flash_attention, fused_norm_rope, grouped_matmul,
+    int8_matmul, paged_attention, ragged_paged_attention)
+from paddle_tpu_torch.ops.fused import conv_epilogue
+from paddle_tpu_torch.analysis import fold_conv_bn
+from paddle_tpu_torch.vision.models import resnet50
 from paddle_tpu_torch.incubate.moe import functional
 from paddle_tpu_torch.ops.fused import fused_softmax_cross_entropy
 from paddle_tpu_torch.ops.fused import int8_matmul
@@ -39,8 +42,9 @@ def test_entry_points_raise_without_cuda_or_device():
         pytest.skip("CUDA is present here: the default device is the card")
     from paddle_tpu_torch import resolve_device
     from paddle_tpu_torch.inference import GenerationPredictor
-    from paddle_tpu_torch.models import llama, qwen2_moe
+    from paddle_tpu_torch.models import llama, qwen2_moe, resnet
     from paddle_tpu_torch.serving import ServingEngine
+    from paddle_tpu_torch.vision.models import resnet50
     cfg = llama.LlamaConfig.tiny()
     qcfg = qwen2_moe.Qwen2MoeConfig.tiny(moe_impl="dropless")
     prompt = [[1, 2, 3]]
@@ -62,6 +66,10 @@ def test_entry_points_raise_without_cuda_or_device():
         lambda: qwen2_moe.make_train_step(qcfg),
         lambda: qwen2_moe.init_params(qcfg, torch.Generator()),
         lambda: qwen2_moe.make_batch(qcfg, 1, 8),
+        lambda: resnet50(),
+        lambda: resnet.resnext50_32x4d(num_classes=10),
+        lambda: resnet.ResNet(depth=18, dtype=torch.bfloat16),
+        lambda: resnet.params_from_jax({}),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="CUDA"):
