@@ -11,7 +11,9 @@ Phases (any failed check raises; nothing is caught):
 
 1. environment: Python, torch and CUDA versions, and the card's name and
    power limit as ``nvidia-smi`` reports them;
-2. build: every CUDA kernel of the path from ``paddle_tpu_torch/csrc``;
+2. build: every CUDA kernel of the path from ``paddle_tpu_torch/csrc``,
+   with each kernel's registers and spills as ptxas reports them; the
+   bf16 flash-attention kernels' SASS must hold HGMMA (tensor cores);
 3. the ragged paged-attention kernel against its plain PyTorch version
    on the card, at the Llama-3-8B attention geometry (H 32, Hkv 8,
    Dh 128, page 16): (a) a serving mix of prefill spans, decode rows and
@@ -36,13 +38,16 @@ Phases (any failed check raises; nothing is caught):
 5. the train-step kernels against their plain versions at the
    Llama-3-8B training geometry (B 1, T 2048, H 32, Hkv 8, Dh 128,
    D 4096): flash attention forward and dq/dk/dv (T = S = 2048, S > T,
-   and T = S not a multiple of 64), RMSNorm forward, dx and dw, RoPE
+   and T = S not a multiple of 64; and B 2 at Dh 64, H 8 / Hkv 2,
+   T 700, S 1024), RMSNorm forward, dx and dw, RoPE
    forward and backward at theta 500000. As in phase 3, f32 kernels are
    held to the plain version evaluated in f64 on the same (pre-scaled)
    inputs and bf16 kernels to the bf16 plain version and to the f64
    evaluation on the same bf16 values, each to the bound stated beside
    it; two backward launches must give bitwise equal dq, dk, dv and dw.
-   Kernel, plain-version and library-call times are printed;
+   Kernel, plain-version and library-call times are printed, and the
+   achieved TFLOP/s over the minimal work of the kernels that
+   operations bound;
 6. training: ``make_train_step`` on ``llama3_8b`` at full width and
    depth (32 layers, bf16, seeded random weights, AdamW state in bf16),
    B 1, T 2048, ``TRAIN_STEPS`` steps on one fixed batch. Every kernel's
@@ -162,10 +167,13 @@ DECODE_LOGITS_REL_TOL = 0.05
 TRAIN_STEPS = 4
 # first train step's loss (kernels) vs the plain versions' loss on the
 # same state, relative: the plain flash attention rounds scores,
-# probabilities and PV to bf16 where the kernel keeps f32, and 32 random
-# layers carry that difference to the logits; the loss averages 2048
-# tokens' cross entropy. Measured 6.5e-6 on an H100 80GB HBM3 (700 W)
-# with this script; the bound leaves two orders of magnitude.
+# probabilities and PV to bf16, where the kernel keeps scores, softmax
+# and sums in f32 and feeds p (and dS) to the tensor cores as bf16
+# hi + lo pairs (~16 bits); 32 random layers carry that difference to
+# the logits, and the loss averages 2048 tokens' cross entropy. Measured
+# 6.5e-6 with the FMA kernels, 3.5e-5 with the tensor-core kernels,
+# on an H100 80GB HBM3 (700 W) with this script; the bound leaves two
+# orders of magnitude.
 TRAIN_LOSS_REL = 1e-3
 H100_BYTES_PER_S = 3.35e12       # HBM3, NVIDIA data sheet (SXM, 700 W)
 H100_BF16_FLOPS = 989e12         # dense bf16 tensor-core peak (SXM)
@@ -173,6 +181,57 @@ H100_BF16_FLOPS = 989e12         # dense bf16 tensor-core peak (SXM)
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+def kernel_short_name(mangled: str) -> str:
+    """``fa_fwd_kernel_wgmma<128>`` from a mangled ``ns::fn<...>`` name:
+    the last name before the template arguments, and their integers."""
+    import re
+    if not mangled.startswith("_ZN"):
+        return mangled
+    i, part = 3, mangled
+    while i < len(mangled) and mangled[i].isdigit():
+        j = i
+        while mangled[j].isdigit():
+            j += 1
+        part = mangled[j:j + int(mangled[i:j])]
+        i = j + int(mangled[i:j])
+    ints = re.findall(r"Li(\d+)E", mangled[i:mangled.find("EE", i) + 1])
+    return part + (f"<{','.join(ints)}>" if ints else "")
+
+
+def sass_hgmma(lib: Path) -> dict:
+    """``{kernel function: HGMMA count}`` in the SASS of a built library
+    (``cuobjdump -sass``)."""
+    import shutil
+    from torch.utils.cpp_extension import CUDA_HOME
+    tool = (str(Path(CUDA_HOME) / "bin" / "cuobjdump") if CUDA_HOME
+            else shutil.which("cuobjdump"))
+    sass = subprocess.run([tool, "-sass", str(lib)], capture_output=True,
+                          text=True, timeout=300, check=True).stdout
+    out, fn = {}, None
+    for ln in sass.splitlines():
+        if "Function :" in ln:
+            fn = ln.split("Function :")[1].strip()
+            out[fn] = 0
+        elif fn is not None:
+            out[fn] += "HGMMA" in ln
+    return out
+
+
+def check_flash_sass(lib: Path) -> dict:
+    """The bf16 flash kernels run on tensor cores: HGMMA in the forward
+    and in dq and dkv, for each head dim; returns the counts."""
+    ops = sass_hgmma(lib)
+    got = {}
+    for kern in ("fa_fwd_kernel_wgmma", "fa_bwd_dq_kernel_wgmma",
+                 "fa_bwd_dkv_kernel_wgmma"):
+        fns = {k: v for k, v in ops.items() if kern in k}
+        assert len(fns) == 2, (kern, sorted(ops))      # Dh 64 and 128
+        for fn, hgmma in fns.items():
+            assert hgmma > 0, f"{fn}: no HGMMA in its SASS"
+        got[kern] = sorted(fns.values())
+    return got
 
 
 def nvidia_smi_line() -> str:
@@ -618,12 +677,14 @@ TRAIN_BOUNDS = {
     # forward: f32 online softmax and f32 sums over 64-key tiles, as the
     # ragged kernel (whose bound this is); bf16 as phase 3: the plain
     # version rounds scores, p and PV to bf16, the kernel only its output
+    # and p, as a bf16 hi + lo pair (~16 bits, far below an output ulp)
     ("o", "f32"): 16, ("o", "plain"): 8, ("o", "exact"): 1,
     # backward: dS = p (dP - delta) cancels, and dq sums dS k over up to
     # 2048 keys, dk and dv sum over the G = 4 heads' 2048 rows each (the
     # plain version's own f32 evaluation reads 24-43 ulps from f64 here).
     # bf16: the plain backward rounds dP, dS and every product to bf16,
-    # the kernel only its outputs, as in the forward
+    # the kernel its outputs and p and dS as hi + lo pairs (one bf16 each
+    # would read ~1.04 ulps on dq, over the exact bound)
     ("dq", "f32"): 32, ("dq", "plain"): 8, ("dq", "exact"): 1,
     ("dk", "f32"): 64, ("dk", "plain"): 8, ("dk", "exact"): 1,
     ("dv", "f32"): 64, ("dv", "plain"): 8, ("dv", "exact"): 1,
@@ -647,6 +708,10 @@ TRAIN_GEOM = dict(H=32, Hkv=8, Dh=128, D=4096, theta=500000.0)
 # multiple of the 64-row tile
 FLASH_CASES = {"t2048": (2048, 2048), "s_gt_t": (1500, 2048),
                "t1000": (1000, 1000)}
+# the prefill paths' shape the cases above miss: B > 1, and the Dh 64
+# instantiation, with S > T and neither a multiple of the tile
+FLASH_BATCH_GEOM = dict(H=8, Hkv=2, Dh=64)
+FLASH_BATCH_CASE = dict(T=700, S=1024, B=2)
 
 
 def row_ulps(got, ref, width: int, eps: float) -> float:
@@ -668,19 +733,19 @@ def _randn(shape, gen, scale=1.0):
     return torch.randn(shape, generator=gen, device="cuda") * scale
 
 
-def _flash_run(q, k, v, do, impl, scale):
+def _flash_run(q, k, v, do, impl, scale, causal=True):
     """o and (dq, dk, dv) of flash attention on pre-scaled q (sm_scale
     1), the gradient reported for the unscaled q (x scale)."""
     from paddle_tpu_torch.ops.kernels.flash_attention import flash_attention
     leaves = [t.detach().requires_grad_() for t in (q, k, v)]
     if impl == "kernel":
-        o = flash_attention(*leaves, causal=True, sm_scale=scale,
+        o = flash_attention(*leaves, causal=causal, sm_scale=scale,
                             impl="kernel")
         grads = torch.autograd.grad(o, leaves, do)
         return (o.detach(),) + tuple(grads)
     qs = (leaves[0] * scale).to(q.dtype)   # as the kernel pre-scales
-    o = flash_attention(qs, leaves[1], leaves[2], causal=True, sm_scale=1.0,
-                        impl="reference")
+    o = flash_attention(qs, leaves[1], leaves[2], causal=causal,
+                        sm_scale=1.0, impl="reference")
     dqs, dk, dv = torch.autograd.grad(o, (qs, leaves[1], leaves[2]), do)
     return o.detach(), dqs * scale, dk, dv
 
@@ -703,33 +768,34 @@ def _errs(names, got, f64, plain, widths):
     return out
 
 
-def check_flash(T: int, S: int, seed: int, gm=TRAIN_GEOM) -> dict:
+def check_flash(T: int, S: int, seed: int, gm=TRAIN_GEOM, B: int = 1,
+                causal: bool = True) -> dict:
     """Flash attention forward and backward, f32 and bf16, at the 8B
-    attention geometry (or ``gm``'s heads); determinism of the backward
-    (bitwise)."""
+    attention geometry (or ``gm``'s heads), batch ``B``; determinism of
+    the backward (bitwise)."""
     H, Hkv, Dh = gm["H"], gm["Hkv"], gm["Dh"]
     gen = torch.Generator(device="cuda").manual_seed(seed)
-    q = _randn((1, T, H, Dh), gen)
-    k = _randn((1, S, Hkv, Dh), gen)
-    v = _randn((1, S, Hkv, Dh), gen)
-    do = _randn((1, T, H, Dh), gen)
+    q = _randn((B, T, H, Dh), gen)
+    k = _randn((B, S, Hkv, Dh), gen)
+    v = _randn((B, S, Hkv, Dh), gen)
+    do = _randn((B, T, H, Dh), gen)
     scale = 1.0 / math.sqrt(Dh)
     names = ("o", "dq", "dk", "dv")
     errs = {}
     for dt in (torch.float32, torch.bfloat16):
         ins = [t.to(dt) for t in (q, k, v, do)]
-        got = _flash_run(*ins, "kernel", scale)
+        got = _flash_run(*ins, "kernel", scale, causal)
         if dt == torch.bfloat16:
-            again = _flash_run(*ins, "kernel", scale)
+            again = _flash_run(*ins, "kernel", scale, causal)
             for n, a, b in zip(names[1:], got[1:], again[1:]):
                 assert torch.equal(a, b), f"flash {n} not deterministic"
             del again
-        plain = _flash_run(*ins, "reference", scale)
+        plain = _flash_run(*ins, "reference", scale, causal)
         # the f64 evaluation on the same values, q pre-scaled as the
         # kernel rounds it
         qs = (ins[0].float() * scale).to(dt).double()
         f64 = _flash_run(qs, *(t.double() for t in ins[1:]), "reference",
-                         1.0)
+                         1.0, causal)
         f64 = (f64[0], f64[1] * scale) + f64[2:]
         # dq is measured per head (rows of T x Dh), see TRAIN_BOUNDS
         got, plain, f64 = ((x[0], x[1].transpose(1, 2).contiguous())
@@ -803,7 +869,8 @@ def check_rope(seed: int = 11) -> dict:
 def train_kernel_bounds() -> dict:
     """Least time of each train-step kernel at the smoke's bf16 shapes
     (T = S = 2048): bytes (each input read once, each output written once)
-    over 3.35 TB/s against operations over the bf16 peak."""
+    over 3.35 TB/s against operations over the bf16 peak. Each entry is
+    ``(ms, "bytes" or "operations", minimal operations)``."""
     gm = TRAIN_GEOM
     T, H, Hkv, Dh, D = 2048, gm["H"], gm["Hkv"], gm["Dh"], gm["D"]
     pairs = H * T * (T + 1) / 2           # visible (query, key) pairs
@@ -812,7 +879,7 @@ def train_kernel_bounds() -> dict:
     def bound(nbytes, flops):
         tb = nbytes / H100_BYTES_PER_S * 1e3
         to = flops / H100_BF16_FLOPS * 1e3
-        return (max(tb, to), "bytes" if tb >= to else "operations")
+        return (max(tb, to), "bytes" if tb >= to else "operations", flops)
 
     return {
         # QK and PV: 2 flops per multiply-add, Dh of each per pair
@@ -850,8 +917,9 @@ def train_kernel_times() -> dict:
     do = _randn((1, T, H, Dh), gen).to(bf)
     scale = 1.0 / math.sqrt(Dh)
     out = {}
-    o, lse = fa.flash_attention_fwd(q, k, v, True, scale)
-    _, delta = fa.flash_attention_bwd_dq(q, k, v, o, do, lse, True, scale)
+    qs = fa.prescale_q(q, scale)
+    o, lse = fa.flash_attention_fwd(qs, k, v, True)
+    _, delta = fa.flash_attention_bwd_dq(qs, k, v, o, do, lse, True, scale)
     leaves = [t.detach().requires_grad_() for t in (q, k, v)]
     po = fa._dense_reference(*leaves, True, scale)
     pgrad = lambda: torch.autograd.grad(po, leaves, do, retain_graph=True)
@@ -861,7 +929,7 @@ def train_kernel_times() -> dict:
                                         enable_gqa=True)
     with torch.no_grad():
         out["flash_attention_fwd"] = (
-            time_ms(lambda: fa.flash_attention_fwd(q, k, v, True, scale)),
+            time_ms(lambda: fa.flash_attention_fwd(qs, k, v, True)),
             time_ms(lambda: fa._dense_reference(q, k, v, True, scale),
                     reps=5),
             time_ms(lambda: F.scaled_dot_product_attention(
@@ -870,12 +938,12 @@ def train_kernel_times() -> dict:
     lib_bwd = time_ms(lambda: torch.autograd.grad(so, sl, tdo,
                                                   retain_graph=True))
     out["flash_attention_bwd_dq"] = (
-        time_ms(lambda: fa.flash_attention_bwd_dq(q, k, v, o, do, lse, True,
-                                                  scale)),
+        time_ms(lambda: fa.flash_attention_bwd_dq(qs, k, v, o, do, lse,
+                                                  True, scale)),
         plain_bwd, lib_bwd)
     out["flash_attention_bwd_dkv"] = (
-        time_ms(lambda: fa.flash_attention_bwd_dkv(q, k, v, do, lse, delta,
-                                                   True, scale)),
+        time_ms(lambda: fa.flash_attention_bwd_dkv(qs, k, v, do, lse, delta,
+                                                   True)),
         plain_bwd, lib_bwd)
     del po, so, leaves, sl
     x = _randn((T, D), gen, 2.0).to(bf)
@@ -932,6 +1000,10 @@ def train_kernel_phase() -> dict:
             f"{a}/{b}={v:.4g}" for (a, b), v in e.items()))
         check_bounds(f"flash {name}", e)
         errs[name] = e
+    e = check_flash(**FLASH_BATCH_CASE, seed=len(errs), gm=FLASH_BATCH_GEOM)
+    log(f"flash case b2_dh64 ({FLASH_BATCH_CASE}, {FLASH_BATCH_GEOM}): "
+        + " ".join(f"{a}/{b}={v:.4g}" for (a, b), v in e.items()))
+    check_bounds("flash b2_dh64", e)
     log("flash backward: two launches bitwise equal (dq, dk, dv)")
     for name, fn in (("rms_norm", check_rms_norm), ("rope", check_rope)):
         e = fn()
@@ -955,13 +1027,20 @@ def train_kernel_phase() -> dict:
     rec = {}
     for name, _, _ in TRAIN_KERNELS:
         ms, plain_ms, lib_ms = times[name]
-        b, by = bounds[name]
+        b, by, flops = bounds[name]
+        # achieved rate over the minimal operations (not the kernel's
+        # own), for the kernels that operations bound
+        tflops = flops / ms * 1e-9 if by == "operations" else None
         rec[name] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-                         bound_ms=b, bound_by=by, max_abs_err=max_err[name])
+                         bound_ms=b, bound_by=by, max_abs_err=max_err[name],
+                         tflops=tflops)
         log(f"kernel {name} bf16: kernel {ms:.4f} ms, plain "
             f"{plain_ms:.4f} ms, library "
             f"{'-' if lib_ms is None else f'{lib_ms:.4f}'} ms, bound "
-            f"{b:.4f} ms ({by}), max |err| vs plain {max_err[name]:.4g}")
+            f"{b:.4f} ms ({by}), "
+            + (f"{tflops:.1f} TFLOP/s over the minimal work, "
+               if tflops else "")
+            + f"max |err| vs plain {max_err[name]:.4g}")
     return rec
 
 
@@ -2589,9 +2668,19 @@ def main() -> int:
     libs = _build.build()
     log(f"build: {len(libs)} kernel(s) in {time.perf_counter() - t0:.1f} s")
     for name, path in libs.items():
+        fn = ""
         for ln in Path(str(path) + ".log").read_text().splitlines():
-            if "registers" in ln or "spill" in ln:
-                log(f"ptxas {name}: {ln.strip()}")
+            if "Compiling entry function" in ln:
+                fn = kernel_short_name(ln.split("'")[1])
+            elif "Used" in ln or "spill" in ln:
+                log(f"ptxas {name} {fn}: {ln.strip()}")
+            elif "Performance Loss" in ln:   # names its function itself
+                text, _, rest = ln.partition("'")
+                log(f"ptxas {name} {kernel_short_name(rest.split(chr(39))[0])}"
+                    f": {text.strip()}")
+    log("flash attention bf16 SASS, HGMMA per kernel (Dh 64, 128): "
+        + ", ".join(f"{k} {v}" for k, v in
+                    check_flash_sass(libs["flash_attention"]).items()))
 
     rec = kernel_phase()
     train_rec = train_kernel_phase()

@@ -4,9 +4,10 @@ Each ``csrc/<name>.cu`` is compiled by ``nvcc`` for ``sm_90a`` into a
 shared library with a plain C interface, at first use, under
 ``build/kernels/`` at the repository root (listed in ``.gitignore``),
 and loaded with ``ctypes``. The library's file name carries a digest of
-the source and the flags, so an edited source builds anew and an
-unchanged one is reused. ``build`` starts one ``nvcc`` per source, all
-at once, and waits for them together.
+the source, of every shared header ``csrc/*.cuh`` and of the flags, so
+an edited source or header builds anew and an unchanged one is reused.
+``build`` starts one ``nvcc`` per source, all at once, and waits for
+them together.
 """
 from __future__ import annotations
 
@@ -46,8 +47,10 @@ def _nvcc() -> str:
 
 
 def _target(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode())
+    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        digest.update(header.name.encode() + header.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"{name}-{digest.hexdigest()[:16]}.so"
 
 

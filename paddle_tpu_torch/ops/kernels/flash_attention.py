@@ -11,10 +11,13 @@ every query sees the whole prefix plus its own causal window.
 
 * the kernel path (``csrc/flash_attention.cu``) is an autograd Function.
   Its forward pre-scales q by ``sm_scale`` and rounds it to the input
-  dtype, as splash does, and saves lse (f32 ``[B, H, T]``). Its backward
-  runs the dq kernel (which also writes delta = rowsum(dO∘O)) and then
-  the dkv kernel; no atomics, so the gradients are the same bits from run
-  to run;
+  dtype (``prescale_q``, one elementwise op, as splash does outside its
+  kernel), runs the forward kernel on it and saves the scaled q and lse
+  (f32 ``[B, H, T]``). Its backward runs the dq kernel (which also writes
+  delta = rowsum(dO∘O)) and then the dkv kernel; no atomics, so the
+  gradients are the same bits from run to run. bf16 runs on the
+  tensor-core kernels, f32 on the FMA kernels (the card checks' precision
+  path); nothing else;
 * the plain version is ``_dense_reference``, the JAX package's dense
   formulation, with its autograd gradient.
 
@@ -36,7 +39,7 @@ from . import _build
 
 __all__ = ["flash_attention", "flash_attention_fwd",
            "flash_attention_bwd_dq", "flash_attention_bwd_dkv",
-           "HEAD_DIMS"]
+           "prescale_q", "HEAD_DIMS"]
 
 _KERNEL = "flash_attention"
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
@@ -46,6 +49,14 @@ HEAD_DIMS = (64, 128)        # the kernels' instantiations (csrc)
 def _acc(x):
     """f32, or f64 for f64 inputs (the card checks' exact evaluation)."""
     return x.to(torch.promote_types(x.dtype, torch.float32))
+
+
+def prescale_q(q, sm_scale: float):
+    """``q * sm_scale`` rounded to q's dtype: splash's
+    ``(q * sm_scale).astype(q.dtype)``. For bf16 the product is taken in
+    f32 and rounded once, the bits the kernels once computed in-kernel as
+    ``__float2bfloat16_rn(x * scale)``."""
+    return (q * float(sm_scale)).to(q.dtype)
 
 
 def _dense_reference(q, k, v, causal: bool, sm_scale: float):
@@ -120,50 +131,51 @@ def _raise(err: int, what: str, q, k) -> None:
                            f"k={tuple(k.shape)} {q.dtype}")
 
 
-def flash_attention_fwd(q, k, v, causal: bool, sm_scale: float):
-    """Forward kernel: ``(o [B, T, H, Dh], lse f32 [B, H, T])``."""
-    _check(q, k, v)
-    B, T, H, _ = q.shape
-    o = torch.empty_like(q)
-    lse = torch.empty((B, H, T), dtype=torch.float32, device=q.device)
-    with torch.cuda.device(q.device):
+def flash_attention_fwd(qs, k, v, causal: bool):
+    """Forward kernel on the pre-scaled q (``prescale_q``):
+    ``(o [B, T, H, Dh], lse f32 [B, H, T])``."""
+    _check(qs, k, v)
+    B, T, H, _ = qs.shape
+    o = torch.empty_like(qs)
+    lse = torch.empty((B, H, T), dtype=torch.float32, device=qs.device)
+    with torch.cuda.device(qs.device):
         err = _fn("paddle_flash_fwd", 5)(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-            lse.data_ptr(), *_shape_args(q, k, sm_scale, causal))
-    _raise(err, "forward", q, k)
+            qs.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+            lse.data_ptr(), *_shape_args(qs, k, 1.0, causal))
+    _raise(err, "forward", qs, k)
     flash_attention_fwd.launches += 1
     return o, lse
 
 
-def flash_attention_bwd_dq(q, k, v, o, do, lse, causal: bool,
+def flash_attention_bwd_dq(qs, k, v, o, do, lse, causal: bool,
                            sm_scale: float):
-    """dq kernel: ``(dq, delta f32 [B, H, T])``; delta feeds the dkv
+    """dq kernel: ``(dq, delta f32 [B, H, T])``, dq for the unscaled q
+    (the kernel multiplies by ``sm_scale``); delta feeds the dkv
     kernel."""
-    _check(q, k, v, o, do, lse)
+    _check(qs, k, v, o, do, lse)
     delta = torch.empty_like(lse)
-    dq = torch.empty_like(q)
-    with torch.cuda.device(q.device):
+    dq = torch.empty_like(qs)
+    with torch.cuda.device(qs.device):
         err = _fn("paddle_flash_bwd_dq", 8)(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+            qs.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
             do.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
-            *_shape_args(q, k, sm_scale, causal))
-    _raise(err, "dq", q, k)
+            *_shape_args(qs, k, sm_scale, causal))
+    _raise(err, "dq", qs, k)
     flash_attention_bwd_dq.launches += 1
     return dq, delta
 
 
-def flash_attention_bwd_dkv(q, k, v, do, lse, delta, causal: bool,
-                            sm_scale: float):
-    """dkv kernel: ``(dk, dv)`` in k's layout."""
-    _check(q, k, v, do, lse, delta)
+def flash_attention_bwd_dkv(qs, k, v, do, lse, delta, causal: bool):
+    """dkv kernel on the pre-scaled q: ``(dk, dv)`` in k's layout."""
+    _check(qs, k, v, do, lse, delta)
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
-    with torch.cuda.device(q.device):
+    with torch.cuda.device(qs.device):
         err = _fn("paddle_flash_bwd_dkv", 8)(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+            qs.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
             lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-            *_shape_args(q, k, sm_scale, causal))
-    _raise(err, "dkv", q, k)
+            *_shape_args(qs, k, 1.0, causal))
+    _raise(err, "dkv", qs, k)
     flash_attention_bwd_dkv.launches += 1
     return dk, dv
 
@@ -176,20 +188,21 @@ flash_attention_bwd_dkv.launches = 0
 class _FlashAttention(torch.autograd.Function):
     @staticmethod
     def forward(ctx, q, k, v, causal, sm_scale):
-        q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
-        o, lse = flash_attention_fwd(q, k, v, causal, sm_scale)
-        ctx.save_for_backward(q, k, v, o, lse)
+        k, v = k.contiguous(), v.contiguous()
+        qs = prescale_q(q.contiguous(), sm_scale)
+        o, lse = flash_attention_fwd(qs, k, v, causal)
+        ctx.save_for_backward(qs, k, v, o, lse)
         ctx.causal, ctx.sm_scale = causal, sm_scale
         return o
 
     @staticmethod
     def backward(ctx, do):
-        q, k, v, o, lse = ctx.saved_tensors
+        qs, k, v, o, lse = ctx.saved_tensors
         do = do.contiguous()
-        dq, delta = flash_attention_bwd_dq(q, k, v, o, do, lse, ctx.causal,
+        dq, delta = flash_attention_bwd_dq(qs, k, v, o, do, lse, ctx.causal,
                                            ctx.sm_scale)
-        dk, dv = flash_attention_bwd_dkv(q, k, v, do, lse, delta,
-                                         ctx.causal, ctx.sm_scale)
+        dk, dv = flash_attention_bwd_dkv(qs, k, v, do, lse, delta,
+                                         ctx.causal)
         return dq, dk, dv, None, None
 
 

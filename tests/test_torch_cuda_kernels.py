@@ -65,6 +65,22 @@ def test_flash_attention_matches_plain_version(cuda, case):
     smoke.check_bounds(case, smoke.check_flash(T, S, seed=3))
 
 
+def test_flash_attention_batch_and_head_dim_64(cuda):
+    """B 2 (every prefill path's batch) and the Dh-64 instantiation, at
+    H 8 / Hkv 2, T 700, S 1024: forward and backward within the smoke's
+    TRAIN_BOUNDS, two backward launches bitwise equal."""
+    smoke.check_bounds("b2_dh64", smoke.check_flash(
+        **smoke.FLASH_BATCH_CASE, seed=7, gm=smoke.FLASH_BATCH_GEOM))
+
+
+def test_flash_attention_without_causal_mask(cuda):
+    """causal=False (every query row sees all S keys; no main path runs
+    it) at the same shape, within the same bounds."""
+    smoke.check_bounds("full_mask", smoke.check_flash(
+        **smoke.FLASH_BATCH_CASE, seed=8, gm=smoke.FLASH_BATCH_GEOM,
+        causal=False))
+
+
 def test_rms_norm_matches_plain_version(cuda):
     """Forward, dx and dw at [2048, 4096]; dx and dw bitwise equal over
     two launches."""

@@ -54,6 +54,58 @@ def test_flash_attention_matches_jax_dense(T, S, H, Hkv, causal):
         np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
 
 
+@pytest.mark.parametrize("Dh", [64, 128])
+def test_prescale_matches_jax_bitwise(Dh):
+    """The kernel path's pre-scale of q is splash's
+    ``(q * sm_scale).astype(q.dtype)`` bit for bit on bf16 inputs, at the
+    JAX package's default scale ``1 / np.sqrt(Dh)`` (a NumPy scalar, so
+    both sides multiply in f32 and round once to bf16)."""
+    rng = np.random.RandomState(Dh)
+    q = (rng.randn(2, 37, 4, Dh) * 3).astype(np.float32)
+    sm_scale = 1.0 / np.sqrt(Dh)
+    jq = jnp.asarray(q).astype(jnp.bfloat16)
+    want = np.asarray((jq * sm_scale).astype(jq.dtype)).view(np.uint16)
+    got = TFA.prescale_q(_t(q).to(torch.bfloat16), sm_scale)
+    assert got.dtype == torch.bfloat16 and got.shape == q.shape
+    np.testing.assert_array_equal(
+        got.view(torch.int16).numpy().view(np.uint16), want)
+
+
+def test_kernel_path_hands_the_kernels_the_prescaled_q(monkeypatch):
+    """The autograd Function pre-scales q once and gives that tensor to
+    the forward, dq and dkv kernels; dq's launch gets sm_scale for the
+    unscaled q's gradient. The kernels are stood in for here (they run
+    only on the card)."""
+    seen = {}
+
+    def fwd(qs, k, v, causal):
+        seen["fwd"] = qs
+        B, T, H, _ = qs.shape
+        return (TFA._dense_reference(qs, k, v, causal, 1.0),
+                torch.zeros(B, H, T))
+
+    def dq(qs, k, v, o, do, lse, causal, sm_scale):
+        seen["dq"] = (qs, sm_scale)
+        return torch.zeros_like(qs), torch.zeros_like(lse)
+
+    def dkv(qs, k, v, do, lse, delta, causal):
+        seen["dkv"] = qs
+        return torch.zeros_like(k), torch.zeros_like(v)
+
+    monkeypatch.setattr(TFA, "flash_attention_fwd", fwd)
+    monkeypatch.setattr(TFA, "flash_attention_bwd_dq", dq)
+    monkeypatch.setattr(TFA, "flash_attention_bwd_dkv", dkv)
+    rng = np.random.RandomState(1)
+    q = _t(rng.randn(1, 8, 4, 64).astype(np.float32)).bfloat16()
+    k = _t(rng.randn(1, 8, 2, 64).astype(np.float32)).bfloat16()
+    leaves = [t.requires_grad_() for t in (q, k, k.detach().clone())]
+    scale = 1.0 / np.sqrt(64)
+    TFA._FlashAttention.apply(*leaves, True, float(scale)).sum().backward()
+    assert torch.equal(seen["fwd"], TFA.prescale_q(q.detach(), scale))
+    assert seen["dq"][0] is seen["fwd"] and seen["dkv"] is seen["fwd"]
+    assert seen["dq"][1] == float(scale)
+
+
 def test_flash_attention_checks_shapes_and_impl():
     q = torch.zeros(1, 8, 4, 16)
     with pytest.raises(ValueError, match="S >= T|S=4 < T=8"):
