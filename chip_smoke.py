@@ -13,14 +13,19 @@ Phases (any failed check raises; nothing is caught):
    power limit as ``nvidia-smi`` reports them;
 2. build: every CUDA kernel of the path from ``paddle_tpu_torch/csrc``,
    with each kernel's registers and spills as ptxas reports them; the
-   bf16 flash-attention kernels' SASS must hold HGMMA (tensor cores);
+   bf16 flash-attention kernels' SASS must hold HGMMA and the bf16 paged
+   and ragged decode-attention kernels' HMMA (tensor cores);
 3. the ragged paged-attention kernel against its plain PyTorch version
    on the card, at the Llama-3-8B attention geometry (H 32, Hkv 8,
    Dh 128, page 16): (a) a serving mix of prefill spans, decode rows and
    padding tokens, (b) long-context decode over 16,384-token tables,
    (c) empty slots, shuffled tables and NaN in the trash page and in
    stale page rows, (d) the serving phase's mixed tick at the engine's
-   own geometry (8 slots, 34 pages a slot, 273 pages). The f32 kernel is held to TILED_ULP_BOUND ulps at
+   own geometry (8 slots, 34 pages a slot, 273 pages), (e) the edges of
+   the kernels' fixed 512-key chunks (decode rows over 511, 512, 513,
+   1024 and 1 keys, a span whose causal limits cross a chunk boundary
+   inside one query tile, a span's end followed by decode rows in the
+   stream). The f32 kernel is held to TILED_ULP_BOUND ulps at
    row scale against the plain version evaluated in f64 on the same
    inputs; the bf16 kernel to ``BF16_PLAIN_ULPS`` against the bf16 plain
    version and to ``BF16_EXACT_ULPS`` against the f64 evaluation on the
@@ -60,8 +65,9 @@ Phases (any failed check raises; nothing is caught):
    geometry. Paged attention (both modes, o, m and l) at ``bench.py``'s
    mix (32 streams of 64-2016 tokens, page 32) and at the engine's (8
    slots, page 16, one 16k sequence), over shuffled tables with NaN in
-   the trash page and past every length; a sequence alone and under
-   another page placement must give the same bits. The int8 matmul at
+   the trash page and past every length, and at the chunk edges (511,
+   512, 513, 1024 and 1 keys); a sequence alone and under another page
+   placement must give the same bits. The int8 matmul at
    the five weight shapes for M = 1, 8, 32, 256 and 4096, with rows
    bitwise equal across M and order. Bounds as in phases 3 and 5 (f32
    vs f64, bf16 vs the bf16 plain version and f64), stated beside each;
@@ -185,7 +191,9 @@ def log(msg: str) -> None:
 
 def kernel_short_name(mangled: str) -> str:
     """``fa_fwd_kernel_wgmma<128>`` from a mangled ``ns::fn<...>`` name:
-    the last name before the template arguments, and their integers."""
+    the last name before the template arguments, then the operand type
+    where the first argument is one (bf16 or f32), and the integer and
+    bool arguments."""
     import re
     if not mangled.startswith("_ZN"):
         return mangled
@@ -196,13 +204,17 @@ def kernel_short_name(mangled: str) -> str:
             j += 1
         part = mangled[j:j + int(mangled[i:j])]
         i = j + int(mangled[i:j])
-    ints = re.findall(r"Li(\d+)E", mangled[i:mangled.find("EE", i) + 1])
-    return part + (f"<{','.join(ints)}>" if ints else "")
+    args = mangled[i:mangled.find("EE", i) + 1]
+    vals = [("bf16" if "__nv_bfloat16" in args else "f32")] \
+        if args.startswith("I") and ("__nv_bfloat16" in args
+                                     or args.startswith("If")) else []
+    vals += re.findall(r"L[ib](\d+)E", args)
+    return part + (f"<{','.join(vals)}>" if vals else "")
 
 
-def sass_hgmma(lib: Path) -> dict:
-    """``{kernel function: HGMMA count}`` in the SASS of a built library
-    (``cuobjdump -sass``)."""
+def sass_count(lib: Path, op: str = "HGMMA") -> dict:
+    """``{kernel function: count of instruction op}`` in the SASS of a
+    built library (``cuobjdump -sass``)."""
     import shutil
     from torch.utils.cpp_extension import CUDA_HOME
     tool = (str(Path(CUDA_HOME) / "bin" / "cuobjdump") if CUDA_HOME
@@ -215,14 +227,14 @@ def sass_hgmma(lib: Path) -> dict:
             fn = ln.split("Function :")[1].strip()
             out[fn] = 0
         elif fn is not None:
-            out[fn] += "HGMMA" in ln
+            out[fn] += op in ln
     return out
 
 
 def check_flash_sass(lib: Path) -> dict:
     """The bf16 flash kernels run on tensor cores: HGMMA in the forward
     and in dq and dkv, for each head dim; returns the counts."""
-    ops = sass_hgmma(lib)
+    ops = sass_count(lib)
     got = {}
     for kern in ("fa_fwd_kernel_wgmma", "fa_bwd_dq_kernel_wgmma",
                  "fa_bwd_dkv_kernel_wgmma"):
@@ -231,6 +243,27 @@ def check_flash_sass(lib: Path) -> dict:
         for fn, hgmma in fns.items():
             assert hgmma > 0, f"{fn}: no HGMMA in its SASS"
         got[kern] = sorted(fns.values())
+    return got
+
+
+def check_decode_sass(libs: dict) -> dict:
+    """The bf16 paged and ragged decode-attention kernels run their
+    products on tensor cores: HMMA (mma.sync) in the SASS of every bf16
+    instantiation (8 head-dim x group cases, both stats modes or both row
+    groupings); the f32 ones stay on FMA units. Returns
+    ``{library: (bf16 kernels, min HMMA, max HMMA, f32 kernels with
+    HMMA)}``."""
+    got = {}
+    for name in ("paged_attention", "ragged_paged_attention"):
+        ops = sass_count(libs[name], "HMMA")
+        bf16 = {k: v for k, v in ops.items() if "__nv_bfloat16" in k}
+        f32 = {k: v for k, v in ops.items()
+               if "decode_attention_kernel" in k and k not in bf16}
+        assert len(bf16) == 16 and len(f32) == 16, (name, sorted(ops))
+        for fn, n in bf16.items():
+            assert n > 0, f"{fn}: no HMMA in its SASS"
+        got[name] = (len(bf16), min(bf16.values()), max(bf16.values()),
+                     sum(v > 0 for v in f32.values()))
     return got
 
 
@@ -247,12 +280,15 @@ def nvidia_smi_line() -> str:
 # ---------------------------------------------------------------------------
 
 def make_case(slots, *, H, Hkv, Dh, ps, pps, n_pad=0, shuffle=False,
-              nan_garbage=False, seed=0, device="cuda"):
+              nan_garbage=False, tail_decode=False, seed=0, device="cuda"):
     """A packed ragged-attention batch: ``slots`` is ``[(q_len, kv_len)]``
     per slot (q_len 0 = empty slot, 1 = decode row, >1 = prefill span
     ending at kv_len). Decode rows sit at their slot index in the first
     S stream positions (padding where a slot has none), spans follow,
-    then ``n_pad`` padding tokens. Returns f32 tensors on ``device``."""
+    then ``n_pad`` padding tokens; with ``tail_decode`` the spans come
+    first and the decode rows right after them, so a span's last tokens
+    and decode rows share a 16-token window of the stream. Returns f32
+    tensors on ``device``."""
     rng = np.random.RandomState(seed)
     g = torch.Generator(device=device).manual_seed(seed)
     S = len(slots)
@@ -273,12 +309,17 @@ def make_case(slots, *, H, Hkv, Dh, ps, pps, n_pad=0, shuffle=False,
     if nan_garbage:
         kp[:, 0] = float("nan")
         vp[:, 0] = float("nan")
-    tok_slot = [s if q_len[s] == 1 else S for s in range(S)]
-    tok_qoff = [0] * S
+    decode = [s if q_len[s] == 1 else S for s in range(S)]
+    if tail_decode:
+        decode = [s for s in decode if s < S]
+    tok_slot, tok_qoff = ([], []) if tail_decode else (decode, [0] * S)
     for s in range(S):
         if q_len[s] > 1:
             tok_slot += [s] * int(q_len[s])
             tok_qoff += list(range(int(q_len[s])))
+    if tail_decode:
+        tok_slot += decode
+        tok_qoff += [0] * len(decode)
     tok_slot += [S] * n_pad
     tok_qoff += [0] * n_pad
     T = len(tok_slot)
@@ -498,13 +539,22 @@ def _tick_slots():
 
 
 CASE_D = dict(slots=_tick_slots(), pps=TICK_PPS)
+# the edges of the kernels' fixed key chunks (KEY_CHUNK = 512): decode rows
+# over C - 1, C, C + 1, 2C and 1 keys; a 40-token span whose causal limits
+# (491 .. 530) cross a chunk boundary inside one query tile; an 18-token
+# span whose last tokens share a 16-token window of the stream with the
+# decode rows that follow it
+CASE_E = dict(slots=[(1, 511), (1, 512), (1, 513), (1, 1024), (1, 1),
+                     (40, 530), (18, 700)], pps=64, n_pad=1,
+              tail_decode=True)
 
 
 def kernel_phase() -> dict:
     from paddle_tpu_torch.ops.kernels import ragged_paged_attention as rpa
     rec = {}
     for name, spec in (("a_serving_mix", CASE_A), ("b_long_context", CASE_B),
-                       ("c_degenerate", CASE_C), ("d_engine_tick", CASE_D)):
+                       ("c_degenerate", CASE_C), ("d_engine_tick", CASE_D),
+                       ("e_chunk_edges", CASE_E)):
         case = make_case(**spec, **GEOM, seed=len(rec))
         errs = check_case(name, case)
         log(f"kernel case {name}: " + " ".join(
@@ -525,6 +575,10 @@ def kernel_phase() -> dict:
             check_row_invariance(case, split_slot=2, split=120)
             log("kernel row invariance: per-slot and chunked == whole, "
                 "bitwise")
+        if name == "e_chunk_edges":
+            check_row_invariance(case, split_slot=5, split=21)
+            log("kernel row invariance across the key-chunk edges: "
+                "per-slot and chunked == whole, bitwise")
         del case
         torch.cuda.empty_cache()
     rpa.ragged_paged_attention_packed.launches = 0
@@ -1053,6 +1107,8 @@ PAGED_GEOM = dict(H=32, Hkv=8, Dh=128)
 PAGED_BENCH = dict(lens=[64 + 1952 * i // 31 for i in range(32)], ps=32)
 # the engine's geometry: 8 slots, page 16, one 16k sequence among short ones
 PAGED_ENGINE = dict(lens=[16384, 300, 77, 5000, 1, 17, 1000, 8191], ps=16)
+# the edges of the fixed key chunks: C - 1, C, C + 1, 2C and 1 keys
+PAGED_EDGES = dict(lens=[511, 512, 513, 1024, 1], ps=16)
 # m and l (f32 kernel, and bf16 kernel on the same bf16 values) vs the f64
 # evaluation, in f32 ulps at each sequence's largest |m| or l: the scores
 # are f32 sums of Dh = 128 products in 16-byte chunks (a few ulps of
@@ -1207,12 +1263,16 @@ def paged_kernel_phase() -> dict:
     geometry (bench mix, engine geometry), invariance, bf16 timings."""
     rec = {}
     for name, spec in (("bench_mix", PAGED_BENCH),
-                       ("engine_16k", PAGED_ENGINE)):
+                       ("engine_16k", PAGED_ENGINE),
+                       ("chunk_edges", PAGED_EDGES)):
         case = make_paged_case(**spec, **PAGED_GEOM, seed=30 + len(rec))
         errs = check_paged_case(name, case)
         log(f"paged case {name}: " + " ".join(
             f"{k}={v:.4g}" for k, v in errs.items()))
         check_paged_invariance(case)
+        if name == "chunk_edges":
+            rec[name] = errs
+            continue
         c16 = cast(case, torch.bfloat16)
         lib_ms = time_ms(paged_sdpa_yardstick(c16))
         plain_ms = time_ms(lambda: run_paged(c16, "reference"), reps=5)
@@ -2681,6 +2741,9 @@ def main() -> int:
     log("flash attention bf16 SASS, HGMMA per kernel (Dh 64, 128): "
         + ", ".join(f"{k} {v}" for k, v in
                     check_flash_sass(libs["flash_attention"]).items()))
+    log("decode attention SASS (bf16 kernels, min / max HMMA, f32 kernels "
+        "with HMMA): " + ", ".join(f"{k} {v}" for k, v in
+                                   check_decode_sass(libs).items()))
 
     rec = kernel_phase()
     train_rec = train_kernel_phase()

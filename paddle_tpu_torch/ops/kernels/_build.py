@@ -7,7 +7,9 @@ and loaded with ``ctypes``. The library's file name carries a digest of
 the source, of every shared header ``csrc/*.cuh`` and of the flags, so
 an edited source or header builds anew and an unchanged one is reused.
 ``build`` starts one ``nvcc`` per source, all at once, and waits for
-them together.
+them together. ``tile_counters`` holds the zeroed int32 counters with
+which the int8 and decode-attention kernels find the last block of a
+tile.
 """
 from __future__ import annotations
 
@@ -19,7 +21,7 @@ import subprocess
 from pathlib import Path
 from typing import Dict, Iterable
 
-__all__ = ["KERNELS", "BUILD_DIR", "build", "load"]
+__all__ = ["KERNELS", "BUILD_DIR", "build", "load", "tile_counters"]
 
 _PKG = Path(__file__).resolve().parents[2]
 CSRC = _PKG / "csrc"
@@ -31,6 +33,11 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _loaded: Dict[str, ctypes.CDLL] = {}
+# Per (device, stream): counters that start at zero and that every launch
+# using them leaves zero. Launches on one stream run in order, so one
+# buffer serves all of them; two streams would mix their counts (a tile's
+# combine could be skipped), so each stream has its own buffer.
+_counters: Dict[tuple, "torch.Tensor"] = {}
 
 
 def _nvcc() -> str:
@@ -93,3 +100,14 @@ def load(name: str) -> ctypes.CDLL:
         lib = ctypes.CDLL(str(build([name])[name]))
         _loaded[name] = lib
     return lib
+
+
+def tile_counters(dev, stream: int, n: int):
+    """At least ``n`` zeroed int32 counters on ``dev`` for launches on
+    ``stream`` (``torch.cuda.current_stream().cuda_stream``)."""
+    import torch
+    buf = _counters.get((dev, stream))
+    if buf is None or buf.numel() < n:
+        buf = torch.zeros((max(n, 4096),), dtype=torch.int32, device=dev)
+        _counters[(dev, stream)] = buf
+    return buf

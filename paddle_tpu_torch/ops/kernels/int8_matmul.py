@@ -57,22 +57,6 @@ def _lib():
     return lib
 
 
-# Per (device, stream): the decode kernel's per-column-tile counters. They
-# start at zero and every launch leaves them zero. Launches on one stream
-# run in order, so one buffer serves them all; two streams would mix
-# their counts (a column tile's combine could be skipped), so each stream
-# has its own buffer.
-_counters = {}
-
-
-def _tile_counters(dev, stream: int, n: int) -> torch.Tensor:
-    buf = _counters.get((dev, stream))
-    if buf is None or buf.numel() < n:
-        buf = torch.zeros((max(n, 1024),), dtype=torch.int32, device=dev)
-        _counters[(dev, stream)] = buf
-    return buf
-
-
 def _launch(x2, q, scale):
     dev = x2.device
     if dev.type != "cuda":
@@ -107,7 +91,7 @@ def _launch(x2, q, scale):
             if S > 1:
                 part = torch.empty((S, M, N), dtype=torch.float32,
                                    device=dev)
-                counters = _tile_counters(dev, stream, -(-N // 128))
+                counters = _build.tile_counters(dev, stream, -(-N // 128))
         err = lib.paddle_int8_matmul(
             x2.data_ptr(), q.data_ptr(), scale.data_ptr(), out.data_ptr(),
             None if part is None else part.data_ptr(),

@@ -26,6 +26,12 @@ tensors, the plain version for CPU tensors; ``"kernel"`` — the kernel,
 raising on anything it cannot take; ``"reference"`` — the plain version
 on any device (tests and the kernel's comparison only). Launch counts:
 ``paged_attention.launches`` and ``paged_attention_stats.launches``.
+
+The kernel splits each row's keys into chunks of ``KEY_CHUNK`` at fixed
+positions and adds their partials in order (``split_plan`` sizes its
+f32 workspace); the last block of a row finds itself through counters
+kept per (device, stream), so launches that share a stream must run in
+stream order, as launches on one stream do.
 """
 from __future__ import annotations
 
@@ -37,13 +43,47 @@ import torch
 from . import _build
 
 __all__ = ["paged_attention", "paged_attention_stats",
-           "paged_attention_reference", "HEAD_DIMS", "GROUPS"]
+           "paged_attention_reference", "HEAD_DIMS", "GROUPS", "KEY_CHUNK",
+           "split_plan"]
 
 _KERNEL = "paged_attention"
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIMS = (64, 128)         # the kernel's instantiations (csrc)
 GROUPS = (1, 2, 4, 8)         # query heads per kv head
 _MASK = -1e30
+# keys a kernel block walks: the fixed split of the key axis
+# (``kChunk`` of csrc/decode_attention.cuh; checked when the library loads)
+KEY_CHUNK = 512
+
+
+def split_plan(max_keys: int, rows: int, head_dim: int) -> tuple:
+    """``(chunks, workspace floats)`` of one decode-attention launch (this
+    kernel's and the ragged kernel's): ``max_keys`` is the page table's
+    width in keys (pages a row x page size), ``rows`` the output rows
+    (tokens x H). The chunk count follows the table alone, never the
+    lengths, the batch or the card. One chunk needs no workspace; more
+    keep each row's per-chunk (O, m, l): ``head_dim + 2`` floats a row
+    and chunk."""
+    chunks = max(1, -(-int(max_keys) // KEY_CHUNK))
+    return chunks, (0 if chunks == 1 else chunks * rows * (head_dim + 2))
+
+
+def workspace(q, max_keys: int, rows: int, stream: int, n_counters: int):
+    """The f32 workspace and the last-block counters (one a query tile and
+    kv head) of one launch; ``None, None`` when the keys fit one chunk."""
+    chunks, floats = split_plan(max_keys, rows, q.shape[-1])
+    if chunks == 1:
+        return None, None
+    return (torch.empty((floats,), dtype=torch.float32, device=q.device),
+            _build.tile_counters(q.device, stream, n_counters))
+
+
+def check_key_chunk(lib) -> None:
+    fn = lib.paddle_decode_attention_key_chunk
+    fn.argtypes, fn.restype = [], ctypes.c_int
+    if fn() != KEY_CHUNK:
+        raise RuntimeError(f"kernel key chunk {fn()} != KEY_CHUNK "
+                           f"{KEY_CHUNK}")
 
 
 def paged_attention_reference(q, k_pages, v_pages, lengths, page_indices,
@@ -81,9 +121,11 @@ def paged_attention_reference(q, k_pages, v_pages, lengths, page_indices,
 
 
 def _lib():
-    fn = _build.load(_KERNEL).paddle_paged_attention
+    lib = _build.load(_KERNEL)
+    fn = lib.paddle_paged_attention
     if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 7
+        check_key_chunk(lib)
+        fn.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 7
                        + [ctypes.c_float, ctypes.c_int, ctypes.c_int,
                           ctypes.c_void_p])
         fn.restype = ctypes.c_int
@@ -101,6 +143,9 @@ def _check(q, k_pages, v_pages, lengths, page_indices):
             raise ValueError(f"{name} is on {t.device}, q on {q.device}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
+        if t.is_floating_point() and t.data_ptr() % 16:
+            raise ValueError(f"{name} must be 16-byte aligned (16-byte "
+                             f"copies)")
     if q.dtype not in _DTYPE_CODE:
         raise TypeError(f"q dtype {q.dtype} not supported (float32 or "
                         f"bfloat16)")
@@ -140,13 +185,18 @@ def _launch(q, k_pages, v_pages, lengths, page_indices, sm_scale,
         l = torch.empty_like(m)
     if B == 0:
         return o, m, l
+    fn = _lib()
     with torch.cuda.device(q.device):
-        err = _lib()(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
-                     lengths.data_ptr(), page_indices.data_ptr(),
-                     o.data_ptr(), m.data_ptr() if stats else None,
-                     l.data_ptr() if stats else None, B, H, Hkv, Dh, P, ps,
-                     pps, float(sm_scale), _DTYPE_CODE[q.dtype],
-                     int(stats), torch.cuda.current_stream().cuda_stream)
+        stream = torch.cuda.current_stream().cuda_stream
+        ws, counters = workspace(q, pps * ps, B * H, stream, B * Hkv)
+        err = fn(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
+                 lengths.data_ptr(), page_indices.data_ptr(), o.data_ptr(),
+                 m.data_ptr() if stats else None,
+                 l.data_ptr() if stats else None,
+                 None if ws is None else ws.data_ptr(),
+                 None if counters is None else counters.data_ptr(), B, H,
+                 Hkv, Dh, P, ps, pps, float(sm_scale), _DTYPE_CODE[q.dtype],
+                 int(stats), stream)
     if err != 0:
         raise RuntimeError(f"paged-attention kernel launch failed (error "
                            f"{err}) for B={B} H={H} Hkv={Hkv} Dh={Dh} "

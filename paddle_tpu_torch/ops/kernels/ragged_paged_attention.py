@@ -29,7 +29,11 @@ hold both against.
 The plain versions round where the JAX package rounds: the pre-scaled
 q, the score product and the PV product run in the operand dtype, the
 softmax in f32. The kernel accumulates both products in f32; its
-tolerance against the plain version is stated where it is checked.
+tolerance against the plain version is stated where it is checked. Like
+the paged-attention kernel it splits each row's keys into chunks of
+``KEY_CHUNK`` at fixed positions (``split_plan``, shared with
+``paged_attention``) and keeps per-(device, stream) counters, so launches
+that share a stream must run in stream order.
 """
 from __future__ import annotations
 
@@ -40,10 +44,12 @@ import numpy as np
 import torch
 
 from . import _build
+from .paged_attention import (KEY_CHUNK, check_key_chunk, split_plan,
+                              workspace)
 
 __all__ = ["ragged_paged_attention_packed",
            "ragged_paged_attention_reference", "TILED_ULP_BOUND",
-           "tiled_ulp_error"]
+           "tiled_ulp_error", "KEY_CHUNK", "split_plan"]
 
 _MASK = -1e30  # the running max starts here, not at -inf (dead rows -> 0)
 
@@ -271,7 +277,8 @@ def _lib():
     lib = _build.load(_KERNEL)
     fn = lib.paddle_rpa_packed
     if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 8
+        check_key_chunk(lib)
+        fn.argtypes = ([ctypes.c_void_p] * 11 + [ctypes.c_int] * 8
                        + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
         fn.restype = ctypes.c_int
     return fn
@@ -291,6 +298,9 @@ def _check_kernel_args(q, k_pages, v_pages, tok_slot, tok_qoff, q_len,
             raise ValueError(f"{name} is on {t.device}, q on {dev}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
+        if t.is_floating_point() and t.data_ptr() % 16:
+            raise ValueError(f"{name} must be 16-byte aligned (16-byte "
+                             f"copies)")
     if q.dtype not in _DTYPE_CODE:
         raise TypeError(f"q dtype {q.dtype} not supported (float32 or "
                         f"bfloat16)")
@@ -331,11 +341,14 @@ def _launch(q, k_pages, v_pages, tok_slot, tok_qoff, q_len, kv_len, tables,
     fn = _lib()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
+        ws, counters = workspace(q, pps * ps, T * H, stream, T * Hkv)
         err = fn(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
                  tok_slot.data_ptr(), tok_qoff.data_ptr(),
                  q_len.data_ptr(), kv_len.data_ptr(), tables.data_ptr(),
-                 out.data_ptr(), T, H, Hkv, Dh, P, ps, S, pps,
-                 float(sm_scale), _DTYPE_CODE[q.dtype], stream)
+                 out.data_ptr(), None if ws is None else ws.data_ptr(),
+                 None if counters is None else counters.data_ptr(), T, H,
+                 Hkv, Dh, P, ps, S, pps, float(sm_scale),
+                 _DTYPE_CODE[q.dtype], stream)
     if err != 0:
         raise RuntimeError(f"ragged paged-attention kernel launch failed "
                            f"(error {err}) for T={T} H={H} Hkv={Hkv} "

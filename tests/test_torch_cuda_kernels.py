@@ -24,6 +24,11 @@ CASES = {
                        nan_garbage=True),
     "group_1": dict(slots=[(9, 300), (1, 65)], pps=20),
     "group_8": dict(slots=[(11, 150), (0, 0), (1, 33)], pps=10, n_pad=1),
+    # the fixed key chunks' edges (KEY_CHUNK = 512): decode rows over
+    # C - 1, C, C + 1, 2C and 1 keys, a span whose causal limits cross a
+    # chunk boundary inside one query tile, and a span's last tokens
+    # followed in the stream by decode rows
+    "chunk_edges": smoke.CASE_E,
 }
 # H per case: G = H / Hkv query heads share a kv head (1, 4 or 8)
 HEADS = {"group_1": 2, "group_8": 16}
@@ -54,6 +59,14 @@ def test_kernel_rows_are_batch_invariant(cuda, H):
     case = smoke.make_case(**CASES["serving_mix"], **dict(GEOM, H=H),
                            device=cuda)
     smoke.check_row_invariance(case, split_slot=1, split=29)
+
+
+def test_kernel_rows_are_invariant_across_chunk_edges(cuda):
+    """Bitwise, over the key-chunk edges: per-slot streams (decode alone:
+    one 16-row group a block) equal the mixed stream's rows (four), and
+    the 40-token span attended as 21 + 19 tokens equals the whole span."""
+    case = smoke.make_case(**CASES["chunk_edges"], **GEOM, device=cuda)
+    smoke.check_row_invariance(case, split_slot=5, split=21)
 
 
 @pytest.mark.parametrize("case", sorted(smoke.FLASH_CASES))
@@ -148,6 +161,7 @@ def test_kernel_counts_launches_and_rejects_bad_input(cuda):
 PAGED_CASES = {
     "mixed_page_4": dict(lens=[1, 9, 64, 200, 33], ps=4),
     "mixed_page_16": dict(lens=[700, 16, 1, 129], ps=16),
+    "chunk_edges": smoke.PAGED_EDGES,
 }
 
 
@@ -222,6 +236,30 @@ def test_int8_matmul_on_two_streams(cuda):
     torch.cuda.synchronize()
     for o in outs[0] + outs[1]:
         assert torch.equal(o, want)
+
+
+def test_decode_attention_on_two_streams(cuda):
+    """Paged (with stats) and ragged launches with several key chunks on
+    two streams at once each keep their own last-block counters: every
+    output equals the one-stream result bitwise."""
+    paged = smoke.cast(smoke.make_paged_case(
+        **PAGED_CASES["chunk_edges"], H=8, Hkv=2, Dh=128, device=cuda),
+        torch.bfloat16)
+    ragged = smoke.cast(smoke.make_case(**CASES["chunk_edges"], **GEOM,
+                                        device=cuda), torch.bfloat16)
+    want = (smoke.run_paged(paged, "kernel"), smoke.run_rpa(ragged, "kernel"))
+    streams = [torch.cuda.Stream(), torch.cuda.Stream()]
+    torch.cuda.synchronize()
+    outs = []
+    for _ in range(10):
+        for st in streams:
+            with torch.cuda.stream(st):
+                outs.append((smoke.run_paged(paged, "kernel"),
+                             smoke.run_rpa(ragged, "kernel")))
+    torch.cuda.synchronize()
+    for (o, m, l), r in outs:
+        assert torch.equal(o, want[0][0]) and torch.equal(m, want[0][1]) \
+            and torch.equal(l, want[0][2]) and torch.equal(r, want[1])
 
 
 def test_paged_decode_paths_on_two_layers(cuda):

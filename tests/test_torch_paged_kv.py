@@ -24,7 +24,7 @@ from paddle_tpu_torch.inference import GenerationPredictor as TPredictor
 from paddle_tpu_torch.inference import paged_kv as TP
 from paddle_tpu_torch.models import llama as TL
 from paddle_tpu_torch.ops.kernels.paged_attention import (
-    paged_attention_stats)
+    KEY_CHUNK, paged_attention_stats, split_plan)
 
 JCFG = JL.LlamaConfig.tiny(dtype=jnp.float32, use_flash_attention=False,
                            remat=False)
@@ -164,6 +164,22 @@ def test_paged_attention_never_reads_past_the_length():
     for a, b in zip(alone, (o, m, l)):
         np.testing.assert_allclose(a.numpy(), b[1:2].numpy(), rtol=RTOL,
                                    atol=RTOL)
+
+
+@pytest.mark.parametrize("keys,chunks", [
+    (KEY_CHUNK - 1, 1), (KEY_CHUNK, 1), (KEY_CHUNK + 1, 2),
+    (2 * KEY_CHUNK, 2), (1, 1)])
+def test_split_plan_at_the_chunk_edges(keys, chunks):
+    """The paged kernel's fixed split: a table of ``keys`` keys (pages x
+    page size) gives ``ceil(keys / KEY_CHUNK)`` chunks, and the workspace
+    holds each row's (O, m, l) for every chunk, none for one chunk. The
+    plan reads the table's width and the rows alone: B = 8 rows of H = 4
+    heads at Dh 128."""
+    assert KEY_CHUNK == 512
+    rows = 8 * 4
+    got, floats = split_plan(keys, rows, 128)
+    assert got == chunks
+    assert floats == (0 if chunks == 1 else chunks * rows * 130)
 
 
 def _ragged_prompt(lens, T0, seed=10):

@@ -19,6 +19,8 @@ from paddle_tpu.ops.pallas.ragged_paged_attention import (
     ragged_paged_attention as jax_rpa,
     ragged_paged_attention_packed as jax_rpa_packed)
 from paddle_tpu_torch.ops.kernels import ragged_paged_attention as port
+from paddle_tpu_torch.ops.kernels.paged_attention import (
+    split_plan as paged_split_plan)
 from paddle_tpu_torch.ops.kernels.ragged_paged_attention import (
     TILED_ULP_BOUND, ragged_paged_attention_packed,
     ragged_paged_attention_reference, tiled_ulp_error)
@@ -192,6 +194,23 @@ def test_wrapper_dispatch_on_cpu():
         ragged_paged_attention_packed(*case, impl="kernel")
     with pytest.raises(ValueError, match="impl"):
         ragged_paged_attention_packed(*case, impl="pallas")
+
+
+@pytest.mark.parametrize("pps,ps,chunks", [
+    (511, 1, 1), (32, 16, 1), (33, 16, 2), (64, 16, 2), (1, 1, 1),
+    (1025, 16, 33)])
+def test_split_plan_at_the_chunk_edges(pps, ps, chunks):
+    """The ragged kernel's fixed split, shared with the paged kernel: a
+    table of pps pages of ps keys (C - 1, C, C + 1, 2C and 1 keys, and
+    the 16k engine table) gives ceil(pps * ps / KEY_CHUNK) chunks, the
+    same for a stream of 1 or 300 tokens; the workspace holds (O, m, l)
+    for each of the T x H rows and every chunk, none for one chunk."""
+    assert port.split_plan is paged_split_plan
+    for T in (1, 300):
+        got, floats = port.split_plan(pps * ps, T * 32, 128)
+        assert got == chunks
+        assert floats == (0 if chunks == 1 else chunks * T * 32 * 130)
+    assert port.KEY_CHUNK == 512
 
 
 def test_tiled_ulp_error_is_at_row_scale():

@@ -126,8 +126,7 @@ def profile(name, step, n_steps, reps=3):
     kern = _kernel_times(prof)
     busy_ms = sum(t for t, _ in kern.values()) / 1e3
     attn_ms = sum(t for k, (t, _) in kern.items()
-                  if "rpa_packed_kernel" in k
-                  or "paged_attention_kernel" in k) / 1e3
+                  if "decode_attention_kernel" in k) / 1e3
     int8_ms = sum(t for k, (t, _) in kern.items()
                   if "int8_mm_bf16_kernel" in k) / 1e3
     span = float(np.median(spans))
