@@ -13,8 +13,10 @@ Phases (any failed check raises; nothing is caught):
    power limit as ``nvidia-smi`` reports them;
 2. build: every CUDA kernel of the path from ``paddle_tpu_torch/csrc``,
    with each kernel's registers and spills as ptxas reports them; the
-   bf16 flash-attention kernels' SASS must hold HGMMA and the bf16 paged
-   and ragged decode-attention kernels' HMMA (tensor cores);
+   bf16 flash-attention kernels' SASS must hold HGMMA, the bf16 paged
+   and ragged decode-attention kernels' HMMA (tensor cores), and every
+   bf16 tgmm and conv-epilogue instantiation (the shared wgmma + TMA
+   mainloop of ``csrc/gemm_sm90.cuh``) HGMMA and no HMMA;
 3. the ragged paged-attention kernel against its plain PyTorch version
    on the card, at the Llama-3-8B attention geometry (H 32, Hkv 8,
    Dh 128, page 16): (a) a serving mix of prefill spans, decode rows and
@@ -86,10 +88,11 @@ Phases (any failed check raises; nothing is caught):
    dropless MoE layer of Qwen1.5-MoE-A2.7B (2048 tokens, top-4 of 60
    experts, D 2048, expert F 1408, tile_m 128) for a uniform and a
    skewed routing (5 experts empty) and the JAX package's tiny
-   ``[0, 2, 2]`` case: gmm forward, dlhs (the weight read transposed)
-   and tgmm, f32 vs f64 and bf16 vs the bf16 plain version and f64
-   (``GMM_BOUNDS``); padding rows and empty experts exactly 0; two
-   launches and a shuffled tile order bitwise equal.
+   ``[0, 2, 2]`` case, and the skewed routing again at widths the tgmm
+   tiles do not divide (``GMM_RAGGED``): gmm forward, dlhs (the weight
+   read transposed) and tgmm, f32 vs f64 and bf16 vs the bf16 plain
+   version and f64 (``GMM_BOUNDS``); padding rows and empty experts
+   exactly 0; two launches and a shuffled tile order bitwise equal.
    ``moe_mlp_dropless`` forward and backward through the kernels vs the
    plain path (``MOE_BOUNDS``), dropless vs the einsum ``moe_ffn`` at a
    capacity that drops nothing (``MOE_EINSUM_ULPS``), and flash attention
@@ -106,11 +109,13 @@ Phases (any failed check raises; nothing is caught):
    against its plain version at ResNet-50's 12 shapes at B 8
    (``RESNET_B8_SITES``) and layer 4's two at B 1, relu on and off: f32
    vs f64 and bf16 vs the bf16 plain version and f64
-   (``CONV_EPILOGUE_BOUNDS``); a second launch, and B 1 against the same
-   rows of B 8, bitwise; no write outside [M, N] (a NaN band around the
-   output). Kernel, plain, bound and library
-   (``torch._addmm_activation`` / ``torch.addmm``) times per shape and
-   summed over one forward's 33 sites;
+   (``CONV_EPILOGUE_BOUNDS``); a second launch, B 1 against the same
+   rows of B 8, and the same rows at M = 49, 392 and 6272
+   (``CONV_ROWS_ACROSS_M``), bitwise; no write outside [M, N]
+   (a NaN band around the output). Kernel, plain, bound and library
+   (``torch._addmm_activation`` / ``torch.addmm``) times and the
+   kernel's host µs per call, per shape and summed over one forward's 33
+   sites;
 12. ResNet-50 inference: ``resnet50(num_classes=1000)`` at 224 x 224,
    seeded random weights and BN statistics, eval, channels-last,
    ``fold_conv_bn`` (53 sites). f32 folded vs unfolded (TF32 off) within
@@ -264,6 +269,25 @@ def check_decode_sass(libs: dict) -> dict:
             assert n > 0, f"{fn}: no HMMA in its SASS"
         got[name] = (len(bf16), min(bf16.values()), max(bf16.values()),
                      sum(v > 0 for v in f32.values()))
+    return got
+
+
+def check_gemm_sass(libs: dict) -> dict:
+    """The bf16 tgmm and conv-epilogue kernels run on the shared wgmma
+    mainloop: HGMMA and no HMMA (mma.sync) in the SASS of every bf16
+    instantiation (tgmm's tile widths 64, 128 and 256, the conv
+    epilogue's 64 and 128). Returns ``{kernel: sorted HGMMA counts}``."""
+    got = {}
+    for lib, kern, n in (("grouped_matmul", "tgmm_wgmma_kernel", 3),
+                         ("conv_epilogue", "mba_wgmma_kernel", 2)):
+        hgmma = sass_count(libs[lib])
+        hmma = sass_count(libs[lib], "HMMA")
+        fns = [k for k in hgmma if kern in k]
+        assert len(fns) == n, (kern, sorted(hgmma))
+        for fn in fns:
+            assert hgmma[fn] > 0, f"{fn}: no HGMMA in its SASS"
+            assert hmma[fn] == 0, f"{fn}: mma.sync (HMMA) in its SASS"
+        got[kern] = sorted(hgmma[fn] for fn in fns)
     return got
 
 
@@ -1742,6 +1766,10 @@ GMM_GEOM = dict(S=2048, k=4, E=60, D=2048, F=1408, tile_m=128)
 # (c) the JAX package's tiny case, E = 3, tile_expert [0, 2, 2] (expert 1
 # owns no tile), K = N = 128
 GMM_ROUTINGS = ("uniform", "skewed", "tiny")
+# the skewed routing again at widths the kernels' tiles do not divide: tgmm
+# writes [E, 584, 328] in 128 x 256 tiles (K = 4.56 tiles, N = 1.28; a
+# last column panel 8 wide), gmm reads 584 and 328 wide
+GMM_RAGGED = dict(GMM_GEOM, D=584, F=328)
 # Bounds, in ulps of the dtype at each output row's largest reference
 # value (rows of N; tgmm's rows are the [E, K, N] output's last axis).
 #   f32: the f32 kernel vs the plain version evaluated in f64: each output
@@ -2104,6 +2132,10 @@ def gmm_kernel_phase() -> dict:
         log(f"gmm routing {kind}: " + " ".join(
             f"{a}/{b}={v:.4g}" for (a, b), v in sorted(e.items())))
         errs[kind] = e
+    e = check_gmm("skewed", seed=53, geom=GMM_RAGGED)
+    log("gmm routing skewed at D 584, F 328: " + " ".join(
+        f"{a}/{b}={v:.4g}" for (a, b), v in sorted(e.items())))
+    errs["skewed_ragged"] = e
     log("gmm/tgmm: padding rows and empty experts exactly 0; two launches "
         "and a shuffled tile order give the same bits")
     e = check_moe()
@@ -2411,11 +2443,41 @@ def check_conv_epilogue_rows(seed: int = 112) -> None:
                     (M1, K, N, dt, lo)
 
 
+# (K, N, Ms): the same rows at each M must come out bitwise equal. The
+# bf16 kernel's arithmetic is fixed by K (chunks of 512) and its tile width
+# by N and K; M changes only how many tiles there are: from one row tile
+# (M 49) through a few (392, B 8's layer 4) to 49 (6272, B 128's).
+CONV_ROWS_ACROSS_M = ((2048, 512, (49, 392, 6272)),
+                      (1024, 256, (49, 392, 6272)))
+
+
+def check_conv_epilogue_rows_across_m(cases=CONV_ROWS_ACROSS_M,
+                                      seed: int = 115) -> None:
+    """bf16, relu on and off: the first M rows and the last M rows of the
+    largest M's input, run alone at each smaller M, equal the same rows of
+    the largest M's output bitwise."""
+    from paddle_tpu_torch.ops.kernels.conv_epilogue import matmul_bias_act
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    for K, N, Ms in cases:
+        big = max(Ms)
+        x, w, b = _mba_operands(big, K, N, gen)
+        a, ww = x.bfloat16(), w.bfloat16()
+        for relu in (True, False):
+            full = matmul_bias_act(a, ww, b, relu, impl="kernel")
+            for M in Ms:
+                for lo in (0, big - M):
+                    part = matmul_bias_act(a[lo:lo + M], ww, b, relu,
+                                           impl="kernel")
+                    assert torch.equal(part, full[lo:lo + M]), \
+                        (K, N, M, lo, relu)
+
+
 def check_conv_epilogue_edges(seed: int = 113) -> None:
     """No write outside [M, N]: the kernel's C entry writes into the middle
     of a NaN-filled buffer with a band of 128 rows before and after; the
-    bands stay NaN and the output matches the wrapper's. Ragged M (49,
-    392, 1568) and N = 64."""
+    bands stay NaN (the bf16 kernel's TMA store clips at the output's
+    edges) and the output matches the wrapper's. Ragged M (49, 392, 1568)
+    and N = 64."""
     from paddle_tpu_torch.ops.kernels import conv_epilogue as ce
     gen = torch.Generator(device="cuda").manual_seed(seed)
     for M, K, N in ((49, 512, 2048), (392, 2048, 512), (1568, 1024, 256),
@@ -2453,10 +2515,27 @@ def _addmm_activation_works() -> bool:
         return False
 
 
-def conv_epilogue_times(seed: int = 114) -> dict:
+def host_us(fn, reps: int = 200) -> float:
+    """Host µs per call of ``fn``: the wall time of ``reps`` calls that
+    only enqueue work (no synchronize inside), after a warm-up call. The
+    device runs behind them, so this is the host side of a call (the
+    wrapper's checks, allocations, tensor maps and the launch)."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    dt = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return dt / reps * 1e6
+
+
+def conv_epilogue_times(seed: int = 114, batch: int = 8) -> dict:
     """bf16 kernel, plain-version and library times (ms) and bounds at the
-    12 B-8 shapes, and their sums over one forward's 33 sites. The library
-    call (the port never calls it) adds the bias in bf16:
+    12 1x1 shapes of a ResNet-50 forward at B ``batch`` (the B-8 shapes'
+    rows times batch / 8), and their sums over the forward's 33 sites; the
+    kernel's host µs per call (``host_us``). The library call (the port
+    never calls it) adds the bias in bf16:
     ``torch._addmm_activation(bias, x, w, use_gelu=False)`` for the relu
     sites where this torch runs it, else ``torch.addmm`` then ``relu_``;
     ``torch.addmm`` for the others."""
@@ -2464,9 +2543,10 @@ def conv_epilogue_times(seed: int = 114) -> dict:
         matmul_bias_act, matmul_bias_act_reference)
     fused = _addmm_activation_works()
     gen = torch.Generator(device="cuda").manual_seed(seed)
-    keys = ("ms", "plain_ms", "library_ms", "bound_ms")
+    keys = ("ms", "plain_ms", "library_ms", "bound_ms", "host_us")
     shapes, total = {}, dict.fromkeys(keys, 0.0)
-    for (M, K, N, relu), sites in RESNET_B8_SITES.items():
+    for (M8, K, N, relu), sites in RESNET_B8_SITES.items():
+        M = M8 * batch // 8
         x, w, b = _mba_operands(M, K, N, gen)
         a, ww, bb = x.bfloat16(), w.bfloat16(), b.bfloat16()
         if not relu:
@@ -2478,9 +2558,10 @@ def conv_epilogue_times(seed: int = 114) -> dict:
             lib = lambda: torch.addmm(bb, a, ww).relu_()  # noqa: E731
         bound, by = conv_epilogue_bound_ms(M, K, N)
         with torch.no_grad():
+            kern = lambda: matmul_bias_act(a, ww, b, relu,   # noqa: E731
+                                           impl="kernel")
             t = dict(
-                ms=time_ms(lambda: matmul_bias_act(a, ww, b, relu,
-                                                   impl="kernel")),
+                ms=time_ms(kern), host_us=host_us(kern),
                 plain_ms=time_ms(lambda: matmul_bias_act_reference(
                     a, ww, b, relu), reps=5),
                 library_ms=time_ms(lib), bound_ms=bound, bound_by=by,
@@ -2511,21 +2592,23 @@ def conv_epilogue_phase() -> dict:
         log(f"conv_epilogue {M}x{K}x{N}: " + " ".join(
             f"{k}={v:.4g}" for k, v in sorted(e.items())))
     check_conv_epilogue_rows()
+    check_conv_epilogue_rows_across_m()
     check_conv_epilogue_edges()
     log("conv_epilogue: rows at M 49 equal rows of M 392 bitwise (f32, "
-        "bf16); no write outside [M, N] (ragged M, N = 64); two launches "
-        "give the same bits")
+        "bf16); bf16 rows equal at M 49 / 392 / 6272 (K, N) = "
+        f"{[(K, N) for K, N, _ in CONV_ROWS_ACROSS_M]}; no write outside "
+        "[M, N] (ragged M, N = 64); two launches give the same bits")
     times = conv_epilogue_times()
     for name, t in times["shapes"].items():
         log(f"kernel conv_epilogue {name} bf16 (x{t['sites']} a forward): "
             f"kernel {t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, "
             f"library {t['library_ms']:.4f} ms, bound {t['bound_ms']:.4f} "
-            f"ms ({t['bound_by']})")
+            f"ms ({t['bound_by']}); host {t['host_us']:.1f} us a call")
     pf = times["per_forward"]
     log(f"conv_epilogue per B-8 forward (33 sites): kernel {pf['ms']:.4f} "
         f"ms, plain {pf['plain_ms']:.4f} ms, library ({times['library']}) "
         f"{pf['library_ms']:.4f} ms, bound {pf['bound_ms']:.4f} ms "
-        f"({pf['bound_by']})")
+        f"({pf['bound_by']}); host {pf['host_us']:.1f} us")
     b8 = {k: v for k, v in errs.items() if not k.startswith("49x")}
     return dict(pf, max_abs_err=max(
         e["max_abs_err"] for e in b8.values()), errs=errs, times=times)
@@ -2744,6 +2827,9 @@ def main() -> int:
     log("decode attention SASS (bf16 kernels, min / max HMMA, f32 kernels "
         "with HMMA): " + ", ".join(f"{k} {v}" for k, v in
                                    check_decode_sass(libs).items()))
+    log("tgmm and conv-epilogue bf16 SASS, HGMMA per tile width (no "
+        "HMMA): " + ", ".join(
+            f"{k} {v}" for k, v in check_gemm_sass(libs).items()))
 
     rec = kernel_phase()
     train_rec = train_kernel_phase()

@@ -20,206 +20,160 @@
 // 3.35 TB/s) for 0.8 GFLOP (0.8 us at 989 TFLOP/s). Reading x once and
 // writing the output once is the least it can do.
 //
-// Design. The grouped-matmul kernel (grouped_matmul.cu) with one group and
-// the epilogue in registers: bf16 on tensor cores (mma.sync m16n8k16, f32
-// accumulate), 128 x 128 output tiles, 8 warps of 64 x 32, 32 reduction
-// values a stage in a 3-stage ring of 16-byte cp.async copies; fragments
-// through ldmatrix (the [K, N] weight through its .trans form). Rows padded
-// by 16 bytes so an ldmatrix's 8 row reads fall in distinct banks. Grid
-// (column tiles, row tiles), columns fastest, so the blocks that share a
-// row tile of x run together and read it from L2 after the first.
-//   * One block per output tile walks all of K in ascending order: no split
-//     of K, no atomics. A row's output depends on that row's inputs only,
-//     so it is the same bits at any M and wherever the row sits.
-//   * Ragged edges: rows past M, columns past N and reduction values past K
-//     are zero-filled by cp.async (a K of 64 is two stages, fewer than the
-//     ring holds; the ring's empty commit groups keep the waits uniform),
-//     and stores are masked to m < M, n < N. N = 64 runs a half-empty
-//     128-wide tile.
-//   * Epilogue: f32 sum + f32 bias, relu, one rounding, a bf16x2 store.
+// Design (bf16): the shared wgmma + TMA mainloop (gemm_sm90.cuh). A = x
+// (K-major), B = w [K, N] (MN-major), 128-row output tiles of BN columns:
+// BN = 64 for N <= 64 and where K >= 4 N, else 128 (`tile_n`: from N and
+// K, never M). A narrow output with a long reduction has few column tiles,
+// each streaming all of K; halving the width doubles the blocks at the
+// cost of reading x's rows twice as often. 256-wide tiles lost at B 8
+// (fewer blocks on few-row shapes) and gained nothing at B 128.
+//   * The arithmetic is fixed by K alone. K is cut into chunks of 512
+//     (kChunk); each chunk's sum over its K is an f32 partial computed from
+//     zero in the wgmma accumulator (one wgmma m64nBNk16 per 16 values, in
+//     order), copied (the first) or added (the rest) to a separate running
+//     total: ((p0 + p1) + p2) + ... + bias in f32, relu, one rounding to
+//     bf16. A row's output depends on that row's inputs only: the same
+//     bits at any M and wherever the row sits.
+//   * Persistent blocks, one an SM, walk the tiles (columns fastest, so the
+//     blocks that share x's rows run together); one tile's TMA store
+//     drains while the next one's loads and products run.
+//   * Epilogue in registers: f32 sum + f32 bias, relu, one rounding, then
+//     a TMA store of whole lines that clips rows past M and columns past
+//     N. Reduction values past K arrive as zeros from the TMA load.
+//   * The three tensor maps (x, w, out) are encoded on the host each call.
 // f32 (checks and CPU-sized tests; the model runs bf16 on the card) runs a
 // plain FMA kernel of 64 x 64 tiles: each thread 4 x 4 outputs, 16
 // reduction values summed at a time, then added to the running total.
 //
-// Known gaps: mma.sync, not wgmma; cp.async, not TMA; N = 64 wastes half a
-// tile; no persistent blocks, so one tile's epilogue does not overlap the
-// next one's loads.
+// Known gaps: no residual in the epilogue (the JAX kernel has none); on
+// few tiles (M <= 1568 with K >= 1024) a block streams all of its K, and
+// most SMs idle. A split of the chunks across blocks with an ordered
+// combine through L2 was tried and cost what it saved (PERF.md §6).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include <algorithm>
 #include <cstddef>
 #include <cstdint>
 
+#include "gemm_sm90.cuh"
+
 namespace {
 
-constexpr int BM = 128, BN = 128, BK = 32, STAGES = 3, THREADS = 256;
-constexpr int WN = 4;                 // warps along the columns (2 x 4 warps)
-constexpr int MT = 4, NT = 4;         // a warp's 16-row and 8-column mma tiles
-constexpr int LDK = BK + 8;           // a row of BK reduction values, padded
-constexpr int LDW = BN + 8;           // a reduction row of 128 columns, padded
-constexpr int kATile = BM * LDK;      // x: [BM][LDK]
-constexpr int kBTile = BK * LDW;      // w: [BK][LDW]
-constexpr size_t kStageBytes = size_t(kATile + kBTile) * 2;  // bf16
-constexpr size_t kRingBytes = STAGES * kStageBytes;         // 56,832
+using bf16 = __nv_bfloat16;
+using hopper::kPanelBytes;
+
+constexpr int kChunk = 512;  // K values a chunk
 constexpr int kMaxGridY = 65535;
 
-using bf16 = __nv_bfloat16;
+struct ConvArgs {
+  CUtensorMap x;    // [M, K], boxes of 128 rows x 64 columns
+  CUtensorMap w;    // [K, N], boxes of 64 x 64
+  CUtensorMap out;  // [M, N], boxes of 64 x 64
+  const float* bias;
+  int M, K, N, relu;
+  int mt, nt, chunks;
+};
 
-__device__ __forceinline__ unsigned smem_u32(const void* p) {
-  return static_cast<unsigned>(__cvta_generic_to_shared(p));
-}
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           int src_bytes) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
-                   smem_u32(dst)),
-               "l"(src), "r"(src_bytes)
-               : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-// four 8 x 8 b16 matrices; lanes 8j .. 8j + 7 give the row addresses of
-// matrix j. Plain: lane l holds row l / 4, columns 2 (l % 4) and + 1 of
-// each. Trans: rows 2 (l % 4) and + 1 of column l / 4.
-__device__ __forceinline__ void ldsm_x4(uint32_t* r, const bf16* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_u32(p))
-      : "memory");
-}
-__device__ __forceinline__ void ldsm_x4_t(uint32_t* r, const bf16* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
-      "[%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_u32(p))
-      : "memory");
-}
-__device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a,
-                                         const uint32_t* b) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
-      "{%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+__device__ __forceinline__ int chunk_steps(int K, int c) {
+  return (min(K - c * kChunk, kChunk) + gemm90::BK - 1) / gemm90::BK;
 }
 
-// grid (N tiles, M tiles); x [M][K], w [K][N], bias [N], out [M][N]
-__global__ void __launch_bounds__(THREADS)
-    mba_bf16_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
-                    const float* __restrict__ bias, bf16* __restrict__ out,
-                    int M, int K, int N, int relu) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  const int tid = threadIdx.x;
-  const int warp = tid / 32, lane = tid % 32;
-  const int g = lane >> 2, t = lane & 3;
-  const int wm = warp / WN, wn = warp % WN;
-  const int n0 = blockIdx.x * BN;
-  const int m0 = blockIdx.y * BM;
-  const int steps = (K + BK - 1) / BK;
+template <int BN>
+__global__ void __launch_bounds__(gemm90::kThreads, 1)
+    mba_wgmma_kernel(const __grid_constant__ ConvArgs a) {
+  using G = gemm90::Geo<BN>;
+  extern __shared__ unsigned char smem_raw[];
+  const gemm90::Ring<BN> ring(smem_raw);
+  if (threadIdx.x == 0) ring.init();
+  __syncthreads();
 
-  auto load_stage = [&](int s, int st) {
-    bf16* as = reinterpret_cast<bf16*>(smem + st * kStageBytes);
-    bf16* bs = as + kATile;
-    const int k0 = s * BK;
-    for (int c = tid; c < BM * (BK / 8); c += THREADS) {
-      const int row = c / (BK / 8), u = (c % (BK / 8)) * 8;
-      const int m = m0 + row, k = k0 + u;
-      const bool ok = m < M && k < K;
-      cp_async16(as + row * LDK + u, ok ? x + size_t(m) * K + k : x,
-                 ok ? 16 : 0);
+  const int tiles = a.mt * a.nt;
+
+  if (threadIdx.x >= gemm90::kConsumers) {
+    hopper::regs_dec<gemm90::kProducerRegs>();
+    if (threadIdx.x == gemm90::kConsumers) {
+      hopper::prefetch_map(&a.x);
+      hopper::prefetch_map(&a.w);
+      int it = 0;
+      for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+        const int m0 = tile / a.nt * gemm90::BM, n0 = tile % a.nt * BN;
+        // B panels inside N (one wholly outside feeds only columns that are
+        // never stored, and is not loaded)
+        const int pb = min(G::kPanelsB, (a.N - n0 + 63) / 64);
+        for (int c = 0; c < a.chunks; ++c)
+          for (int s = 0; s < chunk_steps(a.K, c); ++s) {
+            const int k0 = c * kChunk + s * gemm90::BK;
+            const int st = ring.acquire(it++, G::kABytes + pb * kPanelBytes);
+            hopper::tma_load_2d(ring.a(st), &a.x, ring.full(st), k0, m0);
+            for (int p = 0; p < pb; ++p)
+              hopper::tma_load_2d(ring.b(st) + p * kPanelBytes, &a.w,
+                                  ring.full(st), n0 + 64 * p, k0);
+          }
+      }
     }
-    for (int c = tid; c < BK * (BN / 8); c += THREADS) {
-      const int rr = c / (BN / 8), u = (c % (BN / 8)) * 8;
-      const int k = k0 + rr, n = n0 + u;
-      const bool ok = k < K && n < N;
-      cp_async16(bs + rr * LDW + u, ok ? w + size_t(k) * N + n : w,
-                 ok ? 16 : 0);
-    }
-  };
-
-  float acc[MT][NT][4];
-#pragma unroll
-  for (int i = 0; i < MT; ++i)
-#pragma unroll
-    for (int jn = 0; jn < NT; ++jn)
-#pragma unroll
-      for (int q = 0; q < 4; ++q) acc[i][jn][q] = 0.f;
-
-#pragma unroll
-  for (int s = 0; s < STAGES - 1; ++s) {
-    if (s < steps) load_stage(s, s);
-    cp_async_commit();  // empty groups keep the wait count uniform
+    return;
   }
-  const int r = lane & 7, j = lane >> 3;
-  for (int s = 0; s < steps; ++s) {
-    cp_async_wait<STAGES - 2>();
-    __syncthreads();  // stage s landed; stage s - 1's readers are done
-    {
-      const int ns = s + STAGES - 1;
-      if (ns < steps) load_stage(ns, ns % STAGES);
-      cp_async_commit();
+
+  hopper::regs_inc<gemm90::kConsumerRegs>();
+  const gemm90::Lane ln;
+  if (gemm90::store_thread()) hopper::prefetch_map(&a.out);
+  // acc is written by wgmmas only (anything else writing it between two
+  // of them makes ptxas serialize them); the running total is `tot`
+  float acc[G::kAcc];
+  float tot[G::kAcc];
+  int it = 0;
+  for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+    const int m0 = tile / a.nt * gemm90::BM, n0 = tile % a.nt * BN;
+    gemm90::consume<BN, false>(acc, ring, it, chunk_steps(a.K, 0), ln.wg);
+#pragma unroll
+    for (int i = 0; i < G::kAcc; ++i) tot[i] = acc[i];
+    for (int c = 1; c < a.chunks; ++c) {
+      gemm90::consume<BN, false>(acc, ring, it, chunk_steps(a.K, c), ln.wg);
+#pragma unroll
+      for (int i = 0; i < G::kAcc; ++i) tot[i] += acc[i];
     }
-    const bf16* a =
-        reinterpret_cast<const bf16*>(smem + (s % STAGES) * kStageBytes);
-    const bf16* b = a + kATile;
-#pragma unroll
-    for (int kk = 0; kk < BK; kk += 16) {
-      uint32_t af[MT][4], bfr[NT][2];
-#pragma unroll
-      for (int i = 0; i < MT; ++i) {
-        const int m = wm * MT * 16 + i * 16;
-        // a0..a3: (rows 0-7 | 8-15) x (k 0-7 | 8-15) of the 16 x 16 A tile
-        ldsm_x4(af[i], a + (m + r + 8 * (j & 1)) * LDK + kk + 8 * (j >> 1));
+    const float* bias = a.bias;
+    const int N = a.N, relu = a.relu;
+    gemm90::stage_out<BN>(ring, tot, ln, [&](int col, float v0, float v1) {
+      const int n = n0 + col;  // N % 8 == 0: n, n + 1 in or out together
+      if (n < N) {
+        v0 += bias[n];
+        v1 += bias[n + 1];
       }
-#pragma unroll
-      for (int jj = 0; jj < NT; jj += 2) {
-        const int n = wn * NT * 8 + jj * 8;
-        uint32_t q[4];
-        // b0, b1 of column tile jj, then of jj + 1
-        ldsm_x4_t(q, b + (kk + r + 8 * (j & 1)) * LDW + n + 8 * (j >> 1));
-        bfr[jj][0] = q[0];
-        bfr[jj][1] = q[1];
-        bfr[jj + 1][0] = q[2];
-        bfr[jj + 1][1] = q[3];
+      if (relu) {
+        v0 = fmaxf(v0, 0.f);
+        v1 = fmaxf(v1, 0.f);
       }
-#pragma unroll
-      for (int i = 0; i < MT; ++i)
-#pragma unroll
-        for (int jn = 0; jn < NT; ++jn) mma_bf16(acc[i][jn], af[i], bfr[jn]);
+      return hopper::pack_bf16(v0, v1);
+    });
+    if (gemm90::store_thread()) {
+      const int m = m0 + 64 * ln.wg;
+      if (m < a.M)
+        for (int p = 0; p < G::kPanelsB && n0 + 64 * p < N; ++p)
+          hopper::tma_store_2d(&a.out, ring.out(ln.wg) + p * kPanelBytes,
+                               n0 + 64 * p, m);
+      hopper::tma_store_commit();
     }
   }
-  cp_async_wait<0>();
+  if (gemm90::store_thread()) hopper::tma_store_wait_read<0>();
+}
 
-  // epilogue: f32 sum + f32 bias, relu, one rounding; c0, c1 at (row g,
-  // columns 2t, 2t + 1), c2, c3 at row g + 8
-#pragma unroll
-  for (int jn = 0; jn < NT; ++jn) {
-    const int n = n0 + wn * NT * 8 + jn * 8 + 2 * t;
-    if (n >= N) continue;  // N % 8 == 0: n and n + 1 are in or out together
-    const float b0 = bias[n], b1 = bias[n + 1];
-#pragma unroll
-    for (int i = 0; i < MT; ++i)
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int m = m0 + wm * MT * 16 + i * 16 + g + 8 * h;
-        if (m >= M) continue;
-        float v0 = acc[i][jn][2 * h] + b0, v1 = acc[i][jn][2 * h + 1] + b1;
-        if (relu) {
-          v0 = fmaxf(v0, 0.f);
-          v1 = fmaxf(v1, 0.f);
-        }
-        *reinterpret_cast<__nv_bfloat162*>(out + size_t(m) * N + n) =
-            __floats2bfloat162_rn(v0, v1);
-      }
-  }
+// The bf16 tile width from N and K, never M (the header's Design).
+int tile_n(int N, int K) { return N <= 64 || K >= 4 * N ? 64 : 128; }
+
+template <int BN>
+int launch_wgmma(ConvArgs& a, cudaStream_t stream) {
+  a.mt = (a.M + gemm90::BM - 1) / gemm90::BM;
+  a.nt = (a.N + BN - 1) / BN;
+  const int err = gemm90::allow_smem<mba_wgmma_kernel<BN>>();
+  if (err != 0) return err;
+  const long tiles = long(a.mt) * a.nt;
+  const int grid = static_cast<int>(std::min<long>(tiles, gemm90::sm_count()));
+  mba_wgmma_kernel<BN><<<grid, gemm90::kThreads, gemm90::Geo<BN>::kBytes,
+                         stream>>>(a);
+  return static_cast<int>(cudaGetLastError());
 }
 
 // f32: 64 x 64 output tiles, 256 threads of 4 x 4 outputs, 16 reduction
@@ -283,11 +237,10 @@ __global__ void __launch_bounds__(kFThreads)
 
 // out [M, N] = act(x [M, K] @ w [K, N] + bias [N]), the sum and the bias in
 // f32, one rounding to x's dtype; act = relu when `relu` is non-zero.
-// dtype: 0 = float32, 1 = bfloat16 (x, w, out); bias is float32. Returns 0,
-// a cudaError_t code when the launch was refused, or -1 for a shape or
-// dtype the kernel does not take (M >= 1; K and N positive multiples of 8;
-// at most 65535 row tiles). Launches on `stream`, never synchronises,
-// allocates nothing.
+// dtype: 0 = float32, 1 = bfloat16 (x, w, out); bias is float32. Returns
+// 0, a cudaError_t code when the launch was refused, or -1 for a shape or
+// dtype the kernel does not take (M >= 1; K and N positive multiples of
+// 8). Launches on `stream`, never synchronises, allocates nothing.
 extern "C" int paddle_matmul_bias_act(const void* x, const void* w,
                                       const void* bias, void* out, int M,
                                       int K, int N, int relu, int dtype,
@@ -296,16 +249,22 @@ extern "C" int paddle_matmul_bias_act(const void* x, const void* w,
   const auto st = static_cast<cudaStream_t>(stream);
   const auto* b = static_cast<const float*>(bias);
   if (dtype == 1) {
-    const dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM);
-    if (grid.y > kMaxGridY) return -1;
-    cudaError_t err = cudaFuncSetAttribute(
-        mba_bf16_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(kRingBytes));
-    if (err != cudaSuccess) return static_cast<int>(err);
-    mba_bf16_kernel<<<grid, THREADS, kRingBytes, st>>>(
-        static_cast<const bf16*>(x), static_cast<const bf16*>(w), b,
-        static_cast<bf16*>(out), M, K, N, relu);
-    return static_cast<int>(cudaGetLastError());
+    ConvArgs a;
+    const uint64_t x_dims[2] = {uint64_t(K), uint64_t(M)};
+    const uint64_t w_dims[2] = {uint64_t(N), uint64_t(K)};
+    const uint64_t out_dims[2] = {uint64_t(N), uint64_t(M)};
+    if (!hopper::encode_map(&a.x, x, 2, x_dims, 64, 128) ||
+        !hopper::encode_map(&a.w, w, 2, w_dims, 64, 64) ||
+        !hopper::encode_map(&a.out, out, 2, out_dims, 64, 64))
+      return -1;
+    a.bias = b;
+    a.M = M;
+    a.K = K;
+    a.N = N;
+    a.relu = relu;
+    a.chunks = (K + kChunk - 1) / kChunk;
+    return tile_n(N, K) == 64 ? launch_wgmma<64>(a, st)
+                              : launch_wgmma<128>(a, st);
   }
   if (dtype == 0) {
     const dim3 grid((N + kF - 1) / kF, (M + kF - 1) / kF);

@@ -572,8 +572,8 @@ __device__ __forceinline__ void issue_scores(float (&s)[32], uint32_t a,
 #pragma unroll
   for (int kk = 0; kk < DH / 16; ++kk) {
     const uint32_t off = (kk / 4) * kPanelBytes + (kk % 4) * 32;
-    hopper::wgmma_ss(s, hopper::desc_sw128(a + off),
-                     hopper::desc_sw128(b + off), kk > 0);
+    hopper::wgmma_ss_t<64, 0, 0>(s, hopper::desc_sw128(a + off),
+                                 hopper::desc_sw128(b + off), kk > 0);
   }
 }
 

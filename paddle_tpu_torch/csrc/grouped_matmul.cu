@@ -20,60 +20,74 @@
 // top-4, 60 experts, D 2048, F 1408) a gmm reads the whole expert stack
 // (346 MB) for ~64 MB of activations: the weight stream, not the tensor
 // cores, sets the least time (~0.14 ms at 3.35 TB/s against ~0.05 ms of
-// bf16 math). tgmm writes the same 346 MB.
+// bf16 math). tgmm writes the same 346 MB, and its ~91 GFLOP (padding rows
+// included) take ~0.09 ms of the tensor cores' peak: it needs both.
 //
-// Design. bf16 runs on tensor cores (mma.sync m16n8k16, f32 accumulate),
-// 128 x 128 output tiles, 8 warps of 64 x 32, 32 reduction values a stage,
-// a 3-stage ring filled by 16-byte cp.async (zero-fill at ragged edges).
-// Fragments come from shared memory through ldmatrix; the .trans form reads
-// an operand whose reduction axis is the tile's rows (the [K, N] weight, the
-// lhs and g of tgmm), the plain form one whose reduction axis is contiguous
-// (lhs of gmm, the [N, K] weight of dlhs). Rows are padded by 16 bytes, an
-// odd number of 16-byte units, so the 8 row reads of an ldmatrix fall in
-// distinct banks.
-//   gmm: one block per (128-row tile, 128-column tile); its expert is
-//     tile_expert[row tile]. A tile_expert entry outside [0, E) makes the
-//     block write NaN (never an out-of-bounds read).
-//   tgmm: one block per (expert, 128-row tile of K, 128-column tile of N).
-//     Warp 0 lists the expert's tiles in ascending index (a ballot per 32
-//     entries of tile_expert); the block then walks those tiles' rows in
-//     that order, the sum held in registers, and writes once. The TPU kernel
+// gmm design (bf16). Tensor cores through mma.sync m16n8k16 (f32
+// accumulate), 128 x 128 output tiles, 8 warps of 64 x 32, 32 reduction
+// values a stage, a 3-stage ring filled by 16-byte cp.async (zero-fill at
+// ragged edges). Fragments come from shared memory through ldmatrix; the
+// .trans form reads the [K, N] weight (reduction axis along its rows), the
+// plain form lhs and the [N, K] weight of dlhs. Rows are padded by 16
+// bytes, an odd number of 16-byte units, so the 8 row reads of an ldmatrix
+// fall in distinct banks. One block per (128-row tile, 128-column tile);
+// its expert is tile_expert[row tile]. A tile_expert entry outside [0, E)
+// makes the block write NaN (never an out-of-bounds read).
+//
+// tgmm design (bf16): the shared wgmma + TMA mainloop (gemm_sm90.cuh).
+//   * Work items are (expert, 128-row tile of K, BN-column tile of N) of
+//     the [E, K, N] output, BN = 256 (64 or 128 for narrow N), expert-major:
+//     the SMs working at one time share one expert's lhs and g rows
+//     (~1.7 MB at uniform routing) in L2, so HBM reads them about once.
+//     Persistent blocks, one an SM, walk the list; the next item's loads
+//     run under the current item's epilogue and TMA store.
+//   * The reduction runs over rows, so A (lhs^T) and B (g) are both
+//     MN-major: each stage is 64 rows of lhs (128 columns of K) and of g
+//     (BN columns), loaded by TMA at row `tile * tile_m + 64 s`.
+//   * An item walks its expert's row tiles in ascending tile index. The
+//     block lists every expert's tiles once at its start, from
+//     tile_expert on the device (counts, their prefix sum, then a warp
+//     places each tile at its rank with __match_any_sync): no host sync.
+//   * An expert with no tile gets zeros, stored by the same kernel. Entries
+//     of tile_expert outside [0, E) belong to no expert.
+//   * No atomics: each output element is summed by one thread, over its
+//     expert's tiles in ascending order, 16 rows a wgmma. The result is
+//     the same bits from run to run and for any interleaving of the tiles
+//     that keeps each expert's own tiles in order. The TPU kernel
 //     accumulated into its output window on the premise of a sorted
-//     tile_expert and a sequential grid, and zeroed absent experts after the
-//     call; here no block depends on another or on the grid's order, there
-//     are no atomics, and the result is the same bits from run to run and
-//     for any interleaving of the tiles that keeps each expert's own tiles
-//     in order.
+//     tile_expert and a sequential grid, and zeroed absent experts after
+//     the call.
 // f32 (checks and CPU-sized tests; the model runs bf16 on the card) runs a
 // plain FMA kernel of 64 x 64 tiles: each thread 4 x 4 outputs, each 16
 // reduction values summed, then added to the running total in order.
 //
-// Known gaps: mma.sync, not wgmma; cp.async, not TMA; padding rows are
-// multiplied like the others; tgmm reads lhs and g once per column / row
-// tile of the output (from L2).
+// Known gaps: gmm is still mma.sync and cp.async; padding rows are
+// multiplied like the others (the kernels' interface carries no group
+// sizes).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include <algorithm>
 #include <cstddef>
 #include <cstdint>
+
+#include "gemm_sm90.cuh"
 
 namespace {
 
 constexpr int kModeN = 0;  // gmm, rhs [E, K, N]
 constexpr int kModeT = 1;  // gmm, rhs [E, N, K] read transposed (dlhs)
-constexpr int kModeW = 2;  // tgmm
 
 constexpr int BM = 128, BN = 128, BK = 32, STAGES = 3, THREADS = 256;
 constexpr int WN = 4;                 // warps along the columns (2 x 4 warps)
 constexpr int MT = 4, NT = 4;         // a warp's 16-row and 8-column mma tiles
 constexpr int LDK = BK + 8;           // a row of BK reduction values, padded
-constexpr int LDW = BM + 8;           // a row of 128 output rows / columns
+constexpr int LDW = BN + 8;           // a reduction row of 128 columns
 constexpr int kTileElems = BM * LDK;  // >= BK * LDW: either layout fits
 static_assert(BM == BN && BM * LDK >= BK * LDW, "tile layout");
 constexpr size_t kStageBytes = size_t(2) * kTileElems * 2;  // A and B, bf16
 constexpr size_t kRingBytes = STAGES * kStageBytes;         // 61,440
-constexpr int kMaxSmem = 232448;
 
 using bf16 = __nv_bfloat16;
 
@@ -123,10 +137,9 @@ __device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a,
 }
 
 // Shared-memory layouts of one stage:
-//   A, modes N and T: [BM][LDK], an output row's BK reduction values;
-//   A, mode W:        [BK][LDW], a reduction row (token) of 128 output rows;
-//   B, modes N and W: [BK][LDW], a reduction row of 128 output columns;
-//   B, mode T:        [BN][LDK], an output column's BK reduction values.
+//   A:            [BM][LDK], an output row's BK reduction values;
+//   B, mode N:    [BK][LDW], a reduction row of 128 output columns;
+//   B, mode T:    [BN][LDK], an output column's BK reduction values.
 // One stage's products, BK deep, into the warp's 64 x 32 accumulators.
 template <int MODE>
 __device__ __forceinline__ void mma_stage(const bf16* a, const bf16* b,
@@ -140,10 +153,7 @@ __device__ __forceinline__ void mma_stage(const bf16* a, const bf16* b,
     for (int i = 0; i < MT; ++i) {
       const int m = wm * MT * 16 + i * 16;
       // a0..a3: (rows 0-7 | 8-15) x (k 0-7 | 8-15) of the 16 x 16 A tile
-      if (MODE == kModeW)
-        ldsm_x4_t(af[i], a + (kk + r + 8 * (j >> 1)) * LDW + m + 8 * (j & 1));
-      else
-        ldsm_x4(af[i], a + (m + r + 8 * (j & 1)) * LDK + kk + 8 * (j >> 1));
+      ldsm_x4(af[i], a + (m + r + 8 * (j & 1)) * LDK + kk + 8 * (j >> 1));
     }
 #pragma unroll
     for (int jj = 0; jj < NT; jj += 2) {
@@ -166,93 +176,54 @@ __device__ __forceinline__ void mma_stage(const bf16* a, const bf16* b,
   }
 }
 
-// MODE N / T: lhs [M][R] (R = reduction), w the expert's weight ([R][N] or
-// [N][R]), out [M][N]; grid (N tiles, M / BM). MODE W: lhs [M][R_out = K],
-// rhs = g [M][N], out [E][K][N]; grid (N tiles, K tiles, E).
+// lhs [M][R] (R = reduction), w the expert's weight ([R][N], or [N][R] in
+// mode T), out [M][N]; grid (N tiles, M / BM).
 template <int MODE>
 __global__ void __launch_bounds__(THREADS)
     gmm_bf16_kernel(const bf16* __restrict__ lhs, const bf16* __restrict__ rhs,
                     const int* __restrict__ tile_expert,
                     bf16* __restrict__ out, int M, int R, int N, int E,
-                    int tile_m, int n_tiles) {
+                    int tile_m) {
   extern __shared__ __align__(16) unsigned char smem[];
-  __shared__ int n_mine;
   const int tid = threadIdx.x;
   const int warp = tid / 32, lane = tid % 32;
   const int g = lane >> 2, t = lane & 3;
   const int wm = warp / WN, wn = warp % WN;
   const int n0 = blockIdx.x * BN;
-  const int m0 = blockIdx.y * BM;  // output rows: tokens (N, T) or K (W)
+  const int m0 = blockIdx.y * BM;
 
-  int e;
-  bool bad = false;
-  const bf16* w = rhs;
-  int steps;
-  const int spt = tile_m / BK;  // stages per row tile (tgmm)
-  int* list = reinterpret_cast<int*>(smem + kRingBytes);
-  if (MODE == kModeW) {
-    e = blockIdx.z;
-    if (warp == 0) {
-      int cnt = 0;
-      for (int base = 0; base < n_tiles; base += 32) {
-        const int i = base + lane;
-        const bool mine = i < n_tiles && tile_expert[i] == e;
-        const unsigned mask = __ballot_sync(0xffffffffu, mine);
-        if (mine) list[cnt + __popc(mask & ((1u << lane) - 1u))] = i;
-        cnt += __popc(mask);
-      }
-      if (lane == 0) n_mine = cnt;
-    }
-    __syncthreads();
-    steps = n_mine * spt;
-  } else {
-    e = tile_expert[m0 / tile_m];
-    bad = e < 0 || e >= E;
-    if (bad) e = 0;
-    w = rhs + size_t(e) * R * N;
-    steps = (R + BK - 1) / BK;
-  }
+  int e = tile_expert[m0 / tile_m];
+  const bool bad = e < 0 || e >= E;
+  if (bad) e = 0;
+  const bf16* w = rhs + size_t(e) * R * N;
+  const int steps = (R + BK - 1) / BK;
 
   auto load_stage = [&](int s, int st) {
     bf16* as = reinterpret_cast<bf16*>(smem + st * kStageBytes);
     bf16* bs = as + kTileElems;
-    if (MODE == kModeW) {
-      // BK token rows of lhs (columns m0.. of K) and of g (columns n0..)
-      const int row0 = list[s / spt] * tile_m + (s % spt) * BK;
-      for (int c = tid; c < BK * (BM / 8); c += THREADS) {
-        const int rr = c / (BM / 8), x = (c % (BM / 8)) * 8;
-        const size_t row = size_t(row0 + rr);
-        const int k = m0 + x, n = n0 + x;
-        cp_async16(as + rr * LDW + x, k < R ? lhs + row * R + k : lhs,
-                   k < R ? 16 : 0);
-        cp_async16(bs + rr * LDW + x, n < N ? rhs + row * N + n : rhs,
-                   n < N ? 16 : 0);
+    const int r0 = s * BK;
+    for (int c = tid; c < BM * (BK / 8); c += THREADS) {
+      const int row = c / (BK / 8), x = (c % (BK / 8)) * 8;
+      const int r = r0 + x;
+      cp_async16(as + row * LDK + x,
+                 r < R ? lhs + size_t(m0 + row) * R + r : lhs,
+                 r < R ? 16 : 0);
+    }
+    if (MODE == kModeN) {
+      for (int c = tid; c < BK * (BN / 8); c += THREADS) {
+        const int rr = c / (BN / 8), x = (c % (BN / 8)) * 8;
+        const int r = r0 + rr, n = n0 + x;
+        const bool ok = r < R && n < N;
+        cp_async16(bs + rr * LDW + x, ok ? w + size_t(r) * N + n : w,
+                   ok ? 16 : 0);
       }
     } else {
-      const int r0 = s * BK;
-      for (int c = tid; c < BM * (BK / 8); c += THREADS) {
-        const int row = c / (BK / 8), x = (c % (BK / 8)) * 8;
-        const int r = r0 + x;
-        cp_async16(as + row * LDK + x,
-                   r < R ? lhs + size_t(m0 + row) * R + r : lhs,
-                   r < R ? 16 : 0);
-      }
-      if (MODE == kModeN) {
-        for (int c = tid; c < BK * (BN / 8); c += THREADS) {
-          const int rr = c / (BN / 8), x = (c % (BN / 8)) * 8;
-          const int r = r0 + rr, n = n0 + x;
-          const bool ok = r < R && n < N;
-          cp_async16(bs + rr * LDW + x, ok ? w + size_t(r) * N + n : w,
-                     ok ? 16 : 0);
-        }
-      } else {
-        for (int c = tid; c < BN * (BK / 8); c += THREADS) {
-          const int col = c / (BK / 8), x = (c % (BK / 8)) * 8;
-          const int n = n0 + col, r = r0 + x;
-          const bool ok = n < N && r < R;
-          cp_async16(bs + col * LDK + x, ok ? w + size_t(n) * R + r : w,
-                     ok ? 16 : 0);
-        }
+      for (int c = tid; c < BN * (BK / 8); c += THREADS) {
+        const int col = c / (BK / 8), x = (c % (BK / 8)) * 8;
+        const int n = n0 + col, r = r0 + x;
+        const bool ok = n < N && r < R;
+        cp_async16(bs + col * LDK + x, ok ? w + size_t(n) * R + r : w,
+                   ok ? 16 : 0);
       }
     }
   };
@@ -285,9 +256,7 @@ __global__ void __launch_bounds__(THREADS)
   cp_async_wait<0>();
 
   // epilogue: one rounding to bf16; c0, c1 at (row g, columns 2t, 2t + 1),
-  // c2, c3 at row g + 8
-  bf16* o = MODE == kModeW ? out + size_t(e) * R * N : out;
-  const int rows = MODE == kModeW ? R : M;
+  // c2, c3 at row g + 8 (M % 128 == 0: every row is in)
   const float nan = __int_as_float(0x7fc00000);
 #pragma unroll
   for (int jn = 0; jn < NT; ++jn) {
@@ -298,11 +267,10 @@ __global__ void __launch_bounds__(THREADS)
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
         const int m = m0 + wm * MT * 16 + i * 16 + g + 8 * h;
-        if (m < rows)
-          *reinterpret_cast<__nv_bfloat162*>(o + size_t(m) * N + n) =
-              bad ? __floats2bfloat162_rn(nan, nan)
-                  : __floats2bfloat162_rn(acc[i][jn][2 * h],
-                                          acc[i][jn][2 * h + 1]);
+        *reinterpret_cast<__nv_bfloat162*>(out + size_t(m) * N + n) =
+            bad ? __floats2bfloat162_rn(nan, nan)
+                : __floats2bfloat162_rn(acc[i][jn][2 * h],
+                                        acc[i][jn][2 * h + 1]);
       }
   }
 }
@@ -423,24 +391,157 @@ __global__ void __launch_bounds__(kFThreads)
 
 template <int MODE>
 int launch_bf16(const void* lhs, const void* rhs, const int* te, void* out,
-                int M, int R, int N, int E, int tile_m, int n_tiles,
-                cudaStream_t stream) {
+                int M, int R, int N, int E, int tile_m, cudaStream_t stream) {
   auto kernel = gmm_bf16_kernel<MODE>;
-  const size_t smem =
-      kRingBytes + (MODE == kModeW ? size_t(n_tiles) * sizeof(int) : 0);
-  if (smem > size_t(kMaxSmem)) return -1;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
+      static_cast<int>(kRingBytes));
   if (err != cudaSuccess) return static_cast<int>(err);
-  // MODE W: rows of the output are K = R, one z per expert
-  const dim3 grid((N + BN - 1) / BN,
-                  MODE == kModeW ? (R + BM - 1) / BM : M / BM,
-                  MODE == kModeW ? E : 1);
-  if (grid.y > 65535 || grid.z > 65535) return -1;
-  kernel<<<grid, THREADS, smem, stream>>>(
+  const dim3 grid((N + BN - 1) / BN, M / BM);
+  if (grid.y > 65535) return -1;
+  kernel<<<grid, THREADS, kRingBytes, stream>>>(
       static_cast<const bf16*>(lhs), static_cast<const bf16*>(rhs), te,
-      static_cast<bf16*>(out), M, R, N, E, tile_m, n_tiles);
+      static_cast<bf16*>(out), M, R, N, E, tile_m);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// ------------------------------------------------- tgmm: wgmma + TMA --
+
+struct TgmmArgs {
+  CUtensorMap lhs;  // [M, K], boxes of 64 rows x 64 columns
+  CUtensorMap g;    // [M, N], the same boxes
+  CUtensorMap out;  // [E, K, N], boxes of 64 x 64 x 1
+  const int* tile_expert;
+  int K, N, E, tile_m, n_tiles;
+  int kt, nt;       // 128-row tiles of K, BN-column tiles of N
+};
+
+// A block's list of every expert's row tiles: order[first[e] ..
+// first[e + 1]) holds expert e's tiles in ascending index. Built by the
+// whole block (the consumers use first[], the producer both).
+__device__ __forceinline__ void list_tiles(const TgmmArgs& a, int* first,
+                                           int* fill, int* order) {
+  const int tid = threadIdx.x;
+  for (int e = tid; e < a.E; e += blockDim.x) fill[e] = 0;
+  __syncthreads();
+  for (int i = tid; i < a.n_tiles; i += blockDim.x) {
+    const int e = a.tile_expert[i];
+    if (e >= 0 && e < a.E) atomicAdd(fill + e, 1);
+  }
+  __syncthreads();
+  if (tid == 0) {
+    int s = 0;
+    for (int e = 0; e < a.E; ++e) {
+      first[e] = s;
+      s += fill[e];
+      fill[e] = 0;
+    }
+    first[a.E] = s;
+  }
+  __syncthreads();
+  if (tid < 32) {  // one warp, 32 tiles at a time, in ascending index
+    for (int base = 0; base < a.n_tiles; base += 32) {
+      const int i = base + tid;
+      int e = i < a.n_tiles ? a.tile_expert[i] : -1;
+      const bool ok = e >= 0 && e < a.E;
+      if (!ok) e = -1;
+      const unsigned peers = __match_any_sync(0xffffffffu, e);
+      const int rank = __popc(peers & ((1u << tid) - 1u));
+      if (ok) order[first[e] + fill[e] + rank] = i;
+      __syncwarp();
+      if (ok && rank == 0) fill[e] += __popc(peers);
+      __syncwarp();
+    }
+  }
+  __syncthreads();
+}
+
+template <int BN>
+__global__ void __launch_bounds__(gemm90::kThreads, 1)
+    tgmm_wgmma_kernel(const __grid_constant__ TgmmArgs a) {
+  using G = gemm90::Geo<BN>;
+  using hopper::kPanelBytes;
+  extern __shared__ unsigned char smem_raw[];
+  const gemm90::Ring<BN> ring(smem_raw);
+  int* first = reinterpret_cast<int*>(ring.extra());  // [E + 1]
+  int* fill = first + a.E + 1;                         // [E]
+  int* order = fill + a.E;                             // [n_tiles]
+  if (threadIdx.x == 0) ring.init();
+  list_tiles(a, first, fill, order);
+
+  const int per_e = a.kt * a.nt;
+  const int items = a.E * per_e;
+  const int spt = a.tile_m / gemm90::BK;  // stages a row tile
+
+  if (threadIdx.x >= gemm90::kConsumers) {
+    hopper::regs_dec<gemm90::kProducerRegs>();
+    if (threadIdx.x == gemm90::kConsumers) {
+      hopper::prefetch_map(&a.lhs);
+      hopper::prefetch_map(&a.g);
+      int it = 0;
+      for (int item = blockIdx.x; item < items; item += gridDim.x) {
+        const int e = item / per_e, rem = item % per_e;
+        const int k0 = rem / a.nt * gemm90::BM, n0 = rem % a.nt * BN;
+        // panels inside K and N (a panel wholly outside is not loaded: it
+        // feeds only outputs that are never stored)
+        const int pa = min(2, (a.K - k0 + 63) / 64);
+        const int pb = min(G::kPanelsB, (a.N - n0 + 63) / 64);
+        const int steps = (first[e + 1] - first[e]) * spt;
+        for (int s = 0; s < steps; ++s) {
+          const int row =
+              order[first[e] + s / spt] * a.tile_m + (s % spt) * 64;
+          const int st = ring.acquire(it++, (pa + pb) * kPanelBytes);
+          for (int w = 0; w < pa; ++w)
+            hopper::tma_load_2d(ring.a(st) + w * kPanelBytes, &a.lhs,
+                                ring.full(st), k0 + 64 * w, row);
+          for (int p = 0; p < pb; ++p)
+            hopper::tma_load_2d(ring.b(st) + p * kPanelBytes, &a.g,
+                                ring.full(st), n0 + 64 * p, row);
+        }
+      }
+    }
+    return;
+  }
+
+  hopper::regs_inc<gemm90::kConsumerRegs>();
+  const gemm90::Lane ln;
+  if (gemm90::store_thread()) hopper::prefetch_map(&a.out);
+  float acc[G::kAcc];
+  int it = 0;
+  for (int item = blockIdx.x; item < items; item += gridDim.x) {
+    const int e = item / per_e, rem = item % per_e;
+    const int k0 = rem / a.nt * gemm90::BM, n0 = rem % a.nt * BN;
+    const int steps = (first[e + 1] - first[e]) * spt;
+    if (steps > 0) gemm90::consume<BN, true>(acc, ring, it, steps, ln.wg);
+    // an expert with no tile: zeros (acc is left to the wgmmas alone)
+    gemm90::stage_out<BN>(ring, acc, ln, [steps](int, float v0, float v1) {
+      return steps > 0 ? hopper::pack_bf16(v0, v1) : 0u;
+    });
+    if (gemm90::store_thread()) {
+      const int k = k0 + 64 * ln.wg;
+      if (k < a.K)
+        for (int p = 0; p < G::kPanelsB && n0 + 64 * p < a.N; ++p)
+          hopper::tma_store_3d(&a.out, ring.out(ln.wg) + p * kPanelBytes,
+                               n0 + 64 * p, k, e);
+      hopper::tma_store_commit();
+    }
+  }
+  if (gemm90::store_thread()) hopper::tma_store_wait_read<0>();
+}
+
+template <int BN>
+int launch_tgmm(TgmmArgs& a, cudaStream_t stream) {
+  using G = gemm90::Geo<BN>;
+  a.kt = (a.K + gemm90::BM - 1) / gemm90::BM;
+  a.nt = (a.N + BN - 1) / BN;
+  const size_t smem = G::kBytes + sizeof(int) * (2 * size_t(a.E) + 1 +
+                                                 size_t(a.n_tiles));
+  if (smem > size_t(gemm90::kSmemMax)) return -1;
+  const int err = gemm90::allow_smem<tgmm_wgmma_kernel<BN>>();
+  if (err != 0) return err;
+  const long items = long(a.E) * a.kt * a.nt;
+  const int grid = static_cast<int>(std::min<long>(items, gemm90::sm_count()));
+  tgmm_wgmma_kernel<BN><<<grid, gemm90::kThreads, smem, stream>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -466,9 +567,9 @@ extern "C" int paddle_gmm(const void* lhs, const void* rhs,
   const auto* te = static_cast<const int*>(tile_expert);
   if (dtype == 1)
     return trans ? launch_bf16<kModeT>(lhs, rhs, te, out, M, R, N, E, tile_m,
-                                       0, st)
+                                       st)
                  : launch_bf16<kModeN>(lhs, rhs, te, out, M, R, N, E, tile_m,
-                                       0, st);
+                                       st);
   if (dtype == 0) {
     const dim3 grid((N + kF - 1) / kF, M / kF);
     if (grid.y > 65535) return -1;
@@ -488,7 +589,9 @@ extern "C" int paddle_gmm(const void* lhs, const void* rhs,
 
 // out [E, K, N] = per expert e, the sum over its row tiles (ascending) of
 // lhs[tile]^T @ g[tile]; lhs [M, K], g [M, N]; zeros for an expert with no
-// tile. dtype, return codes and shape rules as paddle_gmm (K in R's place).
+// tile. dtype, return codes and shape rules as paddle_gmm (K in R's place);
+// bf16 also returns -1 when the block's tile lists (2 E + 1 + M / tile_m
+// ints) do not fit in shared memory beside the ring.
 extern "C" int paddle_tgmm(const void* lhs, const void* g,
                            const void* tile_expert, void* out, int M, int K,
                            int N, int E, int tile_m, int dtype,
@@ -497,9 +600,26 @@ extern "C" int paddle_tgmm(const void* lhs, const void* g,
   const int n_tiles = M / tile_m;
   const auto st = static_cast<cudaStream_t>(stream);
   const auto* te = static_cast<const int*>(tile_expert);
-  if (dtype == 1)
-    return launch_bf16<kModeW>(lhs, g, te, out, M, K, N, E, tile_m, n_tiles,
-                               st);
+  if (dtype == 1) {
+    TgmmArgs a;
+    const uint64_t lhs_dims[2] = {uint64_t(K), uint64_t(M)};
+    const uint64_t g_dims[2] = {uint64_t(N), uint64_t(M)};
+    const uint64_t out_dims[3] = {uint64_t(N), uint64_t(K), uint64_t(E)};
+    if (!hopper::encode_map(&a.lhs, lhs, 2, lhs_dims, 64, 64) ||
+        !hopper::encode_map(&a.g, g, 2, g_dims, 64, 64) ||
+        !hopper::encode_map(&a.out, out, 3, out_dims, 64, 64))
+      return -1;
+    a.tile_expert = te;
+    a.K = K;
+    a.N = N;
+    a.E = E;
+    a.tile_m = tile_m;
+    a.n_tiles = n_tiles;
+    // tile width from N alone: 256, or 64 / 128 for narrow N
+    if (N <= 64) return launch_tgmm<64>(a, st);
+    if (N <= 128) return launch_tgmm<128>(a, st);
+    return launch_tgmm<256>(a, st);
+  }
   if (dtype == 0) {
     const dim3 grid((N + kF - 1) / kF, (K + kF - 1) / kF, E);
     if (grid.y > 65535 || grid.z > 65535) return -1;

@@ -12,6 +12,13 @@
 //     1024 bytes apart, a k16 step 32 bytes further along the row;
 //   * MN-major (rows are K, the 64 columns are N; the transpose bit):
 //     8-row groups of K 1024 bytes apart, a k16 step 2048 bytes further.
+// A product wider than 64 (m64n128k16, m64n256k16) reads an MN-major
+// operand of several panels: the descriptor's leading offset (LBO) is
+// then the distance between the panels (`desc_sw128_mn`).
+//
+// TMA stores (`tma_store_2d` / `_3d`) write one panel from shared memory
+// to global memory; the tensor map clips the rows and columns that fall
+// outside the tensor, so a ragged edge needs no mask.
 #pragma once
 
 #include <cuda.h>
@@ -97,12 +104,70 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map,
       : "memory");
 }
 
+// fetch a tensor map (a kernel parameter) into the TMA unit's cache ahead
+// of its first use
+__device__ __forceinline__ void prefetch_map(const CUtensorMap* map) {
+  asm volatile("prefetch.tensormap [%0];\n" ::"l"(
+                   reinterpret_cast<uint64_t>(map))
+               : "memory");
+}
+
+// one box of a 2-D tensor map into shared memory (c0 the inner,
+// contiguous coordinate); completion counted in bytes on `bar`
+__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map,
+                                            uint32_t bar, int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.tile.mbarrier::"
+      "complete_tx::bytes [%0], [%1, {%2, %3}], [%4];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(bar)
+      : "memory");
+}
+
+// one panel of shared memory out to the box of a 2-D / 3-D tensor map at
+// (c0, c1[, c2]); elements outside the tensor are not written. Stores
+// join the thread's open bulk group (`tma_store_commit`).
+__device__ __forceinline__ void tma_store_2d(const CUtensorMap* map,
+                                             const void* src, int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.global.shared::cta.bulk_group [%0, {%2, %3}], "
+      "[%1];\n" ::"l"(reinterpret_cast<uint64_t>(map)),
+      "r"(smem_u32(src)), "r"(c0), "r"(c1)
+      : "memory");
+}
+__device__ __forceinline__ void tma_store_3d(const CUtensorMap* map,
+                                             const void* src, int c0, int c1,
+                                             int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.global.shared::cta.bulk_group "
+      "[%0, {%2, %3, %4}], [%1];\n" ::"l"(reinterpret_cast<uint64_t>(map)),
+      "r"(smem_u32(src)), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+__device__ __forceinline__ void tma_store_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+// wait until at most N of the thread's committed store groups still read
+// shared memory (their source may then be written again)
+template <int N>
+__device__ __forceinline__ void tma_store_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read %0;\n" ::"n"(N) : "memory");
+}
+// make this thread's generic-proxy writes to shared memory visible to the
+// async proxy (a TMA store or a wgmma that reads them next)
+__device__ __forceinline__ void fence_async_smem() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+// barrier `id` (1..15) over `count` threads, whole warps
+__device__ __forceinline__ void bar_sync(int id, int count) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(count) : "memory");
+}
+
 // --------------------------------------------------------------- wgmma --
 
 // shared-memory matrix descriptor of a 128-byte-swizzled panel at `addr`
 // (shared-window address): 8-row groups 1024 bytes apart (SBO). The
 // leading offset (LBO) stays 0: a K-major panel does not read it, an
-// MN-major one only past 64 columns, and every product here is 64 wide.
+// MN-major one only past 64 columns (`desc_sw128_mn` sets it).
 __device__ __forceinline__ uint64_t desc_sw128(uint32_t addr) {
   uint64_t d = 0;
   d |= static_cast<uint64_t>((addr & 0x3FFFF) >> 4);
@@ -111,15 +176,24 @@ __device__ __forceinline__ uint64_t desc_sw128(uint32_t addr) {
   return d;
 }
 
+// the same descriptor for an MN-major operand wider than one panel: the
+// panels along MN lie `lbo` bytes apart (leading offset)
+__device__ __forceinline__ uint64_t desc_sw128_mn(uint32_t addr,
+                                                  uint32_t lbo) {
+  return desc_sw128(addr) | static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16;
+}
+
 __device__ __forceinline__ void wgmma_fence() {
   asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
 }
 __device__ __forceinline__ void wgmma_commit() {
   asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
 }
-// wait for every committed group of this warpgroup
+// wait until at most N committed groups of this warpgroup are in flight
+// (by default none)
+template <int N = 0>
 __device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
 }
 
 // keep the compiler from moving reads or writes of accumulator registers
@@ -145,21 +219,6 @@ __device__ __forceinline__ void fence_regs(float (&r)[N]) {
   "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "   \
   "%30, %31}"
 
-// d[64 x 64] (+)= A[64 x 16] B[16 x 64], f32 accumulate, both operands
-// K-major in shared memory; `accumulate` 0 overwrites d.
-__device__ __forceinline__ void wgmma_ss(float* d, uint64_t a, uint64_t b,
-                                         int accumulate) {
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "setp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " HOPPER_D32_LIST
-      ", %32, %33, p, 1, 1, 0, 0;\n"
-      "}\n"
-      : HOPPER_D32(d)
-      : "l"(a), "l"(b), "r"(accumulate));
-}
-
 // d[64 x 64] += A[64 x 16] B[16 x 64]: A from registers (the accumulator
 // layout of a previous product, packed to bf16 pairs), B MN-major in
 // shared memory (transpose bit set).
@@ -174,6 +233,109 @@ __device__ __forceinline__ void wgmma_rs(float* d, const uint32_t (&a)[4],
       "}\n"
       : HOPPER_D32(d)
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+#define HOPPER_D64(d) \
+  "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), \
+      "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), \
+      "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), \
+      "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), \
+      "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), \
+      "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), \
+      "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), \
+      "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), \
+      "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), \
+      "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), \
+      "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), \
+      "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), \
+      "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+
+#define HOPPER_D64_LIST \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, " \
+  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, " \
+  "%30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, " \
+  "%44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, " \
+  "%58, %59, %60, %61, %62, %63}"
+
+#define HOPPER_D128(d) \
+  "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), \
+      "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), \
+      "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), \
+      "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), \
+      "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), \
+      "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), \
+      "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), \
+      "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), \
+      "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), \
+      "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), \
+      "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), \
+      "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), \
+      "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]), "+f"(d[65]), \
+      "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), \
+      "+f"(d[71]), "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), \
+      "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]), "+f"(d[80]), \
+      "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]), \
+      "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), \
+      "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]), \
+      "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), \
+      "+f"(d[101]), "+f"(d[102]), "+f"(d[103]), "+f"(d[104]), "+f"(d[105]), \
+      "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), \
+      "+f"(d[111]), "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]), \
+      "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]), "+f"(d[120]), \
+      "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), \
+      "+f"(d[126]), "+f"(d[127])
+
+#define HOPPER_D128_LIST \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, " \
+  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, " \
+  "%30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, " \
+  "%44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, " \
+  "%58, %59, %60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71, " \
+  "%72, %73, %74, %75, %76, %77, %78, %79, %80, %81, %82, %83, %84, %85, " \
+  "%86, %87, %88, %89, %90, %91, %92, %93, %94, %95, %96, %97, %98, %99, " \
+  "%100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, " \
+  "%111, %112, %113, %114, %115, %116, %117, %118, %119, %120, %121, " \
+  "%122, %123, %124, %125, %126, %127}"
+
+// d[64 x N] (+)= A[64 x 16] B[16 x N], f32 accumulate, both operands in
+// shared memory; TA / TB the transpose bits (1: MN-major, an operand
+// whose rows are the reduction); `accumulate` 0 overwrites d. N is 64,
+// 128 or 256: 32, 64 or 128 accumulator registers a thread.
+template <int N, int TA, int TB>
+__device__ __forceinline__ void wgmma_ss_t(float* d, uint64_t a, uint64_t b,
+                                           int accumulate) {
+  static_assert(N == 64 || N == 128 || N == 256, "wgmma width");
+  if constexpr (N == 64) {
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "setp.ne.b32 p, %34, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " HOPPER_D32_LIST
+        ", %32, %33, p, 1, 1, %35, %36;\n"
+        "}\n"
+        : HOPPER_D32(d)
+        : "l"(a), "l"(b), "r"(accumulate), "n"(TA), "n"(TB));
+  } else if constexpr (N == 128) {
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "setp.ne.b32 p, %66, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+        HOPPER_D64_LIST ", %64, %65, p, 1, 1, %67, %68;\n"
+        "}\n"
+        : HOPPER_D64(d)
+        : "l"(a), "l"(b), "r"(accumulate), "n"(TA), "n"(TB));
+  } else {
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "setp.ne.b32 p, %130, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
+        HOPPER_D128_LIST ", %128, %129, p, 1, 1, %131, %132;\n"
+        "}\n"
+        : HOPPER_D128(d)
+        : "l"(a), "l"(b), "r"(accumulate), "n"(TA), "n"(TB));
+  }
 }
 
 // (x, y) as one bf16 pair, x in the low half
@@ -217,6 +379,30 @@ inline EncodeTiledFn encode_tiled_fn() {
     fn = reinterpret_cast<EncodeTiledFn>(p);
   }
   return fn;
+}
+
+// A tensor map over a contiguous row-major bf16 tensor of `rank` 2 or 3
+// axes, dims[0] the contiguous one (a multiple of 8: rows of 16-byte
+// multiples), with a box of box0 x box1 (x 1), 128-byte swizzle
+// (box0 <= 64), zeros outside. Returns false when the encoder refuses it.
+inline bool encode_map(CUtensorMap* map, const void* ptr, int rank,
+                       const uint64_t* dims, int box0, int box1) {
+  EncodeTiledFn fn = encode_tiled_fn();
+  if (fn == nullptr || rank < 2 || rank > 3) return false;
+  cuuint64_t d[3], strides[2];
+  cuuint64_t stride = 2;
+  for (int i = 0; i < rank; ++i) {
+    d[i] = cuuint64_t(dims[i]);
+    if (i > 0) strides[i - 1] = stride;
+    stride *= d[i];
+  }
+  const cuuint32_t box[3] = {cuuint32_t(box0), cuuint32_t(box1), 1};
+  const cuuint32_t elem[3] = {1, 1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank,
+            const_cast<void*>(ptr), d, strides, box, elem,
+            CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
 // A tensor map over a contiguous bf16 [B, L, NH, DH] tensor whose box is

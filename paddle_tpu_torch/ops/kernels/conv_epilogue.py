@@ -15,8 +15,9 @@ Here there is no such fallback: the kernel takes every M, and K and N
 multiples of 8, in float32 or bfloat16, with w in x2's dtype and bias
 float32, both operands contiguous and 16-byte aligned, and raises on
 anything else. The TPU kernel's tile choice (``tiles``, the autotune
-lookup, ``default_tiles``) has no counterpart: the kernel's tiles are
-fixed.
+lookup, ``default_tiles``) has no counterpart: the bf16 kernel picks its
+tile width from N and K and cuts K into fixed chunks, never reading M,
+so a row's bits do not depend on M (``csrc/conv_epilogue.cu``).
 
 impl: ``"auto"`` — the kernel for CUDA tensors, the plain version for CPU
 tensors; ``"kernel"`` — the kernel, raising on anything it cannot take;

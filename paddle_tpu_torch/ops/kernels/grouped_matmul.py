@@ -21,10 +21,12 @@ expert ``tile_expert[i]`` (int32 ``[M // tile_m]``); rhs ``[E, K, N]``.
 * ``tgmm(lhs, g, tile_expert, num_experts, tile_m)`` -> ``[E, K, N]`` in
   lhs's dtype: for each expert the f32 sum over its tiles, in ascending
   index, of ``lhs[tile]^T @ g[tile]``, rounded once; 0 for an expert that
-  owns no tile. The kernel (``csrc/grouped_matmul.cu``) gives each
-  (expert, output tile) one block that walks the expert's tiles: it needs
-  no sorted ``tile_expert``, has no atomics and gives the same bits from
-  run to run.
+  owns no tile. The bf16 kernel (``csrc/grouped_matmul.cu`` on the
+  shared wgmma + TMA mainloop of ``csrc/gemm_sm90.cuh``) has persistent
+  blocks walk the (expert, 128 x 256 output tile) items, expert-major,
+  each summing over its expert's tiles in ascending index: it needs no
+  sorted ``tile_expert``, has no atomics and gives the same bits from run
+  to run.
 
 Like the JAX ``gmm``, ``gmm`` raises ``ValueError`` for a decreasing
 ``tile_expert`` (the TPU weight-gradient kernel's precondition), but only

@@ -305,6 +305,13 @@ def test_grouped_matmul_matches_plain_version(cuda, kind):
     smoke.check_gmm(kind, seed=3, geom=GMM_SMALL)
 
 
+def test_tgmm_on_skewed_routing_at_ragged_widths(cuda):
+    """tgmm (and gmm) on the skewed routing, with its empty experts exactly
+    0 and a shuffled tile order bitwise equal, at widths the tgmm tiles do
+    not divide (K 584 = 4.56 x 128, N 328 = 1.28 x 256)."""
+    smoke.check_gmm("skewed", seed=4, geom=dict(GMM_SMALL, D=584, F=328))
+
+
 def test_flash_attention_with_one_query_head_per_kv_head(cuda):
     """Flash attention at G = 1 (H = Hkv = 16, Qwen2-MoE's geometry)."""
     smoke.check_bounds("flash G=1", smoke.check_flash(
@@ -356,6 +363,14 @@ def test_conv_epilogue_rows_are_batch_invariant_and_writes_masked(cuda):
     outside [M, N] for ragged M and N = 64."""
     smoke.check_conv_epilogue_rows(seed=10)
     smoke.check_conv_epilogue_edges(seed=11)
+
+
+def test_conv_epilogue_rows_bitwise_across_m(cuda):
+    """The same rows bitwise at M from 49 to the largest, at N 64 (64-wide
+    tiles) and N 2048 (128-wide tiles, 16 column tiles)."""
+    smoke.check_conv_epilogue_rows_across_m(
+        ((1024, 64, (49, 392, 25088)), (1024, 2048, (49, 392, 1568))),
+        seed=12)
 
 
 def test_conv_epilogue_counts_launches_and_rejects_bad_input(cuda):

@@ -38,7 +38,7 @@ from paddle_tpu_torch.ops.kernels import _build  # noqa: E402
 from torch_train_profile import _kernel_times  # noqa: E402
 
 FAMILIES = (
-    ("conv_epilogue", ("mba_bf16_kernel", "mba_f32_kernel")),
+    ("conv_epilogue", ("mba_wgmma_kernel", "mba_f32_kernel")),
     ("batch_norm", ("batch_norm", "bn_fw", "batchnorm")),
     ("cudnn_conv", ("fprop", "conv", "cudnn", "xmma", "implicit",
                     "winograd", "cutlass")),

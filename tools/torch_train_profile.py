@@ -36,7 +36,7 @@ from paddle_tpu_torch.ops.kernels import _build  # noqa: E402
 B, T = 1, 2048
 FAMILIES = (
     ("grouped_matmul", ("gmm_bf16_kernel", "gmm_f32_kernel",
-                        "tgmm_f32_kernel")),
+                        "tgmm_wgmma_kernel", "tgmm_f32_kernel")),
     ("flash_attention", ("fa_fwd_kernel", "fa_bwd_dq_kernel",
                          "fa_bwd_dkv_kernel")),
     ("rms_norm", ("rms_fwd_kernel", "rms_bwd_kernel", "rms_dw_sum_kernel")),
