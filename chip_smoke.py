@@ -15,8 +15,9 @@ Phases (any failed check raises; nothing is caught):
    with each kernel's registers and spills as ptxas reports them; the
    bf16 flash-attention kernels' SASS must hold HGMMA, the bf16 paged
    and ragged decode-attention kernels' HMMA (tensor cores), and every
-   bf16 tgmm and conv-epilogue instantiation (the shared wgmma + TMA
-   mainloop of ``csrc/gemm_sm90.cuh``) HGMMA and no HMMA;
+   bf16 gmm, tgmm, int8 and conv-epilogue instantiation (the shared
+   wgmma + TMA mainloop of ``csrc/gemm_sm90.cuh`` and its pieces) HGMMA
+   and no HMMA;
 3. the ragged paged-attention kernel against its plain PyTorch version
    on the card, at the Llama-3-8B attention geometry (H 32, Hkv 8,
    Dh 128, page 16): (a) a serving mix of prefill spans, decode rows and
@@ -273,16 +274,22 @@ def check_decode_sass(libs: dict) -> dict:
 
 
 def check_gemm_sass(libs: dict) -> dict:
-    """The bf16 tgmm and conv-epilogue kernels run on the shared wgmma
-    mainloop: HGMMA and no HMMA (mma.sync) in the SASS of every bf16
-    instantiation (tgmm's tile widths 64, 128 and 256, the conv
-    epilogue's 64 and 128). Returns ``{kernel: sorted HGMMA counts}``."""
+    """The bf16 gmm, tgmm, int8 and conv-epilogue kernels run on the
+    shared wgmma mainloop's pieces: HGMMA and no HMMA (mma.sync) in the
+    SASS of every bf16 instantiation (gmm's tile widths 64 and 128,
+    forward and transposed; tgmm's 64, 128 and 256; the int8 kernel's 64
+    and 128 rows; the conv epilogue's 64 and 128). Returns ``{kernel:
+    sorted HGMMA counts}``."""
     got = {}
-    for lib, kern, n in (("grouped_matmul", "tgmm_wgmma_kernel", 3),
+    for lib, kern, n in (("grouped_matmul", "gmm_wgmma_kernel", 4),
+                         ("grouped_matmul", "tgmm_wgmma_kernel", 3),
+                         ("int8_matmul", "int8_mm_wgmma_kernel", 2),
                          ("conv_epilogue", "mba_wgmma_kernel", 2)):
         hgmma = sass_count(libs[lib])
         hmma = sass_count(libs[lib], "HMMA")
-        fns = [k for k in hgmma if kern in k]
+        # mangled names carry each name's length: "16gmm_wgmma_kernel" is
+        # not inside "17tgmm_wgmma_kernel"
+        fns = [k for k in hgmma if f"{len(kern)}{kern}" in k]
         assert len(fns) == n, (kern, sorted(hgmma))
         for fn in fns:
             assert hgmma[fn] > 0, f"{fn}: no HGMMA in its SASS"
@@ -1443,6 +1450,11 @@ def int8_kernel_phase() -> dict:
                          if "int8pack_ms" in t else "")
                 + f", bound {t['bound_ms']:.4f} ms ({t['bound_by']})")
         rec[name] = e
+    for M in (32, 256, 4096):
+        st = int8_step_record(rec, M)
+        log(f"int8 step sum at M={M} (7 projections + lm_head): kernel "
+            f"{st['ms']:.4f} ms, cuBLAS bf16 {st['library_ms']:.4f} ms, "
+            f"bound {st['bound_ms']:.4f} ms ({st['bound_by']})")
     log("int8 kernel: rows bitwise equal at M = " + ", ".join(
         map(str, INT8_MS)) + " and in reversed order; torch int8pack CUDA "
         f"kernel {'present' if _int8pack_available() else 'absent'}")
@@ -1450,8 +1462,9 @@ def int8_kernel_phase() -> dict:
 
 
 def int8_step_record(rec: dict, M: int = 32) -> dict:
-    """The int8 products of one decode step at M rows: the seven
-    projections of a layer plus lm_head (times, bounds summed)."""
+    """The int8 products of one step at M rows: the seven projections of
+    a layer plus lm_head (times, bounds summed). M = 32 is a decode step
+    at the bench mix; M = 256 and 4096 weigh prefill's shapes alike."""
     count = {"wq_wo": 2, "wk_wv": 2, "gate_up": 2, "down": 1, "lm_head": 1}
     out = {}
     for key in ("ms", "plain_ms", "library_ms", "bound_ms"):
@@ -2114,11 +2127,18 @@ def check_moe(seed: int = 70) -> dict:
 
 
 GMM_KERNELS = (
-    # name, the TPU kernel it replaces, the time record
+    # name, the TPU kernel it replaces, the time record, the error record,
+    # the launch count (gmm's counts forward and dlhs launches alike)
     ("grouped_matmul", "paddle_tpu/ops/pallas/grouped_matmul.py:60",
-     "gmm_fwd_gate", "fwd"),
+     "gmm_fwd_gate", "fwd", "grouped_matmul"),
+    ("grouped_matmul_dlhs_gate", "paddle_tpu/ops/pallas/grouped_matmul.py:60",
+     "gmm_dlhs_gate", "dlhs", "grouped_matmul"),
+    ("grouped_matmul_fwd_down", "paddle_tpu/ops/pallas/grouped_matmul.py:60",
+     "gmm_fwd_down", "fwd", "grouped_matmul"),
+    ("grouped_matmul_dlhs_down", "paddle_tpu/ops/pallas/grouped_matmul.py:60",
+     "gmm_dlhs_down", "dlhs", "grouped_matmul"),
     ("grouped_matmul_tgmm", "paddle_tpu/ops/pallas/grouped_matmul.py:98",
-     "tgmm_gate", "tgmm"),
+     "tgmm_gate", "tgmm", "grouped_matmul_tgmm"),
 )
 
 
@@ -2156,7 +2176,7 @@ def gmm_kernel_phase() -> dict:
             f"{t['plain_ms']:.4f} ms, library {t['library_ms']:.4f} ms, "
             f"bound {t['bound_ms']:.4f} ms ({t['bound_by']})")
     rec = {}
-    for name, _, tkey, ekey in GMM_KERNELS:
+    for name, _, tkey, ekey, _ in GMM_KERNELS:
         rec[name] = dict(times[tkey], max_abs_err=errs["uniform"][
             (ekey, "max_abs_err")])
     rec["all"] = dict(errs=errs, moe=e, flash_g1=fe, times=times)
@@ -2827,8 +2847,8 @@ def main() -> int:
     log("decode attention SASS (bf16 kernels, min / max HMMA, f32 kernels "
         "with HMMA): " + ", ".join(f"{k} {v}" for k, v in
                                    check_decode_sass(libs).items()))
-    log("tgmm and conv-epilogue bf16 SASS, HGMMA per tile width (no "
-        "HMMA): " + ", ".join(
+    log("gmm, tgmm, int8 and conv-epilogue bf16 SASS, HGMMA per "
+        "instantiation (no HMMA): " + ", ".join(
             f"{k} {v}" for k, v in check_gemm_sass(libs).items()))
 
     rec = kernel_phase()
@@ -2876,7 +2896,6 @@ def main() -> int:
                             bound_by=r["bound_by"],
                             library_ms=r["library_ms"]))
     gp = paths["generate_paged"]
-    step = int8_step_record(int8_rec)
     for name, replaces, launches, case, mode in (
             ("paged_attention", "paddle_tpu/inference/paged_kv.py:201",
              paths["decode_block"]["launches"]["paged_attention"],
@@ -2891,20 +2910,25 @@ def main() -> int:
             max_abs_err=case["bf16_max_abs_err"], ms=case[mode]["ms"],
             plain_ms=case["plain_ms"], bound_ms=case[mode]["bound_ms"],
             bound_by=case[mode]["bound_by"], library_ms=case["library_ms"]))
-    kernels.append(dict(
-        name="int8_matmul", route="cuda",
-        source="paddle_tpu_torch/csrc/int8_matmul.cu",
-        replaces="paddle_tpu/ops/pallas/int8_matmul.py:48",
-        launches=gp["int8"]["launches"]["int8_matmul"],
-        max_abs_err=step["max_abs_err"], ms=step["ms"],
-        plain_ms=step["plain_ms"], bound_ms=step["bound_ms"],
-        bound_by=step["bound_by"], library_ms=step["library_ms"]))
-    for name, replaces, _, _ in GMM_KERNELS:
+    # row 9 in both regimes: a decode step's products at M = 32, and the
+    # same seven projections and lm_head at prefill's M = 256 and 4096
+    for name, M in (("int8_matmul", 32), ("int8_matmul_prefill_256", 256),
+                    ("int8_matmul_prefill_4096", 4096)):
+        step = int8_step_record(int8_rec, M)
+        kernels.append(dict(
+            name=name, route="cuda",
+            source="paddle_tpu_torch/csrc/int8_matmul.cu",
+            replaces="paddle_tpu/ops/pallas/int8_matmul.py:48",
+            launches=gp["int8"]["launches"]["int8_matmul"],
+            max_abs_err=step["max_abs_err"], ms=step["ms"],
+            plain_ms=step["plain_ms"], bound_ms=step["bound_ms"],
+            bound_by=step["bound_by"], library_ms=step["library_ms"]))
+    for name, replaces, _, _, count in GMM_KERNELS:
         r = gmm_rec[name]
         kernels.append(dict(
             name=name, route="cuda",
             source="paddle_tpu_torch/csrc/grouped_matmul.cu",
-            replaces=replaces, launches=qwen["launches"][name],
+            replaces=replaces, launches=qwen["launches"][count],
             max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"],
             bound_ms=r["bound_ms"], bound_by=r["bound_by"],
             library_ms=r["library_ms"]))

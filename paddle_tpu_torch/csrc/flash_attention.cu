@@ -598,8 +598,8 @@ __device__ __forceinline__ void accumulate(float (&acc)[Tile<DH>::kAcc],
 #pragma unroll
     for (int p = 0; p < Tile<DH>::kPanels; ++p) {
       const uint64_t d = hopper::desc_sw128(b + p * kPanelBytes + kk * 2048);
-      hopper::wgmma_rs(acc + 32 * p, hi[kk], d);
-      hopper::wgmma_rs(acc + 32 * p, lo[kk], d);
+      hopper::wgmma_rs<64, 1>(acc + 32 * p, hi[kk], d, 1);
+      hopper::wgmma_rs<64, 1>(acc + 32 * p, lo[kk], d, 1);
     }
   hopper::wgmma_commit();
   hopper::wgmma_wait();

@@ -1,6 +1,7 @@
 // The bf16 GEMM mainloop shared by the port's Hopper GEMM kernels with a
-// fused epilogue: tgmm (grouped_matmul.cu) and the conv epilogue
-// (conv_epilogue.cu).
+// fused epilogue: gmm and tgmm (grouped_matmul.cu) and the conv epilogue
+// (conv_epilogue.cu). The int8 weight-only matmul (int8_matmul.cu) uses
+// its roles, ring and host helpers with a stage layout of its own.
 //
 // Shape of a kernel built on it. 384 threads a block, one block an SM,
 // persistent: the block walks a fixed list of work items (output tiles),
@@ -25,9 +26,12 @@
 // 128 bytes each: the conv epilogue's x) or MN-major (rows are the
 // reduction, 64 output rows wide a panel: tgmm's lhs^T); B is MN-major
 // (rows are the reduction, BN / 64 panels of 64 columns: the conv
-// epilogue's w [K, N], tgmm's g). Every wgmma is BN wide and reads B's
-// BN / 64 panels through one descriptor whose leading offset (LBO) is the
-// panel size, kPanelBytes.
+// epilogue's w [K, N], tgmm's g, gmm's weight) or K-major (BN rows of 64
+// reduction values, the panels one after the other: gmm's weight read
+// transposed for dlhs). Every wgmma is BN wide; an MN-major B's BN / 64
+// panels are read through one descriptor whose leading offset (LBO) is
+// the panel size, kPanelBytes, a K-major B's rows 1024 bytes an 8-row
+// group apart like a K-major A's.
 //
 // Epilogue. Each consumer warpgroup turns its 64 x BN accumulator into
 // bf16 in registers (the kernel's own function of the column and the f32
@@ -81,12 +85,14 @@ __device__ __forceinline__ unsigned char* align_1k(unsigned char* p) {
 }
 
 // The block's shared memory: the ring, the staging panels, the full and
-// empty barriers, then the kernel's own bytes (`extra()`).
-template <int BN>
-struct Ring {
-  using G = Geo<BN>;
+// empty barriers, then the kernel's own bytes (`extra()`). G gives the
+// layout (kStages stages of kStageBytes, the first kABytes of a stage
+// for A, the rest for B; kPanelsB staging panels a consumer); Geo<BN>
+// is the bf16 GEMM's (`Ring<BN>`), int8_matmul.cu has its own.
+template <class G>
+struct RingT {
   unsigned char* base;
-  __device__ explicit Ring(unsigned char* raw) : base(align_1k(raw)) {}
+  __device__ explicit RingT(unsigned char* raw) : base(align_1k(raw)) {}
   __device__ unsigned char* a(int s) const {
     return base + s * G::kStageBytes;
   }
@@ -122,6 +128,9 @@ struct Ring {
   }
 };
 
+template <int BN>
+using Ring = RingT<Geo<BN>>;
+
 // Where a consumer thread sits in its warpgroup's 64 x BN accumulator:
 // rows r and r + 8, columns 8 j + c and + 1 (j < BN / 8), registers
 // 4 j + {0, 1} (row r) and 4 j + {2, 3} (row r + 8).
@@ -134,8 +143,12 @@ struct Lane {
 };
 
 // the products of one stage: acc[64 x BN] (+)= A[64 rows of wg] B over 64
-// reduction values; `fresh` overwrites acc with the first product
-template <int BN, bool A_MN>
+// reduction values; `fresh` overwrites acc with the first product. B is
+// MN-major (B_MN: rows are the reduction, BN / 64 panels of 64 columns)
+// or K-major (rows are the BN output columns, 128 bytes of reduction
+// each, the panels one after the other: a k16 step is 32 bytes along
+// the row, as for a K-major A).
+template <int BN, bool A_MN, bool B_MN = true>
 __device__ __forceinline__ void mma_stage(float* acc, uint32_t a, uint32_t b,
                                           int wg, bool fresh) {
   const uint32_t aw = a + wg * kPanelBytes;
@@ -143,9 +156,11 @@ __device__ __forceinline__ void mma_stage(float* acc, uint32_t a, uint32_t b,
   for (int kk = 0; kk < BK / 16; ++kk) {
     const uint64_t da = A_MN ? hopper::desc_sw128(aw + kk * 2048)
                              : hopper::desc_sw128(aw + kk * 32);
-    const uint64_t db = hopper::desc_sw128_mn(b + kk * 2048, kPanelBytes);
-    hopper::wgmma_ss_t<BN, A_MN ? 1 : 0, 1>(acc, da, db,
-                                            !(fresh && kk == 0));
+    const uint64_t db = B_MN
+                            ? hopper::desc_sw128_mn(b + kk * 2048, kPanelBytes)
+                            : hopper::desc_sw128(b + kk * 32);
+    hopper::wgmma_ss_t<BN, A_MN ? 1 : 0, B_MN ? 1 : 0>(acc, da, db,
+                                                       !(fresh && kk == 0));
   }
 }
 
@@ -153,7 +168,7 @@ __device__ __forceinline__ void mma_stage(float* acc, uint32_t a, uint32_t b,
 // acc, overwriting it. On return every product is done and every stage
 // released. Only wgmmas write acc: any other instruction writing it
 // between two of them makes ptxas serialize every wgmma (C7515).
-template <int BN, bool A_MN>
+template <int BN, bool A_MN, bool B_MN = true>
 __device__ __forceinline__ void consume(float (&acc)[Geo<BN>::kAcc],
                                         const Ring<BN>& ring, int& it,
                                         int steps, int wg) {
@@ -162,8 +177,8 @@ __device__ __forceinline__ void consume(float (&acc)[Geo<BN>::kAcc],
     const int st = it % G::kStages;
     hopper::mbar_wait(ring.full(st), (it / G::kStages) & 1);
     hopper::wgmma_fence();
-    mma_stage<BN, A_MN>(acc, hopper::smem_u32(ring.a(st)),
-                        hopper::smem_u32(ring.b(st)), wg, s == 0);
+    mma_stage<BN, A_MN, B_MN>(acc, hopper::smem_u32(ring.a(st)),
+                              hopper::smem_u32(ring.b(st)), wg, s == 0);
     hopper::wgmma_commit();
     hopper::wgmma_wait<1>();  // the previous stage's products are done
     if (s > 0) hopper::mbar_arrive(ring.empty((it - 1) % G::kStages));

@@ -23,17 +23,28 @@
 // bf16 math). tgmm writes the same 346 MB, and its ~91 GFLOP (padding rows
 // included) take ~0.09 ms of the tensor cores' peak: it needs both.
 //
-// gmm design (bf16). Tensor cores through mma.sync m16n8k16 (f32
-// accumulate), 128 x 128 output tiles, 8 warps of 64 x 32, 32 reduction
-// values a stage, a 3-stage ring filled by 16-byte cp.async (zero-fill at
-// ragged edges). Fragments come from shared memory through ldmatrix; the
-// .trans form reads the [K, N] weight (reduction axis along its rows), the
-// plain form lhs and the [N, K] weight of dlhs. Rows are padded by 16
-// bytes, an odd number of 16-byte units, so the 8 row reads of an ldmatrix
-// fall in distinct banks. One block per (128-row tile, 128-column tile);
-// its expert is tile_expert[row tile]. A tile_expert entry outside [0, E)
-// makes the block write NaN (never an out-of-bounds read).
-//
+// gmm design (bf16): the shared wgmma + TMA mainloop (gemm_sm90.cuh).
+//   * A is lhs [M, K], K-major, loaded by TMA as 128-row x 64-column
+//     boxes. B is the expert's weight: rhs[e] [K, N], MN-major (the conv
+//     epilogue's w layout), or with `trans` rhs[e] [N, K] read as its
+//     transpose, which is K-major B (BN rows of 64 reduction values a
+//     stage): dlhs needs no copy of the weight. Both come through one 3-D
+//     map over rhs, 64 x 64 boxes.
+//   * Work items are (128-row block, BN-column tile) pairs, BN = 128 (64
+//     for N <= 64: `launch_gmm_n`); block b's expert is
+//     tile_expert[b * 128 / tile_m], so tile_m may be any multiple of
+//     128. The bound is the weight stream (every expert's [K, N] once):
+//     the items are ordered expert by expert, then column tile, then the
+//     expert's row blocks, so the ~2 row blocks that read one weight
+//     panel run side by side and the second read comes from L2. The
+//     order is built by each block from tile_expert on the device (as
+//     tgmm's lists), with no host sync; blocks whose tile_expert entry is
+//     outside [0, E) form a last group, load nothing and store NaN.
+//   * Persistent blocks, one an SM; one item's TMA store drains while
+//     the next item's loads and products run. The K-chain of each output
+//     is one f32 wgmma chain, rounded once to bf16 in the epilogue; a
+//     row's bits depend on its row block alone, not on where the block
+//     sits or what else is in the call.
 // tgmm design (bf16): the shared wgmma + TMA mainloop (gemm_sm90.cuh).
 //   * Work items are (expert, 128-row tile of K, BN-column tile of N) of
 //     the [E, K, N] output, BN = 256 (64 or 128 for narrow N), expert-major:
@@ -61,9 +72,9 @@
 // plain FMA kernel of 64 x 64 tiles: each thread 4 x 4 outputs, each 16
 // reduction values summed, then added to the running total in order.
 //
-// Known gaps: gmm is still mma.sync and cp.async; padding rows are
-// multiplied like the others (the kernels' interface carries no group
-// sizes).
+// Known gaps: padding rows are multiplied like the others (the kernels'
+// interface carries no group sizes); at N = 1408 gmm's 11 column tiles
+// make 10.25 items a block, so its last round runs a quarter full.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -76,204 +87,8 @@
 
 namespace {
 
-constexpr int kModeN = 0;  // gmm, rhs [E, K, N]
-constexpr int kModeT = 1;  // gmm, rhs [E, N, K] read transposed (dlhs)
-
-constexpr int BM = 128, BN = 128, BK = 32, STAGES = 3, THREADS = 256;
-constexpr int WN = 4;                 // warps along the columns (2 x 4 warps)
-constexpr int MT = 4, NT = 4;         // a warp's 16-row and 8-column mma tiles
-constexpr int LDK = BK + 8;           // a row of BK reduction values, padded
-constexpr int LDW = BN + 8;           // a reduction row of 128 columns
-constexpr int kTileElems = BM * LDK;  // >= BK * LDW: either layout fits
-static_assert(BM == BN && BM * LDK >= BK * LDW, "tile layout");
-constexpr size_t kStageBytes = size_t(2) * kTileElems * 2;  // A and B, bf16
-constexpr size_t kRingBytes = STAGES * kStageBytes;         // 61,440
-
 using bf16 = __nv_bfloat16;
-
-__device__ __forceinline__ unsigned smem_u32(const void* p) {
-  return static_cast<unsigned>(__cvta_generic_to_shared(p));
-}
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           int src_bytes) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
-                   smem_u32(dst)),
-               "l"(src), "r"(src_bytes)
-               : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-// four 8 x 8 b16 matrices; lanes 8j .. 8j + 7 give the row addresses of
-// matrix j. Plain: lane l holds row l / 4, columns 2 (l % 4) and + 1 of
-// each. Trans: rows 2 (l % 4) and + 1 of column l / 4.
-__device__ __forceinline__ void ldsm_x4(uint32_t* r, const bf16* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_u32(p))
-      : "memory");
-}
-__device__ __forceinline__ void ldsm_x4_t(uint32_t* r, const bf16* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
-      "[%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_u32(p))
-      : "memory");
-}
-__device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a,
-                                         const uint32_t* b) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
-      "{%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-// Shared-memory layouts of one stage:
-//   A:            [BM][LDK], an output row's BK reduction values;
-//   B, mode N:    [BK][LDW], a reduction row of 128 output columns;
-//   B, mode T:    [BN][LDK], an output column's BK reduction values.
-// One stage's products, BK deep, into the warp's 64 x 32 accumulators.
-template <int MODE>
-__device__ __forceinline__ void mma_stage(const bf16* a, const bf16* b,
-                                          float (&acc)[MT][NT][4], int wm,
-                                          int wn, int lane) {
-  const int r = lane & 7, j = lane >> 3;
-#pragma unroll
-  for (int kk = 0; kk < BK; kk += 16) {
-    uint32_t af[MT][4], bfr[NT][2];
-#pragma unroll
-    for (int i = 0; i < MT; ++i) {
-      const int m = wm * MT * 16 + i * 16;
-      // a0..a3: (rows 0-7 | 8-15) x (k 0-7 | 8-15) of the 16 x 16 A tile
-      ldsm_x4(af[i], a + (m + r + 8 * (j & 1)) * LDK + kk + 8 * (j >> 1));
-    }
-#pragma unroll
-    for (int jj = 0; jj < NT; jj += 2) {
-      const int n = wn * NT * 8 + jj * 8;
-      uint32_t t[4];
-      // b0, b1 of column tile jj, then of jj + 1
-      if (MODE == kModeT)
-        ldsm_x4(t, b + (n + r + 8 * (j >> 1)) * LDK + kk + 8 * (j & 1));
-      else
-        ldsm_x4_t(t, b + (kk + r + 8 * (j & 1)) * LDW + n + 8 * (j >> 1));
-      bfr[jj][0] = t[0];
-      bfr[jj][1] = t[1];
-      bfr[jj + 1][0] = t[2];
-      bfr[jj + 1][1] = t[3];
-    }
-#pragma unroll
-    for (int i = 0; i < MT; ++i)
-#pragma unroll
-      for (int jn = 0; jn < NT; ++jn) mma_bf16(acc[i][jn], af[i], bfr[jn]);
-  }
-}
-
-// lhs [M][R] (R = reduction), w the expert's weight ([R][N], or [N][R] in
-// mode T), out [M][N]; grid (N tiles, M / BM).
-template <int MODE>
-__global__ void __launch_bounds__(THREADS)
-    gmm_bf16_kernel(const bf16* __restrict__ lhs, const bf16* __restrict__ rhs,
-                    const int* __restrict__ tile_expert,
-                    bf16* __restrict__ out, int M, int R, int N, int E,
-                    int tile_m) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  const int tid = threadIdx.x;
-  const int warp = tid / 32, lane = tid % 32;
-  const int g = lane >> 2, t = lane & 3;
-  const int wm = warp / WN, wn = warp % WN;
-  const int n0 = blockIdx.x * BN;
-  const int m0 = blockIdx.y * BM;
-
-  int e = tile_expert[m0 / tile_m];
-  const bool bad = e < 0 || e >= E;
-  if (bad) e = 0;
-  const bf16* w = rhs + size_t(e) * R * N;
-  const int steps = (R + BK - 1) / BK;
-
-  auto load_stage = [&](int s, int st) {
-    bf16* as = reinterpret_cast<bf16*>(smem + st * kStageBytes);
-    bf16* bs = as + kTileElems;
-    const int r0 = s * BK;
-    for (int c = tid; c < BM * (BK / 8); c += THREADS) {
-      const int row = c / (BK / 8), x = (c % (BK / 8)) * 8;
-      const int r = r0 + x;
-      cp_async16(as + row * LDK + x,
-                 r < R ? lhs + size_t(m0 + row) * R + r : lhs,
-                 r < R ? 16 : 0);
-    }
-    if (MODE == kModeN) {
-      for (int c = tid; c < BK * (BN / 8); c += THREADS) {
-        const int rr = c / (BN / 8), x = (c % (BN / 8)) * 8;
-        const int r = r0 + rr, n = n0 + x;
-        const bool ok = r < R && n < N;
-        cp_async16(bs + rr * LDW + x, ok ? w + size_t(r) * N + n : w,
-                   ok ? 16 : 0);
-      }
-    } else {
-      for (int c = tid; c < BN * (BK / 8); c += THREADS) {
-        const int col = c / (BK / 8), x = (c % (BK / 8)) * 8;
-        const int n = n0 + col, r = r0 + x;
-        const bool ok = n < N && r < R;
-        cp_async16(bs + col * LDK + x, ok ? w + size_t(n) * R + r : w,
-                   ok ? 16 : 0);
-      }
-    }
-  };
-
-  float acc[MT][NT][4];
-#pragma unroll
-  for (int i = 0; i < MT; ++i)
-#pragma unroll
-    for (int jn = 0; jn < NT; ++jn)
-#pragma unroll
-      for (int q = 0; q < 4; ++q) acc[i][jn][q] = 0.f;
-
-#pragma unroll
-  for (int s = 0; s < STAGES - 1; ++s) {
-    if (s < steps) load_stage(s, s);
-    cp_async_commit();  // empty groups keep the wait count uniform
-  }
-  for (int s = 0; s < steps; ++s) {
-    cp_async_wait<STAGES - 2>();
-    __syncthreads();  // stage s landed; stage s - 1's readers are done
-    {
-      const int ns = s + STAGES - 1;
-      if (ns < steps) load_stage(ns, ns % STAGES);
-      cp_async_commit();
-    }
-    const bf16* as =
-        reinterpret_cast<const bf16*>(smem + (s % STAGES) * kStageBytes);
-    mma_stage<MODE>(as, as + kTileElems, acc, wm, wn, lane);
-  }
-  cp_async_wait<0>();
-
-  // epilogue: one rounding to bf16; c0, c1 at (row g, columns 2t, 2t + 1),
-  // c2, c3 at row g + 8 (M % 128 == 0: every row is in)
-  const float nan = __int_as_float(0x7fc00000);
-#pragma unroll
-  for (int jn = 0; jn < NT; ++jn) {
-    const int n = n0 + wn * NT * 8 + jn * 8 + 2 * t;
-    if (n >= N) continue;  // N % 8 == 0: n and n + 1 are in or out together
-#pragma unroll
-    for (int i = 0; i < MT; ++i)
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int m = m0 + wm * MT * 16 + i * 16 + g + 8 * h;
-        *reinterpret_cast<__nv_bfloat162*>(out + size_t(m) * N + n) =
-            bad ? __floats2bfloat162_rn(nan, nan)
-                : __floats2bfloat162_rn(acc[i][jn][2 * h],
-                                        acc[i][jn][2 * h + 1]);
-      }
-  }
-}
+using hopper::kPanelBytes;
 
 // f32: 64 x 64 output tiles, 256 threads of 4 x 4 outputs, 16 reduction
 // values a step (summed, then added to the running total).
@@ -389,22 +204,6 @@ __global__ void __launch_bounds__(kFThreads)
   }
 }
 
-template <int MODE>
-int launch_bf16(const void* lhs, const void* rhs, const int* te, void* out,
-                int M, int R, int N, int E, int tile_m, cudaStream_t stream) {
-  auto kernel = gmm_bf16_kernel<MODE>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(kRingBytes));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((N + BN - 1) / BN, M / BM);
-  if (grid.y > 65535) return -1;
-  kernel<<<grid, THREADS, kRingBytes, stream>>>(
-      static_cast<const bf16*>(lhs), static_cast<const bf16*>(rhs), te,
-      static_cast<bf16*>(out), M, R, N, E, tile_m);
-  return static_cast<int>(cudaGetLastError());
-}
-
 // ------------------------------------------------- tgmm: wgmma + TMA --
 
 struct TgmmArgs {
@@ -416,35 +215,44 @@ struct TgmmArgs {
   int kt, nt;       // 128-row tiles of K, BN-column tiles of N
 };
 
-// A block's list of every expert's row tiles: order[first[e] ..
-// first[e + 1]) holds expert e's tiles in ascending index. Built by the
-// whole block (the consumers use first[], the producer both).
-__device__ __forceinline__ void list_tiles(const TgmmArgs& a, int* first,
-                                           int* fill, int* order) {
+// A block's list of the row tiles by expert: order[first[e] ..
+// first[e + 1]) holds the tiles of expert e in ascending index. Tile i's
+// expert is tile_expert[i / per]; an entry outside [0, E) belongs to no
+// expert, or, with `spill`, to a last group e = E (first[] then has E + 2
+// entries, fill[] E + 1). Built by the whole block (the consumers use it,
+// the producer too).
+__device__ __forceinline__ void list_tiles(const int* tile_expert, int n,
+                                           int per, int E, bool spill,
+                                           int* first, int* fill,
+                                           int* order) {
   const int tid = threadIdx.x;
-  for (int e = tid; e < a.E; e += blockDim.x) fill[e] = 0;
+  const int groups = spill ? E + 1 : E;
+  auto group = [&](int i) {
+    const int e = tile_expert[i / per];
+    return e >= 0 && e < E ? e : (spill ? E : -1);
+  };
+  for (int e = tid; e < groups; e += blockDim.x) fill[e] = 0;
   __syncthreads();
-  for (int i = tid; i < a.n_tiles; i += blockDim.x) {
-    const int e = a.tile_expert[i];
-    if (e >= 0 && e < a.E) atomicAdd(fill + e, 1);
+  for (int i = tid; i < n; i += blockDim.x) {
+    const int e = group(i);
+    if (e >= 0) atomicAdd(fill + e, 1);
   }
   __syncthreads();
   if (tid == 0) {
     int s = 0;
-    for (int e = 0; e < a.E; ++e) {
+    for (int e = 0; e < groups; ++e) {
       first[e] = s;
       s += fill[e];
       fill[e] = 0;
     }
-    first[a.E] = s;
+    first[groups] = s;
   }
   __syncthreads();
   if (tid < 32) {  // one warp, 32 tiles at a time, in ascending index
-    for (int base = 0; base < a.n_tiles; base += 32) {
+    for (int base = 0; base < n; base += 32) {
       const int i = base + tid;
-      int e = i < a.n_tiles ? a.tile_expert[i] : -1;
-      const bool ok = e >= 0 && e < a.E;
-      if (!ok) e = -1;
+      const int e = i < n ? group(i) : -1;
+      const bool ok = e >= 0;
       const unsigned peers = __match_any_sync(0xffffffffu, e);
       const int rank = __popc(peers & ((1u << tid) - 1u));
       if (ok) order[first[e] + fill[e] + rank] = i;
@@ -467,7 +275,8 @@ __global__ void __launch_bounds__(gemm90::kThreads, 1)
   int* fill = first + a.E + 1;                         // [E]
   int* order = fill + a.E;                             // [n_tiles]
   if (threadIdx.x == 0) ring.init();
-  list_tiles(a, first, fill, order);
+  list_tiles(a.tile_expert, a.n_tiles, 1, a.E, false, first, fill,
+             order);
 
   const int per_e = a.kt * a.nt;
   const int items = a.E * per_e;
@@ -545,8 +354,133 @@ int launch_tgmm(TgmmArgs& a, cudaStream_t stream) {
   return static_cast<int>(cudaGetLastError());
 }
 
+// -------------------------------------------------- gmm: wgmma + TMA --
+
+struct GmmArgs {
+  CUtensorMap lhs;  // [M, K], boxes of 64 columns x 128 rows
+  CUtensorMap rhs;  // [E, K, N] (with trans [E, N, K]), boxes of 64 x 64 x 1
+  CUtensorMap out;  // [M, N], boxes of 64 x 64
+  const int* tile_expert;
+  int K, N, E;
+  int per;     // 128-row blocks a row tile (tile_m / 128)
+  int blocks;  // 128-row blocks of M
+  int nt;      // BN-column tiles of N
+};
+
+// Item `item` of the order (header): group e (an expert, or E for the
+// blocks of no expert), 128-row block b and first column n0. `e` is the
+// caller's cursor: a block's items ascend, so it only moves forward.
+struct GmmItem {
+  int e, b, n0;
+};
+template <int BN>
+__device__ __forceinline__ GmmItem gmm_item(const GmmArgs& a,
+                                            const int* first,
+                                            const int* order, int item,
+                                            int& e) {
+  while (first[e + 1] * a.nt <= item) ++e;
+  const int cnt = first[e + 1] - first[e];
+  const int local = item - first[e] * a.nt;
+  return {e, order[first[e] + local % cnt], local / cnt * BN};
+}
+
+template <int BN, bool TRANS>
+__global__ void __launch_bounds__(gemm90::kThreads, 1)
+    gmm_wgmma_kernel(const __grid_constant__ GmmArgs a) {
+  using G = gemm90::Geo<BN>;
+  extern __shared__ unsigned char smem_raw[];
+  const gemm90::Ring<BN> ring(smem_raw);
+  int* first = reinterpret_cast<int*>(ring.extra());  // [E + 2]
+  int* fill = first + a.E + 2;                         // [E + 1]
+  int* order = fill + a.E + 1;                         // [blocks]
+  if (threadIdx.x == 0) ring.init();
+  list_tiles(a.tile_expert, a.blocks, a.per, a.E, true, first, fill, order);
+
+  const int items = a.blocks * a.nt;
+  const int steps = (a.K + gemm90::BK - 1) / gemm90::BK;
+
+  if (threadIdx.x >= gemm90::kConsumers) {
+    hopper::regs_dec<gemm90::kProducerRegs>();
+    if (threadIdx.x == gemm90::kConsumers) {
+      hopper::prefetch_map(&a.lhs);
+      hopper::prefetch_map(&a.rhs);
+      int it = 0, e = 0;
+      for (int item = blockIdx.x; item < items; item += gridDim.x) {
+        const GmmItem w = gmm_item<BN>(a, first, order, item, e);
+        if (w.e == a.E) continue;  // no expert: nothing to load
+        // weight panels inside N (one wholly outside feeds only columns
+        // that are never stored, and is not loaded)
+        const int pb = min(G::kPanelsB, (a.N - w.n0 + 63) / 64);
+        for (int s = 0; s < steps; ++s) {
+          const int k0 = s * gemm90::BK;
+          const int st = ring.acquire(it++, G::kABytes + pb * kPanelBytes);
+          hopper::tma_load_2d(ring.a(st), &a.lhs, ring.full(st), k0,
+                              w.b * gemm90::BM);
+          for (int p = 0; p < pb; ++p) {
+            const int n = w.n0 + 64 * p;
+            if (TRANS)
+              hopper::tma_load_3d(ring.b(st) + p * kPanelBytes, &a.rhs,
+                                  ring.full(st), k0, n, w.e);
+            else
+              hopper::tma_load_3d(ring.b(st) + p * kPanelBytes, &a.rhs,
+                                  ring.full(st), n, k0, w.e);
+          }
+        }
+      }
+    }
+    return;
+  }
+
+  hopper::regs_inc<gemm90::kConsumerRegs>();
+  const gemm90::Lane ln;
+  if (gemm90::store_thread()) hopper::prefetch_map(&a.out);
+  float acc[G::kAcc];
+  int it = 0, e = 0;
+  for (int item = blockIdx.x; item < items; item += gridDim.x) {
+    const GmmItem w = gmm_item<BN>(a, first, order, item, e);
+    const bool bad = w.e == a.E;
+    if (!bad) gemm90::consume<BN, false, !TRANS>(acc, ring, it, steps, ln.wg);
+    // a block of no expert: NaN (acc is left to the wgmmas alone)
+    gemm90::stage_out<BN>(ring, acc, ln, [bad](int, float v0, float v1) {
+      return bad ? 0x7fc07fc0u : hopper::pack_bf16(v0, v1);
+    });
+    if (gemm90::store_thread()) {
+      const int row = w.b * gemm90::BM + 64 * ln.wg;
+      for (int p = 0; p < G::kPanelsB && w.n0 + 64 * p < a.N; ++p)
+        hopper::tma_store_2d(&a.out, ring.out(ln.wg) + p * kPanelBytes,
+                             w.n0 + 64 * p, row);
+      hopper::tma_store_commit();
+    }
+  }
+  if (gemm90::store_thread()) hopper::tma_store_wait_read<0>();
+}
+
+template <int BN, bool TRANS>
+int launch_gmm(GmmArgs& a, cudaStream_t stream) {
+  a.nt = (a.N + BN - 1) / BN;
+  const size_t smem = gemm90::Geo<BN>::kBytes +
+                      sizeof(int) * (2 * size_t(a.E) + 3 + size_t(a.blocks));
+  if (smem > size_t(gemm90::kSmemMax)) return -1;
+  const int err = gemm90::allow_smem<gmm_wgmma_kernel<BN, TRANS>>();
+  if (err != 0) return err;
+  const long items = long(a.blocks) * a.nt;
+  const int grid = static_cast<int>(std::min<long>(items, gemm90::sm_count()));
+  gmm_wgmma_kernel<BN, TRANS><<<grid, gemm90::kThreads, smem, stream>>>(a);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The column tile from N alone, never M: 128, or 64 for N <= 64. (256 at
+// N = 2048 read the same bytes in fewer, larger items and lost a few
+// percent to the last round of items on an H100: PERF.md §6.)
+template <bool TRANS>
+int launch_gmm_n(GmmArgs& a, cudaStream_t stream) {
+  return a.N <= 64 ? launch_gmm<64, TRANS>(a, stream)
+                   : launch_gmm<128, TRANS>(a, stream);
+}
+
 bool shape_ok(int M, int R, int N, int E, int tile_m) {
-  return M >= tile_m && tile_m >= BM && tile_m % BM == 0 && M % tile_m == 0 &&
+  return M >= tile_m && tile_m >= gemm90::BM && tile_m % gemm90::BM == 0 &&
+         M % tile_m == 0 &&
          R >= 8 && R % 8 == 0 && N >= 8 && N % 8 == 0 && E >= 1;
 }
 
@@ -554,10 +488,13 @@ bool shape_ok(int M, int R, int N, int E, int tile_m) {
 
 // out [M, N] = per row tile lhs [M, R] @ rhs[e] ([E, R, N]; with trans,
 // rhs [E, N, R] read as its transpose). dtype: 0 = float32, 1 = bfloat16
-// (lhs, rhs, out). tile_expert int32 [M / tile_m]. Returns 0, a cudaError_t
-// code when the launch was refused, or -1 for a shape or dtype the kernel
-// does not take (tile_m a multiple of 128 dividing M; R and N multiples of
-// 8). Launches on `stream`, never synchronises, allocates nothing.
+// (lhs, rhs, out). tile_expert int32 [M / tile_m]; an entry outside
+// [0, E) makes its rows NaN. Returns 0, a cudaError_t code when
+// the launch was refused, or -1 for a shape or dtype the kernel does not
+// take (tile_m a multiple of 128 dividing M; R and N multiples of 8; in
+// bf16, the block's tile lists, 2 E + 3 + M / 128 ints, must fit in
+// shared memory beside the ring). Launches on `stream`, never
+// synchronises, allocates nothing.
 extern "C" int paddle_gmm(const void* lhs, const void* rhs,
                           const void* tile_expert, void* out, int M, int R,
                           int N, int E, int tile_m, int trans, int dtype,
@@ -565,11 +502,24 @@ extern "C" int paddle_gmm(const void* lhs, const void* rhs,
   if (!shape_ok(M, R, N, E, tile_m)) return -1;
   const auto st = static_cast<cudaStream_t>(stream);
   const auto* te = static_cast<const int*>(tile_expert);
-  if (dtype == 1)
-    return trans ? launch_bf16<kModeT>(lhs, rhs, te, out, M, R, N, E, tile_m,
-                                       st)
-                 : launch_bf16<kModeN>(lhs, rhs, te, out, M, R, N, E, tile_m,
-                                       st);
+  if (dtype == 1) {
+    GmmArgs a;
+    const uint64_t lhs_dims[2] = {uint64_t(R), uint64_t(M)};
+    const uint64_t rhs_dims[3] = {uint64_t(trans ? R : N),
+                                  uint64_t(trans ? N : R), uint64_t(E)};
+    const uint64_t out_dims[2] = {uint64_t(N), uint64_t(M)};
+    if (!hopper::encode_map(&a.lhs, lhs, 2, lhs_dims, 64, gemm90::BM) ||
+        !hopper::encode_map(&a.rhs, rhs, 3, rhs_dims, 64, 64) ||
+        !hopper::encode_map(&a.out, out, 2, out_dims, 64, 64))
+      return -1;
+    a.tile_expert = te;
+    a.K = R;
+    a.N = N;
+    a.E = E;
+    a.per = tile_m / gemm90::BM;
+    a.blocks = M / gemm90::BM;
+    return trans ? launch_gmm_n<true>(a, st) : launch_gmm_n<false>(a, st);
+  }
   if (dtype == 0) {
     const dim3 grid((N + kF - 1) / kF, M / kF);
     if (grid.y > 65535) return -1;

@@ -14,7 +14,14 @@
 //     8-row groups of K 1024 bytes apart, a k16 step 2048 bytes further.
 // A product wider than 64 (m64n128k16, m64n256k16) reads an MN-major
 // operand of several panels: the descriptor's leading offset (LBO) is
-// then the distance between the panels (`desc_sw128_mn`).
+// then the distance between the panels (`desc_sw128_mn`). A from
+// registers (`wgmma_rs`) takes four bf16 pairs a thread in the
+// accumulator's row layout; `ldsm_x4_t` loads 16-bit pairs of a swizzled
+// tile transposed (the int8 matmul's weight bytes).
+//
+// Tensor maps (`encode_map`) cover bf16 or int8 tensors of 2 or 3 axes;
+// an int8 box is 128 bytes wide, so its swizzle is the same as a bf16
+// panel's.
 //
 // TMA stores (`tma_store_2d` / `_3d`) write one panel from shared memory
 // to global memory; the tensor map clips the rows and columns that fall
@@ -104,6 +111,20 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map,
       : "memory");
 }
 
+// one box of a 3-D tensor map into shared memory (c0 the inner,
+// contiguous coordinate); completion counted in bytes on `bar`
+__device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map,
+                                            uint32_t bar, int c0, int c1,
+                                            int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.tile.mbarrier::"
+      "complete_tx::bytes [%0], [%1, {%2, %3, %4}], [%5];\n" ::"r"(
+          smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2),
+      "r"(bar)
+      : "memory");
+}
+
 // fetch a tensor map (a kernel parameter) into the TMA unit's cache ahead
 // of its first use
 __device__ __forceinline__ void prefetch_map(const CUtensorMap* map) {
@@ -162,6 +183,19 @@ __device__ __forceinline__ void bar_sync(int id, int count) {
   asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(count) : "memory");
 }
 
+// four 8 x 8 matrices of 16-bit elements, transposed on the way: lanes
+// 8 i .. 8 i + 7 give the addresses of matrix i's 8 rows (16 bytes each);
+// lane l gets, of each matrix, the elements (row 2 (l % 4), column l / 4)
+// in its low half and (row 2 (l % 4) + 1, column l / 4) in its high half
+__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr)
+      : "memory");
+}
+
 // --------------------------------------------------------------- wgmma --
 
 // shared-memory matrix descriptor of a 128-byte-swizzled panel at `addr`
@@ -218,22 +252,6 @@ __device__ __forceinline__ void fence_regs(float (&r)[N]) {
   "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "  \
   "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "   \
   "%30, %31}"
-
-// d[64 x 64] += A[64 x 16] B[16 x 64]: A from registers (the accumulator
-// layout of a previous product, packed to bf16 pairs), B MN-major in
-// shared memory (transpose bit set).
-__device__ __forceinline__ void wgmma_rs(float* d, const uint32_t (&a)[4],
-                                         uint64_t b) {
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "setp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " HOPPER_D32_LIST
-      ", {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n"
-      "}\n"
-      : HOPPER_D32(d)
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
-}
 
 #define HOPPER_D64(d) \
   "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), \
@@ -338,6 +356,58 @@ __device__ __forceinline__ void wgmma_ss_t(float* d, uint64_t a, uint64_t b,
   }
 }
 
+// d[64 x N] (+)= A[64 x 16] B[16 x N], A from registers (four bf16 pairs
+// a thread in the accumulator's row layout: rows r and r + 8, columns
+// 2 c .. and 8 + 2 c ..), B in shared memory, TB its transpose bit (0:
+// K-major, rows are N; 1: MN-major). N is 64, 128 or 256.
+template <int N, int TB>
+__device__ __forceinline__ void wgmma_rs(float* d, const uint32_t (&a)[4],
+                                         uint64_t b, int accumulate) {
+  static_assert(N == 64 || N == 128 || N == 256, "wgmma width");
+  if constexpr (N == 64) {
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "setp.ne.b32 p, %37, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " HOPPER_D32_LIST
+        ", {%32, %33, %34, %35}, %36, p, 1, 1, %38;\n"
+        "}\n"
+        : HOPPER_D32(d)
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b),
+          "r"(accumulate), "n"(TB));
+  } else if constexpr (N == 128) {
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "setp.ne.b32 p, %69, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+        HOPPER_D64_LIST ", {%64, %65, %66, %67}, %68, p, 1, 1, %70;\n"
+        "}\n"
+        : HOPPER_D64(d)
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b),
+          "r"(accumulate), "n"(TB));
+  } else {
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "setp.ne.b32 p, %133, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
+        HOPPER_D128_LIST ", {%128, %129, %130, %131}, %132, p, 1, 1, %134;\n"
+        "}\n"
+        : HOPPER_D128(d)
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b),
+          "r"(accumulate), "n"(TB));
+  }
+}
+
+// keep the compiler from reusing registers that an asynchronous wgmma
+// still reads (A from registers) before the wait that retires it
+template <int N>
+__device__ __forceinline__ void fence_regs(uint32_t (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(r[i])::"memory");
+}
+
 // (x, y) as one bf16 pair, x in the low half
 __device__ __forceinline__ uint32_t pack_bf16(float x, float y) {
   __nv_bfloat162 v = __floats2bfloat162_rn(x, y);
@@ -381,16 +451,19 @@ inline EncodeTiledFn encode_tiled_fn() {
   return fn;
 }
 
-// A tensor map over a contiguous row-major bf16 tensor of `rank` 2 or 3
-// axes, dims[0] the contiguous one (a multiple of 8: rows of 16-byte
-// multiples), with a box of box0 x box1 (x 1), 128-byte swizzle
-// (box0 <= 64), zeros outside. Returns false when the encoder refuses it.
+// A tensor map over a contiguous row-major tensor of `rank` 2 or 3 axes,
+// bf16 (elem_bytes 2) or int8 (elem_bytes 1), dims[0] the contiguous one
+// (rows of 16-byte multiples), with a box of box0 x box1 (x 1), 128-byte
+// swizzle (box0 * elem_bytes <= 128), zeros outside. Returns false when
+// the encoder refuses it.
 inline bool encode_map(CUtensorMap* map, const void* ptr, int rank,
-                       const uint64_t* dims, int box0, int box1) {
+                       const uint64_t* dims, int box0, int box1,
+                       int elem_bytes = 2) {
   EncodeTiledFn fn = encode_tiled_fn();
   if (fn == nullptr || rank < 2 || rank > 3) return false;
+  if (elem_bytes != 1 && elem_bytes != 2) return false;
   cuuint64_t d[3], strides[2];
-  cuuint64_t stride = 2;
+  cuuint64_t stride = cuuint64_t(elem_bytes);
   for (int i = 0; i < rank; ++i) {
     d[i] = cuuint64_t(dims[i]);
     if (i > 0) strides[i - 1] = stride;
@@ -398,8 +471,10 @@ inline bool encode_map(CUtensorMap* map, const void* ptr, int rank,
   }
   const cuuint32_t box[3] = {cuuint32_t(box0), cuuint32_t(box1), 1};
   const cuuint32_t elem[3] = {1, 1, 1};
-  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank,
-            const_cast<void*>(ptr), d, strides, box, elem,
+  return fn(map,
+            elem_bytes == 1 ? CU_TENSOR_MAP_DATA_TYPE_UINT8
+                            : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+            rank, const_cast<void*>(ptr), d, strides, box, elem,
             CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
             CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;

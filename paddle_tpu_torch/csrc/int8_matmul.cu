@@ -2,7 +2,7 @@
 // paddle_tpu_torch/ops/kernels/int8_matmul.py (`int8_matmul`).
 //
 // Replaces the TPU kernel of paddle_tpu/ops/pallas/int8_matmul.py
-// (`_kernel` :48 / `_call` :65, entry `int8_matmul_pallas` :85).
+// (`_kernel` :48 / `_call` :65, entry `int8_matmul_pallas` :84).
 //
 // What it computes.
 //   out[m, n] = round_to_x_dtype( (sum_k x[m, k] * float(q[k, n])) * scale[n] )
@@ -10,349 +10,344 @@
 // (row-major, n contiguous), scale is f32 [N]. The sum is f32, the scale is
 // applied once to the f32 sum and the result is rounded once: the Pallas
 // kernel's arithmetic. Any M >= 1; K a multiple of 8 and N a multiple of 16
-// (the 16-byte copies); the wrapper raises on anything else.
+// (16-byte rows for the tensor maps); the wrapper raises on anything else.
 //
 // What bounds it. Decode (M = batch, 1..64): the int8 weight stream, K*N
 // bytes, is nearly all the traffic and the tensor cores idle, so the least
 // time is K*N bytes over 3.35 TB/s. Prefill (M in the thousands): 2*M*K*N
 // operations over the bf16 tensor-core rate.
 //
-// Design. bf16 x runs on tensor cores (mma.sync m16n8k16, f32 accumulate).
-// Tiles of x and of q are copied into shared memory with 16-byte cp.async
-// in a ring of stages, so the next tiles' loads overlap this tile's math;
-// each q tile is widened from int8 to bf16 once per block (a byte permute
-// and one f32 subtract per value, no conversion instructions), on its way
-// from the ring into a [n][k] bf16 tile whose rows are the mma B fragments.
-// K is cut into a fixed number S of parts that depends on the weight shape
-// (K, N) only (`k_splits`). Two tile shapes of the same kernel:
-//   * decode, M <= 64: a block takes 128 columns (full 128-byte rows of q)
-//     of one part of K, 16/32/64 rows, 4 warps of 4 independent 16 x 8
-//     accumulators, 64 k per stage, 4 stages; S parts multiply the blocks.
-//     Each part is written in f32 and the last block of a column tile adds
-//     the parts in order. Every weight byte is read once;
-//   * prefill, M > 64: 128 x 128 output tiles, 8 warps of 64 x 32, 32 k
-//     per stage, 2 stages; each block walks all of K and adds each closed
-//     part, in the same order, to a running total kept in shared memory
-//     (touched only at part boundaries: in registers it needs 255 of
-//     them and spills) — 103 KB a block, two blocks an SM.
+// Design (bf16 x): the roles and the TMA ring of the shared mainloop
+// (gemm_sm90.cuh: persistent blocks, one an SM, a producer warpgroup at
+// 40 registers and two consumer warpgroups at 232, full / empty
+// mbarriers), with the product turned around so that the weight never
+// lands in shared memory as bf16:
+//   out^T [n, m] = q^T [n, k] x^T [k, m]
+// is a wgmma whose A (64 n x 16 k) comes from registers and whose B is
+// x, K-major, in shared memory (x's [M, K] rows as TMA loads them).
+//   * A stage is one TMA box of q (64 k x 128 n int8, 128-byte rows,
+//     128-byte swizzle) and NM / 64 boxes of x (64 k x 64 rows bf16, rows
+//     past M arrive as zeros). Decode (M <= 64) has NM = 64 rows an item
+//     and a 14-stage ring (112 KB of weight in flight an SM); prefill NM =
+//     128 and 9 stages.
+//   * Consumer warpgroup w takes columns n0 + 64 w ..: each warp's 16
+//     columns are one 16-byte chunk of the q rows. One ldmatrix.trans of
+//     16-bit pairs gives a thread the bytes q[k .. k + 1][n .. n + 1] of 4
+//     k-pairs; a byte permute into the f32 2^23 + (b ^ 0x80), one f32
+//     subtract and a permute of the high halves widen them to the bf16
+//     pairs of the wgmma's A fragment (exact: |q| <= 128). Fragment row r
+//     of a warp is column n = 2 r (r < 8) or 2 (r - 8) + 1, so a thread's
+//     two accumulator rows are neighbouring columns and the epilogue
+//     writes bf16 pairs straight to out.
+//   * K is cut into S parts fixed by the weight shape (K, N) alone
+//     (`k_splits`). Each part's sum is a chain of wgmma m64nNMk16 from
+//     zero; the parts are added in order 0, 1, ..., S - 1 in f32, times
+//     the scale, one rounding. At decode sizes, and up to 256 rows where
+//     that is the shorter walk (`spread_parts`), the parts are items of
+//     their own, spread across blocks: each writes its f32 part to a
+//     workspace [S, M, N] and the last warpgroup to finish a 64-column
+//     slice (a counter per slice) adds the parts in order and stores.
+//     Otherwise an item walks all of K and keeps the running total in
+//     registers beside the wgmma accumulators (only wgmmas write those:
+//     any other write between two of them makes ptxas serialize them).
+//   * Items: spread parts of one tile are neighbours, so a tile's S
+//     blocks finish together; otherwise tiles go 8 row blocks at a time
+//     over all column tiles (x's rows stay in L2 while q streams).
 // f32 x (tests and checks only; nothing on the decode path is f32 on the
 // card) runs a plain FMA tile kernel.
 //
-// Batch invariance. Every output element sums the k16 chunks of each part
-// in order into one accumulator that starts at zero, then adds the parts
-// in order 0, 1, ..., S - 1, in both tile shapes; padding rows are zeros
-// and never mix into another row. So a row's output is bitwise the same
-// at M = 1, 8 or 4096 and wherever the row sits in x. The f32 kernel sums
-// each 16-k chunk and then adds it to the running total, in k order.
+// Known gap: prefill reaches about 57% of the bf16 peak. A 128 x 128
+// item takes in 24 KB a stage (87 flop a byte); larger items need the
+// registers the running total holds (ptxas allows 168 a thread here).
 //
-// Known gap: the ring is filled with cp.async, not TMA, and the products use
-// mma.sync, not wgmma; decode reads x again in every block (from L2), and
-// the parts travel through L2.
+// Batch invariance. An output element is the same ordered sum at any M:
+// each part's chain of k16 products from zero, the parts added in order,
+// whatever the item shape, the instruction width NM (the card gives the
+// same bits for a wgmma element at widths 64, 128 and 256:
+// tools/torch_wgmma_probe.py) or whether the parts were spread; rows past
+// M are zeros and never mix into another row. So a row's output is
+// bitwise the same at M = 1, 8 or 4096 and wherever the row sits in x.
+// The f32 kernel sums each 16-k chunk and then adds it to the running
+// total, in k order.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include <algorithm>
 #include <cstddef>
 #include <cstdint>
 
+#include "gemm_sm90.cuh"
+
 namespace {
 
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           int src_bytes) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
-               "l"(src), "r"(src_bytes)
-               : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
+using hopper::kPanelBytes;
 
-__device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a,
-                                         const uint32_t* b) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
-      "{%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-// bf16 pairs (k, k + 1) of four columns from two int8 rows: out[j] holds
-// q[k][n + j] in its low half and q[k + 1][n + j] in its high half. Each
-// byte b becomes the f32 2^23 + (b ^ 0x80) by a byte permute, minus
-// 2^23 + 128; the integer (|q| <= 128) is exact in f32 and in bf16, whose
-// bits are then the f32's high half. Full-rate ALU work, no conversion unit.
-__device__ __forceinline__ void widen4(uint32_t r0, uint32_t r1,
-                                       uint32_t* out) {
-  const uint32_t u0 = r0 ^ 0x80808080u, u1 = r1 ^ 0x80808080u;
-#pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    const float f0 =
-        __uint_as_float(__byte_perm(u0, 0x4B000000u, 0x7540 + j)) - 8388736.f;
-    const float f1 =
-        __uint_as_float(__byte_perm(u1, 0x4B000000u, 0x7540 + j)) - 8388736.f;
-    out[j] = __byte_perm(__float_as_uint(f0), __float_as_uint(f1), 0x7632);
-  }
-}
+constexpr int kSpreadRows = 256;  // parts may spread across blocks up to here
+constexpr int kGroupRows = 8;     // row blocks a raster group (no spread)
+constexpr int kTileN = 128;       // columns an item (two warpgroups of 64)
 
 // The fixed split of K of one weight shape: S parts of K / S rows, S the
-// least power of two that gives n_tiles * S >= 256 decode blocks (128
-// columns a tile), as long as K / S stays a multiple of 64 and S <=
-// K / 1024 (so the f32 parts of M <= 64 rows, 4 * S * M * N bytes, stay
-// within a quarter of the K * N weight bytes). It depends on (K, N) only,
-// never on M: both tile shapes sum the parts in the same order, which
-// keeps every row's bits independent of M.
+// least power of two that gives (N / 128) * S >= 128 items, as long as
+// K / S stays a multiple of 64 and S <= K / 1024 (the f32 parts of up to
+// 256 rows, 4 S M N bytes, stay within the weight's K N bytes). It
+// depends on (K, N) only, never on M, which keeps every row's bits
+// independent of M.
 int k_splits(int K, int N) {
-  const int n_tiles = (N + 127) / 128;
+  const int n_tiles = (N + kTileN - 1) / kTileN;
   int s = 1;
-  while (n_tiles * s < 256 && K % (2 * s * 64) == 0 && 2 * s * 1024 <= K)
+  while (n_tiles * s < 128 && K % (2 * s * 64) == 0 && 2 * s * 1024 <= K)
     s *= 2;
   return s;
 }
 
-// Tile shape: each of WM x WN warps computes MT x NT mma tiles (16 x 8
-// each); BK k per stage; STAGES-deep copy ring; FOLD adds a shared f32
-// running total over closed parts of K, one slot per accumulator.
-template <int MT, int NT, int WM, int WN, int BK, int STAGES, bool FOLD>
-struct Tile {
-  static constexpr int kThreads = 32 * WM * WN;
-  static constexpr int BM = 16 * MT * WM;
-  static constexpr int BN = 8 * NT * WN;
-  // bf16 rows of x and of the widened q, padded by 16 bytes: the fragment
-  // reads of a warp (8 rows x 4 words) then fall in 32 distinct banks
-  static constexpr int kLd = BK + 8;
-  // int8 q rows, padded by 16 bytes (the widening reads of 4 k-pairs of a
-  // warp fall in distinct banks)
-  static constexpr int kQLd = BN + 16;
-  static constexpr size_t kAStage = size_t(BM) * kLd * 2;
-  static constexpr size_t kQStage = size_t(BK) * kQLd;
-  static constexpr size_t kBs = size_t(BN) * kLd * 2;
-  static constexpr size_t kTot = FOLD ? size_t(kThreads) * MT * NT * 4 * 4
-                                      : 0;
-  static constexpr size_t kBytes = STAGES * (kAStage + kQStage) + kBs + kTot;
-  static_assert(BK % 16 == 0 && BN % 16 == 0, "tile");
-  static_assert(kAStage % 16 == 0 && kQStage % 16 == 0, "alignment");
+// a stage: q (64 k x 128 n int8) then x (NM rows x 64 k bf16); no staging
+template <int NM>
+struct I8Geo {
+  static constexpr int kABytes = 64 * kTileN;
+  static constexpr int kStageBytes = kABytes + NM * 128;
+  static constexpr int kPanelsB = 0;
+  static constexpr int kBarBytes = 256;
+  static constexpr int kFlagBytes = 16;
+  static constexpr int kStages0 =
+      (gemm90::kSmemMax - 1024 - kBarBytes - kFlagBytes) / kStageBytes;
+  static constexpr int kStages = kStages0 < 16 ? kStages0 : 16;  // 14, 9
+  static constexpr int kAcc = NM / 2;  // f32 accumulators a thread
+  static constexpr int kBytes =
+      1024 + kStages * kStageBytes + kBarBytes + kFlagBytes;
+  static_assert(2 * 8 * kStages <= kBarBytes, "barriers");
 };
 
-// One kernel, two tile shapes. DECODE: block (n tile, split s) sums the
-// rows of part s only; with S > 1 it writes its f32 part to `part`
-// [S][M][N], and the last block of its n tile to finish (an atomic count
-// per tile) adds the parts in order 0, 1, ..., S - 1 and stores. Prefill:
-// block (n tile, m tile) walks all of K, closing a part at every split
-// boundary and adding it to the running total in the same order.
-template <int MT, int NT, int WM, int WN, int BK, int STAGES, bool DECODE>
-__global__ void __launch_bounds__(32 * WM * WN)
-    int8_mm_bf16_kernel(const __nv_bfloat16* __restrict__ x,
-                        const int8_t* __restrict__ q,
-                        const float* __restrict__ scale,
-                        __nv_bfloat16* __restrict__ out,
-                        float* __restrict__ part, int* __restrict__ counters,
-                        int M, int K, int N, int S) {
-  constexpr bool kFold = !DECODE;
-  using Tl = Tile<MT, NT, WM, WN, BK, STAGES, kFold>;
-  constexpr int BM = Tl::BM, BN = Tl::BN, LD = Tl::kLd, QLD = Tl::kQLd;
-  extern __shared__ __align__(16) unsigned char smem[];
-  __nv_bfloat16* as = reinterpret_cast<__nv_bfloat16*>(smem);
-  int8_t* qs = reinterpret_cast<int8_t*>(smem + STAGES * Tl::kAStage);
-  __nv_bfloat16* bs = reinterpret_cast<__nv_bfloat16*>(
-      smem + STAGES * (Tl::kAStage + Tl::kQStage));
-  // the running total over closed parts (prefill with S > 1): slot e of
-  // thread t at tot[e * kThreads + t], so a warp's accesses are contiguous
-  float* tot = reinterpret_cast<float*>(
-      smem + STAGES * (Tl::kAStage + Tl::kQStage) + Tl::kBs);
-  __shared__ int last_block;
+struct I8Args {
+  CUtensorMap q;  // [K, N] int8, boxes of 128 columns x 64 rows
+  CUtensorMap x;  // [M, K] bf16, boxes of 64 columns x 64 rows
+  const float* scale;
+  __nv_bfloat16* out;
+  float* part;    // [S, M, N] when spread
+  int* counters;  // one a (row block, 64 columns), zero between launches
+  int M, K, N, S;
+  int spread;     // the parts are items of their own
+  int mt, nt;     // row blocks (NM rows), column tiles (128)
+};
 
-  const int tid = threadIdx.x;
-  const int warp = tid / 32, lane = tid % 32;
-  const int g = lane >> 2, t = lane & 3;
-  const int wm = warp / WN, wn = warp % WN;
-  const int m0 = blockIdx.y * BM;
-  const int n0 = blockIdx.x * BN;
-  const int ks = S > 1 ? K / S : K;          // rows of one part
-  const int k_begin = DECODE ? blockIdx.z * ks : 0;
-  const int k_rows = DECODE ? ks : K;
-
-  auto load_stage = [&](int kt, int st) {
-    const int k0 = k_begin + kt * BK;
-    __nv_bfloat16* a = as + size_t(st) * BM * LD;
-    for (int c = tid; c < BM * (BK / 8); c += Tl::kThreads) {
-      const int r = c / (BK / 8), e = (c % (BK / 8)) * 8;
-      const int m = m0 + r, k = k0 + e;
-      const bool ok = m < M && k < K;
-      cp_async16(a + r * LD + e, ok ? x + size_t(m) * K + k : x, ok ? 16 : 0);
-    }
-    int8_t* qq = qs + size_t(st) * Tl::kQStage;
-    for (int c = tid; c < BK * (BN / 16); c += Tl::kThreads) {
-      const int r = c / (BN / 16), e = (c % (BN / 16)) * 16;
-      const int k = k0 + r, n = n0 + e;
-      const bool ok = k < K && n < N;
-      cp_async16(qq + r * QLD + e, ok ? q + size_t(k) * N + n : q,
-                 ok ? 16 : 0);
-    }
-  };
-
-  float acc[MT][NT][4];
-#pragma unroll
-  for (int i = 0; i < MT; ++i)
-#pragma unroll
-    for (int j = 0; j < NT; ++j)
-#pragma unroll
-      for (int r = 0; r < 4; ++r) acc[i][j][r] = 0.f;
-
-  const int k_tiles = (k_rows + BK - 1) / BK;
-  const int tiles_per_part = ks / BK;  // exact when S > 1
-#pragma unroll
-  for (int s = 0; s < STAGES - 1; ++s) {
-    if (s < k_tiles) load_stage(s, s);
-    cp_async_commit();  // empty groups keep the wait count uniform
+// the item's row block, column tile and part (-1: all parts in turn)
+struct I8Item {
+  int mb, nt, p;
+};
+__device__ __forceinline__ I8Item i8_item(const I8Args& a, int item) {
+  int p = -1;
+  if (a.spread) {
+    p = item % a.S;
+    item /= a.S;
   }
+  const int per_group = kGroupRows * a.nt;
+  const int g = item / per_group, r = item % per_group;
+  const int rows = min(kGroupRows, a.mt - g * kGroupRows);
+  return {g * kGroupRows + r % rows, r / rows, p};
+}
 
-  constexpr int kNQ = BN / 4;                 // 4-column groups
-  constexpr int kItems = (BK / 2) * kNQ;      // (k-pair, 4 columns) items
-  for (int kt = 0; kt < k_tiles; ++kt) {
-    cp_async_wait<STAGES - 2>();
-    __syncthreads();  // stage kt landed; last tile's readers are done
-    {
-      const int nk = kt + STAGES - 1;
-      if (nk < k_tiles) load_stage(nk, nk % STAGES);
-      cp_async_commit();
-    }
-    // widen q's stage into bs[n][k] (bf16 pairs along k)
-    const int8_t* qq = qs + size_t(kt % STAGES) * Tl::kQStage;
-    for (int i = tid; i < kItems; i += Tl::kThreads) {
-      // a warp covers 8 column groups x 4 k-pairs: conflict-free reads
-      const int kp = (i & 3) + 4 * (i / (4 * kNQ));
-      const int nq = (i >> 2) % kNQ;
-      const uint32_t r0 =
-          *reinterpret_cast<const uint32_t*>(qq + (2 * kp) * QLD + 4 * nq);
-      const uint32_t r1 = *reinterpret_cast<const uint32_t*>(
-          qq + (2 * kp + 1) * QLD + 4 * nq);
-      uint32_t w[4];
-      widen4(r0, r1, w);
+// bf16 pairs (q[k][c], q[k + 1][c]) for c = the even and the odd column of
+// r's bytes q[k][c0], q[k][c0 + 1], q[k + 1][c0], q[k + 1][c0 + 1]: each
+// byte b becomes the f32 2^23 + (b ^ 0x80) by a byte permute, minus
+// 2^23 + 128; the integer is exact in f32 and in bf16, whose bits are
+// then the f32's high half.
+__device__ __forceinline__ void widen2(uint32_t r, uint32_t& even,
+                                       uint32_t& odd) {
+  const uint32_t u = r ^ 0x80808080u;
+  float f[4];
 #pragma unroll
-      for (int j = 0; j < 4; ++j)
-        *reinterpret_cast<uint32_t*>(bs + (4 * nq + j) * LD + 2 * kp) = w[j];
-    }
-    __syncthreads();
+  for (int j = 0; j < 4; ++j)
+    f[j] = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7540 + j)) -
+           8388736.f;
+  even = __byte_perm(__float_as_uint(f[0]), __float_as_uint(f[2]), 0x7632);
+  odd = __byte_perm(__float_as_uint(f[1]), __float_as_uint(f[3]), 0x7632);
+}
 
-    const __nv_bfloat16* a = as + size_t(kt % STAGES) * BM * LD;
+// Consumer helper: 32 k of the warp's 16 columns of q (rows 32 kb ..),
+// widened to bf16, as the A fragments of two k16 steps.
+__device__ __forceinline__ void i8_fragments(uint32_t (&a0)[4],
+                                             uint32_t (&a1)[4], uint32_t qs,
+                                             int kb, int chunk) {
+  const int lane = threadIdx.x % 32;
+  uint32_t r[4];  // lane l gives the address of row 32 kb + l
+  hopper::ldsm_x4_t(r, qs + (32 * kb + lane) * 128 +
+                           ((chunk ^ (lane % 8)) << 4));
+  widen2(r[0], a0[0], a0[1]);
+  widen2(r[1], a0[2], a0[3]);
+  widen2(r[2], a1[0], a1[1]);
+  widen2(r[3], a1[2], a1[3]);
+}
+
+// Consumer: `steps` (> 0) stages from ring position `it` (advanced) into
+// acc, overwriting it (a part's chain from zero). A stage's first 32 k
+// are widened and their products issued before the next 32 k are
+// widened, so that widening runs under the products; the stage is waited
+// for before the next (the other consumer warpgroup's products fill the
+// tensor cores meanwhile). Fragments are fenced after the wait, so the
+// compiler keeps their registers until the products reading them are
+// done. (Two fragment sets, to run a whole stage's widening under the
+// previous stage's products, spilled at the 168 registers a thread ptxas
+// allows here and ran slower.) On return every product is done and every
+// stage released.
+template <int NM>
+__device__ __forceinline__ void i8_consume(
+    float (&acc)[I8Geo<NM>::kAcc], const gemm90::RingT<I8Geo<NM>>& ring,
+    int& it, int steps, int chunk) {
+  using G = I8Geo<NM>;
+  for (int s = 0; s < steps; ++s, ++it) {
+    const int st = it % G::kStages;
+    hopper::mbar_wait(ring.full(st), (it / G::kStages) & 1);
+    const uint32_t qs = hopper::smem_u32(ring.a(st));
+    const uint32_t xs = hopper::smem_u32(ring.b(st));
+    uint32_t a[4][4];
 #pragma unroll
-    for (int kk = 0; kk < BK; kk += 16) {
-      uint32_t af[MT][4], bf[NT][2];
+    for (int kb = 0; kb < 2; ++kb) {
+      i8_fragments(a[2 * kb], a[2 * kb + 1], qs, kb, chunk);
+      hopper::wgmma_fence();
 #pragma unroll
-      for (int i = 0; i < MT; ++i) {
-        const __nv_bfloat16* p = a + (wm * MT * 16 + i * 16 + g) * LD + kk +
-                                 2 * t;
-        af[i][0] = *reinterpret_cast<const uint32_t*>(p);
-        af[i][1] = *reinterpret_cast<const uint32_t*>(p + 8 * LD);
-        af[i][2] = *reinterpret_cast<const uint32_t*>(p + 8);
-        af[i][3] = *reinterpret_cast<const uint32_t*>(p + 8 * LD + 8);
-      }
-#pragma unroll
-      for (int j = 0; j < NT; ++j) {
-        const __nv_bfloat16* p = bs + (wn * NT * 8 + j * 8 + g) * LD + kk +
-                                 2 * t;
-        bf[j][0] = *reinterpret_cast<const uint32_t*>(p);
-        bf[j][1] = *reinterpret_cast<const uint32_t*>(p + 8);
-      }
-#pragma unroll
-      for (int i = 0; i < MT; ++i)
-#pragma unroll
-        for (int j = 0; j < NT; ++j) mma_bf16(acc[i][j], af[i], bf[j]);
+      for (int kk = 2 * kb; kk < 2 * kb + 2; ++kk)
+        hopper::wgmma_rs<NM, 0>(acc, a[kk],
+                                  hopper::desc_sw128(xs + kk * 32),
+                                  !(s == 0 && kk == 0));
     }
-    if (kFold && S > 1 && (kt + 1) % tiles_per_part == 0) {
-      // close a part: the total takes it (the first part as it is)
-      const bool first = kt + 1 == tiles_per_part;
+    hopper::wgmma_commit();
+    hopper::wgmma_wait();
 #pragma unroll
-      for (int i = 0; i < MT; ++i)
-#pragma unroll
-        for (int j = 0; j < NT; ++j)
-#pragma unroll
-          for (int r = 0; r < 4; ++r) {
-            float* slot = tot + ((i * NT + j) * 4 + r) * Tl::kThreads + tid;
-            *slot = first ? acc[i][j][r] : *slot + acc[i][j][r];
-            acc[i][j][r] = 0.f;
-          }
-    }
+    for (int kk = 0; kk < 4; ++kk) hopper::fence_regs(a[kk]);
+    hopper::fence_regs(acc);
+    hopper::mbar_arrive(ring.empty(st));
   }
-  cp_async_wait<0>();
-  if (kFold && S > 1) {
-#pragma unroll
-    for (int i = 0; i < MT; ++i)
-#pragma unroll
-      for (int j = 0; j < NT; ++j)
-#pragma unroll
-        for (int r = 0; r < 4; ++r)
-          acc[i][j][r] = tot[((i * NT + j) * 4 + r) * Tl::kThreads + tid];
-  }
+}
 
-  if (DECODE && S > 1) {
-    // write this part; the last block of the n tile adds them in order
-    float* mine = part + size_t(blockIdx.z) * M * N;
+template <int NM>
+__global__ void __launch_bounds__(gemm90::kThreads, 1)
+    int8_mm_wgmma_kernel(const __grid_constant__ I8Args a) {
+  using G = I8Geo<NM>;
+  extern __shared__ unsigned char smem_raw[];
+  const gemm90::RingT<G> ring(smem_raw);
+  int* flag = reinterpret_cast<int*>(ring.extra());  // a consumer's "last"
+  if (threadIdx.x == 0) ring.init();
+  __syncthreads();
+
+  const int items = a.mt * a.nt * (a.spread ? a.S : 1);
+  const int part_steps = (a.K / a.S + 63) / 64;  // K / S % 64 == 0 if S > 1
+
+  if (threadIdx.x >= gemm90::kConsumers) {
+    hopper::regs_dec<gemm90::kProducerRegs>();
+    if (threadIdx.x == gemm90::kConsumers) {
+      hopper::prefetch_map(&a.q);
+      hopper::prefetch_map(&a.x);
+      int it = 0;
+      for (int item = blockIdx.x; item < items; item += gridDim.x) {
+        const I8Item w = i8_item(a, item);
+        const int s0 = w.p < 0 ? 0 : w.p * part_steps;
+        const int s1 = w.p < 0 ? a.S * part_steps : s0 + part_steps;
+        for (int s = s0; s < s1; ++s) {
+          const int k0 = s * 64;
+          const int st = ring.acquire(it++, G::kStageBytes);
+          hopper::tma_load_2d(ring.a(st), &a.q, ring.full(st), w.nt * kTileN,
+                              k0);
 #pragma unroll
-    for (int j = 0; j < NT; ++j) {
-      const int n = n0 + wn * NT * 8 + j * 8 + 2 * t;
-      if (n >= N) continue;
-#pragma unroll
-      for (int i = 0; i < MT; ++i)
-#pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          const int m = m0 + wm * MT * 16 + i * 16 + g + 8 * h;
-          if (m < M)
-            *reinterpret_cast<float2*>(mine + size_t(m) * N + n) =
-                make_float2(acc[i][j][2 * h], acc[i][j][2 * h + 1]);
+          for (int i = 0; i < NM / 64; ++i)
+            hopper::tma_load_2d(ring.b(st) + i * kPanelBytes, &a.x,
+                                ring.full(st), k0, w.mb * NM + 64 * i);
         }
-    }
-    __threadfence();
-    __syncthreads();
-    if (tid == 0)
-      last_block = atomicAdd(counters + blockIdx.x, 1) == S - 1;
-    __syncthreads();
-    if (!last_block) return;
-    __threadfence();
-    const int rows = min(BM, M - m0);
-    for (int c = tid; c < rows * (BN / 2); c += Tl::kThreads) {
-      const int m = m0 + c / (BN / 2), n = n0 + 2 * (c % (BN / 2));
-      if (n >= N) continue;
-      const float* src = part + size_t(m) * N + n;
-      float2 v = __ldcg(reinterpret_cast<const float2*>(src));
-      for (int s = 1; s < S; ++s) {
-        const float2 w = __ldcg(
-            reinterpret_cast<const float2*>(src + size_t(s) * M * N));
-        v.x += w.x;
-        v.y += w.y;
       }
-      *reinterpret_cast<__nv_bfloat162*>(out + size_t(m) * N + n) =
-          __floats2bfloat162_rn(v.x * scale[n], v.y * scale[n + 1]);
     }
-    if (tid == 0) counters[blockIdx.x] = 0;  // ready for the next launch
     return;
   }
 
-  // epilogue: times the column's scale, one rounding to bf16
+  hopper::regs_inc<gemm90::kConsumerRegs>();
+  const int wg = threadIdx.x / 128, lane = threadIdx.x % 32;
+  const int chunk = 4 * wg + threadIdx.x % 128 / 32;  // the warp's 16 columns
+  const int g = lane / 4, t = lane % 4;
+  float acc[G::kAcc];
+  float tot[G::kAcc];
+  int it = 0;
+  for (int item = blockIdx.x; item < items; item += gridDim.x) {
+    const I8Item w = i8_item(a, item);
+    const int n = w.nt * kTileN + 16 * chunk + 2 * g;  // and n + 1
+    const int m0 = w.mb * NM + 2 * t;                  // + 8 j + h
+    const bool live = n < a.N;  // N % 16 == 0: the warp is in or out
+    const float2 sc = live ? make_float2(a.scale[n], a.scale[n + 1])
+                           : make_float2(0.f, 0.f);
+    if (w.p >= 0) {
+      // one part: write it, and the last of the slice's S adds them up
+      i8_consume<NM>(acc, ring, it, part_steps, chunk);
+      if (w.nt * kTileN + 64 * wg >= a.N) continue;  // a slice past N
+      float* mine = a.part + size_t(w.p) * a.M * a.N;
 #pragma unroll
-  for (int j = 0; j < NT; ++j) {
-    const int n = n0 + wn * NT * 8 + j * 8 + 2 * t;
-    if (n >= N) continue;  // N % 16 == 0: n and n + 1 are in or out together
-    const float s0 = scale[n], s1 = scale[n + 1];
+      for (int j = 0; j < NM / 8; ++j)
 #pragma unroll
-    for (int i = 0; i < MT; ++i) {
-      const int m = m0 + wm * MT * 16 + i * 16 + g;
+        for (int h = 0; h < 2; ++h) {
+          const int m = m0 + 8 * j + h;
+          if (live && m < a.M)
+            *reinterpret_cast<float2*>(mine + size_t(m) * a.N + n) =
+                make_float2(acc[4 * j + h], acc[4 * j + 2 + h]);
+        }
+      __threadfence();
+      hopper::bar_sync(1 + wg, 128);
+      int* counter = a.counters + w.mb * ((a.N + 63) / 64) +
+                     (w.nt * kTileN) / 64 + wg;
+      if (threadIdx.x % 128 == 0)
+        flag[wg] = atomicAdd(counter, 1) == a.S - 1;
+      hopper::bar_sync(1 + wg, 128);
+      if (!flag[wg]) continue;
+      __threadfence();
+      // the parts in order, from the workspace (this one's own too), four
+      // parts' loads in flight at a time
+      const size_t stride = size_t(a.M) * a.N;
+      for (int j = 0; j < NM / 8; ++j)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int m = m0 + 8 * j + h;
+          if (!live || m >= a.M) continue;
+          const float* src = a.part + size_t(m) * a.N + n;
+          float2 v = make_float2(0.f, 0.f);
+          for (int p0 = 0; p0 < a.S; p0 += 4) {
+            float2 u[4];
+#pragma unroll
+            for (int i = 0; i < 4; ++i)
+              if (p0 + i < a.S)
+                u[i] = __ldcg(
+                    reinterpret_cast<const float2*>(src + (p0 + i) * stride));
+#pragma unroll
+            for (int i = 0; i < 4; ++i) {
+              if (p0 + i >= a.S) continue;
+              if (p0 + i == 0) {
+                v = u[i];
+              } else {
+                v.x += u[i].x;
+                v.y += u[i].y;
+              }
+            }
+          }
+          *reinterpret_cast<__nv_bfloat162*>(a.out + size_t(m) * a.N + n) =
+              __floats2bfloat162_rn(v.x * sc.x, v.y * sc.y);
+        }
+      if (threadIdx.x % 128 == 0) *counter = 0;  // ready for the next launch
+      continue;
+    }
+    // every part in turn, the running total beside the accumulators
+    i8_consume<NM>(acc, ring, it, part_steps, chunk);
+#pragma unroll
+    for (int i = 0; i < G::kAcc; ++i) tot[i] = acc[i];
+    for (int p = 1; p < a.S; ++p) {
+      i8_consume<NM>(acc, ring, it, part_steps, chunk);
+#pragma unroll
+      for (int i = 0; i < G::kAcc; ++i) tot[i] += acc[i];
+    }
+    // times the scale, one rounding, bf16 pairs to out
+#pragma unroll
+    for (int j = 0; j < NM / 8; ++j)
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
-        const int mm = m + 8 * h;
-        if (mm < M) {
-          *reinterpret_cast<__nv_bfloat162*>(out + size_t(mm) * N + n) =
-              __floats2bfloat162_rn(acc[i][j][2 * h] * s0,
-                                    acc[i][j][2 * h + 1] * s1);
-        }
+        const int m = m0 + 8 * j + h;
+        if (live && m < a.M)
+          *reinterpret_cast<__nv_bfloat162*>(a.out + size_t(m) * a.N + n) =
+              __floats2bfloat162_rn(tot[4 * j + h] * sc.x,
+                                    tot[4 * j + 2 + h] * sc.y);
       }
-    }
   }
 }
 
@@ -410,40 +405,51 @@ __global__ void __launch_bounds__(kFThreads)
   }
 }
 
-template <int MT, int NT, int WM, int WN, int BK, int STAGES, bool DECODE>
-int launch_bf16(const void* x, const void* q, const float* scale, void* out,
-                float* part, int* counters, int M, int K, int N, int S,
-                cudaStream_t stream) {
-  using Tl = Tile<MT, NT, WM, WN, BK, STAGES, !DECODE>;
-  auto kernel = int8_mm_bf16_kernel<MT, NT, WM, WN, BK, STAGES, DECODE>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(Tl::kBytes));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((N + Tl::BN - 1) / Tl::BN, (M + Tl::BM - 1) / Tl::BM,
-                  DECODE ? S : 1);
-  if (grid.y > 65535) return -1;
-  kernel<<<grid, Tl::kThreads, Tl::kBytes, stream>>>(
-      static_cast<const __nv_bfloat16*>(x), static_cast<const int8_t*>(q),
-      scale, static_cast<__nv_bfloat16*>(out), part, counters, M, K, N, S);
+template <int NM>
+int launch_wgmma(I8Args& a, cudaStream_t stream) {
+  a.mt = (a.M + NM - 1) / NM;
+  const int err = gemm90::allow_smem<int8_mm_wgmma_kernel<NM>>();
+  if (err != 0) return err;
+  const long items = long(a.mt) * a.nt * (a.spread ? a.S : 1);
+  const int grid = static_cast<int>(std::min<long>(items, gemm90::sm_count()));
+  int8_mm_wgmma_kernel<NM><<<grid, gemm90::kThreads, I8Geo<NM>::kBytes,
+                             stream>>>(a);
   return static_cast<int>(cudaGetLastError());
+}
+
+// Whether a bf16 call of M rows spreads the S parts of K across blocks:
+// always for decode (M <= 64: an item's rows are few); for 64 < M <= 256
+// when the spread walk is the shorter, counting K a block in rounds of
+// items over the SMs, plus 2560 values of K for writing and adding up
+// the f32 parts (fitted to the five llama3_8b shapes at M = 256 on an
+// H100: PERF.md §6). Either way a row's bits are the same.
+bool spread_parts(int M, int K, int N, int S) {
+  if (S == 1 || M > kSpreadRows) return false;
+  if (M <= 64) return true;
+  const long items = long((M + 127) / 128) * ((N + kTileN - 1) / kTileN);
+  const long sms = gemm90::sm_count();
+  const long whole = (items + sms - 1) / sms * K;
+  const long spread = (items * S + sms - 1) / sms * (K / S) + 2560;
+  return spread < whole;
 }
 
 }  // namespace
 
-// The split of K the bf16 kernel uses for a (K, N) weight, and so the
-// f32 workspace a call with M <= 64 rows needs: S * M * N floats when S > 1
-// (none otherwise), plus one int counter per 128 columns, zero before the
-// launch (the kernel leaves them zero).
-extern "C" int paddle_int8_matmul_splits(int K, int N) {
-  return k_splits(K, N);
+// The number of f32 parts a bf16 call of M rows writes through its
+// workspace: S, the fixed split of K for (K, N), when the call spreads
+// its parts across blocks (`spread_parts`), else 1 (none). The workspace
+// is then S * M * N floats, plus ceil(M / 64) * ceil(N / 64) int counters,
+// zero before the launch (the kernel leaves them zero).
+extern "C" int paddle_int8_matmul_splits(int M, int K, int N) {
+  const int S = k_splits(K, N);
+  return spread_parts(M, K, N, S) ? S : 1;
 }
 
 // Returns 0 on success, a cudaError_t code when the launch was refused, -1
 // for a dtype or shape the kernel does not take. dtype: 0 = float32,
 // 1 = bfloat16 (x and out). `part` and `counters` as
-// paddle_int8_matmul_splits says (bf16, M <= 64 and S > 1; else unused).
-// Launches on `stream`, never synchronises, allocates nothing.
+// paddle_int8_matmul_splits says (unused when it says 1). Launches on
+// `stream`, never synchronises, allocates nothing.
 extern "C" int paddle_int8_matmul(const void* x, const void* q,
                                   const void* scale, void* out, void* part,
                                   void* counters, int M, int K, int N,
@@ -452,21 +458,24 @@ extern "C" int paddle_int8_matmul(const void* x, const void* q,
   const auto st = static_cast<cudaStream_t>(stream);
   const auto* s = static_cast<const float*>(scale);
   if (dtype == 1) {
-    const int S = k_splits(K, N);
-    auto* pt = static_cast<float*>(part);
-    auto* ct = static_cast<int*>(counters);
-    if (M <= 64 && S > 1 && (pt == nullptr || ct == nullptr)) return -1;
-    if (M <= 16)
-      return launch_bf16<1, 4, 1, 4, 64, 4, true>(x, q, s, out, pt, ct, M, K,
-                                                  N, S, st);
-    if (M <= 32)
-      return launch_bf16<2, 4, 1, 4, 64, 4, true>(x, q, s, out, pt, ct, M, K,
-                                                  N, S, st);
-    if (M <= 64)
-      return launch_bf16<4, 4, 1, 4, 64, 4, true>(x, q, s, out, pt, ct, M, K,
-                                                  N, S, st);
-    return launch_bf16<4, 4, 2, 4, 32, 2, false>(x, q, s, out, nullptr,
-                                                 nullptr, M, K, N, S, st);
+    I8Args a;
+    const uint64_t q_dims[2] = {uint64_t(N), uint64_t(K)};
+    const uint64_t x_dims[2] = {uint64_t(K), uint64_t(M)};
+    if (!hopper::encode_map(&a.q, q, 2, q_dims, kTileN, 64, 1) ||
+        !hopper::encode_map(&a.x, x, 2, x_dims, 64, 64))
+      return -1;
+    a.scale = s;
+    a.out = static_cast<__nv_bfloat16*>(out);
+    a.part = static_cast<float*>(part);
+    a.counters = static_cast<int*>(counters);
+    a.M = M;
+    a.K = K;
+    a.N = N;
+    a.S = k_splits(K, N);
+    a.spread = paddle_int8_matmul_splits(M, K, N) > 1;
+    if (a.spread && (a.part == nullptr || a.counters == nullptr)) return -1;
+    a.nt = (N + kTileN - 1) / kTileN;
+    return M <= 64 ? launch_wgmma<64>(a, st) : launch_wgmma<128>(a, st);
   }
   if (dtype == 0) {
     const dim3 grid((N + kFTile - 1) / kFTile, (M + kFTile - 1) / kFTile);

@@ -1,7 +1,7 @@
 """Grouped (per-expert) matmul for dropless MoE: the hand-written Hopper
 kernels' wrappers, their plain PyTorch versions, and the dropless glue.
 
-Port of ``paddle_tpu/ops/pallas/grouped_matmul.py``: ``gmm`` (:147, with
+Port of ``paddle_tpu/ops/pallas/grouped_matmul.py``: ``gmm`` (:148, with
 ``_gmm_fwd`` / ``_gmm_bwd``; the TPU kernel ``_gmm_kernel`` :60), the
 weight-gradient kernel ``_tgmm_call`` (:117, ``_tgmm_kernel`` :98),
 ``sort_and_pad_by_expert`` (:220) and ``moe_mlp_dropless`` (:266).
@@ -21,12 +21,18 @@ expert ``tile_expert[i]`` (int32 ``[M // tile_m]``); rhs ``[E, K, N]``.
 * ``tgmm(lhs, g, tile_expert, num_experts, tile_m)`` -> ``[E, K, N]`` in
   lhs's dtype: for each expert the f32 sum over its tiles, in ascending
   index, of ``lhs[tile]^T @ g[tile]``, rounded once; 0 for an expert that
-  owns no tile. The bf16 kernel (``csrc/grouped_matmul.cu`` on the
-  shared wgmma + TMA mainloop of ``csrc/gemm_sm90.cuh``) has persistent
-  blocks walk the (expert, 128 x 256 output tile) items, expert-major,
-  each summing over its expert's tiles in ascending index: it needs no
-  sorted ``tile_expert``, has no atomics and gives the same bits from run
-  to run.
+  owns no tile.
+
+Both bf16 kernels (``csrc/grouped_matmul.cu``) run on the shared wgmma +
+TMA mainloop of ``csrc/gemm_sm90.cuh``, persistent blocks walking a list
+of items. gmm's items are (128-row block, 128-column tile) pairs,
+ordered expert by expert so that an expert's row blocks read each
+weight panel together; its dlhs reads the weight as a K-major operand.
+tgmm's are (expert, 128 x 256 output tile), expert-major, each summing
+over its expert's tiles in ascending index. Both build their order from
+``tile_expert`` on the device (no host sync), need no sorted
+``tile_expert``, have no atomics and give the same bits from run to
+run.
 
 Like the JAX ``gmm``, ``gmm`` raises ``ValueError`` for a decreasing
 ``tile_expert`` (the TPU weight-gradient kernel's precondition), but only

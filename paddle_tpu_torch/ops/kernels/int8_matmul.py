@@ -2,7 +2,7 @@
 its plain PyTorch version.
 
 Port of ``paddle_tpu/ops/pallas/int8_matmul.py`` (``_kernel`` :48,
-entry ``int8_matmul_pallas`` :85). Contract, the Pallas kernel's
+entry ``int8_matmul_pallas`` :84). Contract, the Pallas kernel's
 arithmetic:
 
     out[m, n] = round_to_x_dtype((sum_k x[m, k] * float(q[k, n])) * scale[n])
@@ -11,13 +11,17 @@ with the sum in f32 (f64 for f64 inputs in the plain version). x is
 ``[..., K]`` bf16 or f32; q int8 ``[K, N]`` in the JAX layout; scale f32
 ``[N]``. Any M (the product of x's leading dims) >= 1.
 
-The kernel (``csrc/int8_matmul.cu``) takes K a multiple of 8 and N a
-multiple of 16 and raises on anything else: unlike the JAX entry it
-never drops quietly to a plain formulation for a shape it cannot tile.
-Its rows are batch invariant: a row's output is bitwise the same at any
-M and wherever it sits in x. At M <= 64 in bf16 a launch keeps per-tile
-counters in a buffer shared by the launches of its (device, stream), so
-those launches must run in stream order, as launches on one stream do.
+The kernel (``csrc/int8_matmul.cu``: the weight widened in registers
+as the A operand of ``wgmma``, x by TMA as B, on the roles and ring of
+``csrc/gemm_sm90.cuh``) takes K a multiple of 8 and N a multiple of 16
+and raises on anything else: unlike the JAX entry it never drops
+quietly to a plain formulation for a shape it cannot tile. Its rows are
+batch invariant: a row's output is bitwise the same at any M and
+wherever it sits in x. At decode sizes in bf16 (and up to 256 rows
+where that is faster) it spreads the parts of K across blocks through an
+f32 workspace and keeps counters in a buffer shared by the launches of
+its (device, stream), so those launches must run in stream order, as
+launches on one stream do.
 
 impl: ``"auto"`` — the kernel for CUDA tensors, the plain version for
 CPU tensors; ``"kernel"`` — the kernel, raising on anything it cannot
@@ -52,7 +56,7 @@ def _lib():
         lib.paddle_int8_matmul.argtypes = (
             [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [ctypes.c_void_p])
         lib.paddle_int8_matmul.restype = ctypes.c_int
-        lib.paddle_int8_matmul_splits.argtypes = [ctypes.c_int] * 2
+        lib.paddle_int8_matmul_splits.argtypes = [ctypes.c_int] * 3
         lib.paddle_int8_matmul_splits.restype = ctypes.c_int
     return lib
 
@@ -84,14 +88,14 @@ def _launch(x2, q, scale):
     part = counters = None
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
-        if x2.dtype == torch.bfloat16 and M <= 64:
-            # the decode tile shape sums K in parts: an f32 workspace for
-            # them
-            S = lib.paddle_int8_matmul_splits(K, N)
+        if x2.dtype == torch.bfloat16:
+            # parts of K spread across blocks: an f32 workspace for them
+            S = lib.paddle_int8_matmul_splits(M, K, N)
             if S > 1:
                 part = torch.empty((S, M, N), dtype=torch.float32,
                                    device=dev)
-                counters = _build.tile_counters(dev, stream, -(-N // 128))
+                counters = _build.tile_counters(
+                    dev, stream, -(-M // 64) * -(-N // 64))
         err = lib.paddle_int8_matmul(
             x2.data_ptr(), q.data_ptr(), scale.data_ptr(), out.data_ptr(),
             None if part is None else part.data_ptr(),

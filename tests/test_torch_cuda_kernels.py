@@ -183,9 +183,20 @@ def test_int8_matmul_matches_plain_version(cuda, M, K):
     """bf16 within one ulp of the plain version and f64, f32 within the
     smoke's bound; rows bitwise equal at every M and in reverse order.
     N = 208 leaves ragged column tiles; K = 1032 sums K in one part with a
-    ragged last stage, K = 4096 in 4 parts of 1024."""
+    ragged last stage, K = 4096 in 4 parts of 1024 (spread across blocks
+    up to 256 rows)."""
     smoke.check_int8(f"M{M}", K, 208, seed=M, timing=False,
                      ms_list=(1, M))
+
+
+@pytest.mark.parametrize("K", [1032, 4096])
+def test_int8_matmul_rows_bitwise_across_regime_edges(cuda, K):
+    """Rows bitwise equal at M = 63, 64 (64-row items), 65 (128-row items)
+    and 257 (the parts of K summed in one block, where up to 256 rows
+    spread them across blocks), and in reverse order; the bounds as
+    above."""
+    smoke.check_int8(f"edges K{K}", K, 208, seed=K, timing=False,
+                     ms_list=(63, 64, 65, 257))
 
 
 def test_decode_kernels_count_launches_and_reject_bad_input(cuda):
@@ -310,6 +321,33 @@ def test_tgmm_on_skewed_routing_at_ragged_widths(cuda):
     0 and a shuffled tile order bitwise equal, at widths the tgmm tiles do
     not divide (K 584 = 4.56 x 128, N 328 = 1.28 x 256)."""
     smoke.check_gmm("skewed", seed=4, geom=dict(GMM_SMALL, D=584, F=328))
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_gmm_tile_m_256_and_out_of_range_experts(cuda, dtype):
+    """gmm forward and dlhs with 256-row tiles (two of the bf16 kernel's
+    128-row blocks a tile) within GMM_BOUNDS of the plain version; a
+    tile_expert entry outside [0, E) makes its rows NaN, with no fault,
+    and leaves the other rows' bits as they were."""
+    from paddle_tpu_torch.ops.kernels import grouped_matmul as gm
+    g = torch.Generator(device=cuda).manual_seed(11)
+    lhs = torch.randn(1024, 256, generator=g, device=cuda).to(dtype)
+    w = (torch.randn(3, 256, 328, generator=g, device=cuda) / 16).to(dtype)
+    te = torch.tensor([0, 2, 2, 1], dtype=torch.int32, device=cuda)
+    bad = torch.tensor([0, 3, -1, 1], dtype=torch.int32, device=cuda)
+    eps = smoke.BF16_EPS if dtype == torch.bfloat16 else smoke.F32_EPS
+    bound = smoke.GMM_BOUNDS["plain" if dtype == torch.bfloat16 else "f32"]
+    for trans, b in ((False, w), (True, w.transpose(1, 2).contiguous())):
+        got = gm.gmm(lhs, b, te, 256, trans=trans, impl="kernel")
+        ref = gm.gmm_reference(lhs.double() if dtype == torch.float32
+                               else lhs, b.double() if dtype == torch.float32
+                               else b, te, 256, trans=trans)
+        assert smoke._row_ulps(got, ref, eps) <= bound
+        out = gm.gmm(lhs, b, bad, 256, trans=trans, impl="kernel")
+        torch.cuda.synchronize()
+        assert torch.isnan(out[256:768]).all()
+        assert torch.equal(out[:256], got[:256])
+        assert torch.equal(out[768:], got[768:])
 
 
 def test_flash_attention_with_one_query_head_per_kv_head(cuda):

@@ -18,12 +18,14 @@ from paddle_tpu_torch.ops.kernels import grouped_matmul as TG
 
 TOL = dict(rtol=1e-5, atol=1e-5)
 
-# (tile_expert, E, K, N): the JAX package's two cases, and one with a
-# ragged column count; tile_m 128
+# (tile_expert, E, K, N, tile_m): the JAX package's two cases, one with a
+# ragged column count, and one whose row tiles are two of the card
+# kernel's 128-row blocks
 GMM_CASES = {
-    "four_experts": ([0, 1, 1, 3], 4, 64, 128),
-    "empty_expert": ([0, 2, 2], 3, 128, 128),
-    "ragged_n": ([1, 1, 2], 3, 64, 72),
+    "four_experts": ([0, 1, 1, 3], 4, 64, 128, 128),
+    "empty_expert": ([0, 2, 2], 3, 128, 128, 128),
+    "ragged_n": ([1, 1, 2], 3, 64, 72, 128),
+    "tile_m_256": ([0, 2], 3, 64, 136, 256),
 }
 
 
@@ -37,13 +39,16 @@ def test_gmm_and_grads_match_jax(case, trans):
     """Forward, dlhs and drhs against ``jax.vjp`` of the JAX ``gmm``; with
     ``trans`` the port reads the weight ``[E, N, K]`` transposed where JAX
     is given ``swapaxes`` of it."""
-    te, E, K, N = GMM_CASES[case]
+    te, E, K, N, TM = GMM_CASES[case]
     rs = np.random.RandomState(len(case))
-    M, TM = 128 * len(te), 128
+    M = TM * len(te)
+    # unit-scale outputs and gradients (the weight as initialised, the
+    # cotangent over an expert's rows), so the absolute tolerance means
+    # the same at every reduction length
     lhs = rs.randn(M, K).astype(np.float32)
     w = rs.randn(E, N, K) if trans else rs.randn(E, K, N)
-    w = w.astype(np.float32)
-    ct = rs.randn(M, N).astype(np.float32)
+    w = (w / np.sqrt(K)).astype(np.float32)
+    ct = (rs.randn(M, N) / np.sqrt(TM)).astype(np.float32)
     te_np = np.asarray(te, np.int32)
 
     def jfn(l, r):
@@ -66,15 +71,15 @@ def test_gmm_and_grads_match_jax(case, trans):
 def test_tgmm_matches_jax_tgmm_call(case):
     """``tgmm`` against the JAX weight-gradient kernel in interpret mode
     (f32 output), experts with no tile 0."""
-    te, E, K, N = GMM_CASES[case]
+    te, E, K, N, TM = GMM_CASES[case]
     rs = np.random.RandomState(7)
-    M = 128 * len(te)
+    M = TM * len(te)
     lhs = rs.randn(M, K).astype(np.float32)
-    g = rs.randn(M, N).astype(np.float32)
+    g = (rs.randn(M, N) / np.sqrt(TM)).astype(np.float32)   # unit scale
     want = JG._tgmm_call(jnp.asarray(lhs), jnp.asarray(g),
-                         jnp.asarray(te, jnp.int32), E, 128,
+                         jnp.asarray(te, jnp.int32), E, TM,
                          N if N % 128 else 128, interpret=True)
-    got = TG.tgmm(_t(lhs), _t(g), _t(np.asarray(te, np.int32)), E, 128)
+    got = TG.tgmm(_t(lhs), _t(g), _t(np.asarray(te, np.int32)), E, TM)
     assert got.shape == (E, K, N) and got.dtype == torch.float32
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
 

@@ -75,14 +75,28 @@ def test_quantize_is_bitwise_jax(shape):
     assert int(tq[(0,) * (len(shape) - 2) + (2, 0)]) == -4
 
 
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-def test_int8_matmul_matches_jax_pallas_kernel(dtype):
+# (M, K, N): rows on both sides of the card kernel's regime edges (64
+# rows an item up to M = 64, parts spread across blocks up to M = 256) at
+# two tileable weight shapes; the first case keeps the bare dtype id
+INT8_PARITY_CASES = [(5, 256, 384), (1, 256, 384), (64, 256, 384),
+                     (65, 256, 384), (256, 256, 384), (5, 1024, 512),
+                     (65, 1024, 512)]
+
+
+@pytest.mark.parametrize(
+    "dtype,M,K,N",
+    [(dt, *c) for c in INT8_PARITY_CASES for dt in ("float32", "bfloat16")],
+    ids=[dt if c == INT8_PARITY_CASES[0] else f"{dt}-M{c[0]}-K{c[1]}-N{c[2]}"
+         for c in INT8_PARITY_CASES for dt in ("float32", "bfloat16")])
+def test_int8_matmul_matches_jax_pallas_kernel(dtype, M, K, N):
     """The port's product (the kernel's plain version on the CPU) vs the
-    JAX Pallas kernel in interpret mode at a tileable shape."""
+    JAX Pallas kernel in interpret mode at tileable shapes."""
     rng = np.random.RandomState(1)
-    M, K, N = 5, 256, 384
     x = rng.randn(M, K).astype(np.float32)
-    q, s = j_quantize(jnp.asarray(rng.randn(K, N).astype(np.float32)))
+    # the weight as initialised (unit-scale outputs, so the absolute
+    # tolerance means the same at every K)
+    w = rng.randn(K, N) / np.sqrt(K)
+    q, s = j_quantize(jnp.asarray(w.astype(np.float32)))
     jx = jnp.asarray(x, dtype)
     want = int8_matmul_pallas(jx, q, s)
     tx = torch.from_numpy(np.array(jx.astype(jnp.float32))).to(

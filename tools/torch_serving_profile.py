@@ -128,7 +128,7 @@ def profile(name, step, n_steps, reps=3):
     attn_ms = sum(t for k, (t, _) in kern.items()
                   if "decode_attention_kernel" in k) / 1e3
     int8_ms = sum(t for k, (t, _) in kern.items()
-                  if "int8_mm_bf16_kernel" in k) / 1e3
+                  if "int8_mm_" in k) / 1e3
     span = float(np.median(spans))
     top = sorted(kern.items(), key=lambda kv: -kv[1][0])[:8]
     return {
