@@ -891,13 +891,23 @@ def check_flash(T: int, S: int, seed: int, gm=TRAIN_GEOM, B: int = 1,
     return errs
 
 
-def check_rms_norm(seed: int = 10) -> dict:
+# RMSNorm shapes (N, D): the 8B width at T 2048, a ragged N, one row, the
+# rows either side of a 16-row dw chunk (RMS_DW_CHUNK), bench.py's deep
+# width and the widest row the backward kernel takes
+RMS_SHAPES = ((2048, 4096), (2047, 4096), (1, 4096), (15, 4096), (17, 4096),
+              (2048, 2560), (512, 8192))
+# the widths row 8 is timed at (N 2048) beside the 8B one; their launches
+# are the 8B width's
+RMS_BWD_WIDTHS = (2560, 8192)
+RMS_COUNTED_AS = {f"fused_rms_norm_bwd_d{d}": "fused_rms_norm_bwd"
+                  for d in RMS_BWD_WIDTHS}
+
+
+def _rms_errs(x, w, g) -> dict:
+    """The forward's y and the backward's dx and dw, f32 and bf16, against
+    the plain versions and the f64 evaluation (see TRAIN_BOUNDS)."""
     from paddle_tpu_torch.ops.kernels import fused_norm_rope as nr
-    D = TRAIN_GEOM["D"]
-    gen = torch.Generator(device="cuda").manual_seed(seed)
-    x = _randn((2048, D), gen, 2.0)
-    w = 1.0 + _randn((D,), gen, 0.1)
-    g = _randn((2048, D), gen)
+    D = x.shape[1]
     errs = {}
     for dt in (torch.float32, torch.bfloat16):
         xd, wd, gd = x.to(dt), w.to(dt), g.to(dt)
@@ -917,9 +927,69 @@ def check_rms_norm(seed: int = 10) -> dict:
                                      F32_EPS)
         if dt == torch.bfloat16:
             errs[("dw", "exact")] = row_ulps(dw, edw, D, F32_EPS)
-            dx2, dw2 = nr.rms_norm_bwd(xd, wd, r, gd, "kernel")
-            assert torch.equal(dx, dx2) and torch.equal(dw, dw2), \
-                "rms_norm backward not deterministic"
+    return errs
+
+
+def check_rms_bwd_bits(xd, wd, r, gd) -> None:
+    """The backward's dx and dw bitwise: two launches in a row, two
+    launches on each of two streams at once, and each row of dx alone
+    (N 1) and inside 17-row slices (across the 16-row chunks)."""
+    from paddle_tpu_torch.ops.kernels import fused_norm_rope as nr
+    dx, dw = nr.rms_norm_bwd(xd, wd, r, gd, "kernel")
+    dx2, dw2 = nr.rms_norm_bwd(xd, wd, r, gd, "kernel")
+    assert torch.equal(dx, dx2) and torch.equal(dw, dw2), \
+        "rms_norm backward not deterministic"
+    cur = torch.cuda.current_stream()
+    streams = (torch.cuda.Stream(), torch.cuda.Stream())
+    outs = []
+    for st in streams:
+        st.wait_stream(cur)
+    for _ in range(2):
+        for st in streams:
+            with torch.cuda.stream(st):
+                outs.append(nr.rms_norm_bwd(xd, wd, r, gd, "kernel"))
+    torch.cuda.synchronize()
+    for a, b in outs:
+        assert torch.equal(a, dx) and torch.equal(b, dw), \
+            "rms_norm backward differs on two streams at once"
+    N = xd.shape[0]
+    for i in (0, 1, 15, 16, 17, 1000, N - 1):
+        a, _ = nr.rms_norm_bwd(xd[i:i + 1], wd, r[i:i + 1], gd[i:i + 1],
+                               "kernel")
+        assert torch.equal(a, dx[i:i + 1]), f"dx row {i} alone differs"
+    for lo in (0, 9, 1000, N - 17):
+        hi = lo + 17
+        a, _ = nr.rms_norm_bwd(xd[lo:hi], wd, r[lo:hi], gd[lo:hi], "kernel")
+        assert torch.equal(a, dx[lo:hi]), f"dx rows {lo}:{hi} differ"
+
+
+def check_rms_norm(seed: int = 10) -> dict:
+    """RMSNorm forward and backward at every ``RMS_SHAPES`` shape, f32 and
+    bf16: each entry the worst over the shapes, and ``("dx_d<D>",
+    "max_abs_err")`` the bf16 dx against the plain version per width; the
+    backward's bits (``check_rms_bwd_bits``) at N 2048, D 4096 in both
+    dtypes."""
+    from paddle_tpu_torch.ops.kernels import fused_norm_rope as nr
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    errs = {}
+    for N, D in RMS_SHAPES:
+        x = _randn((N, D), gen, 2.0)
+        w = 1.0 + _randn((D,), gen, 0.1)
+        g = _randn((N, D), gen)
+        e = _rms_errs(x, w, g)
+        log(f"rms_norm N={N} D={D}: " + " ".join(
+            f"{a}/{b}={v:.4g}" for (a, b), v in e.items()))
+        for k, v in e.items():
+            errs[k] = max(errs.get(k, 0.0), v)
+        key = (f"dx_d{D}", "max_abs_err")
+        errs[key] = max(errs.get(key, 0.0), e[("dx", "max_abs_err")])
+        if (N, D) == RMS_SHAPES[0]:
+            for dt in (torch.float32, torch.bfloat16):
+                xd, wd, gd = x.to(dt), w.to(dt), g.to(dt)
+                _, r = nr.rms_norm_fwd(xd, wd, 1e-5, "kernel")
+                check_rms_bwd_bits(xd, wd, r, gd)
+        del x, g
+    torch.cuda.empty_cache()
     return errs
 
 
@@ -966,7 +1036,12 @@ def train_kernel_bounds() -> dict:
         to = flops / H100_BF16_FLOPS * 1e3
         return (max(tb, to), "bytes" if tb >= to else "operations", flops)
 
+    # RMSNorm backward at width d: x, g and dx, w, rstd and dw once
+    def rms_bwd(d):
+        return bound(3 * T * d * 2 + d * 2 + T * 4 + d * 4, 10 * T * d)
+
     return {
+        **{f"fused_rms_norm_bwd_d{d}": rms_bwd(d) for d in RMS_BWD_WIDTHS},
         # QK and PV: 2 flops per multiply-add, Dh of each per pair
         "flash_attention_fwd": bound(2 * qb + 2 * kb + st, 4 * Dh * pairs),
         # recomputed scores, dP and dq
@@ -977,10 +1052,30 @@ def train_kernel_bounds() -> dict:
                                          8 * Dh * pairs),
         "fused_rms_norm_fwd": bound(2 * T * D * 2 + D * 2 + T * 4,
                                     4 * T * D),
-        "fused_rms_norm_bwd": bound(3 * T * D * 2 + D * 2 + T * 4 + D * 4,
-                                    10 * T * D),
+        "fused_rms_norm_bwd": rms_bwd(D),
         "fused_rope": bound(2 * (qb + kb) + T * 4, 6 * T * (H + Hkv) * Dh),
     }
+
+
+def rms_bwd_times(N: int, D: int, gen) -> tuple:
+    """bf16 RMSNorm backward at [N, D]: the kernel's, the plain version's
+    and ``F.rms_norm``'s backward's ms (the library call is a yardstick
+    only)."""
+    import torch.nn.functional as F
+    from paddle_tpu_torch.ops.kernels import fused_norm_rope as nr
+    bf = torch.bfloat16
+    x = _randn((N, D), gen, 2.0).to(bf)
+    w = (1.0 + _randn((D,), gen, 0.1)).to(bf)
+    g = _randn((N, D), gen).to(bf)
+    _, r = nr.rms_norm_fwd(x, w, 1e-5, "kernel")
+    xl, wl = x.detach().requires_grad_(), w.detach().requires_grad_()
+    ly = F.rms_norm(xl, (D,), wl, 1e-5)
+    with torch.no_grad():
+        ms = time_ms(lambda: nr.rms_norm_bwd(x, w, r, g, "kernel"))
+        plain = time_ms(lambda: nr.rms_norm_bwd(x, w, r, g, "reference"))
+    lib = time_ms(lambda: torch.autograd.grad(ly, (xl, wl), g,
+                                              retain_graph=True))
+    return ms, plain, lib
 
 
 def train_kernel_times() -> dict:
@@ -1033,21 +1128,14 @@ def train_kernel_times() -> dict:
     del po, so, leaves, sl
     x = _randn((T, D), gen, 2.0).to(bf)
     w = (1.0 + _randn((D,), gen, 0.1)).to(bf)
-    g = _randn((T, D), gen).to(bf)
-    _, r = nr.rms_norm_fwd(x, w, 1e-5, "kernel")
-    xl, wl = x.detach().requires_grad_(), w.detach().requires_grad_()
-    ly = F.rms_norm(xl, (D,), wl, 1e-5)
     with torch.no_grad():
         out["fused_rms_norm_fwd"] = (
             time_ms(lambda: nr.rms_norm_fwd(x, w, 1e-5, "kernel")),
             time_ms(lambda: nr.rms_norm_fwd(x, w, 1e-5, "reference")),
             time_ms(lambda: F.rms_norm(x, (D,), w, 1e-5)))
-        out["fused_rms_norm_bwd"] = (
-            time_ms(lambda: nr.rms_norm_bwd(x, w, r, g, "kernel")),
-            time_ms(lambda: nr.rms_norm_bwd(x, w, r, g, "reference")),
-            None)
-    out["fused_rms_norm_bwd"] = out["fused_rms_norm_bwd"][:2] + (time_ms(
-        lambda: torch.autograd.grad(ly, (xl, wl), g, retain_graph=True)),)
+    out["fused_rms_norm_bwd"] = rms_bwd_times(T, D, gen)
+    for d in RMS_BWD_WIDTHS:
+        out[f"fused_rms_norm_bwd_d{d}"] = rms_bwd_times(T, d, gen)
     pos = torch.arange(T, dtype=torch.int32, device="cuda")[None]
     th = gm["theta"]
     out["fused_rope"] = (
@@ -1070,6 +1158,10 @@ TRAIN_KERNELS = (
      "paddle_tpu/ops/pallas/fused_norm_rope.py:127"),
     ("fused_rms_norm_bwd", "paddle_tpu_torch/csrc/fused_rms_norm.cu",
      "paddle_tpu/ops/pallas/fused_norm_rope.py:136"),
+    # row 8 again at bench.py's deep width and the widest it takes (N 2048)
+    *((f"fused_rms_norm_bwd_d{d}", "paddle_tpu_torch/csrc/fused_rms_norm.cu",
+       "paddle_tpu/ops/pallas/fused_norm_rope.py:136")
+      for d in RMS_BWD_WIDTHS),
     ("fused_rope", "paddle_tpu_torch/csrc/fused_rope.cu",
      "paddle_tpu/ops/pallas/fused_norm_rope.py:45"),
 )
@@ -1096,7 +1188,8 @@ def train_kernel_phase() -> dict:
                                    for (a, b), v in e.items()))
         check_bounds(name, e)
         errs[name] = e
-    log("rms_norm backward: two launches bitwise equal (dx, dw)")
+    log("rms_norm backward: dx and dw bitwise over two launches and on "
+        "two streams at once; dx rows alone and in 17-row slices bitwise")
     times = train_kernel_times()
     bounds = train_kernel_bounds()
     fe, re, pe = errs["t2048"], errs["rms_norm"], errs["rope"]
@@ -1106,7 +1199,9 @@ def train_kernel_phase() -> dict:
         "flash_attention_bwd_dkv": max(fe[("dk", "max_abs_err")],
                                        fe[("dv", "max_abs_err")]),
         "fused_rms_norm_fwd": re[("y", "max_abs_err")],
-        "fused_rms_norm_bwd": re[("dx", "max_abs_err")],
+        "fused_rms_norm_bwd": re[("dx_d4096", "max_abs_err")],
+        **{f"fused_rms_norm_bwd_d{d}": re[(f"dx_d{d}", "max_abs_err")]
+           for d in RMS_BWD_WIDTHS},
         "fused_rope": pe[("rope", "max_abs_err")],
     }
     rec = {}
@@ -2890,7 +2985,8 @@ def main() -> int:
         r = train_rec[name]
         kernels.append(dict(name=name, route="cuda", source=source,
                             replaces=replaces,
-                            launches=train["launches"][name],
+                            launches=train["launches"][
+                                RMS_COUNTED_AS.get(name, name)],
                             max_abs_err=r["max_abs_err"], ms=r["ms"],
                             plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
                             bound_by=r["bound_by"],

@@ -10,31 +10,67 @@
 //       dx = (g*w - xhat * mean(g*w*xhat)) * rstd, xhat = x * rstd;
 //       dw = sum over rows of g * xhat, in f32.
 //
-// dw. The TPU kernel adds each row tile's dw into one output block across
-// its sequential grid. Blocks here run in parallel and in no order, and
-// atomics would make dw's bits depend on that order. So the backward
-// block b takes the fixed rows [b*kChunk, (b+1)*kChunk) and writes their
-// f32 column sums to partial[b, :]; a second kernel sums partial[:, d]
-// in chunk order. dw is the same bits from run to run.
-//
-// What bounds it. Bytes: one read of x (and g) and one write of y (dx),
+// What bounds them. Bytes: one read of x (and g) and one write of y (dx),
 // about one flop per byte, so the least time is those bytes over the
-// card's 3.35 TB/s. Rows are read with 16-byte vector loads; a row of the
-// 8B model (4096 bf16, 8 KB) is read twice by its block, the second time
-// from L1/L2. Reductions run in a fixed order (thread, warp tree, warps in
-// order), so every output is deterministic.
+// card's 3.35 TB/s. Every reduction runs in a fixed order, so every
+// output is deterministic.
+//
+// Forward: a 256-thread block a row, 16-byte vector loads, the row's sum
+// of squares through a block reduction.
+//
+// Backward. A row is taken by a group of kG warps, kG = ceil(row bytes /
+// 2 KB): a lane takes 4 pieces of 16 bytes of x and 4 of g (32 bf16 or 16
+// f32 values), piece p of lane l of the group at column (p * 32 kG + l) *
+// (16 / sizeof(T)), so a warp's loads are contiguous. A block is 16 warps,
+// 16 / kG groups (bf16 D 4096: 4 groups of 4 warps), so several rows are
+// in flight a block. Each thread copies its own pieces of the group's
+// rows with cp.async into a 2-stage ring in shared memory, one row ahead
+// of the one it works on, and reads back only what it copied: no thread
+// waits for another's copies. The two passes over a row (the dot, then
+// dx) read the ring, never L1/L2. The row's dot is reduced by warp
+// shuffles and, for kG > 1, through shared memory behind one named
+// barrier of the group's warps, in a fixed order. dx of a row depends on
+// the row and D alone, whatever N. (1-D bulk copies on an mbarrier ring,
+// and 3 or more stages, measured no faster on an H100.)
+//
+// dw. The TPU kernel adds each row tile's dw into one output block across
+// its sequential grid; blocks here run in parallel and in no order, and
+// atomics would make dw's bits depend on that order. The rows split into
+// fixed chunks of kChunk rows, one block a chunk; the group of a row is
+// fixed by its place in the chunk (row r0 + q + k * groups to group q).
+// Each thread sums g * xhat over its group's rows in registers, the groups
+// add their sums in group order through shared memory, and the block
+// writes the chunk's f32 column sums to partial[chunk, :]. A second
+// launch sums the partials without a serial tail: a block takes 32
+// columns, its 8 warps each a fixed run of consecutive chunks, and the 8
+// runs' sums are added in order. dw has the same bits from run to run.
+// The second launch is a programmatic dependent launch: it is scheduled
+// while the first one's last blocks run and waits at
+// `griddepcontrol.wait` until their partials are written.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-
-#include <cstdint>
+#include "hopper.cuh"
 
 namespace {
 
+using hopper::smem_u32;
+
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
-constexpr int kChunk = 16;    // rows per dw partial (RMS_DW_CHUNK)
 constexpr int kVec = 8;       // elements per vector step
+
+// backward
+constexpr int kChunk = 16;      // rows per dw partial (RMS_DW_CHUNK)
+constexpr int kBwdWarps = 16;   // warps a block
+constexpr int kPieces = 4;      // 16-byte pieces a lane takes of x (and g)
+constexpr int kWarpBytes = 32 * kPieces * 16;  // bytes of a row a warp takes
+constexpr int kStages = 2;      // rows a group holds: this one, one ahead
+constexpr int kMaxD = 8192;
+// the groups' rings: kStages x (x row, g row) each, at most 64 KB a stage
+// (a block's own static shared memory comes on top, so not the card's
+// whole 227 KB)
+constexpr int kSmemMax = kStages * 2 * kBwdWarps * kWarpBytes;
+constexpr int kSumCols = 32;    // columns a dw-sum block takes
+constexpr int kSumRuns = 8;     // runs of chunks a dw-sum block adds
 
 __device__ __forceinline__ void load8(const float* p, float* v) {
   const float4 a = *reinterpret_cast<const float4*>(p);
@@ -103,75 +139,242 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-// Block b: rows [b*kChunk, min(N, (b+1)*kChunk)); dx for each, and the
-// chunk's dw column sums into partial[b, :]. Thread t owns the columns
-// {t*kVec + j*kThreads*kVec + i}, at most kMaxCols of them.
-template <typename T, int kMaxCols>
-__global__ void __launch_bounds__(kThreads)
+// ------------------------------------------------------------ backward --
+
+// A 16-byte piece: 4 f32 or 8 bf16 values, widened to f32 and back.
+template <typename T>
+struct Piece;
+template <>
+struct Piece<float> {
+  static constexpr int kN = 4;
+  __device__ static void widen(const uint4& r, float* v) {
+    v[0] = __uint_as_float(r.x);
+    v[1] = __uint_as_float(r.y);
+    v[2] = __uint_as_float(r.z);
+    v[3] = __uint_as_float(r.w);
+  }
+  __device__ static uint4 narrow(const float* v) {
+    return make_uint4(__float_as_uint(v[0]), __float_as_uint(v[1]),
+                      __float_as_uint(v[2]), __float_as_uint(v[3]));
+  }
+};
+template <>
+struct Piece<__nv_bfloat16> {
+  static constexpr int kN = 8;
+  __device__ static void widen(const uint4& r, float* v) {
+    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&r);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float2 f = __bfloat1622float2(h[i]);
+      v[2 * i] = f.x;
+      v[2 * i + 1] = f.y;
+    }
+  }
+  __device__ static uint4 narrow(const float* v) {
+    uint4 r;
+    __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&r);
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      h[i] = __floats2bfloat162_rn(v[2 * i], v[2 * i + 1]);
+    return r;
+  }
+};
+
+// 16 bytes from global to shared memory, bypassing L1
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1)
+    v += __shfl_xor_sync(0xffffffffu, v, off);
+  return v;
+}
+
+// Block b: the chunk rows [b*kChunk, min(N, (b+1)*kChunk)); dx of each,
+// and the chunk's dw column sums into partial[b, :]. kG warps a row,
+// blockDim.x / (32 kG) groups; dynamic shared memory: the groups' rings,
+// kStages x (x row, g row) each, reused for the groups' dw at the end.
+template <typename T>
+__global__ void __launch_bounds__(kBwdWarps * 32, 1)
     rms_bwd_kernel(const T* __restrict__ x, const T* __restrict__ w,
                    const float* __restrict__ rstd, const T* __restrict__ g,
                    T* __restrict__ dx, float* __restrict__ partial, int N,
-                   int D) {
-  __shared__ float red[kWarps];
-  constexpr int kSteps = kMaxCols / kVec;
-  float dw[kMaxCols];
-#pragma unroll
-  for (int i = 0; i < kMaxCols; ++i) dw[i] = 0.f;
+                   int D, int kG) {
+  using P = Piece<T>;
+  constexpr int kN = P::kN;
+  extern __shared__ __align__(128) unsigned char smem[];
+  __shared__ float red[2][kBwdWarps];
+  __shared__ float rs[kChunk];
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int L = kG * 32;                  // threads a row
+  const int groups = blockDim.x / L;
+  const int q = warp / kG;                // this thread's group
+  const int gl = threadIdx.x - q * L;     // its place in the group
   const int r0 = blockIdx.x * kChunk;
-  const int r1 = min(N, r0 + kChunk);
-  for (int row = r0; row < r1; ++row) {
-    const size_t off = static_cast<size_t>(row) * D;
-    const float r = rstd[row];
+  const int rows = min(N - r0, kChunk);
+  // rows of group q: r0 + q + k * groups, k < mine
+  const int mine = rows > q ? (rows - q + groups - 1) / groups : 0;
+  const int row_bytes = D * static_cast<int>(sizeof(T));
+  unsigned char* ring = smem + static_cast<size_t>(q) * kStages * 2 * row_bytes;
+
+  // row k of the group into stage k % kStages: this thread's own pieces,
+  // which only it reads, so no other thread waits for them
+  auto issue = [&](int k) {
+    const size_t off = static_cast<size_t>(r0 + q + k * groups) * D;
+    unsigned char* st = ring + (k % kStages) * 2 * row_bytes;
+#pragma unroll
+    for (int p = 0; p < kPieces; ++p) {
+      const int c = (p * L + gl) * kN;
+      if (c < D) {
+        cp_async16(st + c * sizeof(T), x + off + c);
+        cp_async16(st + row_bytes + c * sizeof(T), g + off + c);
+      }
+    }
+  };
+  // the first rows go out before anything else is read
+  for (int k = 0; k < kStages - 1; ++k) {
+    if (k < mine) issue(k);
+    cp_async_commit();
+  }
+
+  uint4 wr[kPieces];
+  float dw[kPieces * kN];
+#pragma unroll
+  for (int p = 0; p < kPieces; ++p) {
+    const int c = (p * L + gl) * kN;
+    wr[p] = c < D ? *reinterpret_cast<const uint4*>(w + c)
+                  : make_uint4(0, 0, 0, 0);
+  }
+#pragma unroll
+  for (int i = 0; i < kPieces * kN; ++i) dw[i] = 0.f;
+  if (threadIdx.x < rows) rs[threadIdx.x] = rstd[r0 + threadIdx.x];
+  __syncthreads();
+
+  for (int k = 0; k < mine; ++k) {
+    // the stage refilled here is the one this thread read in the row
+    // before
+    if (k + kStages - 1 < mine) issue(k + kStages - 1);
+    cp_async_commit();
+    cp_async_wait<kStages - 1>();
+    const unsigned char* st = ring + (k % kStages) * 2 * row_bytes;
+    const float r = rs[q + k * groups];
     float dot = 0.f;
 #pragma unroll
-    for (int s = 0; s < kSteps; ++s) {
-      const int c = (threadIdx.x + s * kThreads) * kVec;
+    for (int p = 0; p < kPieces; ++p) {
+      const int c = (p * L + gl) * kN;
       if (c < D) {
-        float xv[kVec], gv[kVec], wv[kVec];
-        load8(x + off + c, xv);
-        load8(g + off + c, gv);
-        load8(w + c, wv);
+        float xv[kN], gv[kN], wv[kN];
+        P::widen(*reinterpret_cast<const uint4*>(st + c * sizeof(T)), xv);
+        P::widen(*reinterpret_cast<const uint4*>(st + row_bytes +
+                                                 c * sizeof(T)),
+                 gv);
+        P::widen(wr[p], wv);
 #pragma unroll
-        for (int i = 0; i < kVec; ++i) {
+        for (int i = 0; i < kN; ++i) {
           const float xhat = xv[i] * r;
           dot = fmaf(gv[i] * wv[i], xhat, dot);
-          dw[s * kVec + i] = fmaf(gv[i], xhat, dw[s * kVec + i]);
+          dw[p * kN + i] = fmaf(gv[i], xhat, dw[p * kN + i]);
         }
       }
     }
-    const float mean = block_sum(dot, red) / D;
+    dot = warp_sum(dot);
+    if (kG > 1) {
+      // rows alternate between two slots: a slot is written again two
+      // rows on, after the next barrier, which every reader has passed
+      if (lane == 0) red[k & 1][warp] = dot;
+      hopper::bar_sync(1 + q, L);
+      dot = 0.f;
+      for (int i = 0; i < kG; ++i) dot += red[k & 1][q * kG + i];
+    }
+    const float mean = dot / D;
+    T* out = dx + static_cast<size_t>(r0 + q + k * groups) * D;
 #pragma unroll
-    for (int s = 0; s < kSteps; ++s) {
-      const int c = (threadIdx.x + s * kThreads) * kVec;
+    for (int p = 0; p < kPieces; ++p) {
+      const int c = (p * L + gl) * kN;
       if (c < D) {
-        float xv[kVec], gv[kVec], wv[kVec], out[kVec];
-        load8(x + off + c, xv);
-        load8(g + off + c, gv);
-        load8(w + c, wv);
+        float xv[kN], gv[kN], wv[kN], o[kN];
+        P::widen(*reinterpret_cast<const uint4*>(st + c * sizeof(T)), xv);
+        P::widen(*reinterpret_cast<const uint4*>(st + row_bytes +
+                                                 c * sizeof(T)),
+                 gv);
+        P::widen(wr[p], wv);
 #pragma unroll
-        for (int i = 0; i < kVec; ++i)
-          out[i] = (gv[i] * wv[i] - xv[i] * r * mean) * r;
-        store8(dx + off + c, out);
+        for (int i = 0; i < kN; ++i)
+          o[i] = (gv[i] * wv[i] - xv[i] * r * mean) * r;
+        __stcs(reinterpret_cast<uint4*>(out + c), P::narrow(o));
       }
     }
   }
-  float* pr = partial + static_cast<size_t>(blockIdx.x) * D;
+  // the dw sums follow; let the dependent launch be scheduled
+  asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
+  cp_async_wait<0>();
+  __syncthreads();  // the rings are read: they take the groups' dw now
+  float* comb = reinterpret_cast<float*>(smem);  // [groups][D]
 #pragma unroll
-  for (int s = 0; s < kSteps; ++s) {
-    const int c = (threadIdx.x + s * kThreads) * kVec;
-    if (c < D) store8(pr + c, dw + s * kVec);
+  for (int p = 0; p < kPieces; ++p) {
+    const int c = (p * L + gl) * kN;
+    if (c < D) {
+#pragma unroll
+      for (int i = 0; i < kN; i += 4)
+        *reinterpret_cast<float4*>(comb + q * D + c + i) =
+            make_float4(dw[p * kN + i], dw[p * kN + i + 1],
+                        dw[p * kN + i + 2], dw[p * kN + i + 3]);
+    }
+  }
+  __syncthreads();
+  float* pr = partial + static_cast<size_t>(blockIdx.x) * D;
+  for (int c = threadIdx.x * 4; c < D; c += blockDim.x * 4) {
+    float4 s = *reinterpret_cast<const float4*>(comb + c);
+    for (int j = 1; j < groups; ++j) {
+      const float4 t = *reinterpret_cast<const float4*>(comb + j * D + c);
+      s.x += t.x;
+      s.y += t.y;
+      s.z += t.z;
+      s.w += t.w;
+    }
+    *reinterpret_cast<float4*>(pr + c) = s;
   }
 }
 
-// dw[d] = sum over chunks, in chunk order, of partial[chunk, d].
-__global__ void __launch_bounds__(kThreads)
+// dw[d] = the sum of partial[:, d]: warp j adds the consecutive chunks
+// [j * per, (j + 1) * per) in order, then the 8 runs are added in order.
+__global__ void __launch_bounds__(kSumCols * kSumRuns)
     rms_dw_sum_kernel(const float* __restrict__ partial,
                       float* __restrict__ dw, int chunks, int D) {
-  const int d = blockIdx.x * kThreads + threadIdx.x;
-  if (d >= D) return;
+  __shared__ float run[kSumRuns][kSumCols];
+  // the partials are the previous launch's: wait until they are written
+  asm volatile("griddepcontrol.wait;\n" ::: "memory");
+  const int lane = threadIdx.x & 31, j = threadIdx.x >> 5;
+  const int d = blockIdx.x * kSumCols + lane;
+  const int per = (chunks + kSumRuns - 1) / kSumRuns;
+  const int c1 = min(chunks, (j + 1) * per);
   float s = 0.f;
-  for (int c = 0; c < chunks; ++c) s += partial[static_cast<size_t>(c) * D + d];
-  dw[d] = s;
+  if (d < D) {
+#pragma unroll 16
+    for (int c = j * per; c < c1; ++c)
+      s += partial[static_cast<size_t>(c) * D + d];
+  }
+  run[j][lane] = s;
+  __syncthreads();
+  if (j == 0 && d < D) {
+    float t = run[0][lane];
+#pragma unroll
+    for (int i = 1; i < kSumRuns; ++i) t += run[i][lane];
+    dw[d] = t;
+  }
 }
 
 template <typename T>
@@ -183,34 +386,59 @@ int fwd(const void* x, const void* w, void* y, float* rstd, int N, int D,
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T, int kMaxCols>
-int bwd_cols(const void* x, const void* w, const float* rstd, const void* g,
-             void* dx, float* partial, float* dw, int N, int D,
-             cudaStream_t stream) {
-  const int chunks = (N + kChunk - 1) / kChunk;
-  if (chunks > 0) {
-    rms_bwd_kernel<T, kMaxCols><<<chunks, kThreads, 0, stream>>>(
-        static_cast<const T*>(x), static_cast<const T*>(w), rstd,
-        static_cast<const T*>(g), static_cast<T*>(dx), partial, N, D);
-    const cudaError_t err = cudaGetLastError();
+constexpr int kMaxDevices = 64;
+
+// let `Kernel` take kSmemMax bytes of dynamic shared memory (once a
+// device); returns 0 or the cudaError_t of the refusal
+template <auto Kernel>
+int allow_smem() {
+  static bool done[kMaxDevices] = {};
+  int dev = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess || dev >= kMaxDevices) return -1;
+  if (!done[dev]) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        Kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemMax);
     if (err != cudaSuccess) return static_cast<int>(err);
+    done[dev] = true;
   }
-  rms_dw_sum_kernel<<<(D + kThreads - 1) / kThreads, kThreads, 0, stream>>>(
-      partial, dw, chunks, D);
-  return static_cast<int>(cudaGetLastError());
+  return 0;
 }
 
 template <typename T>
 int bwd(const void* x, const void* w, const float* rstd, const void* g,
         void* dx, float* partial, float* dw, int N, int D,
         cudaStream_t stream) {
-  // each thread keeps its columns' dw sums in registers: up to 16 (D <=
-  // 4096) or 32 (D <= 8192) of them
-  if (D <= 2 * kThreads * kVec)
-    return bwd_cols<T, 16>(x, w, rstd, g, dx, partial, dw, N, D, stream);
-  if (D <= 4 * kThreads * kVec)
-    return bwd_cols<T, 32>(x, w, rstd, g, dx, partial, dw, N, D, stream);
-  return -1;
+  const int kG = (D * static_cast<int>(sizeof(T)) + kWarpBytes - 1) /
+                 kWarpBytes;
+  const int groups = kBwdWarps / kG;
+  const int chunks = (N + kChunk - 1) / kChunk;
+  if (chunks > 0) {
+    constexpr auto kernel = rms_bwd_kernel<T>;
+    const int err = allow_smem<kernel>();
+    if (err != 0) return err;
+    const size_t bytes =
+        static_cast<size_t>(kStages) * groups * 2 * D * sizeof(T);
+    kernel<<<chunks, groups * kG * 32, bytes, stream>>>(
+        static_cast<const T*>(x), static_cast<const T*>(w), rstd,
+        static_cast<const T*>(g), static_cast<T*>(dx), partial, N, D, kG);
+    const cudaError_t e = cudaGetLastError();
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((D + kSumCols - 1) / kSumCols);
+  cfg.blockDim = dim3(kSumCols * kSumRuns);
+  cfg.dynamicSmemBytes = 0;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[0].val.programmaticStreamSerializationAllowed = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  const cudaError_t e = cudaLaunchKernelEx(
+      &cfg, rms_dw_sum_kernel, static_cast<const float*>(partial), dw,
+      chunks, D);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -229,12 +457,13 @@ extern "C" int paddle_rms_norm_fwd(const void* x, const void* w, void* y,
   return -1;
 }
 
-// partial: f32 [ceil(N / 16), D] scratch; dw: f32 [D].
+// partial: f32 [max(ceil(N / 16), 1), D] scratch; dw: f32 [D]. x, w, g
+// and dx 16-byte aligned; 0 < D <= 8192, D % 8 == 0.
 extern "C" int paddle_rms_norm_bwd(const void* x, const void* w,
                                    const void* rstd, const void* g, void* dx,
                                    void* partial, void* dw, int N, int D,
                                    int dtype, void* stream) {
-  if (D % kVec) return -1;
+  if (D <= 0 || D % kVec || D > kMaxD || N < 0) return -1;
   auto s = static_cast<cudaStream_t>(stream);
   auto r = static_cast<const float*>(rstd);
   auto p = static_cast<float*>(partial);

@@ -9,9 +9,10 @@ sharded entries wait for the parallel-training slice).
   dx = (g·w − x̂·mean(g·w·x̂))·rstd and dw = Σ_rows g·x̂ in f32, cast to
   the weight's dtype. The TPU kernel adds dw into one output block across
   its sequential grid; the CUDA kernel (``csrc/fused_rms_norm.cu``)
-  writes f32 partials per fixed chunk of ``RMS_DW_CHUNK`` rows and a
-  second kernel sums them in chunk order, so dw is the same bits from run
-  to run.
+  stages each row in shared memory for a group of warps (several rows in
+  flight a block), writes f32 partials per fixed chunk of
+  ``RMS_DW_CHUNK`` rows (``rms_bwd_workspace``), and a second launch
+  sums them in a fixed order, so dw is the same bits from run to run.
 * ``fused_rope(q, k, positions, theta, impl)``: rotate-half RoPE on q
   ``[B,T,H,Dh]`` and k ``[B,T,Hkv,Dh]`` in one pass
   (``csrc/fused_rope.cu``), angles in f32 with the TPU kernel's
@@ -33,9 +34,11 @@ import torch
 from . import _build
 
 __all__ = ["fused_rms_norm", "fused_rope", "rms_norm_fwd", "rms_norm_bwd",
-           "rope_rotate", "RMS_DW_CHUNK"]
+           "rope_rotate", "rms_bwd_workspace", "RMS_DW_CHUNK",
+           "RMS_BWD_MAX_D"]
 
 RMS_DW_CHUNK = 16      # rows per dw partial (csrc/fused_rms_norm.cu kChunk)
+RMS_BWD_MAX_D = 8192   # widest row the backward kernel takes (kMaxD)
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -130,16 +133,33 @@ def _rms_fwd_kernel(x2, w, eps: float):
     return y, rstd
 
 
+def rms_bwd_workspace(N: int, D: int) -> tuple:
+    """Shape of the backward kernel's f32 scratch for ``x [N, D]``: one
+    row of dw column sums per fixed chunk of ``RMS_DW_CHUNK`` rows, and
+    one row when N is 0."""
+    return (max(-(-N // RMS_DW_CHUNK), 1), D)
+
+
 def _rms_bwd_kernel(x2, w, rstd, g2):
     _check_cuda("fused_rms_norm backward", x2.dtype, x2, w, rstd, g2)
     if g2.dtype != x2.dtype or g2.shape != x2.shape:
         raise TypeError("fused_rms_norm backward: g must match x")
-    if rstd.dtype != torch.float32:
-        raise TypeError("fused_rms_norm backward: rstd must be float32")
+    if w.dtype != x2.dtype or w.shape != (x2.shape[1],):
+        raise TypeError(f"fused_rms_norm backward: weight must be "
+                        f"[{x2.shape[1]}] {x2.dtype}, got {tuple(w.shape)} "
+                        f"{w.dtype}")
+    if rstd.dtype != torch.float32 or rstd.shape != (x2.shape[0], 1):
+        raise TypeError("fused_rms_norm backward: rstd must be float32 "
+                        "[N, 1]")
     N, D = x2.shape
+    if D % 8 or not 0 < D <= RMS_BWD_MAX_D:
+        raise ValueError(f"fused_rms_norm backward: D={D} must be a "
+                         f"multiple of 8 in [8, {RMS_BWD_MAX_D}]")
+    if any(t.data_ptr() % 16 for t in (x2, w, g2)):
+        raise ValueError("fused_rms_norm backward: x, weight and g must be "
+                         "16-byte aligned")
     dx = torch.empty_like(x2)
-    chunks = -(-N // RMS_DW_CHUNK)
-    partial = torch.empty((max(chunks, 1), D), dtype=torch.float32,
+    partial = torch.empty(rms_bwd_workspace(N, D), dtype=torch.float32,
                           device=x2.device)
     dw = torch.empty((D,), dtype=torch.float32, device=x2.device)
     fn = _fn("fused_rms_norm", "paddle_rms_norm_bwd", 7,
@@ -165,7 +185,7 @@ def rms_norm_fwd(x2, w, eps: float, impl: str = "auto"):
 
 def rms_norm_bwd(x2, w, rstd, g2, impl: str = "auto"):
     """-> ``(dx [N, D] in x's dtype, dw [D] f32)``; ``.launches`` counts
-    kernel launches (one per call: the dw partials and their sum)."""
+    kernel calls (one per call: dx with the dw partials, and their sum)."""
     _check_impl(impl)
     if _use_kernel(impl, x2):
         return _rms_bwd_kernel(x2, w, rstd, g2)

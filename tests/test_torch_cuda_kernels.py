@@ -95,9 +95,33 @@ def test_flash_attention_without_causal_mask(cuda):
 
 
 def test_rms_norm_matches_plain_version(cuda):
-    """Forward, dx and dw at [2048, 4096]; dx and dw bitwise equal over
-    two launches."""
+    """Forward, dx and dw at every shape of the smoke's RMS_SHAPES (N 2048,
+    2047, 1, 15, 17 at D 4096; D 2560 and 8192); dx and dw bitwise over
+    two launches and on two streams at once; dx rows alone and in 17-row
+    slices bitwise."""
     smoke.check_bounds("rms_norm", smoke.check_rms_norm(seed=4))
+
+
+def test_rms_norm_backward_rejects_what_it_does_not_take(cuda):
+    """impl="kernel" raises on a width over 8192 or off a multiple of 8,
+    and on a 16-byte misaligned x; N 0 gives an empty dx and a zero dw."""
+    from paddle_tpu_torch.ops.kernels import fused_norm_rope as nr
+    for D in (8200, 12):
+        x = torch.randn(4, D, device=cuda)
+        w = torch.ones(D, device=cuda)
+        r = torch.ones(4, 1, device=cuda)
+        with pytest.raises(ValueError, match="multiple of 8"):
+            nr.rms_norm_bwd(x, w, r, x, impl="kernel")
+    flat = torch.randn(4 * 64 + 1, device=cuda)
+    x = flat[1:].view(4, 64)
+    with pytest.raises(ValueError, match="aligned"):
+        nr.rms_norm_bwd(x, torch.ones(64, device=cuda),
+                        torch.ones(4, 1, device=cuda), x, impl="kernel")
+    x = torch.empty(0, 64, device=cuda)
+    dx, dw = nr.rms_norm_bwd(x, torch.ones(64, device=cuda),
+                             torch.empty(0, 1, device=cuda), x,
+                             impl="kernel")
+    assert dx.shape == (0, 64) and torch.equal(dw, torch.zeros_like(dw))
 
 
 def test_rope_matches_plain_version(cuda):

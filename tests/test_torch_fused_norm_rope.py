@@ -47,22 +47,39 @@ def test_fused_rms_norm_matches_jax(shape):
     np.testing.assert_allclose(tw.grad.numpy(), np.asarray(jdw), **TOL)
 
 
-def test_rms_norm_kernel_pieces_match_jax_calls():
+# (N, D, JAX tile_n): the 32-row case; N off the 16-row dw chunk of the
+# port's kernel (RMS_DW_CHUNK + 1, and 33 with a D that is no multiple of
+# 256); one row
+@pytest.mark.parametrize("N,D,tile", [(32, 64, 8), (17, 64, 17),
+                                      (33, 40, 11), (1, 64, 1)])
+def test_rms_norm_kernel_pieces_match_jax_calls(N, D, tile):
     """The plain forward and backward pieces (rstd, dx, f32 dw) against
     the JAX package's two Pallas calls directly."""
     rng = np.random.RandomState(1)
-    x = (rng.randn(32, 64) * 2).astype(np.float32)
-    w = (rng.randn(64) + 1).astype(np.float32)
-    g = rng.randn(32, 64).astype(np.float32)
-    jy, jr = JF._rms_fwd_call(jnp.asarray(x), jnp.asarray(w), 1e-5, 8, True)
+    x = (rng.randn(N, D) * 2).astype(np.float32)
+    w = (rng.randn(D) + 1).astype(np.float32)
+    g = rng.randn(N, D).astype(np.float32)
+    jy, jr = JF._rms_fwd_call(jnp.asarray(x), jnp.asarray(w), 1e-5, tile,
+                              True)
     jdx, jdw = JF._rms_bwd_call(jnp.asarray(x), jnp.asarray(w), jr,
-                                jnp.asarray(g), 1e-5, 8, True)
+                                jnp.asarray(g), 1e-5, tile, True)
     ty, tr = TF.rms_norm_fwd(_t(x), _t(w), 1e-5)
     tdx, tdw = TF.rms_norm_bwd(_t(x), _t(w), tr, _t(g))
-    assert tr.shape == (32, 1) and tr.dtype == torch.float32
+    assert tr.shape == (N, 1) and tr.dtype == torch.float32
     assert tdw.dtype == torch.float32
     for got, want in ((ty, jy), (tr, jr), (tdx, jdx), (tdw, jdw)):
         np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+
+
+@pytest.mark.parametrize("N,rows", [(0, 1), (1, 1), (15, 1), (16, 1),
+                                    (17, 2), (2048, 128)])
+def test_rms_bwd_workspace_has_a_row_per_dw_chunk(N, rows):
+    """The backward kernel's f32 scratch: one row of dw column sums per
+    fixed chunk of RMS_DW_CHUNK = 16 rows (ceil(N / 16)), one for N 0;
+    its shape depends on N and D alone."""
+    assert TF.RMS_DW_CHUNK == 16
+    assert TF.rms_bwd_workspace(N, 4096) == (rows, 4096)
+    assert TF.rms_bwd_workspace(N, 40) == (rows, 40)
 
 
 @pytest.mark.parametrize("theta", [10000.0, 500000.0])
