@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving and training paths (Llama-3-8B,
-Qwen2-MoE dropless training) and ResNet-50 inference on one NVIDIA H100
-and check them.
+"""Drive the PyTorch port's serving paths (with sampling and
+speculative decoding) and training paths (Llama-3-8B, Qwen2-MoE dropless
+training) and ResNet-50 inference on one NVIDIA H100 and check them.
 
 Run from the repository root with no arguments:
 
@@ -126,9 +126,36 @@ Phases (any failed check raises; nothing is caught):
    forwards; ms per forward, images/s and peak memory at B 8 and B 128,
    folded and unfolded (conv -> BN -> relu on cuDNN).
 
-Phases run in the order 1, 2, 3, 5, 7, 4, 8, 6, 9, 10, 11, 12: phase 6
-starts after the 8B serving state is freed, phases 9 and 10 after phase
-6's.
+13. sampling and speculation on ``llama3_8b`` (phase 4's params): (a)
+   the serving tick's sampler on the card against the same function on
+   the CPU, on ``[8, 128256]`` and ``[40, 128256]`` f32 logits whose
+   rows are greedy, sampled (temperature 0.8, top-k 50, top-p 0.95),
+   top-k 1 and top-p 0: threefry bits bitwise, the degenerate rows
+   bitwise the argmax, sampled tokens equal on every row whose two
+   largest perturbed logits differ by more than ``SAMPLE_MARGIN``; its
+   host and device ms and kernels a call; (b) one speculative verify
+   tick (``spec_k`` 4: 3 slots drafting 4, 2 drafting 2, 2 decode rows,
+   a 256-token prefill span; three slots' drafts planted from the plain
+   tick's own picks, so drafts are accepted), kernel vs plain attention:
+   the logits at every verify position within ``LOGITS_REL_TOL``, the
+   picks and ``accept`` equal wherever no token's logit difference
+   between the two ticks can reorder the plain pick, L ragged launches;
+   (c)
+   ``ServingEngine(speculative="ngram", spec_k=4)`` on 16 requests (8
+   sampled, 4 with periodic prompts) against a plain engine: every
+   request's token count, ragged launches = L x model steps, verify ticks
+   and accepted drafts > 0, a ``defragment()`` between two waves that
+   moves pages, ``expose()`` parsed back, all-greedy waves launching no
+   sampler; tok/s and tokens per model step on the mixed requests (one
+   run) and, as median and range over ``SPEC_WAVE_REPS`` reps with the
+   engines' order alternating, on 16 periodic and 16 random prompts; the
+   streams' agreement between the engines (reported); (d) sampled ``generate_paged`` at the bench mix, its
+   paged-kernel launches as in phase 8, the per-step sampler's host and
+   device ms.
+
+Phases run in the order 1, 2, 3, 5, 7, 4, 8, 13, 6, 9, 10, 11, 12:
+phase 6 starts after the 8B serving state is freed, phases 9 and 10
+after phase 6's.
 
 The last two lines of standard output are the card's name and power
 limit, then ``{"ok": true, "device": {...}}``; the line before them is
@@ -1863,6 +1890,474 @@ def engine_int8_run(params, cfg) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# sampling and speculation on llama3_8b (phase 13)
+# ---------------------------------------------------------------------------
+
+# sampled tokens on the card must equal the CPU's on every row whose two
+# largest perturbed logits (masked logits + Gumbel noise, on the CPU)
+# differ by more than this: the threefry bits are equal bitwise, the
+# Gumbel noise (an f32 log of a log) and the masks' softmax / cumsum may
+# round differently on the two devices, by well under this margin
+SAMPLE_MARGIN = 1e-4
+# the rows of phase 13's sampler checks, repeated: (temperature, top_p,
+# top_k) — greedy; the engine's sampled requests; and the two filters
+# that leave only the argmax
+SAMPLER_ROWS = ((0.0, 1.0, 0), (0.8, 0.95, 50), (0.8, 1.0, 1),
+                (0.8, 0.0, 0))
+SPEC_K = 4
+# the verify tick at the serving phase's geometry (8 slots, 34 pages of
+# 16): slots 0-2 draft 4 tokens behind 300 / 77 / 500 cached, slots 3-4
+# draft 2 behind 120 / 530, slots 5-6 decode plainly over 200 / 16,
+# slot 7 prefills 256 tokens behind a 64-token cached prefix
+VERIFY_DRAFTS = {0: (300, 4), 1: (77, 4), 2: (500, 4), 3: (120, 2),
+                 4: (530, 2)}
+VERIFY_DECODE = {5: 200, 6: 16}
+VERIFY_SPAN = (7, 64, 256)
+# slots whose first n drafts are the plain tick's own picks: slot 0 all 4
+# (full acceptance, greedy), slot 1 the first 2 (accepts 2, sampled),
+# slot 3 both (full acceptance, sampled); slots 2 and 4 keep random drafts
+VERIFY_PLANT = {0: 4, 1: 2, 3: 2}
+# reps of phase 13 c's repetitive and random greedy waves on each engine
+SPEC_WAVE_REPS = 5
+# the sampled requests' parameters (phase 13 c and d)
+SAMPLED = dict(temperature=0.8, top_p=0.95, top_k=50)
+
+
+def sampler_arrays(n: int, device, seed: int = 0) -> dict:
+    """``_fused_sample``'s per-row arrays for ``n`` rows cycling through
+    ``SAMPLER_ROWS``, with each row's key and continuation index."""
+    from paddle_tpu_torch import prng
+    rows = [SAMPLER_ROWS[i % len(SAMPLER_ROWS)] for i in range(n)]
+    rng = np.random.RandomState(seed)
+    keys = torch.stack([prng.key(int(s)) for s in
+                        rng.randint(-1 << 31, 1 << 31, n)])
+    out = dict(temp=torch.tensor([r[0] for r in rows]),
+               top_p=torch.tensor([r[1] for r in rows]),
+               top_k=torch.tensor([r[2] for r in rows], dtype=torch.int32),
+               keys=keys, idx=torch.as_tensor(rng.randint(0, 64, n),
+                                              dtype=torch.int32))
+    return {k: v.to(device) for k, v in out.items()}
+
+
+def sampler_cost(fn, reps: int = 10) -> dict:
+    """One sampler call: host ms (the Python call while a device sleep
+    keeps the card busy, so the host never waits), device ms (CUDA
+    events around the call, queued behind the sleep, so the kernels run
+    back to back), and the kernels it launches and their summed device
+    time (``torch.profiler``)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity
+    for _ in range(3):
+        fn()
+    host, dev = [], []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        torch.cuda._sleep(100_000_000)
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        t0 = time.perf_counter()
+        fn()
+        host.append((time.perf_counter() - t0) * 1e3)
+        b.record()
+        b.synchronize()
+        dev.append(a.elapsed_time(b))
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[ProfilerActivity.CPU,
+                                            ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    kernels, busy = 0, 0.0
+    for it in prof.key_averages():
+        if it.device_type == DeviceType.CUDA:
+            kernels += int(it.count)
+            t = getattr(it, "self_device_time_total", None)
+            busy += float(it.self_cuda_time_total if t is None else t)
+    return dict(host_ms=float(np.median(host)),
+                device_ms=float(np.median(dev)), kernels=kernels,
+                busy_ms=busy / 1e3)
+
+
+def check_sampler(rows: int, vocab: int, seed: int) -> dict:
+    """The tick's sampler on the card against the same function on the
+    CPU, on ``[rows, vocab]`` f32 logits: threefry bits bitwise,
+    degenerate rows bitwise the argmax, sampled tokens equal above
+    ``SAMPLE_MARGIN``; its cost per call."""
+    from paddle_tpu_torch import prng
+    from paddle_tpu_torch.models import llama
+    gen = torch.Generator().manual_seed(seed)
+    logits = torch.randn((rows, vocab), generator=gen) * 4.0
+    cpu = sampler_arrays(rows, "cpu", seed)
+    gpu = {k: v.to("cuda") for k, v in cpu.items()}
+    lg = logits.to("cuda")
+    kb_cpu = prng.fold_in(cpu["keys"], cpu["idx"])
+    kb_gpu = prng.fold_in(gpu["keys"], gpu["idx"])
+    assert torch.equal(kb_gpu.cpu(), kb_cpu), "fold_in differs"
+    bits_cpu = prng.bits(kb_cpu, (vocab,))
+    assert torch.equal(prng.bits(kb_gpu, (vocab,)).cpu(), bits_cpu), \
+        "threefry bits differ between the card and the CPU"
+
+    def run(lgt, a):
+        return llama._fused_sample(lgt, a["temp"], a["top_p"], a["top_k"],
+                                   a["keys"], a["idx"])
+
+    got, want = run(lg, gpu).cpu(), run(logits, cpu)
+    top = logits.argmax(-1).int()
+    degen = torch.tensor([i % len(SAMPLER_ROWS) != 1 for i in range(rows)])
+    assert torch.equal(got[degen], top[degen]), \
+        "a greedy / top_k 1 / top_p 0 row is not the argmax"
+    assert torch.equal(want[degen], top[degen])
+    pert = (llama._draw_mask(logits, cpu["temp"], cpu["top_p"],
+                             cpu["top_k"]) + prng.gumbel(kb_cpu, (vocab,)))
+    two = pert.topk(2, dim=-1).values
+    sure = (two[:, 0] - two[:, 1]) > SAMPLE_MARGIN
+    close = int((~sure & ~degen).sum())
+    assert torch.equal(got[sure], want[sure]), \
+        "a sampled token differs from the CPU's above the margin"
+    same = int((got == want).sum())
+    cost = sampler_cost(lambda: run(lg, gpu))
+    greedy = sampler_cost(lambda: lg.argmax(-1).int())
+    log(f"sampler [{rows}, {vocab}] card vs CPU: fold_in and threefry bits "
+        f"bitwise equal; degenerate rows bitwise the argmax; tokens equal "
+        f"on {same}/{rows} rows ({close} sampled rows under the "
+        f"{SAMPLE_MARGIN} margin); a sampled tick's sampler: host "
+        f"{cost['host_ms']:.3f} ms, device {cost['device_ms']:.3f} ms "
+        f"({cost['kernels']} kernels, busy {cost['busy_ms']:.3f} ms); the "
+        f"greedy argmax: host {greedy['host_ms']:.3f} ms, device "
+        f"{greedy['device_ms']:.3f} ms ({greedy['kernels']} kernels)")
+    return dict(rows=rows, tokens_equal=same, under_margin=close,
+                sampled=cost, greedy=greedy)
+
+
+def verify_tick_run(params, cfg) -> dict:
+    """One speculative verify tick (spec_k 4) at the serving geometry,
+    with the ragged kernel and with the plain attention, the same
+    weights and pools, half the slots sampling. Some slots' drafts are
+    the plain tick's own picks (``VERIFY_PLANT``), so acceptance runs.
+    The logits at every verify position within ``LOGITS_REL_TOL``; the
+    picks and ``accept`` equal wherever no token's logit difference
+    between the two ticks can reorder the plain pick; L ragged
+    launches."""
+    from paddle_tpu_torch import prng
+    from paddle_tpu_torch.models import llama
+    from paddle_tpu_torch.ops.kernels import ragged_paged_attention as rpa
+    L, S, ps, pps = cfg.num_hidden_layers, TICK_S, 16, TICK_PPS
+    kk, V = 1 + SPEC_K, cfg.vocab_size
+    pools = llama.init_serving_pages(cfg, 1 + S * pps, ps)
+    g = torch.Generator(device="cuda").manual_seed(5)
+    for t in pools.values():
+        t.copy_(torch.randn(t.shape, generator=g, device="cuda"))
+    rng = np.random.RandomState(13)
+    slot, start, take = VERIFY_SPAN
+    decode = [(s, rng.randint(V), n) for s, n in VERIFY_DECODE.items()]
+    spans = [(slot, rng.randint(0, V, take), start)]
+    cur = {s: rng.randint(V) for s in VERIFY_DRAFTS}
+    drafts = {s: rng.randint(0, V, k) for s, (_, k) in VERIFY_DRAFTS.items()}
+    tables = np.arange(1, 1 + S * pps, dtype=np.int32).reshape(S, pps)
+    samp = dict(temp=torch.tensor([0.0, 0.8] * (S // 2)),
+                top_p=torch.tensor([1.0, 0.95] * (S // 2)),
+                top_k=torch.tensor([0, 50] * (S // 2), dtype=torch.int32),
+                key=torch.stack([prng.key(s) for s in range(S)]),
+                produced=torch.arange(S, dtype=torch.int32))
+
+    def tick(impl):
+        tok, meta = llama.pack_tick(
+            decode, spans, tables, ps, "cuda", spec_k=SPEC_K,
+            drafts=[(s, cur[s], n, drafts[s])
+                    for s, (n, _) in VERIFY_DRAFTS.items()])
+        meta.update({k: v.to("cuda") for k, v in samp.items()})
+        kp, vp = (t.clone() for t in pools.values())
+        rpa.ragged_paged_attention_packed.launches = 0
+        out = llama.serving_tick(params, tok, meta, kp, vp, cfg,
+                                 spec_k=SPEC_K, attn_impl=impl)
+        return out[:3], rpa.ragged_paged_attention_packed.launches, meta
+
+    # pass j sets draft j of each planted slot to the plain tick's pick
+    # after span tokens 0..j, which the drafts planted before it decide
+    for j in range(max(VERIFY_PLANT.values())):
+        (picks, _, _), _, _ = tick("reference")
+        for s, n in VERIFY_PLANT.items():
+            if j < n:
+                drafts[s][j] = int(picks[s, j])
+    (rt, ra, rl), r_launches, meta = tick("reference")
+    (kt, ka, kl), k_launches, _ = tick("kernel")
+    assert k_launches == L, k_launches
+    assert r_launches == 0
+    for s, n in VERIFY_PLANT.items():
+        assert int(ra[s]) >= n, (s, ra.tolist())
+    assert kt.shape == (S, kk) and ka.shape == (S,)
+    assert kl.shape == (S, kk, V) and torch.isfinite(kl).all()
+    assert bool(((kt >= 0) & (kt < V)).all())
+    assert int(ka.max()) <= SPEC_K and int(ka.min()) >= 0
+    diff = float((kl - rl).abs().max())
+    diff0 = float((kl[:, 0] - rl[:, 0]).abs().max())
+    scale = float(rl.abs().max())
+    assert diff <= LOGITS_REL_TOL * scale, (diff, scale)
+    # the perturbed rows the picks maximise: the logits for a greedy row;
+    # masked logits over temperature plus the draw's Gumbel noise for a
+    # sampled one. A pick is clear when no token's difference between the
+    # two ticks' rows can reorder it against the plain pick w: for every
+    # token j, pr[w] - pr[j] > |dp[j]| + |dp[w]| (a token that one mask
+    # keeps and the other drops differs by ~1e30). There the kernel
+    # tick's pick must be w; elsewhere the two picks may differ by the
+    # logits' rounding alone
+    rows = {n: meta[n].repeat_interleave(kk, dim=0)
+            for n in ("temp", "top_p", "top_k", "key")}
+    idx = (meta["produced"][:, None]
+           + torch.arange(kk, device="cuda")).reshape(-1)
+    noise = prng.gumbel(prng.fold_in(rows["key"], idx), (V,))
+    sampled = rows["temp"] > 0
+
+    def perturbed(lg):
+        m = llama._draw_mask(lg.reshape(S * kk, V), rows["temp"],
+                             rows["top_p"], rows["top_k"])
+        return torch.where(sampled[:, None], m + noise, lg.reshape(-1, V))
+
+    pr, pk = perturbed(rl), perturbed(kl)
+    dp = (pk - pr).abs()
+    w = pr.argmax(-1, keepdim=True)
+    lead = pr.gather(-1, w) - pr
+    own = torch.arange(V, device="cuda")[None, :] == w
+    clear = ((lead > dp + dp.gather(-1, w)) | own).all(-1).reshape(S, kk)
+    del pr, pk, dp, lead, own
+    assert torch.equal(kt[clear], rt[clear]), \
+        "a verify pick differs from the plain tick's at a clear margin"
+    # accept recounted on the host from the kernel tick's own picks: the
+    # leading drafts equal to the picks at their span positions
+    k_s, a_ref = meta["draft_len"].tolist(), ra.tolist()
+    picks, dt = kt.cpu().numpy(), meta["draft_tok"].cpu().numpy()
+    recount = [int(np.cumprod(picks[s, :k_s[s]] == dt[s, :k_s[s]]).sum())
+               for s in range(S)]
+    assert ka.tolist() == recount, (ka.tolist(), recount)
+    assert sum(recount) > 0, "the kernel tick accepted no draft"
+    # accept[s] is decided by the picks at positions 0..min(accept, k_s - 1)
+    checked = [s for s in range(S)
+               if bool(clear[s, :min(a_ref[s], k_s[s] - 1) + 1].all())]
+    for s in checked:
+        assert int(ka[s]) == a_ref[s], (s, ka.tolist(), a_ref)
+    same = int((kt == rt).sum())
+    log(f"verify tick (spec_k {SPEC_K}; 3 x 4 drafts, 2 x 2, 2 decode "
+        f"rows, a 256-token span; half the slots sampling; drafts planted "
+        f"from the plain tick's picks in slots {sorted(VERIFY_PLANT)}) "
+        f"kernel vs reference: max |dlogit| {diff:.4g} over every verify "
+        f"position, {diff0:.4g} at row 0 (logit scale {scale:.4g}, bound "
+        f"{LOGITS_REL_TOL} x scale); picks equal on {same}/{kt.numel()}, "
+        f"asserted on the {int(clear.sum())} that no logit difference can "
+        f"reorder; accept kernel {ka.tolist()} (= the host's recount), "
+        f"reference {a_ref}, asserted equal on slots {checked}; ragged "
+        f"launches {k_launches} (= {L} layers)")
+    del pools
+    torch.cuda.empty_cache()
+    return dict(logits_max_abs_diff=diff, row0_max_abs_diff=diff0,
+                scale=scale, picks_equal=same, picks_clear=int(clear.sum()),
+                accept_kernel=ka.tolist(), accept_reference=a_ref,
+                accept_checked=checked)
+
+
+def _spec_requests(vocab: int):
+    """Phase 4's 16 requests with prompts 0, 4, 8 and 12 replaced by a
+    period of 16 random tokens repeated to 128-320 tokens (the drafter
+    predicts those), odd requests sampled with fixed seeds."""
+    prompts, new = _requests(vocab)
+    rng = np.random.RandomState(21)
+    for i in (0, 4, 8, 12):
+        pat = rng.randint(0, vocab, 16).astype(np.int32)
+        prompts[i] = np.tile(pat, 20)[:int(rng.randint(128, 321))]
+    samp = [dict(SAMPLED, seed=100 + i) if i % 2 else {}
+            for i in range(16)]
+    return prompts, new, samp
+
+
+def _engine_wave(eng, prompts, new, samp):
+    t0 = time.perf_counter()
+    handles = [eng.submit(p, n, **s) for p, n, s in zip(prompts, new, samp)]
+    outs = [h.result(timeout=600) for h in handles]
+    wall = time.perf_counter() - t0
+    for o, n in zip(outs, new):
+        assert o.shape == (n,), (o.shape, n)
+    return outs, wall
+
+
+def _greedy_waves(vocab: int, rep: int):
+    """Rep ``rep``'s two greedy waves at phase 4's count (16 requests of
+    192 prompt and 32 new tokens): a period of 16 random tokens repeated
+    12 times, and random prompts; new prompts in every rep, so no rep
+    meets the prefix cache of another."""
+    rng = np.random.RandomState(22 + rep)
+    return dict(repetitive=[np.tile(rng.randint(0, vocab, 16)
+                                    .astype(np.int32), 12)
+                            for _ in range(16)],
+                random=[rng.randint(0, vocab, 192).astype(np.int32)
+                        for _ in range(16)])
+
+
+def spec_engine_run(params, cfg) -> dict:
+    """ServingEngine(speculative="ngram", spec_k=4) against a plain
+    engine on the same 16 requests; a defrag between two waves; the
+    exposition; then ``SPEC_WAVE_REPS`` reps of a repetitive and a random
+    greedy wave of 16 requests on both engines, the engines' order
+    alternating from rep to rep: the median and range of each engine's
+    tok/s and tokens per model step."""
+    from paddle_tpu_torch.models import llama
+    from paddle_tpu_torch.ops.kernels import ragged_paged_attention as rpa
+    from paddle_tpu_torch.serving import ServingEngine
+    from paddle_tpu_torch.serving.metrics import _parse_exposition
+    L, V = cfg.num_hidden_layers, cfg.vocab_size
+    prompts, new, samp = _spec_requests(V)
+    geom = dict(max_batch=8, page_size=16, max_prompt_len=512,
+                max_new_tokens_cap=32, prefill_chunk=256,
+                decode_block_size=4)
+    engines = {"spec": ServingEngine(params, cfg, **geom,
+                                     speculative="ngram", spec_k=SPEC_K),
+               "plain": ServingEngine(params, cfg, **geom)}
+    rec = {}
+    for name, eng in engines.items():
+        eng.generate(np.arange(1, 41, dtype=np.int32), 4)   # warm-up
+        c0 = eng.stats()["counters"]
+        rpa.ragged_paged_attention_packed.launches = 0
+        outs, wall = _engine_wave(eng, prompts, new, samp)
+        launches = rpa.ragged_paged_attention_packed.launches
+        c = eng.stats()["counters"]
+        d = {k: c[k] - c0[k] for k in c}
+        assert launches == L * d["model_steps"], (launches, d)
+        r = dict(outs=outs, wall_s=wall, tok_s=sum(new) / wall,
+                 model_steps=d["model_steps"], spec_ticks=d["spec_ticks"],
+                 draft_tokens=d["draft_tokens"],
+                 draft_accepted=d["draft_accepted"],
+                 tokens_per_launch=d["tokens_out"] / d["model_steps"])
+        log(f"engine {name}: 16 requests (8 sampled, 4 periodic prompts), "
+            f"{sum(new)} tokens in {wall:.3f} s = {r['tok_s']:.1f} tok/s "
+            f"(one run); {d['model_steps']} model steps, {launches} ragged "
+            f"launches (= {L} x model steps); {r['tokens_per_launch']:.3f} "
+            f"tokens a model launch; verify ticks {d['spec_ticks']}, "
+            f"drafts {d['draft_tokens']}, accepted {d['draft_accepted']}")
+        rec[name] = r
+    eng = engines["spec"]
+    d = rec["spec"]
+    assert d["spec_ticks"] > 0 and d["draft_accepted"] > 0, d
+    moved = eng.defragment()
+    assert moved > 0, "defragment() moved no page"
+    rng = np.random.RandomState(23)
+    wave2 = [prompts[i] for i in (1, 4, 10)] + \
+        [rng.randint(0, V, n).astype(np.int32) for n in (50, 300, 17)]
+    _engine_wave(eng, wave2, [12, 20, 8, 16, 9, 24],
+                 [{}, dict(SAMPLED, seed=7)] * 3)
+    text = eng.expose(labels={"engine": "spec"})
+    fam = _parse_exposition(text, "paddle_serving")
+    done = fam["counters"]["completed"][0][1]
+    assert done == 1 + 16 + 6, done
+    log(f"engine spec: defragment() moved {moved} pages between the waves; "
+        f"the second wave (3 prompts of the first, whose prefix pages "
+        f"moved, and 3 new) completed; expose() "
+        f"({len(text.splitlines())} lines) parses back, {done} requests "
+        f"completed")
+    rec["spec"].update(defrag_moved=moved)
+    runs = {(n, w): [] for n in engines for w in ("repetitive", "random")}
+    for rep in range(SPEC_WAVE_REPS):
+        order = list(engines) if rep % 2 == 0 else list(engines)[::-1]
+        for wave, ps_ in _greedy_waves(V, rep).items():
+            for name in order:
+                eng = engines[name]
+                n0 = llama.sample_draw.launches
+                s0 = eng.stats()["counters"]
+                _, w = _engine_wave(eng, ps_, [32] * 16, [{}] * 16)
+                s1 = eng.stats()["counters"]
+                assert llama.sample_draw.launches == n0, \
+                    "an all-greedy wave launched the sampler"
+                steps = s1["model_steps"] - s0["model_steps"]
+                runs[name, wave].append(dict(
+                    tok_s=512 / w, tokens_per_launch=512 / steps,
+                    drafted=s1["draft_tokens"] - s0["draft_tokens"],
+                    accepted=s1["draft_accepted"] - s0["draft_accepted"]))
+    for (name, wave), rs in runs.items():
+        tok_s = [x["tok_s"] for x in rs]
+        tpl = [x["tokens_per_launch"] for x in rs]
+        rec[name][wave] = dict(
+            tok_s_median=float(np.median(tok_s)), tok_s_min=min(tok_s),
+            tok_s_max=max(tok_s), tpl_median=float(np.median(tpl)),
+            tpl_min=min(tpl), tpl_max=max(tpl),
+            drafted=sum(x["drafted"] for x in rs),
+            accepted=sum(x["accepted"] for x in rs))
+        log(f"engine {name}, {wave} prompts ({SPEC_WAVE_REPS} reps of 16 x "
+            f"192 tokens, 32 new, greedy; no sampler launch): tok/s median "
+            f"{np.median(tok_s):.1f} (range {min(tok_s):.1f}-"
+            f"{max(tok_s):.1f}; runs {', '.join(f'{x:.1f}' for x in tok_s)}"
+            f"); tokens a model launch median {np.median(tpl):.3f} (range "
+            f"{min(tpl):.3f}-{max(tpl):.3f}); drafts "
+            f"{rec[name][wave]['drafted']}, accepted "
+            f"{rec[name][wave]['accepted']}")
+    for wave in ("repetitive", "random"):
+        a, b = rec["spec"][wave], rec["plain"][wave]
+        log(f"spec / plain, {wave} prompts: tok/s median "
+            f"{a['tok_s_median'] / b['tok_s_median']:.3f}x (worst spec run "
+            f"/ best plain run {a['tok_s_min'] / b['tok_s_max']:.3f}x, best "
+            f"/ worst {a['tok_s_max'] / b['tok_s_min']:.3f}x); tokens a "
+            f"model launch {a['tpl_median'] / b['tpl_median']:.3f}x")
+    for eng in engines.values():
+        eng.close()
+    torch.cuda.empty_cache()
+    agree = [bool(np.array_equal(a, b)) for a, b in
+             zip(rec["spec"].pop("outs"), rec["plain"].pop("outs"))]
+    greedy = sum(agree[0::2])
+    sampled = sum(agree[1::2])
+    log(f"spec vs plain engine, the 16 mixed requests: streams equal on "
+        f"{greedy}/8 greedy and {sampled}/8 sampled requests (reported, "
+        f"not required: cuBLAS does not promise row invariance across "
+        f"batch shapes)")
+    rec.update(greedy_equal=greedy, sampled_equal=sampled)
+    return rec
+
+
+def sampled_paged_run(params, cfg) -> dict:
+    """Sampled generate_paged at the bench mix (bf16, 16 new tokens):
+    the paged kernel's launches as in phase 8; the per-step sampler's
+    host and device ms."""
+    from paddle_tpu_torch import prng
+    from paddle_tpu_torch.models import llama
+    L, new, ps = cfg.num_hidden_layers, BENCH_NEW, PAGED_BENCH["ps"]
+    prompt, lens = bench_mix(cfg.vocab_size)
+    B = lens.numel()
+    _zero_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = llama.generate_paged(params, prompt, lens, cfg, new,
+                               page_size=ps, key=prng.key(7), **SAMPLED)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = _counts()
+    assert counts == dict(paged_attention=0,
+                          paged_attention_stats=L * (new - 1),
+                          int8_matmul=0, ragged_paged_attention=0), counts
+    assert out.shape == (B, new) and out.dtype == torch.int32
+    assert bool(((out >= 0) & (out < cfg.vocab_size)).all())
+    logits = torch.randn((B, cfg.vocab_size), device="cuda",
+                         generator=torch.Generator(device="cuda")
+                         .manual_seed(8)) * 4.0
+    key = prng.key(7, "cuda")
+    cost = sampler_cost(lambda: llama.sample_logits(logits, key, **SAMPLED))
+    log(f"sampled generate_paged bf16: {B} streams x {new} tokens in "
+        f"{wall:.3f} s; launches {counts}; its sampler a step "
+        f"(sample_logits, [{B}, {cfg.vocab_size}]): host "
+        f"{cost['host_ms']:.3f} ms, device {cost['device_ms']:.3f} ms "
+        f"({cost['kernels']} kernels, busy {cost['busy_ms']:.3f} ms)")
+    del prompt, lens, logits
+    torch.cuda.empty_cache()
+    return dict(launches=counts, wall_s=wall, sampler=cost)
+
+
+def sampling_phase(params, cfg) -> dict:
+    """Phase 13: the sampler on the card against the CPU at S 8 and
+    S 8 x (1 + 4) rows, one verify tick, the speculative engine against
+    a plain one, and sampled generate_paged."""
+    rec = {f"sampler_{n}": check_sampler(n, cfg.vocab_size, seed=30 + n)
+           for n in (TICK_S, TICK_S * (1 + SPEC_K))}
+    rec["verify_tick"] = verify_tick_run(params, cfg)
+    rec["engine"] = spec_engine_run(params, cfg)
+    rec["generate_paged"] = sampled_paged_run(params, cfg)
+    return rec
+
+
+# ---------------------------------------------------------------------------
 # grouped matmul: gmm (forward, dlhs) and tgmm at the dropless MoE layer of
 # Qwen1.5-MoE-A2.7B
 # ---------------------------------------------------------------------------
@@ -2953,6 +3448,7 @@ def main() -> int:
     params, cfg = init_8b()
     serving = serving_phase(params, cfg)
     paths = paged_paths_phase(params, cfg)
+    sampling_phase(params, cfg)
     # free the 8B serving state before the train step's 61 GiB peak
     del params
     gc.collect()

@@ -12,7 +12,10 @@ Entry points run on ``cuda`` unless the caller passes ``device="cpu"``
 
 Ported so far: serving — ``serving.ServingEngine`` over
 ``models.llama.serving_tick`` / ``serving_tick_block`` and the ragged
-paged-attention kernel (``ops/kernels/ragged_paged_attention.py``); the
+paged-attention kernel (``ops/kernels/ragged_paged_attention.py``), with
+sampling on ``prng`` (threefry, bitwise ``jax.random``'s), speculative
+decoding (``serving.speculative``), ``defragment()`` and the Prometheus
+exposition (``serving.metrics``); the
 one-device train step (``models.llama.make_train_step``); paged and
 weight-only int8 decode (``models.llama.generate_paged``, the serving
 steps, ``inference.GenerationPredictor``,

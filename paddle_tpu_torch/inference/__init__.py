@@ -5,13 +5,14 @@ from __future__ import annotations
 
 import numpy as np
 
+from .. import prng
 from ..device import resolve_device
 
 __all__ = ["GenerationPredictor"]
 
 
 class GenerationPredictor:
-    """Greedy autoregressive decoder over Llama params.
+    """Autoregressive decoder over Llama params.
 
         pred = GenerationPredictor(params, cfg, max_len=2048)
         pred.generate(prompt [B, T0], 16)          # dense KV cache
@@ -22,7 +23,8 @@ class GenerationPredictor:
     config. device: ``cuda`` by default; ``"cpu"`` only when asked.
     PyTorch runs eagerly, so there is no compile cache; prompts are
     still padded to a power-of-two bucket in ``generate_ragged``, as the
-    JAX predictor does. Sampling raises ``NotImplementedError``."""
+    JAX predictor does. ``temperature > 0`` samples (with ``top_p``)
+    from ``prng.key(seed)``, the JAX predictor's ``PRNGKey(seed)``."""
 
     def __init__(self, params, cfg, max_len: int = 2048, device=None):
         from ..models import llama
@@ -38,10 +40,8 @@ class GenerationPredictor:
     def generate(self, prompt, max_new_tokens: int, *,
                  temperature: float = 0.0, top_p: float = 1.0,
                  seed: int = 0) -> np.ndarray:
-        """Dense-cache greedy decode: int32 ``[B, T0 + max_new_tokens]``
-        (prompt + continuation)."""
-        del top_p, seed  # greedy: no sampling state
-        self._llama._greedy_only(temperature)
+        """Dense-cache decode (``models.llama.generate``): int32 ``[B, T0
+        + max_new_tokens]`` (prompt + continuation)."""
         if max_new_tokens < 1:
             raise ValueError("max_new_tokens must be >= 1")
         prompt = np.asarray(prompt, np.int32)
@@ -50,20 +50,19 @@ class GenerationPredictor:
                 f"prompt+continuation {prompt.shape[1] + max_new_tokens} "
                 f"exceeds max_len {self._max_len}")
         out = self._llama.generate(self._params, prompt, self._cfg,
-                                   max_new_tokens)
+                                   max_new_tokens, temperature=temperature,
+                                   top_p=top_p, key=prng.key(seed))
         return out.cpu().numpy()
 
     def generate_ragged(self, prompts, max_new_tokens: int, *,
                         temperature: float = 0.0, top_p: float = 1.0,
                         seed: int = 0, page_size: int = 16):
-        """Mixed-length batched greedy decode over the paged KV cache
+        """Mixed-length batched decode over the paged KV cache
         (``models.llama.generate_paged``): ``prompts`` is a list of 1-D
         token sequences, right-padded to one power-of-two bucket and
         decoded in one batch whose attention reads only each sequence's
         valid pages. Returns a list of ``[max_new_tokens]`` int32
         continuations."""
-        del top_p, seed
-        self._llama._greedy_only(temperature)
         if max_new_tokens < 1:
             raise ValueError("max_new_tokens must be >= 1")
         lens = [len(p) for p in prompts]
@@ -79,5 +78,6 @@ class GenerationPredictor:
             padded[i, :lens[i]] = np.asarray(p, np.int32)
         out = self._llama.generate_paged(
             self._params, padded, np.asarray(lens, np.int32), self._cfg,
-            max_new_tokens, page_size=page_size).cpu().numpy()
+            max_new_tokens, page_size=page_size, temperature=temperature,
+            top_p=top_p, key=prng.key(seed)).cpu().numpy()
         return [out[i] for i in range(B)]

@@ -11,10 +11,16 @@ Port of ``paddle_tpu/models/llama.py``:
   o-proj + residual -> rms_norm -> SwiGLU + residual), dense weights,
   one device;
 * the KV-cache oracle path ``init_kv_cache`` / ``forward_with_cache`` /
-  ``generate`` (greedy), whose attention is plain causal GQA;
+  ``generate``, whose attention is plain causal GQA;
+* sampling: ``sample_logits`` (temperature, top-k, top-p, one key for
+  the batch, as ``generate`` draws) and the serving tick's per-row
+  sampler ``_fused_sample`` / ``sample_draw`` (token ``n`` of a request
+  drawn with ``fold_in(key, n)``), on the threefry draws of ``prng``,
+  which equal ``jax.random``'s bit for bit;
 * the serving tick over the shared page pools ``init_serving_pages`` /
-  ``serving_tick`` / ``serving_tick_block``, whose attention is the
-  ragged paged-attention kernel (``ops/kernels/ragged_paged_attention``);
+  ``serving_tick`` (with its speculative verify mode ``spec_k``) /
+  ``serving_tick_block``, whose attention is the ragged paged-attention
+  kernel (``ops/kernels/ragged_paged_attention``);
 * paged decode: ``prefill_paged`` / ``generate_paged`` (prompt pages by
   pure reshape, a dense tail of generated tokens, attention through the
   paged-attention stats kernel) and the single-request serving steps
@@ -47,6 +53,7 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
+from .. import prng
 from ..device import resolve_device
 from ..inference.paged_kv import (paged_attention,
                                   paged_attention_with_tail,
@@ -60,7 +67,8 @@ from ..ops.kernels.ragged_paged_attention import (
     ragged_paged_attention_packed)
 
 __all__ = ["LlamaConfig", "init_params", "params_from_jax", "rms_norm",
-           "rope", "init_kv_cache", "forward_with_cache", "generate",
+           "rope", "init_kv_cache", "forward_with_cache", "sample_logits",
+           "sample_draw", "generate",
            "init_serving_pages", "pack_tick", "serving_tick",
            "serving_tick_block", "prefill_paged", "generate_paged",
            "serving_prefill", "serving_prefill_chunk",
@@ -363,34 +371,156 @@ def forward_with_cache(params, tokens, cache, pos0: int,
     return _mm(h, params["lm_head"]).float(), cache
 
 
+# ---------------------------------------------------------------------------
+# sampling
+# ---------------------------------------------------------------------------
+
+_MASKED = -1e30     # a logit masked out by top-k / top-p
+
+
+def _softmax(x):
+    """``jax.nn.softmax`` over the last axis, in its order of
+    operations."""
+    e = torch.exp(x - x.amax(-1, keepdim=True))
+    return e / e.sum(-1, keepdim=True)
+
+
+def _top_p_cutoff(srt, top_p):
+    """The smallest kept logit of each descending-sorted row ``srt``:
+    the shortest prefix whose mass reaches ``top_p``, the top-1 token
+    always kept (so top_p 0 degrades to greedy)."""
+    probs = _softmax(srt)
+    keep = (torch.cumsum(probs, dim=-1) - probs) < top_p
+    keep[:, 0] = True
+    return torch.where(keep, srt, math.inf).amin(-1)
+
+
+def _key_tensor(key, dev) -> torch.Tensor:
+    """A raw key (``prng.key``) on ``dev``; ``None`` is ``prng.key(0)``."""
+    return prng.key(0, dev) if key is None else key.to(dev)
+
+
+def _mask(scaled, top_k, top_p=None):
+    """The one top-k -> top-p mask of both samplers, over temperature-
+    scaled logits ``[S, V]``: top-k with k as data (``[S]`` int, 0 = off;
+    a k above V masks nothing, as JAX's clamped index does), then top-p
+    (``[S]`` f32; None = off) over the top-k-masked row, from ONE
+    descending sort."""
+    V = scaled.shape[-1]
+    srt = torch.sort(scaled, dim=-1, descending=True).values
+    k_eff = torch.where(top_k > 0, top_k.clamp(max=V), V)
+    kth = srt.gather(-1, (k_eff - 1).long()[:, None])
+    masked = torch.where(scaled < kth, _MASKED, scaled)
+    if top_p is None:
+        return masked
+    # the masked row's descending sort is srt with the positions under
+    # the cutoff replaced (ties at the cutoff survive in both views)
+    cutoff = _top_p_cutoff(torch.where(srt >= kth, srt, _MASKED),
+                           top_p[:, None])
+    return torch.where(masked < cutoff[:, None], _MASKED, masked)
+
+
+def _sample_mask(logits, temperature: float, top_p: float, top_k: int):
+    """``sample_logits``' logits before the draw: over ``temperature``,
+    then ``_mask`` with the scalars broadcast; top-p is off from 1.0 up,
+    as JAX's static ``top_p < 1.0`` branch."""
+    def full(v, dtype):
+        return torch.full((logits.shape[0],), v, dtype=dtype,
+                          device=logits.device)
+
+    return _mask(logits / temperature, full(top_k, torch.int32),
+                 full(top_p, torch.float32) if top_p < 1.0 else None)
+
+
+def sample_logits(logits, key, temperature: float = 1.0,
+                  top_p: float = 1.0, top_k: int = 0):
+    """``[B, V]`` f32 logits -> ``[B]`` int32 tokens: the argmax when
+    ``temperature == 0``, else temperature, then top-k, then top-p, and
+    one categorical draw over the whole batch from ``key`` (JAX
+    ``sample_logits``)."""
+    if temperature == 0.0:
+        return logits.argmax(-1).int()
+    masked = _sample_mask(logits, temperature, top_p, top_k)
+    return prng.categorical(key.to(logits.device), masked).int()
+
+
+def _draw_mask(logits, temp, top_p, top_k):
+    """``sample_draw``'s logits before the draw: over ``max(temp,
+    1e-6)`` per row, then ``_mask`` with top-p always on (JAX's
+    ``_draw``)."""
+    return _mask(logits / temp.clamp(min=1e-6)[:, None], top_k, top_p)
+
+
+def sample_draw(logits, temp, top_p, top_k, keys, idx):
+    """The per-row draw of the serving tick's sampler (JAX
+    ``_fused_sample``'s ``_draw``): logits ``[S, V]`` f32 masked by
+    ``_draw_mask``, then row ``s`` draws with ``fold_in(keys[s],
+    idx[s])``. temp / top_p ``[S]`` f32, top_k ``[S]`` int, keys ``[S,
+    2]`` int64, idx ``[S]`` int. Returns ``[S]`` int32.
+    ``sample_draw.launches`` counts its calls."""
+    sample_draw.launches += 1
+    masked = _draw_mask(logits, temp, top_p, top_k)
+    return prng.categorical(prng.fold_in(keys, idx), masked).int()
+
+
+sample_draw.launches = 0
+
+
+def _fused_sample(logits, temp, top_p, top_k, keys, idx):
+    """The serving tick's token pick when some row samples: the argmax
+    for greedy rows (temp <= 0, bitwise the plain pick) and
+    ``sample_draw`` for the others. Token ``n`` of a request is always
+    drawn with ``fold_in(key, n)``, so one seed gives one stream
+    whatever shares the batch, whatever the fused block or speculation
+    around it. Callers that know no row samples take the argmax and
+    never call this (``serving_tick``)."""
+    return torch.where(temp <= 0, logits.argmax(-1).int(),
+                       sample_draw(logits, temp, top_p, top_k, keys, idx))
+
+
+def _next_token(logits, key, temperature, top_p, top_k):
+    """One step of ``generate``'s split chain: ``(key, token)``. A
+    greedy decode takes the argmax and leaves the key as it is (its
+    tokens do not depend on it)."""
+    if temperature == 0.0:
+        return key, logits.argmax(-1)
+    key, sub = prng.split(key)
+    return key, sample_logits(logits, sub, temperature, top_p, top_k)
+
+
 @torch.no_grad()
 def generate(params, prompt, cfg: LlamaConfig, max_new_tokens: int, *,
-             eos_token_id: Optional[int] = None):
-    """Greedy autoregressive decode with a dense KV cache, on the
-    params' device. prompt: int ``[B, T0]``. Returns int32
-    ``[B, T0 + max_new_tokens]`` (prompt + continuation; positions after
-    EOS repeat EOS when ``eos_token_id`` is set)."""
+             temperature: float = 0.0, top_p: float = 1.0, top_k: int = 0,
+             key=None, eos_token_id: Optional[int] = None):
+    """Autoregressive decode with a dense KV cache, on the params'
+    device. prompt: int ``[B, T0]``. Every token is drawn with
+    ``sample_logits`` from a sub-key split off ``key`` (``prng.key(0)``
+    when None) before it, the chain of JAX ``generate``; temperature 0
+    is greedy. Returns int32 ``[B, T0 + max_new_tokens]`` (prompt +
+    continuation; positions after EOS repeat EOS when ``eos_token_id``
+    is set)."""
     if max_new_tokens < 1:
         raise ValueError(f"max_new_tokens must be >= 1, "
                          f"got {max_new_tokens}")
     dev = params["embed"].device
     prompt = torch.as_tensor(np.asarray(prompt), device=dev).long()
+    key = _key_tensor(key, dev)
     B, T0 = prompt.shape
     cache = init_kv_cache(cfg, B, T0 + max_new_tokens, dev)
     logits, cache = forward_with_cache(params, prompt, cache, 0, cfg)
-    tok = logits.argmax(-1)
+    key, tok = _next_token(logits, key, temperature, top_p, top_k)
     done = (torch.zeros_like(tok, dtype=torch.bool) if eos_token_id is None
             else tok == eos_token_id)
     out = [tok]
     for step in range(max_new_tokens - 1):
         logits, cache = forward_with_cache(params, tok[:, None], cache,
                                            T0 + step, cfg)
-        tok = logits.argmax(-1)
+        key, tok = _next_token(logits, key, temperature, top_p, top_k)
         if eos_token_id is not None:
             tok = torch.where(done, eos_token_id, tok)
             done = done | (tok == eos_token_id)
         out.append(tok)
-    return torch.cat([prompt, torch.stack(out, dim=1)], dim=1).int()
+    return torch.cat([prompt, torch.stack(out, dim=1).long()], dim=1).int()
 
 
 # ---------------------------------------------------------------------------
@@ -408,23 +538,35 @@ def init_serving_pages(cfg: LlamaConfig, total_pages: int, page_size: int,
             "v_pages": torch.zeros(shape, dtype=cfg.dtype, device=dev)}
 
 
-def pack_tick(decode, spans, tables, page_size: int, device=None):
+def pack_tick(decode, spans, tables, page_size: int, device=None, *,
+              drafts=(), spec_k: int = 0):
     """The packed stream and metadata of one ragged tick, as
     ``serving_tick`` takes them.
 
     tables: int ``[S, pps]``, one page-table row per slot. decode:
     ``[(slot, token, pos)]``, a decode row at packed index ``slot``
-    whose token sits at position ``pos``. spans: ``[(slot, tokens,
-    start)]``, prompt tokens at positions ``start, start + 1, ...``,
-    packed in order after the ``S`` decode positions. Idle decode
-    positions are padding (``tok_slot == S``); the KV of padding and of
-    positions past the table lands on the trash page (page 0).
+    whose token sits at position ``pos``. drafts: ``[(slot, token, pos,
+    draft_tokens)]``, a speculating slot's current token at ``pos`` and
+    its ``k_s`` drafts after it, packed as a span of ``1 + k_s`` tokens.
+    spans: ``[(slot, tokens, start)]``, prompt tokens at positions
+    ``start, start + 1, ...``. Drafted spans, then prompt spans, follow
+    the ``S`` decode positions in order. Idle decode positions are
+    padding (``tok_slot == S``); the KV of padding and of positions past
+    the table lands on the trash page (page 0).
+
+    ``spec_k`` (the verify mode's draft cap) adds the verify geometry
+    of JAX's engine: ``ver_idx [S, 1 + spec_k]``, the packed index of
+    each drafted slot's span tokens (the last one repeated past ``k_s``;
+    every other slot points every entry at its ``last``), ``draft_tok
+    [S, spec_k]`` and ``draft_len [S]`` (0 where nothing was drafted).
 
     Returns ``(tokens [T], meta)`` as int32 tensors on ``device``; the
-    caller adds ``tail_live`` when it fuses a decode tail."""
+    caller adds ``tail_live`` when it fuses a decode tail, and the
+    sampling arrays when a row samples."""
     tables = np.asarray(tables, np.int32)
     S, pps = tables.shape
-    T = S + sum(len(t) for _, t, _ in spans)
+    T = S + sum(1 + len(d) for _, _, _, d in drafts) \
+        + sum(len(t) for _, t, _ in spans)
     tok = np.zeros((T,), np.int32)
     tok_slot = np.full((T,), S, np.int32)
     tok_pos = np.zeros((T,), np.int32)
@@ -435,8 +577,10 @@ def pack_tick(decode, spans, tables, page_size: int, device=None):
     for slot, t, pos in decode:
         tok[slot], tok_slot[slot], tok_pos[slot] = t, slot, pos
         q_len[slot], kv_len[slot], last[slot] = 1, pos + 1, slot
+    packed = [(slot, np.concatenate([[t], d]), pos)
+              for slot, t, pos, d in drafts] + list(spans)
     idx = S
-    for slot, t, start in spans:
+    for slot, t, start in packed:
         take = len(t)
         tok[idx:idx + take] = t
         tok_slot[idx:idx + take] = slot
@@ -451,29 +595,52 @@ def pack_tick(decode, spans, tables, page_size: int, device=None):
                         tables[np.minimum(tok_slot, S - 1),
                                np.minimum(page_i, pps - 1)], 0)
     tok_off = np.where(real, tok_pos % page_size, 0)
+    arrays = dict(tok_slot=tok_slot, tok_pos=tok_pos, tok_page=tok_page,
+                  tok_off=tok_off, tok_qoff=tok_qoff, q_len=q_len,
+                  kv_len=kv_len, last=last, tables=tables)
+    if spec_k:
+        ver_idx = np.tile(last[:, None], (1, 1 + spec_k))
+        draft_tok = np.zeros((S, spec_k), np.int32)
+        draft_len = np.zeros((S,), np.int32)
+        for slot, _, _, d in drafts:
+            k_s = len(d)
+            ver_idx[slot, :1 + k_s] = np.arange(last[slot] - k_s,
+                                                last[slot] + 1)
+            draft_tok[slot, :k_s] = d
+            draft_len[slot] = k_s
+        arrays.update(ver_idx=ver_idx, draft_tok=draft_tok,
+                      draft_len=draft_len)
     dev = resolve_device(device)
     meta = {k: torch.from_numpy(np.ascontiguousarray(v, np.int32)).to(dev)
-            for k, v in dict(tok_slot=tok_slot, tok_pos=tok_pos,
-                             tok_page=tok_page, tok_off=tok_off,
-                             tok_qoff=tok_qoff, q_len=q_len, kv_len=kv_len,
-                             last=last, tables=tables).items()}
+            for k, v in arrays.items()}
     return torch.from_numpy(tok).to(dev), meta
 
 
 @torch.no_grad()
 def serving_tick(params, tokens, meta, k_pages, v_pages, cfg: LlamaConfig,
-                 decode_tail: int = 0, attn_impl: str = "auto"):
+                 decode_tail: int = 0, spec_k: int = 0,
+                 attn_impl: str = "auto"):
     """ONE ragged serving tick: any mix of chunked prefills, warm-prefix
-    attaches and decode steps over the packed token stream.
+    attaches, decode steps and speculative verify spans over the packed
+    token stream.
 
     tokens ``[T]`` int32 — the tick's packed stream. ``meta`` — int32
     tensors on the pools' device describing the packing, as in the JAX
-    tick (``pack_tick`` builds both): ``tok_slot [T]`` (``S`` = padding token), ``tok_pos [T]``
-    (absolute position), ``tok_page``/``tok_off [T]`` (where its KV
-    lands; the trash page for padding), ``tok_qoff [T]`` (offset in its
-    slot's span), ``q_len``/``kv_len [S]``, ``last [S]`` (packed index
-    of each slot's last span token) and ``tables [S, pps]``; with
-    ``decode_tail`` also ``tail_live [S]`` (bool).
+    tick (``pack_tick`` builds both): ``tok_slot [T]`` (``S`` = padding
+    token), ``tok_pos [T]`` (absolute position), ``tok_page``/``tok_off
+    [T]`` (where its KV lands; the trash page for padding), ``tok_qoff
+    [T]`` (offset in its slot's span), ``q_len``/``kv_len [S]``, ``last
+    [S]`` (packed index of each slot's last span token) and ``tables
+    [S, pps]``; with ``decode_tail`` also ``tail_live [S]`` (bool).
+
+    Sampling: when some row samples, ``meta`` also carries ``temp`` /
+    ``top_p [S]`` f32, ``top_k [S]`` int32 (0 = off), ``key [S, 2]``
+    int64 (each slot's constant raw key) and ``produced [S]`` int32 (the
+    continuation index of the token this tick emits), and every token
+    pick goes through ``_fused_sample``: token ``n`` is drawn with
+    ``fold_in(key, n)``, greedy rows keep the bitwise argmax. Their
+    presence is the host's flag that some row samples: without them the
+    tick launches nothing of the sampler.
 
     Each layer first scatters the span's K/V into ``k_pages``/
     ``v_pages`` IN PLACE (padding writes land on the trash page), then
@@ -481,20 +648,40 @@ def serving_tick(params, tokens, meta, k_pages, v_pages, cfg: LlamaConfig,
     is a function of the prefix tokens alone and chunked, warm and
     whole prefills produce the same bits.
 
-    ``decode_tail`` fuses that many extra greedy decode steps for the
-    tail-live slots (decoding slots and spans completing their prompt);
-    the others stay dead through the tail (q_len 0, KV to the trash
-    page).
+    ``decode_tail`` fuses that many extra decode steps for the tail-live
+    slots (decoding slots and spans completing their prompt); the others
+    stay dead through the tail (q_len 0, KV to the trash page). Tail
+    step ``j`` samples continuation index ``produced + 1 + j``.
+
+    ``spec_k`` turns the tick into the speculative verify pass (JAX
+    ``serving_tick``'s ``spec_k`` mode): speculating slots carry their
+    current token plus up to ``spec_k`` drafts as an ordinary span, and
+    ``meta`` adds ``ver_idx [S, 1 + spec_k]``, ``draft_tok [S, spec_k]``
+    and ``draft_len [S]`` (``pack_tick`` builds them). The tick picks a
+    token at every span position (span position ``j`` draws index
+    ``produced + j``) and accepts the longest prefix of drafts equal to
+    those picks. ``spec_k`` and ``decode_tail`` exclude each other.
 
     attn_impl: ``"auto"`` (the kernel on CUDA tensors, the plain
     version on CPU tensors), ``"kernel"`` (strict) or ``"reference"``
     (the plain version; tests and the kernel's comparison only).
 
     Returns ``(toks, logits [S, V] f32, k_pages, v_pages)``: ``toks`` is
-    each slot's greedy pick at its last position, ``[S]`` int32 when
+    each slot's pick at its last position, ``[S]`` int32 when
     ``decode_tail == 0``, else ``[S, 1 + decode_tail]``; ``logits`` are
-    the ragged pass's; the pools are the inputs, updated.
+    the ragged pass's; the pools are the inputs, updated. With
+    ``spec_k`` it is ``(toks [S, 1 + spec_k], accept [S], logits [S,
+    1 + spec_k, V] f32, k_pages, v_pages)``: ``toks[s, j]`` is the pick
+    after span tokens ``0..j``, ``accept[s]`` the count of leading
+    drafts equal to it (``toks[s, accept[s]]`` is the bonus or
+    correction token), and ``logits[:, j]`` are those at ``ver_idx[:,
+    j]`` (JAX returns row 0's, ``logits[:, 0]``). Rejected drafts' KV
+    stays past the slot's length, masked until overwritten.
     """
+    spec_k, decode_tail = int(spec_k), int(decode_tail)
+    if spec_k and decode_tail:
+        raise ValueError("spec_k and decode_tail are mutually exclusive "
+                         "(speculation replaces the fused decode tail)")
     S = meta["q_len"].shape[0]
     tok_slot, tok_qoff = meta["tok_slot"], meta["tok_qoff"]
     tok_page, tok_off = meta["tok_page"].long(), meta["tok_off"].long()
@@ -514,8 +701,38 @@ def serving_tick(params, tokens, meta, k_pages, v_pages, cfg: LlamaConfig,
 
         h = _block(_layer(params, i), h, positions, cfg, attn_fn)
     h = rms_norm(h[0], params["final_norm"], cfg.rms_norm_eps)   # [T, D]
+    samp = "temp" in meta
+
+    if spec_k:
+        kk = 1 + spec_k
+        # logits at every span position: one launch prices 1 + spec_k
+        # predictions
+        logits_ver = _mm(h[meta["ver_idx"].long()],
+                         params["lm_head"]).float()          # [S, kk, V]
+        if samp:
+            idx = (meta["produced"][:, None] + torch.arange(
+                kk, dtype=torch.int32, device=h.device)).reshape(-1)
+            rep = {n: meta[n].repeat_interleave(kk, dim=0)
+                   for n in ("temp", "top_p", "top_k", "key")}
+            toks = _fused_sample(
+                logits_ver.reshape(S * kk, -1), rep["temp"], rep["top_p"],
+                rep["top_k"], rep["key"], idx).reshape(S, kk)
+        else:
+            toks = logits_ver.argmax(-1).int()
+        # draft j is accepted iff drafts 0..j all equal the picks at
+        # their span positions and j is a real draft
+        j = torch.arange(spec_k, device=h.device)
+        match = ((toks[:, :spec_k] == meta["draft_tok"])
+                 & (j[None, :] < meta["draft_len"][:, None]))
+        accept = torch.cumprod(match.int(), dim=1).sum(dim=1).int()
+        return toks, accept, logits_ver, k_pages, v_pages
+
     logits = _mm(h[meta["last"].long()], params["lm_head"]).float()
-    toks = logits.argmax(-1).int()
+    if samp:
+        toks = _fused_sample(logits, meta["temp"], meta["top_p"],
+                             meta["top_k"], meta["key"], meta["produced"])
+    else:
+        toks = logits.argmax(-1).int()
     if not decode_tail:
         return toks, logits, k_pages, v_pages
 
@@ -526,7 +743,8 @@ def serving_tick(params, tokens, meta, k_pages, v_pages, cfg: LlamaConfig,
     zeros = torch.zeros_like(b_idx)
     live = meta["tail_live"].bool()
     tok, lens, out = toks, meta["kv_len"], [toks]
-    for _ in range(int(decode_tail)):
+    idx = meta["produced"] + 1 if samp else None
+    for _ in range(decode_tail):
         slot = lens // ps
         # out-of-table rows (retiring overruns) and tail-dead slots land
         # on the trash page
@@ -537,6 +755,11 @@ def serving_tick(params, tokens, meta, k_pages, v_pages, cfg: LlamaConfig,
                  tok_page=page, tok_off=torch.where(ok, lens % ps, 0),
                  tok_qoff=zeros, q_len=live.int(), kv_len=lens + 1,
                  last=b_idx, tables=tables)
+        if samp:
+            # tail step j samples continuation index produced + 1 + j
+            m.update({n: meta[n] for n in ("temp", "top_p", "top_k",
+                                           "key")}, produced=idx)
+            idx = idx + 1
         tok, _, _, _ = serving_tick(params, tok, m, k_pages, v_pages, cfg,
                                     attn_impl=attn_impl)
         lens = lens + 1
@@ -546,10 +769,13 @@ def serving_tick(params, tokens, meta, k_pages, v_pages, cfg: LlamaConfig,
 
 def serving_tick_block(params, tok, lengths, tables, k_pages, v_pages,
                        cfg: LlamaConfig, num_steps: int,
-                       attn_impl: str = "auto"):
-    """``num_steps`` fused greedy decode steps built on the ragged tick:
+                       attn_impl: str = "auto", sampling=None):
+    """``num_steps`` fused decode steps built on the ragged tick:
     tok/lengths ``[S]`` int32, tables ``[S, pps]``; dead slots (all-trash
-    rows) write to and read from the trash page. Returns
+    rows) write to and read from the trash page. ``sampling``: the
+    tick's sampling arrays (``temp``, ``top_p``, ``top_k``, ``key``,
+    ``produced``; see ``serving_tick``) when some row samples, step
+    ``j`` drawing index ``produced + j``; None is all greedy. Returns
     ``(toks [S, num_steps] int32, k_pages, v_pages)``."""
     S = tok.shape[0]
     pps = tables.shape[1]
@@ -563,6 +789,8 @@ def serving_tick_block(params, tok, lengths, tables, k_pages, v_pages,
                 q_len=torch.ones_like(b_idx), kv_len=lengths + 1,
                 last=b_idx, tables=tables,
                 tail_live=torch.ones_like(b_idx, dtype=torch.bool))
+    if sampling:
+        meta.update(sampling)
     toks, _, k_pages, v_pages = serving_tick(
         params, tok, meta, k_pages, v_pages, cfg,
         decode_tail=num_steps - 1, attn_impl=attn_impl)
@@ -673,40 +901,34 @@ def _decode_paged_step(params, tok, cache, cfg: LlamaConfig,
     return _mm(h, params["lm_head"]).float()
 
 
-def _greedy_only(temperature: float) -> None:
-    if temperature:
-        raise NotImplementedError(
-            "sampling (temperature > 0) is not ported yet: the fused "
-            "sampler comes with a later slice of the port; this path "
-            "decodes greedily")
-
-
 @torch.no_grad()
 def generate_paged(params, prompt, lengths, cfg: LlamaConfig,
                    max_new_tokens: int, *, page_size: int = 16,
-                   temperature: float = 0.0,
+                   temperature: float = 0.0, top_p: float = 1.0,
+                   top_k: int = 0, key=None,
                    eos_token_id: Optional[int] = None,
                    attn_impl: str = "auto"):
-    """Batched greedy decode over the paged KV cache, on the params'
-    device. prompt: int ``[B, T0]`` right-padded; lengths: valid counts
-    ``[B]``. Returns the int32 ``[B, max_new_tokens]`` continuations
-    (positions after EOS repeat EOS when ``eos_token_id`` is set).
-    ``attn_impl`` (``"auto"`` | ``"kernel"`` | ``"reference"``) picks the
-    paged attention and, when not ``"auto"``, the prefill's flash
-    attention too."""
-    _greedy_only(temperature)
+    """Batched decode over the paged KV cache, on the params' device.
+    prompt: int ``[B, T0]`` right-padded; lengths: valid counts ``[B]``.
+    Tokens are drawn as ``generate`` draws them (the split chain from
+    ``key``; temperature 0 is greedy). Returns the int32 ``[B,
+    max_new_tokens]`` continuations (positions after EOS repeat EOS when
+    ``eos_token_id`` is set). ``attn_impl`` (``"auto"`` | ``"kernel"`` |
+    ``"reference"``) picks the paged attention and, when not
+    ``"auto"``, the prefill's flash attention too."""
     if max_new_tokens < 1:
         raise ValueError(f"max_new_tokens must be >= 1, "
                          f"got {max_new_tokens}")
     logits, cache = prefill_paged(params, prompt, lengths, cfg,
                                   max_new_tokens, page_size, attn_impl)
-    tok = logits.argmax(-1)
+    key = _key_tensor(key, logits.device)
+    key, tok = _next_token(logits, key, temperature, top_p, top_k)
     done = (torch.zeros_like(tok, dtype=torch.bool) if eos_token_id is None
             else tok == eos_token_id)
     out = [tok]
     for _ in range(max_new_tokens - 1):
         logits = _decode_paged_step(params, tok, cache, cfg, attn_impl)
-        tok = logits.argmax(-1)
+        key, tok = _next_token(logits, key, temperature, top_p, top_k)
         if eos_token_id is not None:
             tok = torch.where(done, eos_token_id, tok)
             done = done | (tok == eos_token_id)

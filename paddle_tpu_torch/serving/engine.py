@@ -1,6 +1,6 @@
 """Continuous-batching generation engine over the paged KV cache.
 
-Port of ``paddle_tpu/serving/engine.py`` (greedy decoding):
+Port of ``paddle_tpu/serving/engine.py``:
 
   - requests are admitted mid-flight into free slots of a fixed
     ``max_batch``-wide decode batch (page-budget-aware admission, see
@@ -18,11 +18,25 @@ Port of ``paddle_tpu/serving/engine.py`` (greedy decoding):
   - ``decode_block_size=k`` fuses k decode steps per pure-decode tick
     (``serving_tick_block``) and rides k-1 of them on admission ticks;
   - sequences retire at EOS / max_new_tokens / deadline / cancel and
-    their pages return to the pool the same tick.
+    their pages return to the pool the same tick;
+  - ``submit(temperature, top_p, top_k, seed)`` samples in the tick
+    (``llama._fused_sample``): token ``n`` of a request is drawn with
+    ``fold_in(key(seed), n)``, so one seed gives one stream whatever
+    shares the batch; a tick whose requests are all greedy launches
+    nothing of the sampler;
+  - ``speculative=...`` drafts up to ``spec_k`` tokens a live slot
+    (serving/speculative.py) and verifies them in the same ragged tick
+    (``serving_tick``'s ``spec_k`` mode), emitting ``1 + accepted``
+    tokens a launch;
+  - ``defragment()`` compacts the live pages, ``expose()`` renders the
+    metrics as Prometheus text.
 
-Correctness bar (tests/test_torch_serving.py): every request's greedy
-tokens equal a standalone ``generate()`` run token for token, whatever
-else shares the batch.
+Correctness bar (tests/test_torch_serving.py, test_torch_sampling.py,
+test_torch_speculative.py): every request's greedy tokens equal a
+standalone ``generate()`` run token for token, whatever else shares the
+batch, with or without speculation, before or after a defrag; a sampled
+request's tokens are the same stream alone, beside neighbours, under any
+decode block and on a speculative engine, and equal the JAX engine's.
 
 PyTorch runs eagerly, so the packed stream has exactly the tick's
 tokens: the JAX engine's packed-width grid (which bounded its compiled
@@ -40,19 +54,20 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
-from ..inference.paged_kv import PagePool
+from ..inference.paged_kv import PagePool, apply_defrag
 from ..models import llama
 from ..quantization.decode import is_quantized_params, quantize_for_decode
 from .metrics import ServingMetrics
 from .prefix_cache import PrefixCache
 from .scheduler import (CANCELLED, COMPLETED, REJECTED, TIMED_OUT,
                         Request, RequestHandle, Scheduler)
+from .speculative import AcceptancePolicy, resolve_drafter
 
 __all__ = ["ServingEngine"]
 
 
 class ServingEngine:
-    """Continuous-batching serving engine (greedy).
+    """Continuous-batching serving engine.
 
         eng = ServingEngine(params, cfg, max_batch=8, page_size=16,
                             max_prompt_len=512, max_new_tokens_cap=32)
@@ -82,6 +97,18 @@ class ServingEngine:
     — weight-only int8 decode: the params are quantized at construction
     (``quantization.quantize_for_decode``) unless they already are, and
     every projection runs through the int8 matmul kernel.
+    speculative: None (off); True / ``"ngram"`` (``NGramDrafter``,
+    prompt lookup over the request's own history); an object with
+    ``propose(history, k) -> tokens`` or a bare callable of that
+    signature. Every live slot may then submit its current token and up
+    to ``spec_k`` drafts as a span of the tick; the tick verifies them
+    against its own picks (argmax, or the sampler's draw) and the slot
+    emits ``1 + accepted`` tokens. Outputs equal the plain engine's
+    whatever the drafter proposes. A per-request acceptance EWMA sets
+    each slot's draft budget (``AcceptancePolicy``). Every tick with
+    drafts or prompt spans is a verify tick (no fused tail); a
+    pure-decode tick with no drafts runs the fused block.
+    spec_k: the draft-length cap.
     """
 
     def __init__(self, params, cfg, *, device=None, max_batch: int = 8,
@@ -92,7 +119,8 @@ class ServingEngine:
                  decode_block_size: int = 1, prefix_cache: bool = True,
                  prefill_chunk: Optional[int] = None,
                  admission_window: int = 0,
-                 quantization: Optional[str] = None):
+                 quantization: Optional[str] = None,
+                 speculative=None, spec_k: int = 3):
         if max_batch < 1:
             raise ValueError("max_batch must be >= 1")
         if decode_block_size < 1:
@@ -131,6 +159,14 @@ class ServingEngine:
             max_prompt_len=max_prompt_len, prefix_cache=self.prefix_cache,
             admission_window=admission_window)
         self.metrics = ServingMetrics()
+        # speculative decoding: drafter + per-request adaptive-k policy
+        self._drafter = resolve_drafter(speculative)
+        if self._drafter is not None and int(spec_k) < 1:
+            raise ValueError(f"spec_k must be >= 1 when speculative "
+                             f"decoding is on, got {spec_k}")
+        self._spec_k = int(spec_k) if self._drafter is not None else 0
+        self._spec_policy = (AcceptancePolicy(self._spec_k)
+                             if self._drafter is not None else None)
         pools = llama.init_serving_pages(cfg, total_pages, page_size,
                                          self._dev)
         self._kp, self._vp = pools["k_pages"], pools["v_pages"]
@@ -139,6 +175,13 @@ class ServingEngine:
         self._last_decode_t: Optional[float] = None
         self._cur_tok = np.zeros((max_batch,), np.int32)
         self._produced = np.zeros((max_batch,), np.int64)
+        # each slot's raw key (0, seed & 0xffffffff), set at admission and
+        # constant for the request's life: the tick folds the token's
+        # continuation index in, so no split chain advances on the host
+        self._key_data = np.zeros((max_batch, 2), np.int64)
+        # the sampling arrays on the device for the current batch
+        # composition ({} when no request samples); None = rebuild
+        self._samp_cache: Optional[dict] = None
 
         self._cond = threading.Condition()
         self._tick_lock = threading.Lock()
@@ -153,20 +196,20 @@ class ServingEngine:
     def submit(self, prompt, max_new_tokens: int, *,
                eos_token_id: Optional[int] = None,
                timeout: Optional[float] = None,
-               temperature: float = 0.0) -> RequestHandle:
+               temperature: float = 0.0, top_p: float = 1.0,
+               top_k: int = 0, seed: int = 0) -> RequestHandle:
         """Queue one request; returns a streaming handle. Raises
         RuntimeError when the request is REJECTED (queue full, or its
-        prompt/page budget can never fit this engine)."""
-        if temperature:
-            raise NotImplementedError(
-                "sampling (temperature > 0) is not ported yet: the fused "
-                "in-graph sampler comes with a later slice of the port; "
-                "this engine decodes greedily")
+        prompt/page budget can never fit this engine).
+        ``temperature`` (0 = greedy), ``top_p`` (1.0 = off), ``top_k``
+        (0 = off) and ``seed`` are the request's sampling state: a fixed
+        seed gives one token stream whatever else shares the batch."""
         if self._dead is not None:
             raise RuntimeError("engine worker died") from self._dead
         deadline = None if timeout is None else time.monotonic() + timeout
         req = Request(prompt, max_new_tokens, eos_token_id=eos_token_id,
-                      deadline_s=deadline)
+                      deadline_s=deadline, temperature=temperature,
+                      top_p=top_p, top_k=top_k, seed=seed)
         self.metrics.inc("submitted")
         with self._cond:
             if self._closing:
@@ -212,19 +255,71 @@ class ServingEngine:
     def __exit__(self, *exc):
         self.close()
 
+    def _gauges(self) -> dict:
+        """Live pool/queue gauges. The caller holds ``_tick_lock``: the
+        slot list, free list and trie change mid-tick."""
+        g = {"queued": self.scheduler.queued(),
+             "occupancy": self.scheduler.occupancy,
+             "page_utilization": self.pool.utilization,
+             "free_pages": self.pool.free_pages}
+        if self.prefix_cache is not None:
+            g["prefix_cache"] = self.prefix_cache.stats()
+        return g
+
     def stats(self) -> dict:
         """Plain-dict metrics snapshot plus live pool/queue gauges (read
         under the tick lock, so never a torn view of the scheduler)."""
         snap = self.metrics.snapshot()
         with self._tick_lock:
-            g = {"queued": self.scheduler.queued(),
-                 "occupancy": self.scheduler.occupancy,
-                 "page_utilization": self.pool.utilization,
-                 "free_pages": self.pool.free_pages}
-            if self.prefix_cache is not None:
-                g["prefix_cache"] = self.prefix_cache.stats()
-        snap["gauges"] = g
+            snap["gauges"] = self._gauges()
         return snap
+
+    def gauges(self) -> dict:
+        """Flat ``{name: number}`` view of the live gauges (nested
+        dicts, such as the prefix-cache stats, flattened to
+        ``prefix_cache_<k>``); thread-safe like :meth:`stats`."""
+        with self._tick_lock:
+            g = self._gauges()
+        flat = {}
+        for k, v in g.items():
+            if isinstance(v, dict):
+                flat.update({f"{k}_{kk}": vv for kk, vv in v.items()
+                             if isinstance(vv, (int, float))})
+            elif isinstance(v, (int, float)):
+                flat[k] = v
+        return flat
+
+    def expose(self, labels: Optional[dict] = None) -> str:
+        """Prometheus text exposition of the counters, histograms and
+        live gauges (``ServingMetrics.expose``); ``labels`` (raw,
+        unescaped) are stamped on every sample."""
+        return self.metrics.expose(gauges=self.gauges(), labels=labels)
+
+    def defragment(self) -> int:
+        """Compact the live pages to the pool's low indices: rewrites the
+        pools and every slot's table row (``apply_defrag``), the
+        requests' page lists and parked requests' stashed rows
+        (``Scheduler.remap_pages``) and the prefix cache's pages
+        (``PrefixCache.remap``), then commits the plan to the allocator.
+        Returns the number of pages moved. Safe mid-generation: it runs
+        under the tick lock, between ticks.
+
+        Left out until their modules are ported: the invariants audit of
+        the plan and of the state after it, with its postmortem
+        (``kv_invariants``), and the remap of pending chunked adopts
+        (the cold tier's chain export/adopt)."""
+        with self._tick_lock:
+            plan = self.pool.defrag_plan()
+            if not plan:
+                return 0
+            self._kp, self._vp, tables = apply_defrag(
+                plan, self._kp, self._vp, self.scheduler.tables)
+            self.scheduler.tables = np.array(tables.numpy(), np.int32)
+            self.scheduler.remap_pages(plan)
+            if self.prefix_cache is not None:
+                self.prefix_cache.remap(plan)
+            self.pool.commit_defrag(plan)
+            return len(plan)
 
     # ------------------------------------------------------------ tokens ----
     def _emit(self, slot: int, req: Request, tok: int) -> bool:
@@ -246,14 +341,18 @@ class ServingEngine:
         self.scheduler.retire(slot, state)
         self._cur_tok[slot] = 0
         self._produced[slot] = 0
+        self._key_data[slot] = 0
+        self._samp_cache = None
         self.metrics.inc({COMPLETED: "completed", CANCELLED: "cancelled",
                           TIMED_OUT: "timed_out"}[state])
 
     def _emit_toks(self, slot: int, req: Request, toks_row,
                    j0: int, j1: int) -> None:
-        """Emit ``toks_row[j0:j1]`` (fused block/tail tokens), retiring at
-        the first completion; the rest are discarded (their KV landed on
-        the trash page or past the length)."""
+        """Emit ``toks_row[j0:j1]`` (fused block, tail or verify
+        tokens), retiring at the first completion; the rest are
+        discarded (their KV landed on the trash page or past the length;
+        a discarded sampled token burns no key state, since draws are
+        keyed by continuation index)."""
         for j in range(j0, j1):
             t = int(toks_row[j])
             self._cur_tok[slot] = t
@@ -278,6 +377,10 @@ class ServingEngine:
         req.chunk_done = 0
         req.table_row = self.scheduler.tables[slot].copy()
         self.scheduler.tables[slot, :] = PagePool.TRASH
+        # the slot's constant sampling key, JAX's PRNGKey(seed) (the mask
+        # runs on the Python int)
+        self._key_data[slot] = (0, req.seed & 0xFFFFFFFF)
+        self._samp_cache = None
         self._prefill_q.append((slot, req))
 
     def _collect_spans(self):
@@ -329,19 +432,88 @@ class ServingEngine:
         if self._emit(slot, req, tok):
             self._retire(slot, COMPLETED)
 
+    # ------------------------------------------------------- speculation ----
+    def _collect_drafts(self, live):
+        """The tick's draft side (host, model-free by default): up to
+        ``policy.budget(...)`` next tokens per live slot, sampling slots
+        included (the verify pass draws the target's own sampled token
+        at every span position). Returns ``{slot: int32[k_s]}`` with
+        ``1 <= k_s <= spec_k``; slots with no entry decode plainly. The
+        budget is ``max_new_tokens - produced - 1``: positions past it
+        are not funded by the slot's pages."""
+        drafts = {}
+        # a drafter that declares its history window gets only that tail
+        window = getattr(self._drafter, "max_history", None)
+        for slot, req in live:
+            remaining = req.max_new_tokens - int(self._produced[slot]) - 1
+            k = self._spec_policy.budget(req, remaining)
+            if k <= 0:
+                continue
+            toks = req.tokens if window is None else req.tokens[-window:]
+            parts = [np.asarray(toks, np.int32)]
+            if window is None or len(toks) < window:
+                need = None if window is None else window - len(toks)
+                parts.insert(0, req.prompt if need is None
+                             else req.prompt[-need:])
+            d = np.asarray(self._drafter.propose(np.concatenate(parts), k),
+                           np.int32).reshape(-1)[:k]
+            if d.size:
+                drafts[slot] = d
+        return drafts
+
     # -------------------------------------------------------------- tick ----
     def _to_dev(self, a: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(np.ascontiguousarray(a)).to(self._dev)
 
-    def _ragged_tick(self, live, spans, tail: int = 0) -> None:
+    def _sampling_arrays(self) -> dict:
+        """The tick's sampling arrays (``serving_tick``'s ``temp``,
+        ``top_p``, ``top_k``, ``key``, ``produced``), or ``{}`` when no
+        occupied slot samples: the host's flag, read with no device sync,
+        that keeps an all-greedy tick free of the sampler. The arrays
+        that depend on the batch composition are cached on the device
+        and rebuilt after an admission or a retirement (``_park`` /
+        ``_retire``); only ``produced`` is uploaded each tick."""
+        if self._samp_cache is None:
+            S = self.scheduler.max_batch
+            temp = np.zeros((S,), np.float32)
+            top_p = np.ones((S,), np.float32)
+            top_k = np.zeros((S,), np.int32)
+            for slot, req in enumerate(self.scheduler.slots):
+                if req is not None:
+                    temp[slot] = req.temperature
+                    top_p[slot] = req.top_p
+                    top_k[slot] = req.top_k
+            self._samp_cache = (
+                dict(temp=self._to_dev(temp), top_p=self._to_dev(top_p),
+                     top_k=self._to_dev(top_k),
+                     key=self._to_dev(self._key_data))
+                if (temp > 0).any() else {})
+        if not self._samp_cache:
+            return {}
+        return dict(self._samp_cache, produced=self._to_dev(
+            self._produced.astype(np.int32)))
+
+    def _ragged_tick(self, live, spans, tail: int = 0,
+                     drafts=None) -> None:
         """ONE serving_tick call covering every live slot's decode token
         plus the collected prompt spans. The packed stream is the S
         decode positions (slot i at index i, padding where idle)
         followed by the spans. ``tail`` fuses that many extra decode
         steps for tail-live slots — decoding slots plus spans
         COMPLETING their prompt this tick (mid-prefill slots sit the
-        tail out on the trash page)."""
+        tail out on the trash page).
+
+        ``drafts`` (``{slot: draft tokens}``, speculative engines) packs
+        each drafted slot's current token and drafts as a span; every
+        span-carrying tick of a speculative engine is a verify tick
+        (``spec_k`` mode, no tail). A drafted slot's length advances by
+        ``1 + accept`` and it emits ``toks[:accept + 1]``; rejected
+        drafts' KV stays past the length, so nothing is rolled back."""
         S = self.scheduler.max_batch
+        drafts = drafts or {}
+        spec = self._spec_k if (drafts or spans) else 0
+        if spec:
+            tail = 0    # speculation replaces the fused decode tail
         tail_live = np.zeros((S,), bool)
         tabs = np.stack([self.scheduler.effective_row(s)
                          for s in range(S)])
@@ -353,15 +525,26 @@ class ServingEngine:
             tail = 0    # nobody would advance
         tok, meta = llama.pack_tick(
             [(slot, self._cur_tok[slot], self.scheduler.lengths[slot])
-             for slot, _ in live],
+             for slot, _ in live if slot not in drafts],
             [(slot, req.prompt[start:start + take], start)
              for slot, req, start, take in spans],
-            tabs, self.pool.page_size, self._dev)
+            tabs, self.pool.page_size, self._dev,
+            drafts=[(slot, self._cur_tok[slot],
+                     self.scheduler.lengths[slot], drafts[slot])
+                    for slot, _ in live if slot in drafts],
+            spec_k=spec)
         meta["tail_live"] = self._to_dev(tail_live)
+        meta.update(self._sampling_arrays())
         t0 = time.perf_counter()
-        toks, _, self._kp, self._vp = llama.serving_tick(
-            self._params, tok, meta, self._kp, self._vp, self._cfg,
-            decode_tail=tail)
+        if spec:
+            toks, accept, _, self._kp, self._vp = llama.serving_tick(
+                self._params, tok, meta, self._kp, self._vp, self._cfg,
+                spec_k=spec)
+            accept = accept.cpu().numpy()
+        else:
+            toks, _, self._kp, self._vp = llama.serving_tick(
+                self._params, tok, meta, self._kp, self._vp, self._cfg,
+                decode_tail=tail)
         toks = toks.cpu().numpy()       # the one host read-back per tick
         self.metrics.inc("model_steps", 1 + tail)
         if toks.ndim == 1:
@@ -370,7 +553,20 @@ class ServingEngine:
             self.metrics.inc("decode_steps", 1 + tail)
             self.metrics.observe("decode_step_s",
                                  (time.perf_counter() - t0) / (1 + tail))
+        if drafts:
+            self.metrics.inc("spec_ticks")
         for slot, req in live:
+            d = drafts.get(slot)
+            if d is not None:
+                k_s, a = int(d.size), int(accept[slot])
+                self.scheduler.lengths[slot] += 1 + a
+                self.metrics.inc("draft_tokens", k_s)
+                self.metrics.inc("draft_accepted", a)
+                self.metrics.inc("draft_rejected", k_s - a)
+                self.metrics.observe("spec_accept_rate", a / k_s)
+                self._spec_policy.update(req, k_s, a)
+                self._emit_toks(slot, req, toks[slot], 0, a + 1)
+                continue
             self.scheduler.lengths[slot] += 1 + tail
             t = int(toks[slot, 0])
             self._cur_tok[slot] = t
@@ -391,17 +587,17 @@ class ServingEngine:
                     self._emit_toks(slot, req, toks[slot], 1, 1 + tail)
 
     def _block_tick(self, live) -> None:
-        """Pure-decode ticks: ``decode_block_size`` fused greedy steps in
-        one call. Fused ticks always run the FULL block; tokens past a
-        retirement are discarded (their KV lands on the trash page or
-        past the length)."""
+        """Pure-decode ticks: ``decode_block_size`` fused steps in one
+        call, sampling slots drawing in the tick. Fused ticks always run
+        the FULL block; tokens past a retirement are discarded (their KV
+        lands on the trash page or past the length)."""
         k = self._decode_block
         t0 = time.perf_counter()
         toks, self._kp, self._vp = llama.serving_tick_block(
             self._params, self._to_dev(self._cur_tok),
             self._to_dev(self.scheduler.lengths),
             self._to_dev(self.scheduler.tables), self._kp, self._vp,
-            self._cfg, num_steps=k)
+            self._cfg, num_steps=k, sampling=self._sampling_arrays())
         toks = toks.cpu().numpy()
         self.metrics.inc("model_steps", k)
         self.metrics.inc("decode_steps", k)
@@ -413,7 +609,15 @@ class ServingEngine:
 
     def _decode_tick(self, live, spans) -> None:
         """The fused block when the tick is pure decode, else the ragged
-        tick with the fused decode tail."""
+        tick with the fused decode tail. A speculative engine runs the
+        verify tick whenever there are drafts or prompt spans; a tick
+        with neither falls through to the fused block (slots whose
+        acceptance degraded them to no drafts)."""
+        if self._drafter is not None:
+            drafts = self._collect_drafts(live)
+            if drafts or spans:
+                self._ragged_tick(live, spans, 0, drafts)
+                return
         if not spans and live:
             self._block_tick(live)
         elif spans:

@@ -177,6 +177,15 @@ class PrefixCache:
                                (parent.last_used, id(parent), parent))
         return freed
 
+    # ------------------------------------------------------------ defrag ----
+    def remap(self, plan: Dict[int, int]) -> None:
+        """Apply a ``PagePool.defrag_plan()`` to every cached node's page
+        id (``apply_defrag`` rewrote the pools and the tables)."""
+        if not plan:
+            return
+        for nd in self._nodes:
+            nd.page = plan.get(nd.page, nd.page)
+
     def stats(self) -> Dict[str, int]:
         return {"cached_pages": self.cached_pages,
                 "reusable_pages": self.reusable_pages,

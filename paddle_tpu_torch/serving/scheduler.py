@@ -17,7 +17,7 @@ import queue
 import threading
 import time
 from collections import deque
-from typing import List, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 
@@ -43,15 +43,18 @@ class Request:
     callers hold the RequestHandle)."""
 
     __slots__ = ("id", "prompt", "max_new_tokens", "eos_token_id",
-                 "deadline_s", "state", "tokens",
+                 "deadline_s", "temperature", "top_p", "top_k", "seed",
+                 "state", "tokens",
                  "submit_t", "admit_t", "first_token_t", "finish_t",
                  "slot", "pages", "cancel_flag", "stream", "done",
                  "error", "prefix_nodes", "cached_len", "prefilling",
-                 "chunk_done", "table_row")
+                 "chunk_done", "table_row", "spec_rate", "spec_probe")
 
     def __init__(self, prompt, max_new_tokens: int,
                  eos_token_id: Optional[int] = None,
-                 deadline_s: Optional[float] = None):
+                 deadline_s: Optional[float] = None,
+                 temperature: float = 0.0, top_p: float = 1.0,
+                 top_k: int = 0, seed: int = 0):
         self.id = next(_ids)
         self.prompt = np.asarray(prompt, np.int32).reshape(-1)
         if self.prompt.size < 1:
@@ -63,6 +66,11 @@ class Request:
         self.eos_token_id = eos_token_id
         # absolute monotonic completion deadline (None = never)
         self.deadline_s = deadline_s
+        # the tick's sampler reads these per slot (0 / 1.0 = filter off)
+        self.temperature = float(temperature)
+        self.top_p = float(top_p)
+        self.top_k = int(top_k)
+        self.seed = int(seed)
         self.state = QUEUED
         self.tokens: List[int] = []
         self.submit_t = time.monotonic()
@@ -77,6 +85,10 @@ class Request:
         self.chunk_done = 0                 # suffix tokens prefilled so far
         self.table_row = None               # real row while parked (the
         #                                     scheduler row is all-TRASH)
+        # speculative decoding (serving/speculative.py): the acceptance
+        # EWMA (optimistic start) and the probe counter of a degraded slot
+        self.spec_rate = 1.0
+        self.spec_probe = 0
         self.cancel_flag = False
         self.stream: "queue.Queue" = queue.Queue()
         self.done = threading.Event()
@@ -328,3 +340,21 @@ class Scheduler:
         self.lengths[slot] = 0
         req.finish(state)
         return req
+
+    def remap_pages(self, mapping: Dict[int, int]) -> None:
+        """Apply a defrag plan to every occupied request's page LIST and
+        to a parked request's stashed table row. The scheduler's table
+        rows are NOT remapped here: ``apply_defrag`` rewrote them with
+        the pools, and remapping twice corrupts chained plans ({2: 1,
+        5: 2} would send an entry 5 -> 2 -> 1 while its KV moved to 2).
+        Prefix-cache nodes are remapped by ``PrefixCache.remap``."""
+        if not mapping:
+            return
+        for _, req in self.occupied():
+            req.pages = [mapping.get(p, p) for p in req.pages]
+            if req.table_row is not None:
+                # a parked request's real row is not in self.tables (the
+                # scheduler row is all-TRASH), so apply_defrag missed it
+                req.table_row = np.asarray(
+                    [mapping.get(int(p), int(p)) for p in req.table_row],
+                    np.int32)

@@ -23,7 +23,8 @@ from paddle_tpu_torch.ops.fused import fused_softmax_cross_entropy
 from paddle_tpu_torch.ops.fused import int8_matmul
 from paddle_tpu_torch.quantization import decode
 from paddle_tpu_torch.inference import GenerationPredictor, paged_kv
-from paddle_tpu_torch.serving import ServingEngine
+from paddle_tpu_torch.serving import ServingEngine, metrics, speculative
+from paddle_tpu_torch import prng
 bad = sorted(m for m in sys.modules
              if m.split('.')[0] in ('jax', 'jaxlib', 'paddle_tpu'))
 print(','.join(bad))

@@ -20,6 +20,7 @@ import jax.numpy as jnp
 from paddle_tpu.inference import GenerationPredictor as JPredictor
 from paddle_tpu.inference import paged_kv as JP
 from paddle_tpu.models import llama as JL
+from paddle_tpu_torch import prng
 from paddle_tpu_torch.inference import GenerationPredictor as TPredictor
 from paddle_tpu_torch.inference import paged_kv as TP
 from paddle_tpu_torch.models import llama as TL
@@ -206,8 +207,9 @@ def test_generate_paged_matches_jax_exactly(jparams, tparams, lens):
 
 
 def test_generate_paged_pins_inside_the_port(tparams):
-    """Paged equals dense generate (equal lengths); each ragged row equals
-    its own unpadded dense decode; EOS latches."""
+    """Paged equals dense generate (equal lengths), greedy and sampled
+    from one key; each ragged row equals its own unpadded dense decode;
+    EOS latches."""
     lens = [5, 9, 12]
     rows, prompt = _ragged_prompt(lens, 12, seed=11)
     paged = TL.generate_paged(tparams, prompt, np.asarray(lens), TCFG, 6,
@@ -226,9 +228,12 @@ def test_generate_paged_pins_inside_the_port(tparams):
             assert (row[hits[0]:] == eos).all(), row
         else:
             np.testing.assert_array_equal(row, full)
-    with pytest.raises(NotImplementedError, match="sampling"):
-        TL.generate_paged(tparams, prompt, np.asarray(lens), TCFG, 2,
-                          temperature=0.7)
+    same = np.stack([rows[2]] * 2)
+    kw = dict(temperature=0.7, top_p=0.9, top_k=20, key=prng.key(5))
+    sampled = TL.generate_paged(tparams, same, np.asarray([12, 12]), TCFG,
+                                6, page_size=4, **kw).numpy()
+    dense = TL.generate(tparams, same, TCFG, 6, **kw).numpy()[:, 12:]
+    np.testing.assert_array_equal(sampled, dense)
 
 
 def _pools(seed, S=3, ps=4, pps=5):
