@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving paths (with sampling and
-speculative decoding) and training paths (Llama-3-8B, Qwen2-MoE dropless
-training) and ResNet-50 inference on one NVIDIA H100 and check them.
+"""Drive the PyTorch port's serving paths (Llama-3-8B with sampling and
+speculative decoding, Qwen2-MoE), training paths (Llama-3-8B, Qwen2-MoE
+dropless training) and ResNet-50 inference on one NVIDIA H100 and check
+them.
 
 Run from the repository root with no arguments:
 
@@ -153,9 +154,34 @@ Phases (any failed check raises; nothing is caught):
    paged-kernel launches as in phase 8, the per-step sampler's host and
    device ms.
 
-Phases run in the order 1, 2, 3, 5, 7, 4, 8, 13, 6, 9, 10, 11, 12:
-phase 6 starts after the 8B serving state is freed, phases 9 and 10
-after phase 6's.
+14. Qwen2-MoE serving on the default ``Qwen2MoeConfig()`` (the widths
+   of Qwen1.5-MoE-A2.7B, 24 layers, bf16, seeded random weights): (a)
+   the ragged kernel (phase 3's cases a, b, d and e) and the paged
+   kernel (phase 7's engine and chunk-edge cases) at G = 1 (H = Hkv =
+   16, Dh 128) against their plain versions to the same bounds, with row
+   invariance, and the times and bounds of the engine tick and the 16k
+   decode; (b) the int8 matmul at Qwen's four weight shapes (K 2048 ->
+   N 2048, 5632, 151936; K 5632 -> N 2048) at M 8 and 256, to phase 7's
+   bounds; (c) phase 4's engine, wave and checks on Qwen2-MoE (ragged
+   launches = 24 x model steps; the mixed tick kernel vs plain within
+   ``LOGITS_REL_TOL`` with the MoE routing pinned to the plain tick's,
+   the free tick's difference and routing flips reported
+   (``compare_tick_logits``: an ulp can move a token to other experts);
+   three requests' tokens against ``generate()``, whose prompt runs on
+   the flash kernel, reported), ``serving_decode_block`` (paged launches
+   = 24 x steps), and the same wave on a speculative engine
+   (``"ngram"``, spec_k 4) and a plain one, request 0 sampled from a
+   fixed seed on both; (d) ``quantize_for_decode`` on the card; on one
+   32-row decode tick, routing pinned, int8 against bf16 (greedy tokens
+   equal on ``QWEN_INT8_GREEDY_MIN`` of the rows, the JAX package's
+   Qwen criterion; phase 8's logit bound reported) and the int8 kernel
+   path against the plain int8 products (``DECODE_LOGITS_REL_TOL``); the
+   int8 engine on the wave (int8 launches = (7 x 24 + 1) x model
+   steps); tok/s, TTFT and the weight bytes a step.
+
+Phases run in the order 1, 2, 3, 5, 7, 4, 8, 13, 14, 6, 9, 10, 11, 12:
+phase 14 starts after the 8B serving state is freed, phase 6 after
+phase 14's, phases 9 and 10 after phase 6's.
 
 The last two lines of standard output are the card's name and power
 limit, then ``{"ok": true, "device": {...}}``; the line before them is
@@ -675,11 +701,23 @@ def init_8b():
     return params, cfg
 
 
+def model_module(cfg):
+    """The port's model module of ``cfg``: Qwen2-MoE when it has
+    experts, else Llama."""
+    from paddle_tpu_torch.models import llama, qwen2_moe
+    return qwen2_moe if hasattr(cfg, "num_experts") else llama
+
+
 def serving_phase(params, cfg) -> dict:
+    """``ServingEngine`` on phase 4's 16 requests (the model from the
+    config), one mixed tick kernel vs plain attention, and the engine's
+    tokens against the model's ``generate()`` for three requests."""
     from paddle_tpu_torch.models import llama
+    from paddle_tpu_torch.ops.kernels import flash_attention as fa
     from paddle_tpu_torch.ops.kernels import ragged_paged_attention as rpa
     from paddle_tpu_torch.serving import ServingEngine
 
+    mod = model_module(cfg)
     L = cfg.num_hidden_layers
     eng = ServingEngine(params, cfg, max_batch=8, page_size=16,
                         max_prompt_len=512, max_new_tokens_cap=32,
@@ -717,56 +755,175 @@ def serving_phase(params, cfg) -> dict:
     assert c["prefix_hits"] >= 2, c
     ttft = [handles[i].ttft_s for i in handles]
     tokens = sum(new)
-    log(f"serving on {torch.cuda.get_device_name(0)}: {len(outs)} "
+    log(f"serving {mod.__name__.rsplit('.', 1)[-1]} on "
+        f"{torch.cuda.get_device_name(0)}: {len(outs)} "
         f"requests, {tokens} tokens in {wall:.3f} s "
         f"= {tokens / wall:.1f} tok/s; mean TTFT {np.mean(ttft):.4f} s; "
         f"{ticks} ticks, {steps} model steps, {launches} kernel launches "
         f"(= {L} layers x {steps}); prefix hits {c['prefix_hits']}")
 
     # one mixed tick, kernel vs plain attention, same weights and pools
-    S, ps, pps = TICK_S, 16, TICK_PPS
-    pools = llama.init_serving_pages(cfg, 1 + S * pps, ps)
-    g = torch.Generator(device="cuda").manual_seed(1)
-    for t in pools.values():
-        t.copy_(torch.randn(t.shape, generator=g, device="cuda"))
-    rng = np.random.RandomState(0)
-    tok, meta = llama.pack_tick(
-        [(s, rng.randint(cfg.vocab_size), n)
-         for s, n in TICK_DECODE.items()],
-        [(s, rng.randint(0, cfg.vocab_size, take), start)
-         for s, start, take in TICK_SPANS],
-        np.arange(1, 1 + S * pps, dtype=np.int32).reshape(S, pps), ps,
-        "cuda")
-    res = {}
-    for impl in ("kernel", "reference"):
-        kp, vp = (t.clone() for t in pools.values())
-        res[impl] = llama.serving_tick(params, tok, meta, kp, vp, cfg,
-                                       attn_impl=impl)
-    live = meta["q_len"] > 0
-    n_live = len(TICK_DECODE) + len(TICK_SPANS)
-    lk, lr = res["kernel"][1][live], res["reference"][1][live]
-    assert torch.isfinite(lk).all() and lk.shape == (n_live, cfg.vocab_size)
-    diff = float((lk - lr).abs().max())
-    scale = float(lr.abs().max())
-    same = int((res["kernel"][0] == res["reference"][0])[live].sum())
-    assert diff <= LOGITS_REL_TOL * scale, (diff, scale)
-    log(f"serving tick kernel vs reference: max |dlogit| {diff:.4g} "
-        f"(logit scale {scale:.4g}, bound {LOGITS_REL_TOL} x scale), "
-        f"greedy tokens equal on {same}/{n_live} live slots")
+    pools, tok, meta = tick_state(cfg, TICK_DECODE, TICK_SPANS)
+    cmp = compare_tick_logits(
+        "serving tick kernel vs reference",
+        tick_runner(params, cfg, pools, tok, meta, "kernel"),
+        tick_runner(params, cfg, pools, tok, meta, "reference"), meta,
+        lambda d, scale, std, greedy: d <= LOGITS_REL_TOL * scale,
+        f"{LOGITS_REL_TOL} x scale")
+    del pools
+    diff, scale = cmp["max_abs_diff"], cmp["scale"]
 
     agree = []
+    fa.flash_attention_fwd.launches = 0
     for i in (0, 5, 9):
-        ref = llama.generate(params, prompts[i][None], cfg, new[i])
+        ref = mod.generate(params, prompts[i][None], cfg, new[i])
         ref = ref[0, prompts[i].size:].cpu().numpy()
         agree.append((int((ref == outs[i]).sum()), new[i],
                       int(np.argmax(ref != outs[i])) if (ref != outs[i])
                       .any() else new[i]))
+    gen_flash = fa.flash_attention_fwd.launches
     log("serving vs port generate(): " + ", ".join(
         f"request {i}: {a}/{n} tokens equal, first difference at {d}"
-        for i, (a, n, d) in zip((0, 5, 9), agree)))
+        for i, (a, n, d) in zip((0, 5, 9), agree))
+        + f"; generate()'s flash-attention launches {gen_flash}")
     return dict(launches=launches, tok_s=tokens / wall,
                 mean_ttft_s=float(np.mean(ttft)), ticks=ticks,
-                model_steps=steps, logits_max_abs_diff=diff)
+                model_steps=steps, logits_max_abs_diff=diff,
+                logit_scale=scale, tick=cmp,
+                generate_flash_launches=gen_flash, generate_agree=agree)
+
+
+def routing_trace(fn, pin=None):
+    """``(fn(), trace)``: ``fn`` run with the MoE gating
+    (``incubate.moe.functional.top_k_gating``) wrapped to record, per
+    call, the experts each token is routed to (``[S, k]``, in pick
+    order): the discrete decisions a small difference upstream can flip.
+    With ``pin`` (the trace of an earlier run on the same state) every
+    call routes each token to the pinned experts instead, its gate
+    values from its own router, its dispatch built as ``top_k_gating``
+    builds it: a comparison of two runs then measures their numerics
+    alone. A Llama ``fn`` leaves the trace empty."""
+    import torch.nn.functional as F
+    from paddle_tpu_torch.incubate.moe import functional as moe_f
+    orig, trace = moe_f.top_k_gating, []
+    pinned = iter(pin or ())
+
+    def pinned_gating(logits, top_k, capacity):
+        S, E = logits.shape
+        idx = next(pinned)
+        raw = torch.softmax(logits.float(), dim=-1)
+        dispatch = logits.new_zeros((S, E, capacity), dtype=torch.float32)
+        combine = torch.zeros_like(dispatch)
+        running = logits.new_zeros((E,), dtype=torch.float32)
+        for i in range(top_k):
+            m = F.one_hot(idx[:, i], E).float()
+            gv = (raw * m).sum(-1)
+            pos = ((torch.cumsum(m, 0) - m + running) * m).sum(-1).long()
+            running = running + m.sum(0)
+            d = (m * (pos < capacity).float()[:, None])[:, :, None] \
+                * F.one_hot(pos.clamp(max=capacity - 1), capacity)[:, None]
+            dispatch = dispatch + d
+            combine = combine + gv[:, None, None] * d
+        return dispatch, combine, raw.new_zeros(())
+
+    def traced(logits, top_k, capacity, **kw):
+        trace.append(torch.softmax(logits.float(), dim=-1)
+                     .topk(top_k, dim=-1).indices)
+        if pin is not None:
+            return pinned_gating(logits, top_k, capacity)
+        return orig(logits, top_k, capacity, **kw)
+
+    moe_f.top_k_gating = traced
+    try:
+        return fn(), trace
+    finally:
+        moe_f.top_k_gating = orig
+
+
+def routing_flips(tr_a, tr_b) -> tuple:
+    """Token-layer routing decisions (expert sets) that differ between
+    two traces, and how many were made."""
+    flips = sum(int((a.sort(-1).values != b.sort(-1).values).any(-1).sum())
+                for a, b in zip(tr_a, tr_b))
+    return flips, sum(t.shape[0] for t in tr_b)
+
+
+def compare_tick_logits(name, run, ref_run, meta, holds, bound: str) -> dict:
+    """A tick's logits ``[S, V]`` against a reference tick's on the same
+    state, on the live slots. ``run(pin)`` and ``ref_run(pin)`` return
+    ``(logits, trace)`` (``routing_trace``). A bf16 MoE stack can route
+    a token to other experts when its input moves by an ulp, a discrete
+    step the bound does not describe, so for Qwen2-MoE the free run's
+    difference and flips are reported and ``run`` is rerun with the
+    reference's routing pinned; that run must satisfy ``holds(max
+    |dlogit|, logit scale, logit std, the share of live rows whose
+    greedy token is the reference's)``."""
+    live = meta["q_len"] > 0
+    ref, tr_ref = ref_run(None)
+    got, tr = run(None)
+    assert torch.isfinite(got[live]).all(), f"{name}: non-finite logits"
+    scale = float(ref[live].abs().max())
+    std = float(ref[live].std())
+    rec = dict(scale=scale, std=std)
+    if tr_ref:
+        rec["free_max_abs_diff"] = float((got - ref)[live].abs().max())
+        rec["routing_flips"], rec["routing_decisions"] = routing_flips(
+            tr, tr_ref)
+        log(f"{name}, routing free: max |dlogit| "
+            f"{rec['free_max_abs_diff']:.4g} "
+            f"({rec['free_max_abs_diff'] / scale:.4g} x scale); "
+            f"{rec['routing_flips']} of {rec['routing_decisions']} "
+            f"token-layer routing decisions differ (reported)")
+        got, _ = run(tr_ref)
+        assert torch.isfinite(got[live]).all(), f"{name}: non-finite"
+    diff = float((got - ref)[live].abs().max())
+    same = int((got.argmax(-1) == ref.argmax(-1))[live].sum())
+    rec.update(max_abs_diff=diff, greedy_equal=same, live=int(live.sum()))
+    log(f"{name}{', routing pinned to the reference' if tr_ref else ''}: "
+        f"max |dlogit| {diff:.4g} (logit scale {scale:.4g}, std "
+        f"{std:.4g}; {diff / scale:.4g} x scale, {diff / std:.4g} x std); "
+        f"greedy equal on {same}/{rec['live']} live slots; bound {bound}")
+    assert holds(diff, scale, std, same / rec["live"]), (name, rec)
+    return rec
+
+
+def tick_runner(params, cfg, pools, tok, meta, attn_impl: str):
+    """``run(pin) -> (logits, routing trace)``: one ``serving_tick`` of
+    the model on copies of ``pools`` (``routing_trace``'s ``pin``)."""
+    mod = model_module(cfg)
+
+    def run(pin):
+        kp, vp = (t.clone() for t in pools.values())
+        (_, logits, _, _), trace = routing_trace(
+            lambda: mod.serving_tick(params, tok, meta, kp, vp, cfg,
+                                     attn_impl=attn_impl), pin)
+        return logits, trace
+    return run
+
+
+def tick_state(cfg, decode, spans=(), pps: int = TICK_PPS, seed: int = 1,
+               tok_seed: int = 0):
+    """One tick over pools of random KV (page 16, ``pps`` pages a slot;
+    from ``seed``): ``decode`` ``{slot: cached tokens}`` rows, then
+    ``spans`` ``[(slot, start, take)]`` of prompt tokens, the tokens
+    random from ``tok_seed``; as many slots as the larger of ``TICK_S``
+    and the slots named. Returns ``(pools, tokens, meta)`` on the
+    card."""
+    from paddle_tpu_torch.models import llama
+    S, ps = max([TICK_S, *[s + 1 for s in decode],
+                 *[s + 1 for s, _, _ in spans]]), 16
+    pools = model_module(cfg).init_serving_pages(cfg, 1 + S * pps, ps)
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    for t in pools.values():
+        t.copy_(torch.randn(t.shape, generator=g, device="cuda"))
+    rng = np.random.RandomState(tok_seed)
+    tok, meta = llama.pack_tick(
+        [(s, rng.randint(cfg.vocab_size), n) for s, n in decode.items()],
+        [(s, rng.randint(0, cfg.vocab_size, take), start)
+         for s, start, take in spans],
+        np.arange(1, 1 + S * pps, dtype=np.int32).reshape(S, pps), ps,
+        "cuda")
+    return pools, tok, meta
 
 
 # ---------------------------------------------------------------------------
@@ -1583,11 +1740,16 @@ def int8_kernel_phase() -> dict:
     return rec
 
 
-def int8_step_record(rec: dict, M: int = 32) -> dict:
+LLAMA_INT8_COUNT = {"wq_wo": 2, "wk_wv": 2, "gate_up": 2, "down": 1,
+                    "lm_head": 1}
+
+
+def int8_step_record(rec: dict, M: int = 32,
+                     count=LLAMA_INT8_COUNT) -> dict:
     """The int8 products of one step at M rows: the seven projections of
-    a layer plus lm_head (times, bounds summed). M = 32 is a decode step
-    at the bench mix; M = 256 and 4096 weigh prefill's shapes alike."""
-    count = {"wq_wo": 2, "wk_wv": 2, "gate_up": 2, "down": 1, "lm_head": 1}
+    a layer plus lm_head (times, bounds summed; ``count`` is each
+    shape's number). M = 32 is a decode step at the bench mix; M = 256
+    and 4096 weigh prefill's shapes alike."""
     out = {}
     for key in ("ms", "plain_ms", "library_ms", "bound_ms"):
         out[key] = sum(n * rec[s]["times"][M][key] for s, n in count.items())
@@ -1714,17 +1876,7 @@ def paged_paths_phase(params, cfg) -> dict:
     serving_decode_block, and ServingEngine(quantization="int8"), each
     with its launch counts asserted."""
     from paddle_tpu_torch.models import llama
-    from paddle_tpu_torch.ops.fused.int8_matmul import Int8Weight
     from paddle_tpu_torch.quantization import quantize_for_decode
-
-    class PlainInt8Weight(Int8Weight):
-        """An int8 weight whose product is the plain version (the
-        comparison's side); it shares the leaves, and ``w[i]`` keeps
-        the class."""
-        __slots__ = ()
-
-        def dequant_matmul(self, x, impl: str = "reference"):
-            return super().dequant_matmul(x, impl="reference")
 
     L, new, ps = cfg.num_hidden_layers, BENCH_NEW, PAGED_BENCH["ps"]
     prompt, lens = bench_mix(cfg.vocab_size)
@@ -1761,11 +1913,7 @@ def paged_paths_phase(params, cfg) -> dict:
     assert c8 == dict(paged_attention=0, paged_attention_stats=L * (new - 1),
                       int8_matmul=(7 * L + 1) * new,
                       ragged_paged_attention=0), c8
-    plain8 = dict(qparams, lm_head=PlainInt8Weight(qparams["lm_head"].q,
-                                                   qparams["lm_head"].scale),
-                  layers={k: (PlainInt8Weight(v.q, v.scale)
-                              if isinstance(v, Int8Weight) else v)
-                          for k, v in qparams["layers"].items()})
+    plain8 = plain_int8(qparams)
     r8 = paged_decode_run("generate_paged int8 first decode step, int8 "
                           "kernel vs plain int8 product", qparams, cfg,
                           prompt, lens, ref_params=plain8)
@@ -1807,15 +1955,38 @@ def paged_paths_phase(params, cfg) -> dict:
     return rec
 
 
+def plain_int8(params):
+    """The params with every ``Int8Weight`` (nested dicts too) as a
+    ``PlainInt8Weight`` sharing its leaves: the plain int8 product, the
+    comparison's side."""
+    from paddle_tpu_torch.ops.fused.int8_matmul import Int8Weight
+
+    class PlainInt8Weight(Int8Weight):
+        """An int8 weight whose product is the plain version; ``w[i]``
+        keeps the class."""
+        __slots__ = ()
+
+        def dequant_matmul(self, x, impl: str = "reference"):
+            return super().dequant_matmul(x, impl="reference")
+
+    def walk(node):
+        if isinstance(node, Int8Weight):
+            return PlainInt8Weight(node.q, node.scale)
+        if isinstance(node, dict):
+            return {k: walk(v) for k, v in node.items()}
+        return node
+    return walk(params)
+
+
 def decode_block_run(params, cfg, steps: int = 4) -> dict:
     """serving_decode_block over shared pools: 8 slots (one dead, all
     trash) with 1-2000 cached tokens of random KV, ``steps`` steps."""
-    from paddle_tpu_torch.models import llama
+    mod = model_module(cfg)
     L, ps = cfg.num_hidden_layers, 16
     lengths = [300, 77, 500, 1000, 0, 16, 2000, 64]
     pps = -(-(max(lengths) + steps) // ps)
     S = len(lengths)
-    pools = llama.init_serving_pages(cfg, 1 + S * pps, ps)
+    pools = mod.init_serving_pages(cfg, 1 + S * pps, ps)
     gen = torch.Generator(device="cuda").manual_seed(3)
     for t in pools.values():
         t.copy_(torch.randn(t.shape, generator=gen, device="cuda"))
@@ -1826,7 +1997,7 @@ def decode_block_run(params, cfg, steps: int = 4) -> dict:
     _zero_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    toks, _, _ = llama.serving_decode_block(
+    toks, _, _ = mod.serving_decode_block(
         params, tok, torch.as_tensor(np.asarray(lengths, np.int32),
                                      device="cuda"),
         torch.as_tensor(tables, device="cuda"), pools["k_pages"],
@@ -1838,7 +2009,8 @@ def decode_block_run(params, cfg, steps: int = 4) -> dict:
     assert counts["paged_attention_stats"] == 0, counts
     assert toks.shape == (S, steps) and bool(
         ((toks >= 0) & (toks < cfg.vocab_size)).all())
-    log(f"serving_decode_block: {S} slots x {steps} steps in {wall:.3f} s "
+    log(f"serving_decode_block ({mod.__name__.rsplit('.', 1)[-1]}): {S} "
+        f"slots x {steps} steps in {wall:.3f} s "
         f"({wall / steps * 1e3:.2f} ms/step); paged-attention launches "
         f"{counts['paged_attention']} (= {L} layers x {steps})")
     del pools
@@ -2354,6 +2526,292 @@ def sampling_phase(params, cfg) -> dict:
     rec["verify_tick"] = verify_tick_run(params, cfg)
     rec["engine"] = spec_engine_run(params, cfg)
     rec["generate_paged"] = sampled_paged_run(params, cfg)
+    return rec
+
+
+# ---------------------------------------------------------------------------
+# Qwen2-MoE serving (phase 14)
+# ---------------------------------------------------------------------------
+
+# Qwen1.5-MoE-A2.7B's attention: H = Hkv = 16, so G = 1 (one query row per
+# kv head: a decode row fills 1 of the 16 rows of the kernels' MMA tile)
+QWEN_GEOM = dict(H=16, Hkv=16, Dh=128)
+# the ragged cases of phase 3 at G = 1: a serving mix (rows within one
+# 512-key chunk and over two), long-context decode over 32 chunks, the
+# engine's tick, the chunk edges
+QWEN_RAGGED_CASES = (("a_serving_mix", CASE_A), ("b_long_context", CASE_B),
+                     ("d_engine_tick", CASE_D), ("e_chunk_edges", CASE_E))
+QWEN_PAGED_CASES = (("engine_16k", PAGED_ENGINE),
+                    ("chunk_edges", PAGED_EDGES))
+# the int8 products of a Qwen2-MoE step, (K, N), and their count a layer
+# (lm_head once a step): q, k, v, o; the shared expert's gate and up,
+# then its down. The routed experts are dequantized for the einsum.
+QWEN_INT8_SHAPES = {"wq_wk_wv_wo": (2048, 2048),
+                    "shared_gate_up": (2048, 5632),
+                    "shared_down": (5632, 2048),
+                    "lm_head": (2048, 151936)}
+QWEN_INT8_COUNT = {"wq_wk_wv_wo": 4, "shared_gate_up": 2, "shared_down": 1,
+                   "lm_head": 1}
+QWEN_INT8_MS = (8, 256)
+# phase 4's engine geometry
+ENGINE_GEOM = dict(max_batch=8, page_size=16, max_prompt_len=512,
+                   max_new_tokens_cap=32, prefill_chunk=256,
+                   decode_block_size=4)
+
+
+def qwen_attention_phase() -> dict:
+    """(a) The ragged kernel (rows within one key chunk and rows walked
+    over many) and the paged kernel at G = 1 against their plain
+    versions, f32 and bf16, to phases 3 and 7's bounds; row invariance;
+    kernel, plain, SDPA and bound times of the engine-like cases."""
+    rec = {}
+    for name, spec in QWEN_RAGGED_CASES:
+        case = make_case(**spec, **QWEN_GEOM, ps=16, seed=50 + len(rec))
+        errs = check_case(f"qwen {name}", case)
+        log(f"qwen ragged case {name} (G = 1): " + " ".join(
+            f"{k}={v:.4g}" for k, v in errs.items()))
+        if name == "a_serving_mix":
+            check_row_invariance(case, split_slot=2, split=120)
+        if name == "e_chunk_edges":
+            check_row_invariance(case, split_slot=5, split=21)
+        if name == "d_engine_tick":
+            c16 = cast(case, torch.bfloat16)
+            errs.update(ms=time_ms(lambda: run_rpa(c16, "kernel")),
+                        plain_ms=time_ms(lambda: run_rpa(c16, "reference"),
+                                         reps=5),
+                        library_ms=time_ms(sdpa_yardstick(c16)))
+            errs["bound_ms"], errs["bound_by"] = attention_bound_ms(c16)
+            log(f"qwen ragged case {name} bf16: kernel {errs['ms']:.4f} ms, "
+                f"plain {errs['plain_ms']:.4f} ms, sdpa "
+                f"{errs['library_ms']:.4f} ms, bound {errs['bound_ms']:.4f} "
+                f"ms ({errs['bound_by']})")
+            del c16
+        rec[f"ragged_{name}"] = errs
+        del case
+        torch.cuda.empty_cache()
+    log("qwen ragged kernel at G = 1: per-slot and chunked == whole, "
+        "bitwise (serving mix and chunk edges)")
+    for name, spec in QWEN_PAGED_CASES:
+        case = make_paged_case(**spec, **QWEN_GEOM, seed=60 + len(rec))
+        errs = check_paged_case(f"qwen {name}", case)
+        log(f"qwen paged case {name} (G = 1): " + " ".join(
+            f"{k}={v:.4g}" for k, v in errs.items()))
+        check_paged_invariance(case)
+        if name == "engine_16k":
+            c16 = cast(case, torch.bfloat16)
+            errs.update(
+                ms=time_ms(lambda: run_paged(c16, "kernel", stats=False)),
+                plain_ms=time_ms(lambda: run_paged(c16, "reference",
+                                                   stats=False), reps=5),
+                library_ms=time_ms(paged_sdpa_yardstick(c16)))
+            errs["bound_ms"], errs["bound_by"] = paged_bound_ms(c16, False)
+            log(f"qwen paged case {name} bf16 (without stats): kernel "
+                f"{errs['ms']:.4f} ms, plain {errs['plain_ms']:.4f} ms, sdpa "
+                f"{errs['library_ms']:.4f} ms, bound {errs['bound_ms']:.4f} "
+                f"ms ({errs['bound_by']})")
+            del c16
+        rec[f"paged_{name}"] = errs
+        del case
+        torch.cuda.empty_cache()
+    log("qwen paged kernel at G = 1: sequences alone == in the batch, and "
+        "any page placement, bitwise (o, m, l)")
+    return rec
+
+
+def qwen_int8_phase() -> dict:
+    """(b) The int8 kernel at Qwen2-MoE's four weight shapes, M 8 and
+    256, to phase 7's bounds; the step sums at M 8 and 256."""
+    rec = {}
+    for name, (K, N) in QWEN_INT8_SHAPES.items():
+        e = check_int8(f"qwen {name}", K, N, seed=70 + len(rec),
+                       ms_list=QWEN_INT8_MS)
+        log(f"qwen int8 {name} (K={K}, N={N}): " + " ".join(
+            f"{k}={v:.4g}" for k, v in e.items() if k != "times"))
+        for m, t in e["times"].items():
+            log(f"qwen int8 {name} M={m}: kernel {t['ms']:.4f} ms, plain "
+                f"{t['plain_ms']:.4f} ms, cuBLAS bf16 {t['library_ms']:.4f} "
+                f"ms" + (f", int8pack {t['int8pack_ms']:.4f} ms"
+                         if "int8pack_ms" in t else "")
+                + f", bound {t['bound_ms']:.4f} ms ({t['bound_by']})")
+        rec[name] = e
+    for M in QWEN_INT8_MS:
+        st = int8_step_record(rec, M, QWEN_INT8_COUNT)
+        rec[f"step_{M}"] = st
+        log(f"qwen int8 step sum at M={M} (7 products of a layer + "
+            f"lm_head): kernel {st['ms']:.4f} ms, plain {st['plain_ms']:.4f}"
+            f" ms, cuBLAS bf16 {st['library_ms']:.4f} ms, bound "
+            f"{st['bound_ms']:.4f} ms ({st['bound_by']})")
+    return rec
+
+
+def _tensors(tree):
+    if isinstance(tree, dict):
+        return [t for v in tree.values() for t in _tensors(v)]
+    return [tree]
+
+
+def init_qwen():
+    """The default ``Qwen2MoeConfig()`` (Qwen1.5-MoE-A2.7B's widths, 24
+    layers, bf16) from seed 0 on the card."""
+    from paddle_tpu_torch.models import qwen2_moe
+    cfg = qwen2_moe.Qwen2MoeConfig()
+    t0 = time.perf_counter()
+    params = qwen2_moe.init_params(cfg, torch.Generator(device="cuda")
+                                   .manual_seed(0))
+    torch.cuda.synchronize()
+    n = sum(t.numel() for t in _tensors(params))
+    log(f"qwen2_moe params ({n / 1e9:.2f} B) initialised "
+        f"in {time.perf_counter() - t0:.1f} s, "
+        f"{torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB on the card")
+    return params, cfg
+
+
+def qwen_engine_run(params, cfg, name: str, samp=None, **kw) -> dict:
+    """One engine of ``ENGINE_GEOM`` (plus ``kw``) over phase 4's 16
+    requests submitted at once (``samp``: per-request sampling), after a
+    warm-up request: every request's count, ragged launches = L x model
+    steps; the decode counters, tok/s, mean TTFT, ticks."""
+    from paddle_tpu_torch.models import llama
+    from paddle_tpu_torch.serving import ServingEngine
+    L = cfg.num_hidden_layers
+    prompts, new = _requests(cfg.vocab_size)
+    eng = ServingEngine(params, cfg, **ENGINE_GEOM, **kw)
+    eng.generate(np.arange(1, 41, dtype=np.int32), 4)      # warm-up
+    c0 = eng.stats()["counters"]
+    _zero_counts()
+    draws0 = llama.sample_draw.launches
+    t0 = time.perf_counter()
+    handles = [eng.submit(p, n, **s) for p, n, s in
+               zip(prompts, new, samp or [{}] * len(new))]
+    outs = [h.result(timeout=600) for h in handles]
+    wall = time.perf_counter() - t0
+    counts = _counts()
+    draws = llama.sample_draw.launches - draws0
+    c1 = eng.stats()["counters"]
+    eng.close()
+    steps = c1["model_steps"] - c0["model_steps"]
+    for o, n in zip(outs, new):
+        assert o.shape == (n,) and ((o >= 0) & (o < cfg.vocab_size)).all()
+    assert counts["ragged_paged_attention"] == L * steps, (counts, steps)
+    rec = dict(launches=counts, model_steps=steps,
+               ticks=c1["ticks"] - c0["ticks"], tok_s=sum(new) / wall,
+               wall_s=wall, sampler_draws=draws, outs=outs,
+               spec_ticks=c1["spec_ticks"] - c0["spec_ticks"],
+               draft_accepted=c1["draft_accepted"] - c0["draft_accepted"],
+               ttft_mean_s=float(np.mean([h.ttft_s for h in handles])))
+    log(f"qwen engine {name}: {len(outs)} requests, {sum(new)} tokens in "
+        f"{wall:.3f} s = {rec['tok_s']:.1f} tok/s; mean TTFT "
+        f"{rec['ttft_mean_s']:.4f} s; {rec['ticks']} ticks, "
+        f"{steps} model steps; launches {counts}; sampler draws {draws}; "
+        f"verify ticks {rec['spec_ticks']}, drafts accepted "
+        f"{rec['draft_accepted']}")
+    return rec
+
+
+# the int8 comparisons' state: 32 decode rows (phase 8 compares the first
+# decode step of 32 streams) over 32-512 cached tokens
+QWEN_INT8_LENS = [32 + 480 * i // 31 for i in range(32)]
+
+
+# int8 vs bf16 Qwen2-MoE, the JAX package's own criterion
+# (tests/test_int8_decode.py::test_qwen_int8_greedy_token_match: greedy
+# tokens equal on >= 0.6 of them). Phase 8's logit bound (max |dlogit| <
+# INT8_LOGIT_SPREAD x max(std, 1)) does not hold here: with the routing
+# pinned, 24 random 2048-wide layers whose ~19 products a token are each
+# quantized read 1.18 x std (and 0.79 x the logit scale with the routing
+# free: 37% of the routing decisions flip) on an H100 80GB HBM3 (700 W)
+# with this script; its reading is reported beside this check.
+QWEN_INT8_GREEDY_MIN = 0.6
+
+
+def qwen_int8_tick_run(params, qparams, cfg) -> dict:
+    """(d) On one shared decode tick (32 rows, kernel attention), routing
+    pinned to the reference's (``compare_tick_logits``): int8 against
+    bf16, greedy tokens equal on ``QWEN_INT8_GREEDY_MIN`` of the rows
+    and max |dlogit| reported against phase 8's bound; the int8 kernel
+    path against the plain int8 products within
+    ``DECODE_LOGITS_REL_TOL``."""
+    pools, tok, meta = tick_state(cfg, dict(enumerate(QWEN_INT8_LENS)),
+                                  pps=33, seed=2, tok_seed=2)
+
+    def runner(p):
+        return tick_runner(p, cfg, pools, tok, meta, "kernel")
+
+    rec = dict(vs_bf16=compare_tick_logits(
+        "qwen int8 vs bf16 decode tick", runner(qparams), runner(params),
+        meta, lambda d, scale, std, greedy: greedy >= QWEN_INT8_GREEDY_MIN,
+        f"greedy equal on >= {QWEN_INT8_GREEDY_MIN} of the rows; phase "
+        f"8's {INT8_LOGIT_SPREAD} x max(std, 1) reported"))
+    rec["kernel_vs_plain"] = compare_tick_logits(
+        "qwen int8 decode tick, int8 kernel vs plain int8 product",
+        runner(qparams), runner(plain_int8(qparams)), meta,
+        lambda d, scale, std, greedy: d <= DECODE_LOGITS_REL_TOL * scale,
+        f"{DECODE_LOGITS_REL_TOL} x scale")
+    del pools
+    return rec
+
+
+def qwen_serving_phase() -> dict:
+    """Phase 14: Qwen2-MoE serving at full width and depth. (a) decode
+    attention at G = 1, (b) int8 at Qwen's shapes, (c) the bf16 engine
+    (phase 4's wave, the mixed tick kernel vs plain, ``generate()``'s
+    tokens reported), ``serving_decode_block``, one seeded sampled
+    request and a speculative engine over the same wave, (d)
+    ``quantize_for_decode`` on the card, int8 vs bf16 and kernel vs plain
+    on one tick, the int8 engine on the same wave; weight bytes a step."""
+    from paddle_tpu_torch.quantization import (decode_weight_bytes,
+                                               quantize_for_decode)
+    rec = dict(attention=qwen_attention_phase(), int8=qwen_int8_phase())
+    params, cfg = init_qwen()
+    L = cfg.num_hidden_layers
+    new = _requests(cfg.vocab_size)[1]
+
+    serving = serving_phase(params, cfg)
+    assert serving["generate_flash_launches"] == 3 * L, serving
+    rec["serving"] = serving
+    rec["decode_block"] = decode_block_run(params, cfg)
+    assert rec["decode_block"]["launches"]["int8_matmul"] == 0
+    samp = [dict(SAMPLED, seed=7)] + [{}] * (len(new) - 1)
+    spec = qwen_engine_run(params, cfg, "speculative (ngram, spec_k 4), "
+                           "request 0 sampled", samp=samp,
+                           speculative="ngram", spec_k=SPEC_K)
+    assert spec["sampler_draws"] > 0 and spec["outs"][0].shape == (new[0],)
+    sampled = qwen_engine_run(params, cfg, "plain, request 0 sampled",
+                              samp=samp)
+    agree = [bool(np.array_equal(a, b))
+             for a, b in zip(spec.pop("outs"), sampled.pop("outs"))]
+    log(f"qwen engines speculative vs plain: streams equal on "
+        f"{sum(agree[1:])}/15 greedy requests, sampled request 0 "
+        f"{'equal' if agree[0] else 'different'} (reported, not required)")
+    rec.update(spec=spec, sampled=sampled, spec_agree=agree)
+
+    t0 = time.perf_counter()
+    qparams = quantize_for_decode(params, cfg)
+    torch.cuda.synchronize()
+    quant_s = time.perf_counter() - t0
+    w16, w8 = decode_weight_bytes(params), decode_weight_bytes(qparams)
+    rec["int8_tick"] = qwen_int8_tick_run(params, qparams, cfg)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    eng8 = qwen_engine_run(qparams, cfg, "int8", quantization="int8")
+    eng8.pop("outs")
+    assert eng8["launches"]["int8_matmul"] == \
+        (7 * L + 1) * eng8["model_steps"], eng8
+    rec.update(engine_int8=eng8, quantize_s=quant_s, weight_bytes_bf16=w16,
+               weight_bytes_int8=w8)
+    log(f"qwen weights a decode step: bf16 {w16 / 1e9:.3f} GB (bound "
+        f"{w16 / H100_BYTES_PER_S * 1e3:.3f} ms), int8 {w8 / 1e9:.3f} GB "
+        f"(bound {w8 / H100_BYTES_PER_S * 1e3:.3f} ms; the routed experts "
+        f"are also written and read back as a bf16 copy each step); "
+        f"quantized on the card in {quant_s:.2f} s; tok/s bf16 "
+        f"{serving['tok_s']:.1f} (staggered), plain "
+        f"{sampled['tok_s']:.1f}, speculative {spec['tok_s']:.1f}, int8 "
+        f"{eng8['tok_s']:.1f}; peak "
+        f"{torch.cuda.max_memory_allocated() / 2 ** 30:.1f} GiB")
+    del qparams
+    gc.collect()
+    torch.cuda.empty_cache()
     return rec
 
 
@@ -3449,8 +3907,12 @@ def main() -> int:
     serving = serving_phase(params, cfg)
     paths = paged_paths_phase(params, cfg)
     sampling_phase(params, cfg)
-    # free the 8B serving state before the train step's 61 GiB peak
+    # free the 8B serving state before Qwen2-MoE's 43 GB of weights and
+    # the train step's 61 GiB peak
     del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    qwen_serve = qwen_serving_phase()
     gc.collect()
     torch.cuda.empty_cache()
     train = train_phase()
@@ -3524,6 +3986,34 @@ def main() -> int:
             max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"],
             bound_ms=r["bound_ms"], bound_by=r["bound_by"],
             library_ms=r["library_ms"]))
+    # phase 14: the decode kernels at Qwen2-MoE's geometry (G = 1, its
+    # int8 shapes), launched by its serving paths
+    qa = qwen_serve["attention"]
+    for name, source, replaces, launches, case in (
+            ("ragged_paged_attention_qwen_g1",
+             "paddle_tpu_torch/csrc/ragged_paged_attention.cu",
+             "paddle_tpu/ops/pallas/ragged_paged_attention.py:301",
+             qwen_serve["serving"]["launches"], qa["ragged_d_engine_tick"]),
+            ("paged_attention_qwen_g1",
+             "paddle_tpu_torch/csrc/paged_attention.cu",
+             "paddle_tpu/inference/paged_kv.py:201",
+             qwen_serve["decode_block"]["launches"]["paged_attention"],
+             qa["paged_engine_16k"])):
+        kernels.append(dict(
+            name=name, route="cuda", source=source, replaces=replaces,
+            launches=launches, max_abs_err=case["bf16_max_abs_err"],
+            ms=case["ms"], plain_ms=case["plain_ms"],
+            bound_ms=case["bound_ms"], bound_by=case["bound_by"],
+            library_ms=case["library_ms"]))
+    qstep = qwen_serve["int8"]["step_8"]
+    kernels.append(dict(
+        name="int8_matmul_qwen", route="cuda",
+        source="paddle_tpu_torch/csrc/int8_matmul.cu",
+        replaces="paddle_tpu/ops/pallas/int8_matmul.py:48",
+        launches=qwen_serve["engine_int8"]["launches"]["int8_matmul"],
+        max_abs_err=qstep["max_abs_err"], ms=qstep["ms"],
+        plain_ms=qstep["plain_ms"], bound_ms=qstep["bound_ms"],
+        bound_by=qstep["bound_by"], library_ms=qstep["library_ms"]))
     kernels.append(dict(
         name="conv_epilogue", route="cuda",
         source="paddle_tpu_torch/csrc/conv_epilogue.cu",
@@ -3532,6 +4022,8 @@ def main() -> int:
         ms=ce_rec["ms"], plain_ms=ce_rec["plain_ms"],
         bound_ms=ce_rec["bound_ms"], bound_by=ce_rec["bound_by"],
         library_ms=ce_rec["library_ms"]))
+    for k in kernels:     # every kernel of the line ran on its path
+        assert k["launches"] > 0, k
     log(f"chip_smoke: all phases passed in "
         f"{time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -13,9 +13,10 @@ Port of ``paddle_tpu/incubate/moe/functional.py``:
   a capacity that drops nothing, ``capacity_factor = E / top_k``, the two
   compute the same function).
 
-One device: the JAX package's ``ep_axis`` (expert parallelism) and the
-random second-expert policy (``key``, a JAX PRNG key) raise
-``NotImplementedError``. ``torch.topk`` and ``torch.argmax`` break ties
+One device: the JAX package's ``ep_axis`` (expert parallelism) raises
+``NotImplementedError``. The random second-expert policy draws from a raw
+key of ``prng`` (``prng.key(seed)``), which reproduces ``jax.random``'s
+bits. ``torch.topk`` and ``torch.argmax`` break ties
 toward the lower index, as ``lax.top_k`` and ``jnp.argmax`` do; with
 continuous random router inputs ties do not occur in practice.
 """
@@ -26,6 +27,7 @@ from typing import Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from ... import prng
 from ...ops.kernels.grouped_matmul import moe_mlp_dropless
 
 __all__ = ["default_capacity", "top_k_gating", "moe_ffn_dropless",
@@ -61,22 +63,32 @@ def top_k_gating(logits, top_k: int, capacity: int, *, key=None,
 
     Returns ``(dispatch, combine, aux_loss)``: dispatch ``[S, E, C]``
     one-hot, combine ``[S, E, C]`` weights, both f32, and the switch aux
-    loss. Earlier k-slots and earlier tokens win capacity."""
-    if key is not None and second_policy == "random":
-        raise NotImplementedError(
-            "top_k_gating: the random second-expert policy is not ported "
-            "(it draws from a JAX PRNG key)")
+    loss. Earlier k-slots and earlier tokens win capacity.
+
+    ``second_policy="random"`` with a ``key`` (a raw ``prng`` key): the
+    2nd and later experts are kept where a uniform draw is below twice
+    their gate (GShard's random routing), one ``split`` of the key per
+    slot, as the JAX package draws."""
     S, E = logits.shape
+    random = key is not None and second_policy == "random"
+    if random:
+        key = key.to(logits.device)
     raw_gates = torch.softmax(logits.float(), dim=-1)
     masks, gate_vals, top1 = [], [], None
     g = raw_gates
-    for _ in range(top_k):
+    for i in range(top_k):
         idx = torch.argmax(g, dim=-1)
         top1 = idx if top1 is None else top1
         m = _one_hot(idx, E)                                    # [S, E]
-        g = g * (1.0 - m)
+        g = g * (1.0 - m)   # peeled before the draw: never re-picked
+        gv = (raw_gates * m).sum(-1)
+        if i > 0 and random:
+            key, sub = prng.split(key)
+            keep = (prng.uniform(sub, (S,)) < 2.0 * gv).float()
+            m = m * keep[:, None]
+            gv = gv * keep
         masks.append(m)
-        gate_vals.append((raw_gates * m).sum(-1))
+        gate_vals.append(gv)
     aux = _switch_aux(raw_gates, top1, E)
     if normalize_topk:  # mixtral-style renormalization over the chosen k
         denom = sum(gate_vals)
@@ -137,18 +149,16 @@ def moe_ffn(x, gate_w, w_gate, w_up, w_down, *, top_k: int = 2,
             ep_axis: Optional[str] = None, activation=F.silu):
     """Mixture-of-experts SwiGLU FFN over ``x [..., D]`` with capacity
     dispatch; expert weights stacked on a leading E axis (``w_gate`` /
-    ``w_up [E, D, F]``, ``w_down [E, F, D]``). Returns ``(y, aux)``."""
-    if key is not None:
-        raise NotImplementedError(
-            "moe_ffn: the random second-expert policy is not ported (it "
-            "draws from a JAX PRNG key)")
+    ``w_up [E, D, F]``, ``w_down [E, F, D]``). Returns ``(y, aux)``.
+    ``key`` goes to ``top_k_gating`` under its default policy, which
+    draws nothing (the JAX signature)."""
     orig_shape = x.shape
     D = orig_shape[-1]
     E = w_gate.shape[0]
     xs = x.reshape(-1, D)
     capacity = default_capacity(xs.shape[0], E, top_k, capacity_factor)
     logits = xs.float() @ gate_w.float()
-    dispatch, combine, aux = top_k_gating(logits, top_k, capacity)
+    dispatch, combine, aux = top_k_gating(logits, top_k, capacity, key=key)
     y = moe_expert_compute(xs, dispatch, combine, w_gate, w_up, w_down,
                            ep_axis=ep_axis, activation=activation)
     return y.reshape(orig_shape), aux.float()

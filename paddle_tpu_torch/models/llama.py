@@ -11,7 +11,8 @@ Port of ``paddle_tpu/models/llama.py``:
   o-proj + residual -> rms_norm -> SwiGLU + residual), dense weights,
   one device;
 * the KV-cache oracle path ``init_kv_cache`` / ``forward_with_cache`` /
-  ``generate``, whose attention is plain causal GQA;
+  ``generate``, whose attention is plain causal GQA (its loop
+  ``_decode_loop`` and ``_forward_with_cache`` serve Qwen2-MoE's too);
 * sampling: ``sample_logits`` (temperature, top-k, top-p, one key for
   the batch, as ``generate`` draws) and the serving tick's per-row
   sampler ``_fused_sample`` / ``sample_draw`` (token ``n`` of a request
@@ -27,6 +28,9 @@ Port of ``paddle_tpu/models/llama.py``:
   ``serving_prefill`` / ``serving_prefill_chunk`` /
   ``serving_decode_step`` / ``serving_decode_block`` over shared pools
   (``ops/kernels/paged_attention``);
+* every serving function above takes ``_block_fn``, the block math
+  (``_block`` when None), so ``models.qwen2_moe`` serves through the
+  same functions with its own block, as the JAX package does;
 * weight-only int8 decode: every projection and ``lm_head`` goes through
   ``_mm``, which sends an ``Int8Weight`` (``quantization.decode``) to the
   int8 matmul kernel (``ops/kernels/int8_matmul``).
@@ -353,6 +357,15 @@ def forward_with_cache(params, tokens, cache, pos0: int,
     the LAST position ``[B, V]``, cache). The cache is updated in place
     (and returned). pos0 == 0 is a prompt: plain causal attention over
     the fresh keys; otherwise attention over the cache."""
+    return _forward_with_cache(params, tokens, cache, pos0, cfg, _block,
+                               _causal_attention)
+
+
+def _forward_with_cache(params, tokens, cache, pos0: int, cfg, block_fn,
+                        prompt_attn):
+    """``forward_with_cache`` for any block math ``block_fn`` (Llama's
+    ``_block``, Qwen2-MoE's ``_decode_block``); ``prompt_attn(q, k, v)``
+    is the causal attention of a prompt (pos0 == 0)."""
     B, T = tokens.shape
     h = params["embed"].to(cfg.dtype)[tokens.long()]
     positions = (pos0 + torch.arange(T, device=h.device)).expand(B, T)
@@ -363,10 +376,10 @@ def forward_with_cache(params, tokens, cache, pos0: int,
             ck[:, pos0:pos0 + T] = k.to(ck.dtype)
             cv[:, pos0:pos0 + T] = v.to(cv.dtype)
             if pos0 == 0:
-                return _causal_attention(q, k, v)
+                return prompt_attn(q, k, v)
             return _cached_attention(q, ck, cv, pos0)
 
-        h = _block(_layer(params, i), h, positions, cfg, attn_fn)
+        h = block_fn(_layer(params, i), h, positions, cfg, attn_fn)
     h = rms_norm(h[:, -1], params["final_norm"], cfg.rms_norm_eps)
     return _mm(h, params["lm_head"]).float(), cache
 
@@ -488,7 +501,6 @@ def _next_token(logits, key, temperature, top_p, top_k):
     return key, sample_logits(logits, sub, temperature, top_p, top_k)
 
 
-@torch.no_grad()
 def generate(params, prompt, cfg: LlamaConfig, max_new_tokens: int, *,
              temperature: float = 0.0, top_p: float = 1.0, top_k: int = 0,
              key=None, eos_token_id: Optional[int] = None):
@@ -499,6 +511,22 @@ def generate(params, prompt, cfg: LlamaConfig, max_new_tokens: int, *,
     is greedy. Returns int32 ``[B, T0 + max_new_tokens]`` (prompt +
     continuation; positions after EOS repeat EOS when ``eos_token_id``
     is set)."""
+    return _decode_loop(
+        lambda p, t, c, pos: forward_with_cache(p, t, c, pos, cfg),
+        lambda B, n, dev: init_kv_cache(cfg, B, n, dev),
+        params, prompt, max_new_tokens, temperature, top_p, top_k, key,
+        eos_token_id)
+
+
+@torch.no_grad()
+def _decode_loop(fwd_cache_fn, init_cache_fn, params, prompt,
+                 max_new_tokens: int, temperature, top_p, top_k, key,
+                 eos_token_id):
+    """The autoregressive loop of every model's ``generate``: a
+    prefill through ``fwd_cache_fn(params, tokens, cache, pos0)`` into
+    ``init_cache_fn(B, max_len, device)``, then single-token steps, each
+    token drawn by ``_next_token``, EOS latched. Returns the prompt and
+    its continuation, int32."""
     if max_new_tokens < 1:
         raise ValueError(f"max_new_tokens must be >= 1, "
                          f"got {max_new_tokens}")
@@ -506,15 +534,14 @@ def generate(params, prompt, cfg: LlamaConfig, max_new_tokens: int, *,
     prompt = torch.as_tensor(np.asarray(prompt), device=dev).long()
     key = _key_tensor(key, dev)
     B, T0 = prompt.shape
-    cache = init_kv_cache(cfg, B, T0 + max_new_tokens, dev)
-    logits, cache = forward_with_cache(params, prompt, cache, 0, cfg)
+    cache = init_cache_fn(B, T0 + max_new_tokens, dev)
+    logits, cache = fwd_cache_fn(params, prompt, cache, 0)
     key, tok = _next_token(logits, key, temperature, top_p, top_k)
     done = (torch.zeros_like(tok, dtype=torch.bool) if eos_token_id is None
             else tok == eos_token_id)
     out = [tok]
     for step in range(max_new_tokens - 1):
-        logits, cache = forward_with_cache(params, tok[:, None], cache,
-                                           T0 + step, cfg)
+        logits, cache = fwd_cache_fn(params, tok[:, None], cache, T0 + step)
         key, tok = _next_token(logits, key, temperature, top_p, top_k)
         if eos_token_id is not None:
             tok = torch.where(done, eos_token_id, tok)
@@ -619,7 +646,7 @@ def pack_tick(decode, spans, tables, page_size: int, device=None, *,
 @torch.no_grad()
 def serving_tick(params, tokens, meta, k_pages, v_pages, cfg: LlamaConfig,
                  decode_tail: int = 0, spec_k: int = 0,
-                 attn_impl: str = "auto"):
+                 attn_impl: str = "auto", _block_fn=None):
     """ONE ragged serving tick: any mix of chunked prefills, warm-prefix
     attaches, decode steps and speculative verify spans over the packed
     token stream.
@@ -666,6 +693,9 @@ def serving_tick(params, tokens, meta, k_pages, v_pages, cfg: LlamaConfig,
     version on CPU tensors), ``"kernel"`` (strict) or ``"reference"``
     (the plain version; tests and the kernel's comparison only).
 
+    ``_block_fn`` is the block math (``_block`` when None); Qwen2-MoE's
+    serving functions pass theirs, as every serving function here takes.
+
     Returns ``(toks, logits [S, V] f32, k_pages, v_pages)``: ``toks`` is
     each slot's pick at its last position, ``[S]`` int32 when
     ``decode_tail == 0``, else ``[S, 1 + decode_tail]``; ``logits`` are
@@ -682,6 +712,7 @@ def serving_tick(params, tokens, meta, k_pages, v_pages, cfg: LlamaConfig,
     if spec_k and decode_tail:
         raise ValueError("spec_k and decode_tail are mutually exclusive "
                          "(speculation replaces the fused decode tail)")
+    block_fn = _block if _block_fn is None else _block_fn
     S = meta["q_len"].shape[0]
     tok_slot, tok_qoff = meta["tok_slot"], meta["tok_qoff"]
     tok_page, tok_off = meta["tok_page"].long(), meta["tok_off"].long()
@@ -699,7 +730,7 @@ def serving_tick(params, tokens, meta, k_pages, v_pages, cfg: LlamaConfig,
                 impl=attn_impl)
             return o[None].to(q.dtype)
 
-        h = _block(_layer(params, i), h, positions, cfg, attn_fn)
+        h = block_fn(_layer(params, i), h, positions, cfg, attn_fn)
     h = rms_norm(h[0], params["final_norm"], cfg.rms_norm_eps)   # [T, D]
     samp = "temp" in meta
 
@@ -761,7 +792,7 @@ def serving_tick(params, tokens, meta, k_pages, v_pages, cfg: LlamaConfig,
                                            "key")}, produced=idx)
             idx = idx + 1
         tok, _, _, _ = serving_tick(params, tok, m, k_pages, v_pages, cfg,
-                                    attn_impl=attn_impl)
+                                    attn_impl=attn_impl, _block_fn=_block_fn)
         lens = lens + 1
         out.append(tok)
     return torch.stack(out, dim=1), logits, k_pages, v_pages
@@ -769,7 +800,8 @@ def serving_tick(params, tokens, meta, k_pages, v_pages, cfg: LlamaConfig,
 
 def serving_tick_block(params, tok, lengths, tables, k_pages, v_pages,
                        cfg: LlamaConfig, num_steps: int,
-                       attn_impl: str = "auto", sampling=None):
+                       attn_impl: str = "auto", sampling=None,
+                       _block_fn=None):
     """``num_steps`` fused decode steps built on the ragged tick:
     tok/lengths ``[S]`` int32, tables ``[S, pps]``; dead slots (all-trash
     rows) write to and read from the trash page. ``sampling``: the
@@ -793,7 +825,7 @@ def serving_tick_block(params, tok, lengths, tables, k_pages, v_pages,
         meta.update(sampling)
     toks, _, k_pages, v_pages = serving_tick(
         params, tok, meta, k_pages, v_pages, cfg,
-        decode_tail=num_steps - 1, attn_impl=attn_impl)
+        decode_tail=num_steps - 1, attn_impl=attn_impl, _block_fn=_block_fn)
     if num_steps == 1:
         toks = toks[:, None]
     return toks, k_pages, v_pages
@@ -942,7 +974,8 @@ def generate_paged(params, prompt, lengths, cfg: LlamaConfig,
 
 @torch.no_grad()
 def serving_prefill(params, tokens, length, table, k_pages, v_pages,
-                    cfg: LlamaConfig, attn_impl: str = "auto"):
+                    cfg: LlamaConfig, attn_impl: str = "auto",
+                    _block_fn=None):
     """Prefill ONE request into its allocated pages.
 
     tokens ``[1, Tb]`` right-padded; length: valid tokens; table
@@ -956,6 +989,7 @@ def serving_prefill(params, tokens, length, table, k_pages, v_pages,
     tables = _int32(table, dev).reshape(1, -1)
     B, T0 = tokens.shape
     impl = _prefill_attn_impl(cfg, attn_impl)
+    block_fn = _block if _block_fn is None else _block_fn
     h = params["embed"].to(cfg.dtype)[tokens.long()]
     positions = torch.arange(T0, device=dev).expand(B, T0)
     for i in range(cfg.num_hidden_layers):
@@ -963,14 +997,14 @@ def serving_prefill(params, tokens, length, table, k_pages, v_pages,
             write_prompt_pages(kp, vp, k, v, lengths, tables)
             return flash_attention(q, k, v, causal=True, impl=impl)
 
-        h = _block(_layer(params, i), h, positions, cfg, attn_fn)
+        h = block_fn(_layer(params, i), h, positions, cfg, attn_fn)
     return _last_logits(params, h, lengths, cfg)[0], k_pages, v_pages
 
 
 @torch.no_grad()
 def serving_prefill_chunk(params, tokens, length, table, k_pages, v_pages,
                           cfg: LlamaConfig, prefix_pages: int,
-                          attn_impl: str = "auto"):
+                          attn_impl: str = "auto", _block_fn=None):
     """Prefill ONE chunk of a request's prompt at a page-aligned offset.
 
     tokens ``[1, Tc]`` right-padded chunk; length: valid tokens IN the
@@ -991,6 +1025,7 @@ def serving_prefill_chunk(params, tokens, length, table, k_pages, v_pages,
     off = prefix_pages * ps
     pref_ids = tables[0, :prefix_pages].long()
     impl = _prefill_attn_impl(cfg, attn_impl)
+    block_fn = _block if _block_fn is None else _block_fn
     h = params["embed"].to(cfg.dtype)[tokens.long()]
     positions = (off + torch.arange(Tc, device=dev)).expand(B, Tc)
 
@@ -1009,13 +1044,14 @@ def serving_prefill_chunk(params, tokens, length, table, k_pages, v_pages,
             write_prompt_pages(kp, vp, k, v, lengths, tables, offset=off)
             return flash_attention(q, kc, vc, causal=True, impl=impl)
 
-        h = _block(_layer(params, i), h, positions, cfg, attn_fn)
+        h = block_fn(_layer(params, i), h, positions, cfg, attn_fn)
     return _last_logits(params, h, lengths, cfg)[0], k_pages, v_pages
 
 
 @torch.no_grad()
 def serving_decode_step(params, tok, lengths, tables, k_pages, v_pages,
-                        cfg: LlamaConfig, attn_impl: str = "auto"):
+                        cfg: LlamaConfig, attn_impl: str = "auto",
+                        _block_fn=None):
     """One decode step for ALL slots: tok ``[S]`` each slot's current
     token, lengths ``[S]`` tokens already in its cache (0 for dead slots,
     whose all-trash table rows write to and read from the trash page;
@@ -1027,6 +1063,7 @@ def serving_decode_step(params, tok, lengths, tables, k_pages, v_pages,
     tok = _int32(tok, dev)
     lengths = _int32(lengths, dev)
     tables = _int32(tables, dev)
+    block_fn = _block if _block_fn is None else _block_fn
     h = params["embed"].to(cfg.dtype)[tok.long()][:, None]       # [S, 1, D]
     positions = lengths[:, None]
     for i in range(cfg.num_hidden_layers):
@@ -1036,14 +1073,14 @@ def serving_decode_step(params, tok, lengths, tables, k_pages, v_pages,
                                 tables, impl=attn_impl)
             return o[:, None].to(q.dtype)
 
-        h = _block(_layer(params, i), h, positions, cfg, attn_fn)
+        h = block_fn(_layer(params, i), h, positions, cfg, attn_fn)
     h = rms_norm(h[:, 0], params["final_norm"], cfg.rms_norm_eps)
     return _mm(h, params["lm_head"]).float(), k_pages, v_pages
 
 
 def serving_decode_block(params, tok, lengths, tables, k_pages, v_pages,
                          cfg: LlamaConfig, num_steps: int,
-                         attn_impl: str = "auto"):
+                         attn_impl: str = "auto", _block_fn=None):
     """``num_steps`` greedy ``serving_decode_step`` calls. Returns
     ``(toks [S, num_steps] int32, k_pages, v_pages)``; the host
     truncates a sequence at EOS / max_new_tokens (positions past a
@@ -1054,7 +1091,8 @@ def serving_decode_block(params, tok, lengths, tables, k_pages, v_pages,
     out = []
     for _ in range(int(num_steps)):
         logits, k_pages, v_pages = serving_decode_step(
-            params, tok, lens, tables, k_pages, v_pages, cfg, attn_impl)
+            params, tok, lens, tables, k_pages, v_pages, cfg, attn_impl,
+            _block_fn)
         tok = logits.argmax(-1).int()
         lens = lens + 1
         out.append(tok)

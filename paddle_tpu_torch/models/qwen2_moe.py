@@ -1,11 +1,31 @@
-"""Qwen2-MoE decoder: the training slice of the PyTorch port.
+"""Qwen2-MoE decoder: training, cached decode and serving.
 
 Port of ``paddle_tpu/models/qwen2_moe.py``: ``Qwen2MoeConfig`` (the
 defaults are Qwen1.5-MoE-A2.7B's published widths; ``tiny`` for tests),
 ``init_params`` (seeded ``torch.Generator``; the router in f32),
 ``decoder_layer`` (Llama attention, then a routed MoE FFN plus a gated
 shared expert), ``forward``, ``loss_fn`` and ``make_train_step`` on one
-device, and ``make_batch`` / ``params_from_jax`` (the Llama ones).
+device, and ``make_batch`` / ``params_from_jax`` (the Llama ones, as are
+``init_kv_cache`` and ``init_serving_pages``).
+
+Decode and serving: ``init_kv_cache`` / ``forward_with_cache`` /
+``generate`` (dense KV cache; the prompt's attention on the flash
+kernels as ``use_flash_attention`` says) and the serving functions
+``init_serving_pages``, ``serving_prefill``, ``serving_prefill_chunk``,
+``serving_decode_step``, ``serving_decode_block``, ``serving_tick`` and
+``serving_tick_block``: the Llama functions (``models/llama.py``) with
+this model's block, ``_decode_block``, so the same ragged and paged
+attention kernels run under it and ``ServingEngine`` serves it
+(``model="qwen2_moe"`` or inferred from the config). ``_decode_block``
+routes DROP-FREE: the einsum ``moe_ffn`` at capacity factor
+``num_experts / num_experts_per_tok`` makes each expert's capacity the
+cohort size, so no token is dropped and a token's FFN does not depend
+on what shares its tick. Its projections go through ``llama._mm``, so
+weight-only int8 params (``quantization.quantize_for_decode``) run q, k,
+v, o, the shared expert and ``lm_head`` on the int8 matmul kernel; the
+routed experts are dequantized to ``cfg.dtype`` for the einsum on every
+call, as the JAX block's ``_dense_w`` does (XLA fuses that cast into
+the einsum; eager PyTorch makes a dense copy of the layer's experts).
 
 The params are a plain dict in the JAX layouts: weights ``[in, out]``,
 per-layer tensors stacked on a leading ``L`` axis, the routed experts
@@ -20,13 +40,12 @@ the JAX block. ``moe_impl="dropless"`` runs the MoE FFN on the
 grouped-matmul kernels (``use_grouped_matmul`` is their switch: True /
 "auto", "kernel", False / "reference"); ``"einsum"`` runs the capacity
 dispatch in plain PyTorch. On one device dropless always engages (the
-JAX package falls back to einsum only on sharded layouts). The decode and
-serving half of the JAX module is not ported yet.
+JAX package falls back to einsum only on sharded layouts).
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict
+from typing import Any, Dict, Optional
 
 import torch
 import torch.nn.functional as F
@@ -34,16 +53,23 @@ from torch.utils.checkpoint import checkpoint
 
 from ..device import resolve_device
 from ..incubate.moe.functional import moe_ffn, moe_ffn_dropless
+from ..ops.fused.int8_matmul import Int8Weight
 from ..ops.kernels.flash_attention import flash_attention
 from . import llama
-from .llama import _kernel_impl, _layer, rms_norm, rope
+from .llama import _kernel_impl, _layer, _mm, rms_norm, rope
 
 __all__ = ["Qwen2MoeConfig", "init_params", "params_from_jax",
            "decoder_layer", "forward", "loss_fn", "make_train_step",
-           "make_batch"]
+           "make_batch", "init_kv_cache", "forward_with_cache", "generate",
+           "init_serving_pages", "serving_prefill", "serving_prefill_chunk",
+           "serving_decode_step", "serving_decode_block", "serving_tick",
+           "serving_tick_block"]
 
 params_from_jax = llama.params_from_jax
 make_batch = llama.make_batch
+# the dense K/V cache and the serving page pools: the Llama layouts
+init_kv_cache = llama.init_kv_cache
+init_serving_pages = llama.init_serving_pages
 
 
 @dataclasses.dataclass
@@ -215,3 +241,128 @@ def make_train_step(cfg: Qwen2MoeConfig, device=None, optimizer=None,
             "(expert, tensor and data parallel) are not ported yet")
     return llama.one_device_trainer(cfg, init_params, loss_fn, device,
                                     optimizer)
+
+
+# ---------------------------------------------------------------------------
+# decode: dense KV cache + generate
+# ---------------------------------------------------------------------------
+
+def _dense_w(w, dtype):
+    """A dense view of an expert weight that may be an ``Int8Weight``:
+    the einsum MoE FFN takes whole expert tensors, so quantized experts
+    are dequantized (``Int8Weight.dequant``, JAX's bits) for each call."""
+    return w.dequant(dtype) if isinstance(w, Int8Weight) else w
+
+
+def _decode_block(lp, h, positions, cfg: Qwen2MoeConfig, attn_fn):
+    """The block of every cached-decode and serving path, with the
+    signature of ``llama._block``: rms_norm -> QKV -> rope -> ``attn_fn``
+    -> o-proj + residual -> rms_norm -> the routed MoE FFN, DROP-FREE
+    (capacity factor E / top_k makes the capacity the cohort size), plus
+    the gated shared expert, + residual. Projections through ``_mm``
+    (dense or ``Int8Weight``); the routed experts through ``_dense_w``."""
+    B, T, _ = h.shape
+    H, Hkv, Dh = cfg.num_attention_heads, cfg.num_key_value_heads, \
+        cfg.head_dim
+    x = rms_norm(h, lp["attn_norm"], cfg.rms_norm_eps)
+    q = _mm(x, lp["wq"]).reshape(B, T, H, Dh)
+    k = _mm(x, lp["wk"]).reshape(B, T, Hkv, Dh)
+    v = _mm(x, lp["wv"]).reshape(B, T, Hkv, Dh)
+    q, k = rope(q, k, positions, cfg.rope_theta, Dh)
+    o = attn_fn(q, k, v)
+    h = h + _mm(o.reshape(B, T, H * Dh), lp["wo"])
+
+    x = rms_norm(h, lp["mlp_norm"], cfg.rms_norm_eps)
+    ex = lp["experts"]
+    routed, _ = moe_ffn(
+        x, lp["router"], _dense_w(ex["w_gate"], cfg.dtype),
+        _dense_w(ex["w_up"], cfg.dtype), _dense_w(ex["w_down"], cfg.dtype),
+        top_k=cfg.num_experts_per_tok,
+        capacity_factor=cfg.num_experts / cfg.num_experts_per_tok)
+    sh = lp["shared"]
+    shared = _mm(F.silu(_mm(x, sh["w_gate"])) * _mm(x, sh["w_up"]),
+                 sh["w_down"])
+    shared = torch.sigmoid(x @ sh["gate"]) * shared
+    return h + routed + shared
+
+
+@torch.no_grad()
+def forward_with_cache(params, tokens, cache, pos0: int,
+                       cfg: Qwen2MoeConfig):
+    """tokens ``[B, T]`` at positions pos0 .. pos0+T-1 -> (f32 logits of
+    the LAST position ``[B, V]``, cache), the cache updated in place.
+    pos0 == 0 is a prompt: causal flash attention over the fresh keys
+    (``use_flash_attention`` picks kernel or plain version); otherwise
+    plain attention over the cache (``llama._cached_attention``)."""
+    impl = _kernel_impl(cfg.use_flash_attention)
+    return llama._forward_with_cache(
+        params, tokens, cache, pos0, cfg, _decode_block,
+        lambda q, k, v: flash_attention(q, k, v, causal=True, impl=impl))
+
+
+def generate(params, prompt, cfg: Qwen2MoeConfig, max_new_tokens: int,
+             *, temperature: float = 0.0, top_p: float = 1.0,
+             top_k: int = 0, key=None, eos_token_id: Optional[int] = None):
+    """Autoregressive MoE decode with a dense KV cache, on the params'
+    device: ``llama.generate``'s contract (the same split chain of keys,
+    EOS latch; returns int32 prompt + continuation), drop-free routing."""
+    return llama._decode_loop(
+        lambda p, t, c, pos: forward_with_cache(p, t, c, pos, cfg),
+        lambda B, n, dev: init_kv_cache(cfg, B, n, dev),
+        params, prompt, max_new_tokens, temperature, top_p, top_k, key,
+        eos_token_id)
+
+
+# ---------------------------------------------------------------------------
+# serving: the Llama serving functions with this model's block
+# ---------------------------------------------------------------------------
+
+def serving_prefill(params, tokens, length, table, k_pages, v_pages, cfg,
+                    attn_impl: str = "auto"):
+    """``llama.serving_prefill`` with the MoE block."""
+    return llama.serving_prefill(params, tokens, length, table, k_pages,
+                                 v_pages, cfg, attn_impl=attn_impl,
+                                 _block_fn=_decode_block)
+
+
+def serving_prefill_chunk(params, tokens, length, table, k_pages, v_pages,
+                          cfg, prefix_pages: int, attn_impl: str = "auto"):
+    """``llama.serving_prefill_chunk`` with the MoE block."""
+    return llama.serving_prefill_chunk(
+        params, tokens, length, table, k_pages, v_pages, cfg, prefix_pages,
+        attn_impl=attn_impl, _block_fn=_decode_block)
+
+
+def serving_decode_step(params, tok, lengths, tables, k_pages, v_pages,
+                        cfg, attn_impl: str = "auto"):
+    """``llama.serving_decode_step`` with the MoE block."""
+    return llama.serving_decode_step(params, tok, lengths, tables, k_pages,
+                                     v_pages, cfg, attn_impl=attn_impl,
+                                     _block_fn=_decode_block)
+
+
+def serving_decode_block(params, tok, lengths, tables, k_pages, v_pages,
+                         cfg, num_steps: int, attn_impl: str = "auto"):
+    """``llama.serving_decode_block`` with the MoE block."""
+    return llama.serving_decode_block(
+        params, tok, lengths, tables, k_pages, v_pages, cfg, num_steps,
+        attn_impl=attn_impl, _block_fn=_decode_block)
+
+
+def serving_tick(params, tokens, meta, k_pages, v_pages, cfg,
+                 decode_tail: int = 0, spec_k: int = 0,
+                 attn_impl: str = "auto"):
+    """``llama.serving_tick`` (decode tail, speculative verify, in-tick
+    sampling) with the MoE block."""
+    return llama.serving_tick(params, tokens, meta, k_pages, v_pages, cfg,
+                              decode_tail=decode_tail, spec_k=spec_k,
+                              attn_impl=attn_impl, _block_fn=_decode_block)
+
+
+def serving_tick_block(params, tok, lengths, tables, k_pages, v_pages,
+                       cfg, num_steps: int, attn_impl: str = "auto",
+                       sampling=None):
+    """``llama.serving_tick_block`` with the MoE block."""
+    return llama.serving_tick_block(
+        params, tok, lengths, tables, k_pages, v_pages, cfg, num_steps,
+        attn_impl=attn_impl, sampling=sampling, _block_fn=_decode_block)

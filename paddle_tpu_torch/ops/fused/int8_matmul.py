@@ -89,7 +89,9 @@ class Int8Weight:
 
     def dequant(self, dtype=torch.bfloat16):
         """Dense ``[..., in, out]`` approximation in ``dtype``."""
-        return (self.q.float() * self.scale[..., None, :]).to(dtype)
+        # int8 * f32 promotes to f32: the same bits as q.float() * scale,
+        # with no f32 copy of q
+        return torch.mul(self.q, self.scale[..., None, :]).to(dtype)
 
     def dequant_matmul(self, x, impl: str = "auto"):
         return int8_weight_matmul(x, self.q, self.scale, impl=impl)

@@ -1,11 +1,14 @@
 """Continuous-batching serving over the paged KV cache (PyTorch port of
-``paddle_tpu/serving``)."""
+``paddle_tpu/serving``): ``ServingEngine`` serves Llama and Qwen2-MoE
+(the model from ``model=`` or the config's type)."""
 from .engine import ServingEngine
 from .metrics import ServingMetrics
 from .prefix_cache import PrefixCache
 from .scheduler import (CANCELLED, COMPLETED, QUEUED, REJECTED, RUNNING,
                         TIMED_OUT, Request, RequestHandle, Scheduler)
+from .speculative import AcceptancePolicy, NGramDrafter
 
 __all__ = ["ServingEngine", "ServingMetrics", "PrefixCache", "Request",
            "RequestHandle", "Scheduler", "QUEUED", "RUNNING", "COMPLETED",
-           "CANCELLED", "TIMED_OUT", "REJECTED"]
+           "CANCELLED", "TIMED_OUT", "REJECTED", "AcceptancePolicy",
+           "NGramDrafter"]

@@ -29,7 +29,11 @@ Port of ``paddle_tpu/serving/engine.py``:
     (``serving_tick``'s ``spec_k`` mode), emitting ``1 + accepted``
     tokens a launch;
   - ``defragment()`` compacts the live pages, ``expose()`` renders the
-    metrics as Prometheus text.
+    metrics as Prometheus text;
+  - the model module comes from ``model=`` or the config's type
+    (``llama``, ``qwen2_moe``): its ``init_serving_pages``,
+    ``serving_tick`` and ``serving_tick_block`` run the ticks, and
+    ``llama.pack_tick`` packs them for every model.
 
 Correctness bar (tests/test_torch_serving.py, test_torch_sampling.py,
 test_torch_speculative.py): every request's greedy tokens equal a
@@ -55,7 +59,7 @@ import torch
 
 from ..device import resolve_device
 from ..inference.paged_kv import PagePool, apply_defrag
-from ..models import llama
+from ..models import llama, qwen2_moe
 from ..quantization.decode import is_quantized_params, quantize_for_decode
 from .metrics import ServingMetrics
 from .prefix_cache import PrefixCache
@@ -64,6 +68,25 @@ from .scheduler import (CANCELLED, COMPLETED, REJECTED, TIMED_OUT,
 from .speculative import AcceptancePolicy, resolve_drafter
 
 __all__ = ["ServingEngine"]
+
+
+def _resolve_model(model, cfg):
+    """The model module that serves ``cfg``: a module-like ``model`` as
+    given (it provides ``init_serving_pages``, ``serving_tick`` and
+    ``serving_tick_block`` with the port's signatures), else the name
+    ``model`` or, when None, the config's type name: ``llama`` or
+    ``qwen2_moe``. Anything else raises ``ValueError``."""
+    if model is not None and not isinstance(model, str):
+        return model
+    name = model or type(cfg).__name__
+    if "llama" in name.lower():
+        return llama
+    if "qwen2moe" in name.lower().replace("_", ""):
+        return qwen2_moe
+    raise ValueError(
+        f"cannot infer serving model from {name!r}; pass model='llama', "
+        "'qwen2_moe', or a module exposing init_serving_pages/"
+        "serving_tick/serving_tick_block")
 
 
 class ServingEngine:
@@ -77,7 +100,10 @@ class ServingEngine:
         toks = h.result()      # or block for the full continuation
         eng.close()            # graceful drain
 
-    params/cfg: Llama params (``models.llama``) on ``device`` + config.
+    params/cfg: the model's params on ``device`` + config (Llama or
+    Qwen2-MoE).
+    model: None (from the config's type), ``"llama"``, ``"qwen2_moe"`` or
+    a module-like object with the serving functions (``_resolve_model``).
     device: ``cuda`` by default; ``"cpu"`` only when asked (the tests).
     max_batch: decode slots.
     page_size/total_pages: the shared KV pool geometry. The default
@@ -111,7 +137,8 @@ class ServingEngine:
     spec_k: the draft-length cap.
     """
 
-    def __init__(self, params, cfg, *, device=None, max_batch: int = 8,
+    def __init__(self, params, cfg, *, model=None, device=None,
+                 max_batch: int = 8,
                  page_size: int = 16, total_pages: Optional[int] = None,
                  max_prompt_len: int = 64, max_new_tokens_cap: int = 64,
                  max_queue: Optional[int] = None,
@@ -131,6 +158,7 @@ class ServingEngine:
         if quantization not in (None, "none", "int8"):
             raise ValueError(f"quantization must be None/'none'/'int8', "
                              f"got {quantization!r}")
+        self._mod = _resolve_model(model, cfg)
         self._dev = resolve_device(device)
         if params["embed"].device != self._dev:
             raise ValueError(f"params live on {params['embed'].device}, "
@@ -167,8 +195,8 @@ class ServingEngine:
         self._spec_k = int(spec_k) if self._drafter is not None else 0
         self._spec_policy = (AcceptancePolicy(self._spec_k)
                              if self._drafter is not None else None)
-        pools = llama.init_serving_pages(cfg, total_pages, page_size,
-                                         self._dev)
+        pools = self._mod.init_serving_pages(cfg, total_pages, page_size,
+                                             self._dev)
         self._kp, self._vp = pools["k_pages"], pools["v_pages"]
         # requests parked mid chunked-prefill, FIFO
         self._prefill_q: "deque" = deque()
@@ -537,12 +565,12 @@ class ServingEngine:
         meta.update(self._sampling_arrays())
         t0 = time.perf_counter()
         if spec:
-            toks, accept, _, self._kp, self._vp = llama.serving_tick(
+            toks, accept, _, self._kp, self._vp = self._mod.serving_tick(
                 self._params, tok, meta, self._kp, self._vp, self._cfg,
                 spec_k=spec)
             accept = accept.cpu().numpy()
         else:
-            toks, _, self._kp, self._vp = llama.serving_tick(
+            toks, _, self._kp, self._vp = self._mod.serving_tick(
                 self._params, tok, meta, self._kp, self._vp, self._cfg,
                 decode_tail=tail)
         toks = toks.cpu().numpy()       # the one host read-back per tick
@@ -593,7 +621,7 @@ class ServingEngine:
         lands on the trash page or past the length)."""
         k = self._decode_block
         t0 = time.perf_counter()
-        toks, self._kp, self._vp = llama.serving_tick_block(
+        toks, self._kp, self._vp = self._mod.serving_tick_block(
             self._params, self._to_dev(self._cur_tok),
             self._to_dev(self.scheduler.lengths),
             self._to_dev(self.scheduler.tables), self._kp, self._vp,

@@ -113,15 +113,16 @@ def test_dropless_equals_einsum_when_nothing_drops():
 
 
 def test_one_device_refusals():
+    """Expert parallelism and meshes are refused; a key under moe_ffn's
+    default gating policy draws nothing, as in the JAX package (the
+    random policy is held to JAX in test_torch_qwen2_moe_serving.py)."""
+    from paddle_tpu_torch import prng
     x, gate_w, ws = _moe_inputs(6)
     a = [_t(v) for v in (x, gate_w, *ws)]
-    with pytest.raises(NotImplementedError):
-        TF.moe_ffn(*a, key=object())
+    for got, want in zip(TF.moe_ffn(*a, key=prng.key(3)), TF.moe_ffn(*a)):
+        assert torch.equal(got, want)
     with pytest.raises(NotImplementedError):
         TF.moe_ffn(*a, ep_axis="ep")
-    with pytest.raises(NotImplementedError):
-        TF.top_k_gating(a[0] @ a[1], 2, 8, key=object(),
-                        second_policy="random")
     cfg = TQ.Qwen2MoeConfig.tiny(dtype=torch.float32)
     with pytest.raises(NotImplementedError):
         TQ.make_train_step(cfg, device="cpu", mesh=object())

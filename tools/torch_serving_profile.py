@@ -20,10 +20,21 @@ time of its kernels from ``torch.profiler`` (and so the device's idle
 share of the span), the attention kernels' share (ragged or paged), the
 int8 matmul kernel's share, and the top kernels by device time.
 
-    python3 tools/torch_serving_profile.py
+``--model qwen2_moe`` runs the default ``Qwen2MoeConfig()`` (the widths
+of Qwen1.5-MoE-A2.7B, 24 layers, bf16) instead: ``decode_block`` and
+``mixed_tick`` as above with bf16 weights, then ``decode_block_int8``
+and ``mixed_tick_int8`` with ``quantize_for_decode`` weights. Each line
+adds the device time of the routed MoE FFN (``moe_ffn``), of its
+einsums (the dispatch, the three expert products and the combine) and of
+the int8 experts' dequantization (``_dense_w``), and their shares of the
+busy time; the two model functions are wrapped in profiler ranges by
+this script only.
+
+    python3 tools/torch_serving_profile.py [--model llama|qwen2_moe]
 """
 from __future__ import annotations
 
+import argparse
 import json
 import sys
 import time
@@ -34,7 +45,7 @@ import torch
 
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 
-from paddle_tpu_torch.models import llama  # noqa: E402
+from paddle_tpu_torch.models import llama, qwen2_moe  # noqa: E402
 from paddle_tpu_torch.ops.kernels import _build  # noqa: E402
 
 S, PS, PPS = 8, 16, 34
@@ -45,6 +56,10 @@ def _tables():
                         device="cuda").reshape(S, PPS)
 
 
+def _module(cfg):
+    return qwen2_moe if hasattr(cfg, "num_experts") else llama
+
+
 def _decode_block(params, cfg, pools):
     tok = torch.randint(0, cfg.vocab_size, (S,), dtype=torch.int32,
                         device="cuda")
@@ -52,9 +67,9 @@ def _decode_block(params, cfg, pools):
     tables = _tables()
 
     def step():
-        llama.serving_tick_block(params, tok, lengths, tables,
-                                 pools["k_pages"], pools["v_pages"], cfg,
-                                 num_steps=4)
+        _module(cfg).serving_tick_block(params, tok, lengths, tables,
+                                        pools["k_pages"], pools["v_pages"],
+                                        cfg, num_steps=4)
     return step, 4
 
 
@@ -68,8 +83,8 @@ def _mixed_tick(params, cfg, pools):
         _tables().cpu().numpy(), PS, "cuda")
 
     def step():
-        llama.serving_tick(params, tok, meta, pools["k_pages"],
-                           pools["v_pages"], cfg)
+        _module(cfg).serving_tick(params, tok, meta, pools["k_pages"],
+                                  pools["v_pages"], cfg)
     return step, 1
 
 
@@ -103,7 +118,33 @@ def _kernel_times(prof):
     return out
 
 
-def profile(name, step, n_steps, reps=3):
+# host ranges whose device time is reported (Qwen2-MoE): their key in the
+# profiler's averages
+MOE_RANGES = {"moe_ffn": "qwen2_moe.moe_ffn", "einsum": "aten::einsum",
+              "dequant": "qwen2_moe.dequant_experts"}
+
+
+def _ranged(fn, label):
+    def wrapped(*a, **kw):
+        with torch.profiler.record_function(label):
+            return fn(*a, **kw)
+    return wrapped
+
+
+def _range_ms(prof, key):
+    """Device ms of the kernels launched under the host range ``key``
+    (its children included), or None when the profiler shows none."""
+    from torch.autograd import DeviceType
+    total = 0.0
+    for it in prof.key_averages():
+        if it.key != key or it.device_type != DeviceType.CPU:
+            continue
+        t = getattr(it, "device_time_total", None)
+        total += float(it.cuda_time_total if t is None else t)
+    return total / 1e3 if total else None
+
+
+def profile(name, step, n_steps, reps=3, ranges=None):
     for _ in range(2):
         step()
     torch.cuda.synchronize()
@@ -123,7 +164,10 @@ def profile(name, step, n_steps, reps=3):
                                             ProfilerActivity.CUDA]) as prof:
         step()
         torch.cuda.synchronize()
-    kern = _kernel_times(prof)
+    # the ranges' GPU-side annotations span their kernels and the gaps
+    # between them: not kernels
+    kern = {k: v for k, v in _kernel_times(prof).items()
+            if k not in (ranges or {}).values()}
     busy_ms = sum(t for t, _ in kern.values()) / 1e3
     attn_ms = sum(t for k, (t, _) in kern.items()
                   if "decode_attention_kernel" in k) / 1e3
@@ -131,6 +175,13 @@ def profile(name, step, n_steps, reps=3):
                   if "int8_mm_" in k) / 1e3
     span = float(np.median(spans))
     top = sorted(kern.items(), key=lambda kv: -kv[1][0])[:8]
+    extra = {}
+    for label, key in (ranges or {}).items():
+        ms = _range_ms(prof, key)
+        extra[f"{label}_ms_per_step"] = (None if ms is None
+                                         else ms / n_steps)
+        extra[f"{label}_share_of_busy"] = (None if ms is None or not busy_ms
+                                           else ms / busy_ms)
     return {
         "scenario": name, "model_steps": n_steps,
         "host_ms_per_step": float(np.median(walls)) / n_steps,
@@ -142,14 +193,44 @@ def profile(name, step, n_steps, reps=3):
         "int8_matmul_ms_per_step": int8_ms / n_steps,
         "top_kernels_ms": [[k[:90], round(t / 1e3, 4), c]
                            for k, (t, c) in top],
+        **extra,
     }
 
 
+def qwen_main() -> int:
+    """bf16 then int8 ticks of the default Qwen2MoeConfig()."""
+    from paddle_tpu_torch.quantization import quantize_for_decode
+    cfg = qwen2_moe.Qwen2MoeConfig()
+    params = qwen2_moe.init_params(cfg, torch.Generator(device="cuda")
+                                   .manual_seed(0))
+    pools = qwen2_moe.init_serving_pages(cfg, 1 + S * PPS, PS)
+    g = torch.Generator(device="cuda").manual_seed(1)
+    for t in pools.values():
+        t.copy_(torch.randn(t.shape, generator=g, device="cuda"))
+    qwen2_moe.moe_ffn = _ranged(qwen2_moe.moe_ffn, MOE_RANGES["moe_ffn"])
+    qwen2_moe._dense_w = _ranged(qwen2_moe._dense_w, MOE_RANGES["dequant"])
+    for tag, p in (("", params), ("_int8", quantize_for_decode(params,
+                                                                cfg))):
+        for name, make in (("decode_block", _decode_block),
+                           ("mixed_tick", _mixed_tick)):
+            step, n = make(p, cfg, pools)
+            print(json.dumps(dict(profile(name + tag, step, n,
+                                          ranges=MOE_RANGES),
+                                  model="qwen2_moe")), flush=True)
+    return 0
+
+
 def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--model", choices=("llama", "qwen2_moe"),
+                    default="llama")
+    args = ap.parse_args()
     if not torch.cuda.is_available():
         print("torch_serving_profile: no CUDA device", file=sys.stderr)
         return 2
     _build.build()
+    if args.model == "qwen2_moe":
+        return qwen_main()
     cfg = llama.LlamaConfig.llama3_8b()
     params = llama.init_params(cfg, torch.Generator(device="cuda")
                                .manual_seed(0))
