@@ -159,8 +159,8 @@ Phases (any failed check raises; nothing is caught):
    the ragged kernel (phase 3's cases a, b, d and e) and the paged
    kernel (phase 7's engine and chunk-edge cases) at G = 1 (H = Hkv =
    16, Dh 128) against their plain versions to the same bounds, with row
-   invariance, and the times and bounds of the engine tick and the 16k
-   decode; (b) the int8 matmul at Qwen's four weight shapes (K 2048 ->
+   invariance, and the times and bounds of the engine tick, the ragged
+   16k decode rows (case b) and the paged 16k decode; (b) the int8 matmul at Qwen's four weight shapes (K 2048 ->
    N 2048, 5632, 151936; K 5632 -> N 2048) at M 8 and 256, to phase 7's
    bounds; (c) phase 4's engine, wave and checks on Qwen2-MoE (ragged
    launches = 24 x model steps; the mixed tick kernel vs plain within
@@ -179,8 +179,27 @@ Phases (any failed check raises; nothing is caught):
    int8 engine on the wave (int8 launches = (7 x 24 + 1) x model
    steps); tok/s, TTFT and the weight bytes a step.
 
-Phases run in the order 1, 2, 3, 5, 7, 4, 8, 13, 14, 6, 9, 10, 11, 12:
-phase 14 starts after the 8B serving state is freed, phase 6 after
+15. KV-chain migration and the cold tier on ``llama3_8b`` (phase 4's
+   params; engines of 4 slots, page 16, prompts up to 1088 tokens, 32
+   new, the paged-KV audit after every tick): the ragged kernel at the
+   adopting engine's shapes (a 16-token span behind 1040 keys and a
+   decode row over 1087, shuffled pages) against its plain version to
+   phase 3's bounds, and two page placements of the same bytes bitwise;
+   (a) engine A serves four 1040-token chains (65 pages each), chain 0
+   is exported whole, pickled and adopted by engine B, and its
+   continuation (32 greedy tokens) alone on A and on B gives the same
+   tokens, B attaching all 1040 adopted tokens, ragged launches = L x
+   model steps; (b) chain 1 the same in chunks of 8 pages with a defrag
+   of A moving the chain's pages mid-transfer, audits clean, and an
+   adopt_chain_begin / _abort pair that returns B's free pages; (c) a
+   1 GiB cold tier on an engine where each chain evicts the last: p1's
+   rewarmed tokens equal its warm run's, cold_hits 1, cold_hit_pages 64;
+   (d) export and adopt GB/s (whole and a chunk), ms a spilled page,
+   cold_adopt_s, TTFT cold / warm / rewarmed, and the largest decode
+   stall of a stream on A alone and during a whole-blob export.
+
+Phases run in the order 1, 2, 3, 5, 7, 4, 8, 13, 15, 14, 6, 9, 10, 11,
+12: phase 14 starts after the 8B serving state is freed, phase 6 after
 phase 14's, phases 9 and 10 after phase 6's.
 
 The last two lines of standard output are the card's name and power
@@ -2530,6 +2549,351 @@ def sampling_phase(params, cfg) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# KV-chain migration and the cold tier on llama3_8b (phase 15)
+# ---------------------------------------------------------------------------
+
+# every engine of phase 15: 4 slots, page 16, prompts up to 1088 tokens, 32
+# new, the paged-KV audit after every tick and around every defrag
+# (562 MiB of pool an engine at the default 281 pages)
+MIG_GEOM = dict(max_batch=4, page_size=16, max_prompt_len=1088,
+                max_new_tokens_cap=32, check_invariants=True)
+MIG_PROMPT = 1040        # 65 full pages a chain
+MIG_NEW = 32             # greedy tokens of each continuation
+MIG_CHUNK = 8            # pages a chunk of (b)'s transfer
+# the ragged kernel at engine B's shapes over pages at arbitrary ids (as
+# adopted ones are): a continuation's 16-token span behind 1040 cached
+# tokens and a decode row at the continuation's last position
+CASE_ADOPTED = dict(slots=[(16, 1056), (1, 1087), (0, 0), (0, 0)], pps=70,
+                    shuffle=True)
+
+
+def check_placement_invariance(case, seed: int = 7) -> None:
+    """Bitwise: the same KV bytes with every page moved to another id
+    (tables rewritten to match) give the same bf16 output."""
+    c = cast(case, torch.bfloat16)
+    P = c["k_pages"].shape[1]
+    dev = c["q"].device
+    new_id = torch.as_tensor(np.concatenate(
+        [[0], np.random.RandomState(seed).permutation(np.arange(1, P))]),
+        device=dev)
+    moved = dict(c, k_pages=torch.empty_like(c["k_pages"]),
+                 v_pages=torch.empty_like(c["v_pages"]),
+                 tables=new_id[c["tables"].long()].to(torch.int32))
+    moved["k_pages"][:, new_id] = c["k_pages"]
+    moved["v_pages"][:, new_id] = c["v_pages"]
+    assert torch.equal(run_rpa(c, "kernel"), run_rpa(moved, "kernel")), \
+        "ragged kernel output depends on the page placement"
+
+
+def adopted_kernel_case() -> dict:
+    """The ragged kernel at engine B's shapes against its plain version
+    (phase 3's bounds), under two page placements bitwise, and its
+    kernel, plain, SDPA and bound times."""
+    case = make_case(**CASE_ADOPTED, **GEOM, seed=15)
+    rec = check_case("adopted", case)
+    check_placement_invariance(case)
+    c16 = cast(case, torch.bfloat16)
+    rec.update(ms=time_ms(lambda: run_rpa(c16, "kernel")),
+               plain_ms=time_ms(lambda: run_rpa(c16, "reference"), reps=5),
+               library_ms=time_ms(sdpa_yardstick(c16)))
+    rec["bound_ms"], rec["bound_by"] = attention_bound_ms(c16)
+    log("ragged case adopted (16-token span behind 1040 keys and a decode "
+        "row over 1087, shuffled pages): " + " ".join(
+            f"{k}={v:.4g}" if isinstance(v, float) else f"{k}={v}"
+            for k, v in rec.items())
+        + "; two page placements of the same bytes bitwise equal")
+    del case, c16
+    torch.cuda.empty_cache()
+    return rec
+
+
+def continue_chain(eng, prompt, new: int = MIG_NEW) -> dict:
+    """``prompt`` alone on ``eng``, the ragged kernel's count zeroed just
+    before and read just after: tokens, prefix tokens attached, model
+    steps, ragged launches, TTFT."""
+    from paddle_tpu_torch.ops.kernels import ragged_paged_attention as rpa
+    c0 = eng.snapshot()["counters"]
+    rpa.ragged_paged_attention_packed.launches = 0
+    h = eng.submit(prompt, new)
+    out = h.result(timeout=600)
+    launches = rpa.ragged_paged_attention_packed.launches
+    c1 = eng.snapshot()["counters"]
+    return dict(tokens=out, launches=launches,
+                cached=c1["prefix_hit_tokens"] - c0["prefix_hit_tokens"],
+                steps=c1["model_steps"] - c0["model_steps"],
+                ttft_s=h.ttft_s)
+
+
+def _chain_pages(eng, fp: int) -> list:
+    with eng._tick_lock:
+        return [nd.page for nd in
+                eng.prefix_cache.chain_by_fingerprint(fp, max_depth=65)]
+
+
+def _stall_max(eng, fn) -> float:
+    """Largest ``decode_stall_s`` of one 32-token decode stream alone on
+    ``eng`` while ``fn()`` runs (``fn`` starts once the stream's first
+    token is out)."""
+    hist = eng.metrics.histograms["decode_stall_s"]
+    n0 = hist.summary()["count"]
+    h = eng.submit(np.arange(1, 65, dtype=np.int32), MIG_NEW)
+    next(iter(h))
+    fn()
+    h.result(timeout=600)
+    with eng.metrics._lock:
+        new = list(hist._vals)[-(hist.summary()["count"] - n0):]
+    return float(max(new))
+
+
+def migration_phase(params, cfg) -> dict:
+    """Phase 15: migration and the cold tier at llama3_8b's full width
+    and depth. (a) engine A serves four 1040-token chains; chain 0 is
+    exported whole, pickled and adopted by engine B; its continuation
+    (the chain + 16 new tokens, 32 greedy tokens) alone on A and on B
+    gives the same tokens, B attaching all 1040 adopted tokens with
+    ragged launches = L x model steps; (b) chain 1 the same way in
+    chunks of 8 pages, with ``A.defragment()`` before each chunk moving
+    the chain's pages mid-transfer, both engines' audits clean, then an
+    adopt_chain_begin / _abort pair on chain 3 that leaves B's free pages
+    as they were; (c) engine C, sized so each chain evicts the last,
+    with a 1 GiB cold tier: p1 cold, p1 warm, p2, p3, then p1 rewarmed
+    from host RAM (cold_hits 1, cold_hit_pages 64, its tokens the warm
+    run's); (d) transfer rates, ms a spilled page, cold_adopt_s and the
+    largest decode stall of a stream on A while a whole blob is
+    exported."""
+    import pickle
+
+    from paddle_tpu_torch.serving import ServingEngine, prefix_fingerprints
+
+    L = cfg.num_hidden_layers
+    ps = MIG_GEOM["page_size"]
+    dev = params["embed"].device
+    smi = nvidia_smi_line()
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+
+    rng = np.random.RandomState(150)
+    chains = [rng.randint(0, cfg.vocab_size, MIG_PROMPT).astype(np.int32)
+              for _ in range(4)]
+    suffix = [rng.randint(0, cfg.vocab_size, 16).astype(np.int32)
+              for _ in range(4)]
+    events = {}
+    A = ServingEngine(params, cfg, device=dev, **MIG_GEOM,
+                      on_chain_complete=lambda req, info:
+                      events.setdefault(req.id, info))
+    B = ServingEngine(params, cfg, device=dev, **MIG_GEOM)
+    rec = {}
+    try:
+        hs = [A.submit(c, 16) for c in chains]
+        for h in hs:
+            assert h.result(timeout=600).shape == (16,)
+        fps = [events[h.id]["fp"] for h in hs]
+        for c, h, fp in zip(chains, hs, fps):
+            assert events[h.id]["pages"] == MIG_PROMPT // ps
+            # the hook's fingerprint is the router's hash of the chain
+            assert fp == prefix_fingerprints(np.append(c, 0), ps, 65)[-1]
+        assert A.gauges()["prefix_cache_cached_pages"] == 4 * 65
+        page_bytes = 2 * L * cfg.num_key_value_heads * ps * cfg.head_dim \
+            * torch.empty((), dtype=cfg.dtype).element_size()
+
+        # (a) whole blob
+        t0 = time.perf_counter()
+        blob = A.export_chain(fps[0], max_depth=65)
+        t_export = time.perf_counter() - t0
+        # the same export again: host memory the first one touched is
+        # reused, so the difference is the first touch of fresh pages
+        t0 = time.perf_counter()
+        A.export_chain(fps[0], max_depth=65)
+        t_again = time.perf_counter() - t0
+        blob = pickle.loads(pickle.dumps(blob))
+        nbytes = blob["k"].nbytes + blob["v"].nbytes
+        assert nbytes == 65 * page_bytes
+        assert blob["k"].shape == (L, cfg.num_key_value_heads, 65, ps,
+                                   cfg.head_dim), blob["k"].shape
+        assert blob["k"].dtype == (np.uint16 if cfg.dtype == torch.bfloat16
+                                   else np.float32)
+        t0 = time.perf_counter()
+        got = B.adopt_chain(blob)
+        sync()
+        t_adopt = time.perf_counter() - t0
+        assert got == {"matched_pages": 0, "adopted_pages": 65}, got
+        assert B.audit() == []
+        back = B.export_chain(fps[0], max_depth=65)     # bytes, in order
+        assert np.array_equal(back["k"], blob["k"])
+        assert np.array_equal(back["v"], blob["v"])
+        del back
+        cont = np.concatenate([chains[0], suffix[0]])
+        on_a = continue_chain(A, cont)
+        on_b = continue_chain(B, cont)
+        for r in (on_a, on_b):
+            assert r["cached"] == MIG_PROMPT, r["cached"]
+        assert np.array_equal(on_a["tokens"], on_b["tokens"]), \
+            (on_a["tokens"], on_b["tokens"])
+        assert on_b["launches"] == L * on_b["steps"], on_b
+        launches = on_b["launches"]
+        rec["whole"] = dict(export_gb_s=nbytes / t_export / 1e9,
+                            export_again_gb_s=nbytes / t_again / 1e9,
+                            adopt_gb_s=nbytes / t_adopt / 1e9,
+                            export_s=t_export, adopt_s=t_adopt,
+                            bytes=nbytes)
+        log(f"migration (a) whole blob of 65 pages ({nbytes / 2**20:.0f} "
+            f"MiB): export {t_export * 1e3:.2f} ms = "
+            f"{rec['whole']['export_gb_s']:.2f} GB/s (again "
+            f"{t_again * 1e3:.2f} ms = "
+            f"{rec['whole']['export_again_gb_s']:.2f} GB/s), adopt "
+            f"{t_adopt * 1e3:.2f} ms = {rec['whole']['adopt_gb_s']:.2f} "
+            f"GB/s; {MIG_NEW} tokens on A (warm) == on B (adopted), B "
+            f"attached {on_b['cached']} tokens, {on_b['launches']} ragged "
+            f"launches = {L} x {on_b['steps']} model steps [{smi}]")
+
+        # (b) chunked, with a defrag moving the chain mid-transfer
+        hdr = A.export_chain_begin(fps[1], max_depth=65)
+        st = B.adopt_chain_begin({"page_size": hdr["page_size"],
+                                  "tokens": hdr["tokens"]})
+        assert st["need"] == 65, st
+        before = _chain_pages(A, fps[1])
+        moved, t_exp, t_adp, chunk_bytes = [], [], [], []
+        for start in range(0, 65, MIG_CHUNK):
+            moved.append(A.defragment())
+            t0 = time.perf_counter()
+            ch = A.export_chain_chunk(hdr["xid"], start, MIG_CHUNK)
+            t_exp.append(time.perf_counter() - t0)
+            t0 = time.perf_counter()
+            B.adopt_chain_chunk(st["aid"], ch["start"], ch["k"], ch["v"])
+            sync()
+            t_adp.append(time.perf_counter() - t0)
+            chunk_bytes.append(ch["k"].nbytes + ch["v"].nbytes)
+            assert A.audit() == [] and B.audit() == []
+        after = _chain_pages(A, fps[1])
+        assert moved[0] > 0 and before != after, \
+            "the defrag did not move the chain being exported"
+        got = B.adopt_chain_commit(st["aid"])
+        A.export_chain_end(hdr["xid"])
+        assert got == {"matched_pages": 0, "adopted_pages": 65}, got
+        assert A.audit() == [] and B.audit() == []
+        cont = np.concatenate([chains[1], suffix[1]])
+        on_a = continue_chain(A, cont)
+        on_b = continue_chain(B, cont)
+        for r in (on_a, on_b):
+            assert r["cached"] == MIG_PROMPT, r["cached"]
+        assert np.array_equal(on_a["tokens"], on_b["tokens"]), \
+            (on_a["tokens"], on_b["tokens"])
+        assert on_b["launches"] == L * on_b["steps"], on_b
+        launches += on_b["launches"]
+        full = [i for i, n in enumerate(chunk_bytes)
+                if n == MIG_CHUNK * page_bytes]
+        rec["chunk"] = dict(
+            export_gb_s=float(np.median([chunk_bytes[i] / t_exp[i]
+                                         for i in full])) / 1e9,
+            adopt_gb_s=float(np.median([chunk_bytes[i] / t_adp[i]
+                                        for i in full])) / 1e9,
+            pages_moved=moved[0],
+            moved_chain_pages=sum(a != b for a, b in zip(before, after)))
+        log(f"migration (b) {len(t_exp)} chunks of {MIG_CHUNK} pages "
+            f"({MIG_CHUNK * page_bytes / 2**20:.0f} MiB): export "
+            f"{rec['chunk']['export_gb_s']:.2f} GB/s, adopt "
+            f"{rec['chunk']['adopt_gb_s']:.2f} GB/s (medians); the defrag "
+            f"before the first chunk moved {moved[0]} pages, "
+            f"{rec['chunk']['moved_chain_pages']} of the chain's; tokens "
+            f"on A == on B; audits clean [{smi}]")
+        free = B.pool.free_pages
+        hdr = A.export_chain_begin(fps[3], max_depth=65)
+        st = B.adopt_chain_begin(hdr)
+        assert B.pool.free_pages == free - 65 and B.audit() == []
+        B.adopt_chain_abort(st["aid"])
+        A.export_chain_end(hdr["xid"])
+        assert B.pool.free_pages == free, (B.pool.free_pages, free)
+        assert A.audit() == [] and B.audit() == []
+
+        # (d) the stall a decode stream on A sees
+        base = _stall_max(A, lambda: None)
+        during = _stall_max(A, lambda: A.export_chain(fps[2],
+                                                      max_depth=65))
+        rec["decode_stall_s"] = dict(alone=base, export=during)
+        log(f"migration (d) largest decode_stall_s of a 32-token stream "
+            f"on A: {base * 1e3:.2f} ms alone, {during * 1e3:.2f} ms with "
+            f"a whole-blob export of 65 pages [{smi}]")
+        assert A.audit() == [] and B.audit() == []
+    finally:
+        A.close()
+        B.close()
+    rec["launches"] = launches
+
+    # (c) the cold tier: each chain must evict the last
+    need = -(-(MIG_PROMPT + 16 - 1) // ps)
+    C = ServingEngine(params, cfg, device=dev, **MIG_GEOM,
+                      total_pages=1 + need, cold_tier_bytes=1 << 30)
+    try:
+        p1, p2, p3 = (rng.randint(0, cfg.vocab_size, MIG_PROMPT)
+                      .astype(np.int32) for _ in range(3))
+        runs = {}
+        for name, p in (("cold", p1), ("warm", p1), ("p2", p2),
+                        ("p3", p3), ("rewarmed", p1)):
+            h = C.submit(p, 16)
+            runs[name] = (h.result(timeout=600), h.ttft_s)
+            if name == "p2":
+                c = C.snapshot()["counters"]
+                assert c["cold_spills"] >= 65, c["cold_spills"]
+                assert prefix_fingerprints(p1, ps, 1)[0] not in \
+                    C.affinity_summary(1), "p1 still cached after p2"
+        snap = C.snapshot()
+        c = snap["counters"]
+        assert c["cold_hits"] == 1 and c["cold_hit_pages"] == 64, c
+        assert np.array_equal(runs["rewarmed"][0], runs["warm"][0]), runs
+        agree = int((runs["rewarmed"][0] == runs["cold"][0]).sum())
+        adopt_s = snap["histograms"]["cold_adopt_s"]["max"]
+        assert C.audit() == []
+        # ms a spilled page: the cached chain evicted through the spill
+        # hook (one synchronizing copy a page); beside it, its parts
+        # alone on the same pages: the chain fingerprints, the copies
+        with C._tick_lock:
+            nodes = C.prefix_cache.nodes()
+            t0 = time.perf_counter()
+            for nd in nodes:
+                C.prefix_cache.node_fingerprint(nd)
+            t_fp = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            for nd in nodes:
+                idx = torch.tensor([nd.page], device=dev)
+                torch.index_select(C._kp, 2, idx).cpu()
+                torch.index_select(C._vp, 2, idx).cpu()
+            t_copy = time.perf_counter() - t0
+            s0 = C.metrics.counters["cold_spills"]
+            n = C.prefix_cache.cached_pages
+            t0 = time.perf_counter()
+            C.prefix_cache.evict(n)
+            t_spill = time.perf_counter() - t0
+            spilled = C.metrics.counters["cold_spills"] - s0
+        assert spilled == n, (spilled, n)
+        assert C.audit() == []
+        rec["cold"] = dict(
+            spills=c["cold_spills"], hits=c["cold_hits"],
+            hit_pages=c["cold_hit_pages"], cold_adopt_s=adopt_s,
+            spill_ms_a_page=t_spill / n * 1e3,
+            fingerprint_ms_a_page=t_fp / n * 1e3,
+            copy_ms_a_page=t_copy / n * 1e3,
+            ttft_s={k: runs[k][1] for k in ("cold", "warm", "rewarmed")},
+            rewarmed_equal_cold=agree)
+        log(f"migration (c) cold tier: {c['cold_spills']} spills, "
+            f"{c['cold_hits']} hit of {c['cold_hit_pages']} pages; p1 "
+            f"rewarmed == p1 warm (16 tokens), {agree}/16 equal to p1 cold "
+            f"(a 1040-token prefill, other GEMM shapes); TTFT cold "
+            f"{runs['cold'][1] * 1e3:.2f} ms, warm "
+            f"{runs['warm'][1] * 1e3:.2f} ms, rewarmed "
+            f"{runs['rewarmed'][1] * 1e3:.2f} ms; cold_adopt_s "
+            f"{adopt_s * 1e3:.2f} ms (64 pages); "
+            f"{rec['cold']['spill_ms_a_page']:.3f} ms a spilled page "
+            f"({n} pages; alone on them: its fingerprint "
+            f"{rec['cold']['fingerprint_ms_a_page']:.3f} ms, its two "
+            f"copies {rec['cold']['copy_ms_a_page']:.3f} ms) [{smi}]")
+    finally:
+        C.close()
+    return rec
+
+
+# ---------------------------------------------------------------------------
 # Qwen2-MoE serving (phase 14)
 # ---------------------------------------------------------------------------
 
@@ -2574,7 +2938,7 @@ def qwen_attention_phase() -> dict:
             check_row_invariance(case, split_slot=2, split=120)
         if name == "e_chunk_edges":
             check_row_invariance(case, split_slot=5, split=21)
-        if name == "d_engine_tick":
+        if name in ("b_long_context", "d_engine_tick"):
             c16 = cast(case, torch.bfloat16)
             errs.update(ms=time_ms(lambda: run_rpa(c16, "kernel")),
                         plain_ms=time_ms(lambda: run_rpa(c16, "reference"),
@@ -3907,6 +4271,8 @@ def main() -> int:
     serving = serving_phase(params, cfg)
     paths = paged_paths_phase(params, cfg)
     sampling_phase(params, cfg)
+    adopted_rec = adopted_kernel_case()
+    migration = migration_phase(params, cfg)
     # free the 8B serving state before Qwen2-MoE's 43 GB of weights and
     # the train step's 61 GiB peak
     del params
@@ -4005,6 +4371,16 @@ def main() -> int:
             ms=case["ms"], plain_ms=case["plain_ms"],
             bound_ms=case["bound_ms"], bound_by=case["bound_by"],
             library_ms=case["library_ms"]))
+    # phase 15: the ragged kernel over adopted pages (engine B's decode)
+    kernels.append(dict(
+        name="ragged_paged_attention_adopted", route="cuda",
+        source="paddle_tpu_torch/csrc/ragged_paged_attention.cu",
+        replaces="paddle_tpu/ops/pallas/ragged_paged_attention.py:301",
+        launches=migration["launches"],
+        max_abs_err=adopted_rec["bf16_max_abs_err"], ms=adopted_rec["ms"],
+        plain_ms=adopted_rec["plain_ms"], bound_ms=adopted_rec["bound_ms"],
+        bound_by=adopted_rec["bound_by"],
+        library_ms=adopted_rec["library_ms"]))
     qstep = qwen_serve["int8"]["step_8"]
     kernels.append(dict(
         name="int8_matmul_qwen", route="cuda",

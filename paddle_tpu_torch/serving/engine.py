@@ -30,17 +30,29 @@ Port of ``paddle_tpu/serving/engine.py``:
     tokens a launch;
   - ``defragment()`` compacts the live pages, ``expose()`` renders the
     metrics as Prometheus text;
+  - a cached prefix chain moves between engines, whole
+    (``export_chain`` / ``adopt_chain``) or in chunks between ticks
+    (``export_chain_begin/_chunk/_end``,
+    ``adopt_chain_begin/_chunk/_commit/_abort``), and with
+    ``cold_tier_bytes`` evicted chains page out to host RAM and rewarm
+    on a later prefix match;
+  - ``check_invariants`` audits the paged-KV bookkeeping
+    (``analysis/kv_invariants.py``) after every tick and around every
+    defrag; ``alive``, ``inject``, ``close(hand_back=True)``,
+    ``snapshot``, ``affinity_summary`` and ``on_chain_complete`` are the
+    surface a fleet drives;
   - the model module comes from ``model=`` or the config's type
     (``llama``, ``qwen2_moe``): its ``init_serving_pages``,
     ``serving_tick`` and ``serving_tick_block`` run the ticks, and
     ``llama.pack_tick`` packs them for every model.
 
 Correctness bar (tests/test_torch_serving.py, test_torch_sampling.py,
-test_torch_speculative.py): every request's greedy tokens equal a
-standalone ``generate()`` run token for token, whatever else shares the
-batch, with or without speculation, before or after a defrag; a sampled
-request's tokens are the same stream alone, beside neighbours, under any
-decode block and on a speculative engine, and equal the JAX engine's.
+test_torch_speculative.py, test_torch_migration.py): every request's
+greedy tokens equal a standalone ``generate()`` run token for token,
+whatever else shares the batch, with or without speculation, before or
+after a defrag, over adopted or rewarmed pages; a sampled request's
+tokens are the same stream alone, beside neighbours, under any decode
+block and on a speculative engine, and equal the JAX engine's.
 
 PyTorch runs eagerly, so the packed stream has exactly the tick's
 tokens: the JAX engine's packed-width grid (which bounded its compiled
@@ -49,25 +61,79 @@ program set) has no role here.
 from __future__ import annotations
 
 import contextlib
+import itertools
+import os
 import threading
 import time
 from collections import deque
-from typing import Optional
+from typing import Dict, Optional
 
 import numpy as np
 import torch
 
+from ..analysis.kv_invariants import (KVInvariantError, audit_defrag_plan,
+                                      audit_serving_state)
 from ..device import resolve_device
 from ..inference.paged_kv import PagePool, apply_defrag
 from ..models import llama, qwen2_moe
 from ..quantization.decode import is_quantized_params, quantize_for_decode
 from .metrics import ServingMetrics
-from .prefix_cache import PrefixCache
+from .prefix_cache import ColdTier, PrefixCache, _fp_extend
 from .scheduler import (CANCELLED, COMPLETED, REJECTED, TIMED_OUT,
                         Request, RequestHandle, Scheduler)
 from .speculative import AcceptancePolicy, resolve_drafter
 
 __all__ = ["ServingEngine"]
+
+
+def _env_flag(name: str, default: bool) -> bool:
+    raw = os.environ.get(name)
+    if raw is None:
+        return default
+    return raw.strip().lower() in ("1", "true", "yes", "on")
+
+
+def _gather(pool: torch.Tensor, pages) -> torch.Tensor:
+    """Pages ``[L, Hkv, n, ps, Dh]`` of a pool, copied to the host."""
+    idx = torch.tensor(list(pages), dtype=torch.long, device=pool.device)
+    return torch.index_select(pool, 2, idx).cpu()
+
+
+def _host_pages(pool: torch.Tensor, pages) -> np.ndarray:
+    """Pages ``[L, Hkv, n, ps, Dh]`` of a pool as a migration blob's
+    numpy array: an f32 pool's as float32, a bf16 pool's bit patterns as
+    ``np.uint16`` (numpy has no bfloat16)."""
+    t = _gather(pool, pages)
+    if t.dtype == torch.bfloat16:
+        return t.view(torch.int16).numpy().view(np.uint16)
+    if t.dtype == torch.float32:
+        return t.numpy()
+    raise ValueError(f"no migration blob dtype for a {t.dtype} pool")
+
+
+def _blob_tensor(a, pool: torch.Tensor, n_pages: int) -> torch.Tensor:
+    """A blob's ``k`` or ``v`` as a CPU tensor of the pool's dtype:
+    float32 into an f32 pool, any 2-byte array (``uint16`` or ``int16``
+    bits, or a bfloat16 array from the JAX package) into a bf16 pool, of
+    shape ``[L, Hkv, n_pages, ps, Dh]``. Anything else raises
+    ValueError."""
+    a = np.asarray(a)
+    bf16 = pool.dtype == torch.bfloat16
+    if bf16 and a.dtype.itemsize == 2 and (a.dtype.kind in "ui"
+                                           or a.dtype.name == "bfloat16"):
+        a = a.view(np.int16)
+    elif bf16 or not (pool.dtype == torch.float32
+                      and a.dtype == np.float32):
+        raise ValueError(f"blob dtype {a.dtype} does not fit this "
+                         f"engine's {pool.dtype} KV pool")
+    want = tuple(pool.shape[:2]) + (int(n_pages),) + tuple(pool.shape[3:])
+    if tuple(a.shape) != want:
+        raise ValueError(f"blob pages of shape {tuple(a.shape)}, this "
+                         f"engine's pool takes {want}")
+    if not (a.flags.c_contiguous and a.flags.writeable):
+        a = a.copy()
+    t = torch.from_numpy(a)
+    return t.view(torch.bfloat16) if bf16 else t
 
 
 def _resolve_model(model, cfg):
@@ -135,6 +201,36 @@ class ServingEngine:
     drafts or prompt spans is a verify tick (no fused tail); a
     pure-decode tick with no drafts runs the fused block.
     spec_k: the draft-length cap.
+    check_invariants: True audits the paged-KV bookkeeping
+    (``analysis/kv_invariants.py``: page ownership, trie refcounts, dead
+    parked rows, in-flight transfers) after every tick and around every
+    defrag; a violation raises ``KVInvariantError`` and fails the engine
+    through its fail path. The default comes from
+    ``PADDLE_TPU_SERVING_CHECK_INVARIANTS`` (the test suite sets it).
+    The JAX engine's flight-recorder postmortem (``postmortem_path``) is
+    not ported yet: the error itself names the violations and the
+    engine's geometry.
+    cold_tier_bytes: 0 (off) or a host-RAM budget for the cold tier
+    (``ColdTier``): refcount-0 chains evicted under page pressure page
+    out to host memory, keyed by chain fingerprint, and a queued prompt
+    whose warm trie match ends where a spilled chain begins re-adopts
+    those pages before admission instead of recomputing them (bitwise a
+    warm hit: the bytes are the ones the device computed; the token
+    tuples are compared before anything is adopted). Counters
+    cold_hits / cold_hit_pages / cold_spills, histogram cold_adopt_s.
+    on_chain_complete: optional ``fn(req, info)`` called (tick lock
+    held: keep it cheap) when a prefill registers or extends a prefix
+    chain; ``info`` is ``{"fp", "fps", "pages", "prompt_tokens"}``, the
+    deepest chain fingerprint and the per-page ones, from the prompt.
+
+    Migration blobs keep the JAX engine's keys, ``{fp, page_size,
+    tokens, k, v}`` with ``k``/``v`` numpy arrays ``[L, Hkv, n_pages,
+    ps, Dh]``, with one divergence: numpy has no bfloat16, so a bf16
+    pool exports its bit patterns as ``np.uint16`` (the JAX engine
+    exports an ml_dtypes bfloat16 array). Adopt takes float32 into an
+    f32 pool and any 2-byte array (uint16, int16 or bfloat16) into a
+    bf16 pool; any other pairing raises ValueError, as a page-size
+    mismatch does, before anything is allocated.
     """
 
     def __init__(self, params, cfg, *, model=None, device=None,
@@ -147,7 +243,9 @@ class ServingEngine:
                  prefill_chunk: Optional[int] = None,
                  admission_window: int = 0,
                  quantization: Optional[str] = None,
-                 speculative=None, spec_k: int = 3):
+                 speculative=None, spec_k: int = 3,
+                 check_invariants: Optional[bool] = None,
+                 cold_tier_bytes: int = 0, on_chain_complete=None):
         if max_batch < 1:
             raise ValueError("max_batch must be >= 1")
         if decode_block_size < 1:
@@ -210,11 +308,34 @@ class ServingEngine:
         # the sampling arrays on the device for the current batch
         # composition ({} when no request samples); None = rebuild
         self._samp_cache: Optional[dict] = None
+        if check_invariants is None:
+            check_invariants = _env_flag(
+                "PADDLE_TPU_SERVING_CHECK_INVARIANTS", False)
+        self._check_invariants = bool(check_invariants)
+
+        # migration and the cold tier. In-flight chunked transfers, both
+        # directions: exports pin their chain nodes (refs + 1 until
+        # export_chain_end); adopts own freshly allocated pages that no
+        # row or trie node references yet, plus pins on the matched warm
+        # prefix. _audit_extras declares both to the audit.
+        self.on_chain_complete = on_chain_complete
+        self._exports: Dict[int, dict] = {}
+        self._adopts: Dict[int, dict] = {}
+        self._xfer_ids = itertools.count(1)
+        self._cold = (ColdTier(int(cold_tier_bytes))
+                      if int(cold_tier_bytes) > 0
+                      and self.prefix_cache is not None else None)
+        if self._cold is not None:
+            self.prefix_cache.spill = self._spill_node
 
         self._cond = threading.Condition()
         self._tick_lock = threading.Lock()
         self._closing = False
         self._drain = True
+        # hand-back drain (a fleet's drain): admission stops and the
+        # queued requests go back to the caller of close()
+        self._hand_back = False
+        self._returned: list = []
         self._dead: Optional[BaseException] = None
         self._worker = threading.Thread(target=self._loop, daemon=True,
                                         name="serving-engine")
@@ -267,15 +388,72 @@ class ServingEngine:
         tokens (no prompt prefix)."""
         return self.submit(prompt, max_new_tokens, **kw).result()
 
-    def close(self, drain: bool = True) -> None:
-        """Stop admission and shut down. drain=True (default) finishes
-        every queued + running request first; drain=False cancels
-        them."""
+    @property
+    def alive(self) -> bool:
+        """The worker thread runs and no death is recorded."""
+        return self._dead is None and self._worker.is_alive()
+
+    def inject(self, req: Request) -> bool:
+        """Enqueue an EXISTING :class:`Request` (a router's dispatch or
+        re-dispatch): the admission checks of :meth:`submit`, but False
+        instead of a raise, and nothing finalized, when this engine
+        cannot take it (closed or closing, dead worker, queue full, a
+        budget that never fits). The request keeps its own stream, so
+        the caller's handle works across engines. Counters: ``submitted``
+        counts accepted injections only; a refusal counts ``rejected``
+        here."""
+        if self._dead is not None:
+            self.metrics.inc("rejected")
+            return False
         with self._cond:
+            if self._closing:
+                self.metrics.inc("rejected")
+                return False
+            ok = self.scheduler.submit(req)
+            if ok:
+                self._cond.notify_all()
+        if not ok:
+            self.metrics.inc("rejected")
+            return False
+        if self._dead is not None and not req.done.is_set():
+            # the worker died between the liveness check and the enqueue:
+            # hand the request back only if it is still in the queue
+            # untouched; otherwise the engine owns it and fails it
+            if self.scheduler.drop_queued(lambda r: r is req):
+                self.metrics.inc("rejected")
+                return False
+        self.metrics.inc("submitted")
+        return True
+
+    def close(self, drain: bool = True,
+              hand_back: bool = False) -> "list[Request]":
+        """Stop admission and shut down; returns the requests handed
+        back (empty unless ``hand_back``). drain=True (default) finishes
+        every queued + running request first; drain=False cancels them.
+        ``hand_back=True`` stops admission at once, runs the in-flight
+        slots (decoding or parked mid-prefill) to completion and returns
+        the queued requests still QUEUED, unfinalized, for another
+        engine. Each handed-back request is returned by one close()
+        only."""
+        if hand_back and not drain:
+            raise ValueError("hand_back requires drain=True (a cancel "
+                             "close finalizes, it cannot hand back)")
+        with self._cond:
+            if self._dead is not None and not self._worker.is_alive():
+                return self._take_returned()
             self._closing = True
             self._drain = drain
+            self._hand_back = bool(hand_back)
             self._cond.notify_all()
         self._worker.join()
+        return self._take_returned()
+
+    def _take_returned(self) -> "list[Request]":
+        """Take the hand-back list (the worker has exited; the cond lock
+        serializes racing closers)."""
+        with self._cond:
+            out, self._returned = self._returned, []
+        return out
 
     def __enter__(self):
         return self
@@ -292,15 +470,21 @@ class ServingEngine:
              "free_pages": self.pool.free_pages}
         if self.prefix_cache is not None:
             g["prefix_cache"] = self.prefix_cache.stats()
+        if self._cold is not None:
+            g["cold_tier"] = self._cold.stats()
         return g
 
-    def stats(self) -> dict:
+    def snapshot(self) -> dict:
         """Plain-dict metrics snapshot plus live pool/queue gauges (read
         under the tick lock, so never a torn view of the scheduler)."""
         snap = self.metrics.snapshot()
         with self._tick_lock:
             snap["gauges"] = self._gauges()
         return snap
+
+    def stats(self) -> dict:
+        """Alias of :meth:`snapshot`."""
+        return self.snapshot()
 
     def gauges(self) -> dict:
         """Flat ``{name: number}`` view of the live gauges (nested
@@ -323,30 +507,387 @@ class ServingEngine:
         unescaped) are stamped on every sample."""
         return self.metrics.expose(gauges=self.gauges(), labels=labels)
 
+    def affinity_summary(self, max_depth: int = 2) -> dict:
+        """``PrefixCache.affinity_summary`` read under the tick lock (any
+        thread); ``{}`` when the prefix cache is off."""
+        if self.prefix_cache is None:
+            return {}
+        with self._tick_lock:
+            return self.prefix_cache.affinity_summary(max_depth)
+
+    # ------------------------------------------------- KV-page migration ----
+    def _check_page_size(self, page_size) -> None:
+        if int(page_size) != int(self.pool.page_size):
+            raise ValueError(
+                f"page-size mismatch: exported {page_size}, this engine "
+                f"serves {self.pool.page_size}")
+
+    def _scatter(self, pages, k: torch.Tensor, v: torch.Tensor) -> None:
+        """Write host pages ``[L, Hkv, n, ps, Dh]`` into pool pages
+        ``pages`` (tick lock held)."""
+        idx = torch.tensor(list(pages), dtype=torch.long, device=self._dev)
+        self._kp.index_copy_(2, idx, k.to(self._dev))
+        self._vp.index_copy_(2, idx, v.to(self._dev))
+
+    def export_chain(self, fp: int,
+                     max_depth: int = 64) -> Optional[dict]:
+        """A cached prefix chain's tokens and KV pages, named by its
+        fingerprint (``prefix_fingerprints`` / ``affinity_summary``):
+        ``{fp, page_size, tokens: [page token tuples], k, v}`` with
+        ``k``/``v`` numpy ``[L, Hkv, n_pages, ps, Dh]`` (bf16 as uint16
+        bits, see the class docstring), or None when no cached chain
+        hashes to ``fp``. Runs under the tick lock, so no tick or defrag
+        moves pages under the gather."""
+        if self.prefix_cache is None:
+            return None
+        with self._tick_lock:
+            nodes = self.prefix_cache.chain_by_fingerprint(fp, max_depth)
+            if not nodes:
+                return None
+            pages = [nd.page for nd in nodes]
+            tokens = [tuple(int(t) for t in nd.toks) for nd in nodes]
+            k = _host_pages(self._kp, pages)
+            v = _host_pages(self._vp, pages)
+        return {"fp": int(fp), "page_size": int(self.pool.page_size),
+                "tokens": tokens, "k": k, "v": v}
+
+    def adopt_chain(self, blob: dict) -> dict:
+        """Adopt an :meth:`export_chain` blob: allocate pages for the
+        chain's uncached suffix (evicting refcount-0 pages under
+        pressure, as admission does), scatter the KV into them and graft
+        the nodes into the trie at refs 0. A later prompt sharing the
+        prefix attaches it by exact token tuples and decodes bitwise as
+        on the source. Returns ``{"matched_pages", "adopted_pages"}``;
+        raises ValueError on a page-size, dtype or shape mismatch and
+        RuntimeError when the suffix does not fit after eviction."""
+        if self.prefix_cache is None:
+            raise RuntimeError("adopt_chain needs prefix_cache=True")
+        self._check_page_size(blob["page_size"])
+        tokens = [tuple(int(t) for t in tt) for tt in blob["tokens"]]
+        k = _blob_tensor(blob["k"], self._kp, len(tokens))
+        v = _blob_tensor(blob["v"], self._vp, len(tokens))
+        with self._tick_lock:
+            pc = self.prefix_cache
+            have = pc.match_chain(tokens)
+            need = len(tokens) - have
+            if need == 0:
+                return {"matched_pages": have, "adopted_pages": 0}
+            if not self.pool.can_alloc(need):
+                pc.evict(need - self.pool.free_pages)
+            if not self.pool.can_alloc(need):
+                raise RuntimeError(
+                    f"cannot adopt chain: {need} pages needed, "
+                    f"{self.pool.free_pages} free after eviction")
+            pages = self.pool.alloc(need)
+            self._scatter(pages, k[:, :, have:], v[:, :, have:])
+            pc.adopt_chain(tokens, pages, start=have)
+        return {"matched_pages": have, "adopted_pages": need}
+
+    # ------------------------------------- chunked (overlapped) transfer ----
+    # The whole-blob path holds both engines' tick locks for the whole
+    # gather or scatter. The chunked protocol holds a lock for one bounded
+    # chunk at a time: begin pins under the lock, chunks stream between
+    # ticks, and the trie graft happens only at commit (exactly once;
+    # abort and end make a partial transfer invisible).
+
+    def export_chain_begin(self, fp: int,
+                           max_depth: int = 64) -> Optional[dict]:
+        """Open a chunked export: resolve the chain of ``fp``, PIN its
+        nodes (refs + 1: eviction cannot free them while the transfer
+        streams) and return ``{"xid", "fp", "page_size", "tokens"}``, or
+        None when nothing hashes to ``fp``. :meth:`export_chain_end`
+        releases the pins."""
+        if self.prefix_cache is None:
+            return None
+        with self._tick_lock:
+            nodes = self.prefix_cache.chain_by_fingerprint(fp, max_depth)
+            if not nodes:
+                return None
+            for nd in nodes:
+                nd.refs += 1
+            xid = next(self._xfer_ids)
+            self._exports[xid] = {"nodes": nodes}
+            tokens = [tuple(int(t) for t in nd.toks) for nd in nodes]
+        return {"xid": xid, "fp": int(fp),
+                "page_size": int(self.pool.page_size), "tokens": tokens}
+
+    def export_chain_chunk(self, xid: int, start: int,
+                           count: int) -> dict:
+        """Pages ``[start, start + count)`` of an open export as
+        ``{"start", "count", "k", "v"}``. Page ids are read from the
+        nodes at gather time: pins stop pages being freed, not moved, so
+        a defrag between chunks is harmless."""
+        with self._tick_lock:
+            nodes = self._exports[xid]["nodes"][start:start + count]
+            pages = [nd.page for nd in nodes]
+            k = _host_pages(self._kp, pages)
+            v = _host_pages(self._vp, pages)
+        return {"start": int(start), "count": len(nodes), "k": k, "v": v}
+
+    def export_chain_end(self, xid: int) -> None:
+        """Close a chunked export and release its pins. Idempotent: an
+        unknown or closed ``xid`` is a no-op."""
+        with self._tick_lock:
+            ent = self._exports.pop(xid, None)
+            if ent is None:
+                return
+            for nd in ent["nodes"]:
+                nd.refs -= 1
+
+    def adopt_chain_begin(self, header: dict) -> dict:
+        """Open a chunked adopt from an :meth:`export_chain_begin`
+        header: match the warm prefix and PIN it, allocate pages for the
+        uncached suffix (evicting under pressure) and return ``{"aid",
+        "matched_pages", "need"}``; ``aid`` is None (nothing held) when
+        the whole chain is cached. The pages belong to the transfer
+        until :meth:`adopt_chain_commit`; :meth:`adopt_chain_abort` frees
+        them. Raises ValueError on a page-size mismatch, RuntimeError
+        when the suffix does not fit."""
+        if self.prefix_cache is None:
+            raise RuntimeError("adopt_chain needs prefix_cache=True")
+        self._check_page_size(header["page_size"])
+        tokens = [tuple(int(t) for t in tt) for tt in header["tokens"]]
+        with self._tick_lock:
+            pc = self.prefix_cache
+            pinned = pc.chain_nodes(tokens)
+            have = len(pinned)
+            need = len(tokens) - have
+            if need == 0:
+                return {"aid": None, "matched_pages": have, "need": 0}
+            if not self.pool.can_alloc(need):
+                pc.evict(need - self.pool.free_pages)
+            if not self.pool.can_alloc(need):
+                raise RuntimeError(
+                    f"cannot adopt chain: {need} pages needed, "
+                    f"{self.pool.free_pages} free after eviction")
+            for nd in pinned:
+                nd.refs += 1
+            pages = self.pool.alloc(need)
+            aid = next(self._xfer_ids)
+            self._adopts[aid] = {"tokens": tokens, "have": have,
+                                 "pages": pages, "pinned": pinned,
+                                 "filled": 0}
+        return {"aid": aid, "matched_pages": have, "need": need}
+
+    def adopt_chain_chunk(self, aid: int, start: int, k, v) -> None:
+        """Scatter one exported chunk (chain page index ``start``, arrays
+        from :meth:`export_chain_chunk`) into the transfer's pages.
+        Chunks may arrive in any order; commit checks completeness."""
+        count = int(np.shape(k)[2])
+        kt = _blob_tensor(k, self._kp, count)
+        vt = _blob_tensor(v, self._vp, count)
+        with self._tick_lock:
+            ent = self._adopts[aid]
+            off = int(start) - ent["have"]
+            if off < 0 or off + count > len(ent["pages"]):
+                raise ValueError(
+                    f"chunk pages {start}..{int(start) + count} outside "
+                    f"the adopted suffix {ent['have']}.."
+                    f"{ent['have'] + len(ent['pages'])}")
+            self._scatter(ent["pages"][off:off + count], kt, vt)
+            ent["filled"] += count
+
+    def adopt_chain_commit(self, aid: int) -> dict:
+        """Finish a chunked adopt: check every suffix page arrived,
+        match the warm prefix again (a local prefill may have cached the
+        same leading pages meanwhile: those are freed, not grafted),
+        graft the rest at refs 0 and release the pins. Returns
+        ``{"matched_pages", "adopted_pages"}``."""
+        with self._tick_lock:
+            ent = self._adopts.pop(aid)
+            pc = self.prefix_cache
+            dup = 0
+            try:
+                need = len(ent["tokens"]) - ent["have"]
+                if ent["filled"] != need:
+                    raise RuntimeError(
+                        f"adopt_chain_commit: {ent['filled']} of "
+                        f"{need} suffix pages arrived")
+                now_have = pc.match_chain(ent["tokens"])
+                dup = max(0, now_have - ent["have"])
+                if dup > 0:
+                    self.pool.free(ent["pages"][:dup])
+                pc.adopt_chain(ent["tokens"], ent["pages"][dup:],
+                               start=now_have)
+            except BaseException:
+                self.pool.free(ent["pages"][dup:])
+                raise
+            finally:
+                for nd in ent["pinned"]:
+                    nd.refs -= 1
+        return {"matched_pages": ent["have"],
+                "adopted_pages": len(ent["pages"]) - dup}
+
+    def adopt_chain_abort(self, aid: int) -> None:
+        """Abandon a chunked adopt: free its pages, release its pins.
+        Idempotent on an unknown ``aid``."""
+        with self._tick_lock:
+            ent = self._adopts.pop(aid, None)
+            if ent is None:
+                return
+            self.pool.free(ent["pages"])
+            for nd in ent["pinned"]:
+                nd.refs -= 1
+
+    def _audit_extras(self):
+        """``(extra_refs, extra_pages)`` of the in-flight chunked
+        transfers for ``audit_serving_state``: export and adopt pins as
+        per-node refcount credits, adopt-owned pages as owned. Tick lock
+        held."""
+        extra_refs: Dict[int, int] = {}
+        extra_pages: Dict[int, str] = {}
+        for ent in self._exports.values():
+            for nd in ent["nodes"]:
+                extra_refs[id(nd)] = extra_refs.get(id(nd), 0) + 1
+        for aid, ent in self._adopts.items():
+            for nd in ent["pinned"]:
+                extra_refs[id(nd)] = extra_refs.get(id(nd), 0) + 1
+            for p in ent["pages"]:
+                extra_pages[int(p)] = f"adopt-{aid}"
+        return extra_refs, extra_pages
+
+    # -------------------------------------------- host-memory cold tier ----
+    def _spill_node(self, nd) -> None:
+        """``PrefixCache.spill`` hook: copy one evicted node's page to
+        the cold tier before the page is freed. Runs inside
+        ``PrefixCache.evict`` (tick lock held), which swallows a
+        failure: eviction must always succeed."""
+        if self._cold is None:
+            return
+        fp = self.prefix_cache.node_fingerprint(nd)
+        k = _gather(self._kp, [nd.page])
+        v = _gather(self._vp, [nd.page])
+        if self._cold.put(fp, nd.toks, k, v):
+            self.metrics.inc("cold_spills")
+
+    def _rewarm_cold(self) -> None:
+        """Before admission (engine loop, tick lock held): for each of
+        the first queued prompts whose warm trie match ends where a
+        spilled chain begins, re-adopt the contiguous cold run (alloc,
+        scatter, graft), so admission attaches it as a warm hit. Each
+        page's token tuple is compared with the prompt first (the
+        fingerprint only indexes). Best-effort: a failure skips the
+        request, never the loop."""
+        pc = self.prefix_cache
+        ps = self.pool.page_size
+        for req in self.scheduler.peek_queued(4):
+            try:
+                max_pages = (int(req.prompt.size) - 1) // ps
+                if max_pages <= 0:
+                    continue
+                tuples = [tuple(int(t) for t in
+                                req.prompt[i * ps:(i + 1) * ps])
+                          for i in range(max_pages)]
+                warm = pc.match_chain(tuples)
+                fp, fps = 0, []
+                for tt in tuples:
+                    fp = _fp_extend(fp, tt)
+                    fps.append(fp)
+                run = []
+                for i in range(warm, max_pages):
+                    ent = self._cold.get(fps[i])
+                    if ent is None or ent["toks"] != tuples[i]:
+                        break       # a collision or a gap ends the run
+                    run.append(ent)
+                if not run:
+                    continue
+                t0 = time.monotonic()
+                n = len(run)
+                if not self.pool.can_alloc(n):
+                    # evict with the warm prefix PINNED: its leaf may be
+                    # refcount 0 and childless, and the graft walks it
+                    pinned = pc.chain_nodes(tuples[:warm])
+                    for nd in pinned:
+                        nd.refs += 1
+                    try:
+                        pc.evict(n - self.pool.free_pages)
+                    finally:
+                        for nd in pinned:
+                            nd.refs -= 1
+                if not self.pool.can_alloc(n):
+                    continue        # no room: leave it cold
+                pages = self.pool.alloc(n)
+                self._scatter(pages, torch.cat([e["k"] for e in run], 2),
+                              torch.cat([e["v"] for e in run], 2))
+                pc.adopt_chain(tuples[:warm + n], pages, start=warm)
+                for i in range(warm, warm + n):
+                    self._cold.pop(fps[i])
+                self.metrics.inc("cold_hits")
+                self.metrics.inc("cold_hit_pages", n)
+                self.metrics.observe("cold_adopt_s",
+                                     time.monotonic() - t0)
+            except Exception:
+                continue    # the rewarm is opportunistic, never fatal
+
+    # ------------------------------------------------------------- audit ----
+    def _audit_state(self):
+        """The violation list of the current state (tick lock held)."""
+        extra_refs, extra_pages = self._audit_extras()
+        return audit_serving_state(
+            self.pool, self.scheduler, self.prefix_cache,
+            prefill_queue=tuple(self._prefill_q),
+            extra_refs=extra_refs, extra_pages=extra_pages)
+
+    def audit(self):
+        """Paged-KV invariant audit, serialized against ticks: the
+        violation list, empty when healthy."""
+        with self._tick_lock:
+            return self._audit_state()
+
+    def _geometry_desc(self) -> str:
+        """One line of engine geometry, named by every violation report."""
+        return (f"engine geometry: page_size={self.pool.page_size} "
+                f"pages_per_slot={self.scheduler.pages_per_slot} "
+                f"max_batch={self.scheduler.max_batch} "
+                f"total_pages={self.pool.total_pages} "
+                f"max_prompt_len={self.scheduler.max_prompt_len} "
+                f"prefill_budget={self._budget} "
+                f"decode_block={self._decode_block} "
+                f"spec_k={self._spec_k}")
+
+    def _audit_or_raise(self) -> None:
+        """Per-tick check (tick lock held)."""
+        violations = self._audit_state()
+        if violations:
+            self.metrics.inc("invariant_violations", len(violations))
+            raise KVInvariantError(violations,
+                                   context=self._geometry_desc())
+
     def defragment(self) -> int:
         """Compact the live pages to the pool's low indices: rewrites the
         pools and every slot's table row (``apply_defrag``), the
         requests' page lists and parked requests' stashed rows
-        (``Scheduler.remap_pages``) and the prefix cache's pages
-        (``PrefixCache.remap``), then commits the plan to the allocator.
-        Returns the number of pages moved. Safe mid-generation: it runs
-        under the tick lock, between ticks.
-
-        Left out until their modules are ported: the invariants audit of
-        the plan and of the state after it, with its postmortem
-        (``kv_invariants``), and the remap of pending chunked adopts
-        (the cold tier's chain export/adopt)."""
+        (``Scheduler.remap_pages``), the prefix cache's pages
+        (``PrefixCache.remap``) and the pages of pending chunked adopts,
+        then commits the plan to the allocator. Returns the number of
+        pages moved. Safe mid-generation and mid-transfer: it runs under
+        the tick lock, between ticks. With ``check_invariants`` the plan
+        is audited before anything is rewritten (it must cover every
+        live reference) and the state after it; a violation raises
+        ``KVInvariantError``."""
         with self._tick_lock:
             plan = self.pool.defrag_plan()
             if not plan:
                 return 0
+            if self._check_invariants:
+                bad = audit_defrag_plan(plan, self.pool, self.scheduler,
+                                        self.prefix_cache)
+                if bad:
+                    raise KVInvariantError(bad,
+                                           context=self._geometry_desc())
             self._kp, self._vp, tables = apply_defrag(
                 plan, self._kp, self._vp, self.scheduler.tables)
             self.scheduler.tables = np.array(tables.numpy(), np.int32)
             self.scheduler.remap_pages(plan)
             if self.prefix_cache is not None:
                 self.prefix_cache.remap(plan)
+            # pending adopts' pages are allocated (the plan moves them)
+            # but live only in the transfer entries
+            for ent in self._adopts.values():
+                ent["pages"] = [plan.get(p, p) for p in ent["pages"]]
             self.pool.commit_defrag(plan)
+            if self._check_invariants:
+                self._audit_or_raise()
             return len(plan)
 
     # ------------------------------------------------------------ tokens ----
@@ -455,6 +996,21 @@ class ServingEngine:
                     req.prompt, req.prefix_nodes, req.pages[:new_full])
                 req.prefix_nodes = req.prefix_nodes + adopted
                 req.pages = dup + req.pages[new_full:]
+            # chain-completion event: the per-page fingerprints of the
+            # PROMPT (dedup can make req.prefix_nodes skip chain nodes)
+            n_pages = n // self.pool.page_size
+            if self.on_chain_complete is not None and n_pages > 0:
+                ps = self.pool.page_size
+                fp, fps = 0, []
+                for i in range(n_pages):
+                    fp = _fp_extend(fp, req.prompt[i * ps:(i + 1) * ps])
+                    fps.append(fp)
+                try:
+                    self.on_chain_complete(req, {
+                        "fp": fps[-1], "fps": fps, "pages": n_pages,
+                        "prompt_tokens": int(n)})
+                except Exception:
+                    pass    # a policy's failure must not kill the tick
         self.scheduler.lengths[slot] = n
         self._cur_tok[slot] = tok
         if self._emit(slot, req, tok):
@@ -686,7 +1242,9 @@ class ServingEngine:
                 self._prefill_q.clear()
                 if self.prefix_cache is not None:
                     # every request is retired: return the cached pages
-                    # so the pool ends balanced
+                    # so the pool ends balanced. Teardown is disposal, not
+                    # pressure: nothing spills to the cold tier.
+                    self.prefix_cache.spill = None
                     self.prefix_cache.evict(self.prefix_cache.cached_pages)
 
     def _run(self) -> None:
@@ -696,6 +1254,17 @@ class ServingEngine:
                 self._sweep(now)
                 if self._closing and not self._drain:
                     break
+                if self._closing and self._hand_back:
+                    # hand-back drain: admission stops now; the queued
+                    # requests go back unfinalized, the slots run out
+                    handed = self.scheduler.drop_queued(lambda r: True)
+                    if handed:
+                        self._returned.extend(handed)
+                        self.metrics.inc("handed_back", len(handed))
+                if self._cold is not None and len(self._cold) \
+                        and self.scheduler.queued():
+                    # rewarm BEFORE admission, so it sees a warm hit
+                    self._rewarm_cold()
                 for slot, req in self.scheduler.admit():
                     self.metrics.inc("admitted")
                     self.metrics.observe("queue_wait_s",
@@ -721,6 +1290,8 @@ class ServingEngine:
                     self.metrics.inc("ticks")
                     self._last_decode_t = (time.perf_counter()
                                            if live else None)
+                    if self._check_invariants:
+                        self._audit_or_raise()
                 else:
                     self._last_decode_t = None
             if ticked:

@@ -70,11 +70,11 @@ class ServingMetrics:
     prompt tokens not recomputed, prefix_pages_saved — pages attached
     instead of allocated) and speculative decoding (spec_ticks — verify
     launches; draft_tokens / draft_accepted / draft_rejected — per draft
-    token). The JAX engine's other names stay in the list and read 0
-    until their features are ported: invariant_violations (the
-    invariants audit), recompiles (the recompile sentinel), handed_back
-    (the fleet's drain) and cold_hits / cold_hit_pages / cold_spills
-    (the cold tier).
+    token), the invariants audit (invariant_violations), the hand-back
+    drain (handed_back) and the cold tier (cold_hits / cold_hit_pages —
+    rewarms and the pages they re-adopted — and cold_spills — pages
+    paged out). recompiles, the JAX engine's recompile sentinel, stays
+    in the list and reads 0 until the sentinel is ported.
     Labeled counters (``inc_labeled``): the same monotonic semantics
     with a small label set, exposed as their own
     ``*_breakdown_total`` Prometheus family so aggregating either family
@@ -84,7 +84,8 @@ class ServingMetrics:
     decode_stall_s (gap between consecutive decode ticks while streams
     are live), batch_occupancy, page_utilization and chunk_queue_depth
     (sampled per tick), spec_accept_rate (accepted / drafted per verify
-    launch) and cold_adopt_s (the cold tier's rewarm; 0 until ported).
+    launch) and cold_adopt_s (one cold-tier rewarm: the eviction that
+    makes room, then the pages' scatter and graft).
     Summaries report the lifetime mean and the windowed mean and
     percentiles separately (:class:`Histogram`).
     """

@@ -224,6 +224,13 @@ class Scheduler:
         with self._lock:
             return len(self._queue)
 
+    def peek_queued(self, n: int) -> List[Request]:
+        """The first ``n`` queued requests, FIFO, left in the queue (the
+        cold-tier rewarm looks at the admission frontier)."""
+        with self._lock:
+            return [self._queue[i]
+                    for i in range(min(int(n), len(self._queue)))]
+
     def drop_queued(self, pred) -> List[Request]:
         """Remove queued requests matching ``pred`` (cancel/timeout
         sweeps); returns them."""

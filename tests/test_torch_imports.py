@@ -16,14 +16,16 @@ from paddle_tpu_torch.ops.kernels import (
     _build, conv_epilogue, flash_attention, fused_norm_rope, grouped_matmul,
     int8_matmul, paged_attention, ragged_paged_attention)
 from paddle_tpu_torch.ops.fused import conv_epilogue
-from paddle_tpu_torch.analysis import fold_conv_bn
+from paddle_tpu_torch.analysis import fold_conv_bn, kv_invariants
 from paddle_tpu_torch.vision.models import resnet50
 from paddle_tpu_torch.incubate.moe import functional
 from paddle_tpu_torch.ops.fused import fused_softmax_cross_entropy
 from paddle_tpu_torch.ops.fused import int8_matmul
 from paddle_tpu_torch.quantization import decode
 from paddle_tpu_torch.inference import GenerationPredictor, paged_kv
-from paddle_tpu_torch.serving import ServingEngine, metrics, speculative
+from paddle_tpu_torch.serving import (ColdTier, ServingEngine, metrics,
+                                      prefix_cache, prefix_fingerprints,
+                                      scheduler, speculative)
 from paddle_tpu_torch import prng
 bad = sorted(m for m in sys.modules
              if m.split('.')[0] in ('jax', 'jaxlib', 'paddle_tpu'))
