@@ -198,9 +198,32 @@ Phases (any failed check raises; nothing is caught):
    cold_adopt_s, TTFT cold / warm / rewarmed, and the largest decode
    stall of a stream on A alone and during a whole-blob export.
 
-Phases run in the order 1, 2, 3, 5, 7, 4, 8, 13, 15, 14, 6, 9, 10, 11,
-12: phase 14 starts after the 8B serving state is freed, phase 6 after
-phase 14's, phases 9 and 10 after phase 6's.
+16. the in-process serving fleet on ``llama3_8b`` (phase 4's params;
+   every engine from one factory: 4 slots, page 16, prompts up to 1088
+   tokens, 80 new, 320 pages, the paged-KV audit after every tick; the
+   ragged kernel at the decode replica's turn-2 shapes against its plain
+   version first): (a) a prefill and a decode replica
+   (``prefill_len_ratio`` 16, warmed, sentinels armed): four 1040-token
+   sessions (16 new) on the prefill replica, their four 65-page chains
+   handed off to the decode replica in the background, turn 2 (1064
+   tokens, 80 new) routed there by the migration record
+   (``routed_migrated`` 4), each attaching 1040 adopted tokens; session
+   0's turn 2, run alone, equals the same turn alone on the prefill
+   replica; (b) three replicas (affinity) under a 24-request wave of
+   phase 4's prompts behind four 64-token system prompts: ``r0`` drained
+   at the 8th submission (re-dispatched = handed back, none failed),
+   ``r1``'s pool corrupted at the 16th and reaped (every handle completes
+   or fails naming the invariant; its postmortem parses and names the
+   violation), ``r2``'s sentinel clean; (c) ``r2``'s exported trace:
+   ``serving.tick`` spans = ticks, completed ``request`` spans =
+   completed; (d) ragged launches = 32 x every replica's model steps;
+   (e) fleet and one-engine tok/s, the router's ms a submit, the
+   handoff's ms a chain, and the tracer's share of the tick wall on phase
+   4's wave (reported, not gated).
+
+Phases run in the order 1, 2, 3, 5, 7, 4, 8, 13, 15, 16, 14, 6, 9, 10,
+11, 12: phase 14 starts after the 8B serving state is freed, phase 6
+after phase 14's, phases 9 and 10 after phase 6's.
 
 The last two lines of standard output are the card's name and power
 limit, then ``{"ok": true, "device": {...}}``; the line before them is
@@ -212,8 +235,11 @@ from __future__ import annotations
 import gc
 import json
 import math
+import os
 import subprocess
 import sys
+import tempfile
+import threading
 import time
 from pathlib import Path
 
@@ -2894,6 +2920,402 @@ def migration_phase(params, cfg) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# the in-process serving fleet (phase 16)
+# ---------------------------------------------------------------------------
+
+# every engine of phase 16, all built by one factory over phase 4's params:
+# 4 slots, page 16, prompts up to 1088 tokens, 80 new, the paged-KV audit
+# after every tick; 320 pages = 640 MiB of pool an engine at 2 MiB of KV a
+# page. The decode replica holds the four adopted 65-page chains (260
+# pages) plus 7 private pages for each turn 2 (1064 + 80 tokens is 72
+# pages): 288 pages.
+FLEET_GEOM = dict(max_batch=4, page_size=16, max_prompt_len=1088,
+                  max_new_tokens_cap=80, total_pages=320,
+                  check_invariants=True)
+FLEET_PROMPT = 1040      # turn 1: 65 full pages a session
+FLEET_NEW1 = 16
+FLEET_NEW2 = 80          # turn 2: 1040 + 16 + 8 = 1064 tokens < 16 x 80
+FLEET_RATIO = 16         # prefill_len_ratio: 1040 >= 16 x 16 -> prefill
+FLEET_WAVE = 24          # (b)'s wave: phase 4's prompts behind 4 sessions'
+FLEET_SYSTEM = 64        # 64-token system prompts
+FLEET_DRAIN_AT, FLEET_CRASH_AT = 8, 16
+# the ragged kernel at the decode replica's turn-2 shapes over pages at
+# arbitrary ids: a 24-token span behind 1040 adopted tokens and decode rows
+# over turn 2's keys
+CASE_FLEET = dict(slots=[(24, 1064), (1, 1143), (1, 1100), (0, 0)], pps=73,
+                  shuffle=True)
+
+
+def fleet_kernel_case() -> dict:
+    """The ragged kernel at the fleet's decode-replica shapes against its
+    plain version (phase 3's bounds) and its kernel, plain, SDPA and bound
+    times."""
+    case = make_case(**CASE_FLEET, **GEOM, seed=16)
+    rec = check_case("fleet", case)
+    c16 = cast(case, torch.bfloat16)
+    rec.update(ms=time_ms(lambda: run_rpa(c16, "kernel")),
+               plain_ms=time_ms(lambda: run_rpa(c16, "reference"), reps=5),
+               library_ms=time_ms(sdpa_yardstick(c16)))
+    rec["bound_ms"], rec["bound_by"] = attention_bound_ms(c16)
+    log("ragged case fleet (24-token span behind 1040 keys, decode rows "
+        "over 1143 and 1100, shuffled pages): " + " ".join(
+            f"{k}={v:.4g}" if isinstance(v, float) else f"{k}={v}"
+            for k, v in rec.items()))
+    del case, c16
+    torch.cuda.empty_cache()
+    return rec
+
+
+def _wait_for(cond, what: str, timeout_s: float = 300.0) -> None:
+    """Poll ``cond()`` until true; raise when ``timeout_s`` passes."""
+    deadline = time.monotonic() + timeout_s
+    while not cond():
+        if time.monotonic() > deadline:
+            raise RuntimeError(f"phase 16: timed out waiting for {what}")
+        time.sleep(0.005)
+
+
+def _join_handoffs() -> None:
+    """Wait for the fleet's background handoff threads to end."""
+    for t in threading.enumerate():
+        if t.name.startswith("migrate-"):
+            t.join(300)
+            assert not t.is_alive(), t.name
+
+
+def _settle(*engines) -> None:
+    """Wait for each engine's tick in flight to end: a handle resolves
+    inside the tick, before the tick's counters and records are in, and
+    the tick holds the tick lock to its end."""
+    for eng in engines:
+        with eng._tick_lock:
+            pass
+
+
+def _replica_steps(fleet) -> int:
+    """Sum of every replica's model_steps, GONE replicas included."""
+    total = 0
+    for rep in fleet.replicas():
+        eng = rep.engine
+        snap = eng.snapshot() if eng is not None else rep.final_snapshot()
+        total += snap["counters"]["model_steps"]
+    return total
+
+
+def _fleet_wave(vocab: int):
+    """(b)'s wave: request i is session i % 4's 64-token system prompt
+    followed by phase 4's prompt i % 16, with phase 4's new tokens. The
+    system prompts are drawn (seeded) until each of r0, r1 and r2 anchors
+    a session by the router's rendezvous hash, so the drain and the
+    corruption both meet a replica with traffic."""
+    from paddle_tpu_torch.serving import prefix_fingerprints
+    from paddle_tpu_torch.serving.fleet.router import _rendezvous
+    prompts, new = _requests(vocab)
+    rng = np.random.RandomState(160)
+    while True:
+        system = [rng.randint(0, vocab, FLEET_SYSTEM).astype(np.int32)
+                  for _ in range(4)]
+        anchors = [max(("r0", "r1", "r2"), key=lambda r: _rendezvous(
+            prefix_fingerprints(s, 16, 1)[0], r)) for s in system]
+        if set(anchors) == {"r0", "r1", "r2"}:
+            break
+    wave = [(np.concatenate([system[i % 4], prompts[i % 16]]),
+             new[i % 16]) for i in range(FLEET_WAVE)]
+    return wave, anchors
+
+
+def _tick_wall(params, cfg, dev, trace: bool) -> tuple:
+    """Phase 4's wave on one engine with ``trace`` on or off: mean and
+    count of the flight recorder's tick walls."""
+    from paddle_tpu_torch.serving import ServingEngine
+    prompts, new = _requests(cfg.vocab_size)
+    eng = ServingEngine(params, cfg, device=dev, max_batch=8, page_size=16,
+                        max_prompt_len=512, max_new_tokens_cap=32,
+                        prefill_chunk=256, decode_block_size=4,
+                        trace=trace, flight_ticks=4096)
+    try:
+        eng.warm_programs()
+        hs = [eng.submit(p, n) for p, n in zip(prompts, new)]
+        for h, n in zip(hs, new):
+            assert h.result(timeout=600).shape == (n,)
+    finally:
+        eng.close()
+    ticks = eng.flight.ticks()
+    assert len(ticks) == eng.snapshot()["counters"]["ticks"]
+    spans = sum(s.name == "serving.tick" for s in eng.tracer.spans())
+    assert spans == (len(ticks) if trace else 0), (spans, len(ticks))
+    return float(np.mean([t["dur_s"] for t in ticks])), len(ticks)
+
+
+def fleet_phase(params, cfg) -> dict:
+    """Phase 16: the in-process fleet at llama3_8b's full width and depth.
+    (a) prefill -> decode handoff: four 1040-token sessions on the prefill
+    replica, their chains migrated to the decode replica, turn 2 routed
+    there by the migration record, session 0's turn 2 equal to the same
+    turn alone on the prefill replica; (b) three replicas, a 24-request
+    wave with r0 drained at the 8th submission and r1's pool corrupted at
+    the 16th: r1 reaped with a postmortem, re-dispatch exactly once, r2's
+    sentinel clean; (c) r2's trace against its counters; (d) ragged
+    launches = 32 x every replica's model steps; (e) times."""
+    from paddle_tpu_torch.ops.kernels import ragged_paged_attention as rpa
+    from paddle_tpu_torch.serving import ServingEngine
+    from paddle_tpu_torch.serving.fleet import GONE, ServingFleet
+
+    L = cfg.num_hidden_layers
+    dev = params["embed"].device
+    smi = nvidia_smi_line()
+    counter = rpa.ragged_paged_attention_packed
+
+    def factory():
+        return ServingEngine(params, cfg, device=dev, **FLEET_GEOM)
+
+    rec = {}
+    rng = np.random.RandomState(161)
+    # (a) prefill -> decode handoff
+    fleet = ServingFleet(factory, replicas=2, roles=["prefill", "decode"],
+                         prefill_len_ratio=FLEET_RATIO, warm=True)
+    handoff_s = []
+    migrate = fleet.migrate_chain
+
+    def timed_migrate(*a, **kw):
+        t0 = time.perf_counter()
+        out = migrate(*a, **kw)
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        handoff_s.append(time.perf_counter() - t0)
+        return out
+    fleet.migrate_chain = timed_migrate
+    try:
+        assert fleet.auto_migrate
+        fleet.arm_sentinels()
+        pre, dec = fleet.replica("r0"), fleet.replica("r1")
+        assert (pre.role, dec.role) == ("prefill", "decode")
+        counter.launches = 0
+        sessions = [rng.randint(0, cfg.vocab_size, FLEET_PROMPT)
+                    .astype(np.int32) for _ in range(4)]
+        t0 = time.perf_counter()
+        hs = [fleet.submit(s, FLEET_NEW1) for s in sessions]
+        out1 = [h.result(timeout=600) for h in hs]
+        for o in out1:
+            assert o.shape == (FLEET_NEW1,), o.shape
+        t_turn1 = time.perf_counter() - t0
+        _wait_for(lambda: fleet.counters["migrations"]
+                  + fleet.counters["migration_failed"] >= 4,
+                  "4 chain handoffs")
+        assert fleet.counters["migration_failed"] == 0, fleet.counters
+        assert fleet.counters["migrations"] == 4, fleet.counters
+        _settle(pre.engine)
+        assert pre.engine.snapshot()["counters"]["completed"] == 4
+        turn2 = [np.concatenate([s, o, rng.randint(0, cfg.vocab_size, 8)
+                                 .astype(np.int32)])
+                 for s, o in zip(sessions, out1)]
+        t0 = time.perf_counter()
+        h0 = fleet.submit(turn2[0], FLEET_NEW2)
+        alone = h0.result(timeout=600)      # alone on the decode replica
+        rest = [fleet.submit(p, FLEET_NEW2) for p in turn2[1:]]
+        out2 = [alone] + [h.result(timeout=600) for h in rest]
+        t_turn2 = time.perf_counter() - t0
+        for o in out2:
+            assert o.shape == (FLEET_NEW2,), o.shape
+        assert fleet.router.counters["routed_migrated"] == 4, \
+            fleet.router.counters
+        _settle(dec.engine)
+        dec_c = dec.engine.snapshot()["counters"]
+        assert dec_c["completed"] == 4, dec_c
+        cached = {sp.args["req"]: sp.args["cached"]
+                  for sp in dec.engine.tracer.spans() if sp.name == "queue"}
+        assert [cached.get(h.id) for h in [h0] + rest] == \
+            [FLEET_PROMPT] * 4, cached
+        # session 0's turn 2 alone on the prefill replica, over the pages
+        # its turn 1 left warm (this handoff's chain migrates too)
+        c0 = pre.engine.snapshot()["counters"]["prefix_hit_tokens"]
+        on_pre = pre.engine.generate(turn2[0], FLEET_NEW2)
+        assert pre.engine.snapshot()["counters"]["prefix_hit_tokens"] \
+            - c0 == FLEET_PROMPT
+        assert np.array_equal(on_pre, alone), (on_pre, alone)
+        # sessions 1-3 batched on the prefill replica, as on the decode one
+        again = [pre.engine.submit(p, FLEET_NEW2) for p in turn2[1:]]
+        agree = [int((a == h.result(timeout=600)).sum())
+                 for a, h in zip(out2[1:], again)]
+        _join_handoffs()
+        assert fleet.counters["migration_failed"] == 0, fleet.counters
+        _settle(pre.engine, dec.engine)
+        assert pre.engine.audit() == [] and dec.engine.audit() == []
+        sentinels = [r.sentinel_report() for r in fleet.replicas()]
+        assert all(s["armed"] and s["clean"] for s in sentinels), sentinels
+        launches = counter.launches
+        steps = _replica_steps(fleet)
+        assert launches == L * steps, (launches, L, steps)
+    finally:
+        fleet.close()
+    tokens_a = 4 * (FLEET_NEW1 + FLEET_NEW2)
+    rec["handoff"] = dict(
+        turn1_s=t_turn1, turn2_s=t_turn2,
+        tok_s=tokens_a / (t_turn1 + t_turn2),
+        handoff_ms=[t * 1e3 for t in handoff_s],
+        migrations=fleet.counters["migrations"],
+        routed_migrated=fleet.router.counters["routed_migrated"],
+        others_agree=agree)
+    log(f"fleet (a) prefill->decode: turn 1 (4 x {FLEET_PROMPT} tokens, "
+        f"{FLEET_NEW1} new) {t_turn1:.3f} s on the prefill replica, "
+        f"{fleet.counters['migrations']} chain handoffs (4 of turn 1, "
+        f"then session 0's turn-2 chain) of "
+        + ", ".join(f"{t * 1e3:.1f}" for t in handoff_s)
+        + f" ms, turn 2 (4 x 1064 tokens, {FLEET_NEW2} new) "
+        f"{t_turn2:.3f} s on the decode replica, routed_migrated 4, each "
+        f"attaching {FLEET_PROMPT} adopted tokens; fleet "
+        f"{rec['handoff']['tok_s']:.1f} tok/s; session 0's turn 2 == the "
+        f"same turn alone on the prefill replica ({FLEET_NEW2} tokens); "
+        f"sessions 1-3 batched there too: {agree}/{FLEET_NEW2} tokens "
+        f"equal; {launches} ragged launches = {L} x {steps} model steps; "
+        f"sentinels clean [{smi}]")
+
+    # (b) drain and a seeded failure under a wave
+    wave, anchors = _fleet_wave(cfg.vocab_size)
+    fleet = ServingFleet(factory, replicas=3, policy="affinity", warm=True)
+    try:
+        fleet.arm_sentinels()
+        r1 = fleet.replica("r1")
+        counter.launches = 0
+        handles, submit_s = [], []
+        t0 = time.perf_counter()
+        for i, (p, n) in enumerate(wave):
+            if i == FLEET_DRAIN_AT:
+                fleet.drain("r0")
+            if i == FLEET_CRASH_AT:
+                eng1 = r1.engine
+
+                def has_nodes():
+                    with eng1._tick_lock:
+                        return bool(eng1.prefix_cache.nodes())
+                _wait_for(has_nodes, "a cached chain on r1")
+                with eng1._tick_lock:
+                    eng1.prefix_cache.nodes()[0].refs += 3
+            t1 = time.perf_counter()
+            handles.append(fleet.submit(p, n))
+            submit_s.append(time.perf_counter() - t1)
+            time.sleep(0.02)
+        done, failed = 0, 0
+        for h, (p, n) in zip(handles, wave):
+            try:
+                out = h.result(timeout=600)
+            except Exception as e:
+                assert "invariant" in str(e), repr(e)
+                failed += 1
+                continue
+            assert out.shape == (n,), (out.shape, n)
+            done += 1
+        t_wave = time.perf_counter() - t0
+        _wait_for(lambda: not r1.alive, "r1's engine to die")
+        assert fleet.reap() == ["r1"]
+        rc, fc = fleet.router.counters, fleet.counters
+        assert rc["redispatched"] == fc["handed_back"], (rc, fc)
+        assert rc["redispatch_failed"] == 0, rc
+        assert fc["drains"] == 1 and fc["kills"] == 1, fc
+        assert r1.state == GONE
+        pm = r1.postmortem_path
+        assert pm is not None and os.path.exists(pm), pm
+        with open(pm) as f:
+            doc = json.load(f)
+        kinds = sorted({v["code"] for v in doc["error"]["violations"]})
+        assert "refcount-drift" in kinds, kinds
+        assert doc["ticks"], "postmortem without tick records"
+        assert any(s["name"] == "serving.tick" for s in doc["spans"])
+        assert doc["sentinel"]["armed"] and doc["sentinel"]["clean"]
+        assert doc["expected_programs"] == ["ragged_paged_attention"]
+        r2 = fleet.replica("r2")
+        s2 = r2.sentinel_report()
+        assert s2["post_warmup_compiles"] == 0, s2
+        eng2 = r2.engine
+        _settle(eng2)
+        assert eng2.audit() == []
+        launches_b = counter.launches
+        steps_b = _replica_steps(fleet)
+    finally:
+        fleet.close()
+    assert launches_b == L * steps_b, (launches_b, L, steps_b)
+    tokens_b = sum(n for h, (_, n) in zip(handles, wave)
+                   if h.status == "completed")
+    rec["wave"] = dict(wall_s=t_wave, completed=done, failed=failed,
+                       tok_s=tokens_b / t_wave,
+                       handed_back=fc["handed_back"],
+                       redispatched=rc["redispatched"],
+                       submit_ms=float(np.median(submit_s)) * 1e3,
+                       submit_ms_max=float(np.max(submit_s)) * 1e3,
+                       anchors=anchors, violation_kinds=kinds)
+    log(f"fleet (b) 3 replicas, {FLEET_WAVE} requests (sessions anchored "
+        f"on {anchors}): r0 drained at submission {FLEET_DRAIN_AT} "
+        f"({fc['handed_back']} handed back, {rc['redispatched']} "
+        f"re-dispatched, 0 failed), r1's pool corrupted at "
+        f"{FLEET_CRASH_AT} and reaped (postmortem {os.path.basename(pm)}: "
+        f"{kinds}, {len(doc['ticks'])} tick records, "
+        f"{sum(s['name'] == 'serving.tick' for s in doc['spans'])} "
+        f"serving.tick spans); {done} completed, {failed} failed naming the "
+        f"invariant; {tokens_b} tokens in {t_wave:.3f} s = "
+        f"{rec['wave']['tok_s']:.1f} tok/s; router "
+        f"{rec['wave']['submit_ms']:.3f} ms a submit (median, max "
+        f"{rec['wave']['submit_ms_max']:.3f}); r2's sentinel clean; "
+        f"{launches_b} ragged launches = {L} x {steps_b} model steps "
+        f"[{smi}]")
+
+    # (c) r2's trace against its counters (the engine closed: every
+    # retirement's span is in)
+    with tempfile.TemporaryDirectory() as d:
+        with open(eng2.export_trace(os.path.join(d, "r2.json"))) as f:
+            trace = json.load(f)
+    c2 = eng2.snapshot()["counters"]
+    assert eng2.tracer.dropped == 0
+    evs = [e for e in trace["traceEvents"] if e["ph"] == "X"]
+    ticks2 = sum(e["name"] == "serving.tick" for e in evs)
+    assert ticks2 == c2["ticks"], (ticks2, c2["ticks"])
+    req2 = sum(e["name"] == "request" and e["cat"].startswith("slot")
+               and e["args"]["state"] == "completed" for e in evs)
+    assert req2 == c2["completed"], (req2, c2["completed"])
+    rec["trace"] = dict(ticks=ticks2, completed=req2, events=len(evs))
+    log(f"fleet (c) r2's trace: {len(evs)} spans, {ticks2} serving.tick = "
+        f"ticks, {req2} completed request spans = completed")
+
+    # (d) launches across (a) and (b)
+    rec["launches"] = launches + launches_b
+    rec["model_steps"] = steps + steps_b
+
+    # (e) one engine on (b)'s wave; the tracer's share of the tick wall
+    eng = factory()
+    try:
+        eng.warm_programs()
+        t0 = time.perf_counter()
+        hs = []
+        for p, n in wave:
+            hs.append(eng.submit(p, n))
+            time.sleep(0.02)
+        for h, (_, n) in zip(hs, wave):
+            assert h.result(timeout=600).shape == (n,)
+        t_one = time.perf_counter() - t0
+    finally:
+        eng.close()
+    tokens_one = sum(n for _, n in wave)
+    walls = {}
+    for trace_on in (False, True, True, False):
+        m, n = _tick_wall(params, cfg, dev, trace_on)
+        walls.setdefault(trace_on, []).append(m)
+    on, off = np.mean(walls[True]), np.mean(walls[False])
+    rec["one_engine_tok_s"] = tokens_one / t_one
+    rec["tick_wall_ms"] = dict(trace=on * 1e3, no_trace=off * 1e3,
+                               share=(on - off) / off)
+    log(f"fleet (e) one engine on (b)'s wave: {tokens_one} tokens in "
+        f"{t_one:.3f} s = {rec['one_engine_tok_s']:.1f} tok/s; phase 4's "
+        f"wave, mean tick wall (off, on, on, off): "
+        + ", ".join(f"{w * 1e3:.3f}" for w in (walls[False][0],
+                                               walls[True][0],
+                                               walls[True][1],
+                                               walls[False][1]))
+        + f" ms; trace=True {on * 1e3:.3f} ms vs trace=False "
+        f"{off * 1e3:.3f} ms = {rec['tick_wall_ms']['share'] * 100:+.2f} % "
+        f"(the JAX package pins its tracer at <= 3 %) [{smi}]")
+    return rec
+
+
+# ---------------------------------------------------------------------------
 # Qwen2-MoE serving (phase 14)
 # ---------------------------------------------------------------------------
 
@@ -4273,6 +4695,8 @@ def main() -> int:
     sampling_phase(params, cfg)
     adopted_rec = adopted_kernel_case()
     migration = migration_phase(params, cfg)
+    fleet_case = fleet_kernel_case()
+    fleet = fleet_phase(params, cfg)
     # free the 8B serving state before Qwen2-MoE's 43 GB of weights and
     # the train step's 61 GiB peak
     del params
@@ -4381,6 +4805,16 @@ def main() -> int:
         plain_ms=adopted_rec["plain_ms"], bound_ms=adopted_rec["bound_ms"],
         bound_by=adopted_rec["bound_by"],
         library_ms=adopted_rec["library_ms"]))
+    # phase 16: the ragged kernel on every tick of every fleet replica
+    kernels.append(dict(
+        name="ragged_paged_attention_fleet", route="cuda",
+        source="paddle_tpu_torch/csrc/ragged_paged_attention.cu",
+        replaces="paddle_tpu/ops/pallas/ragged_paged_attention.py:301",
+        launches=fleet["launches"],
+        max_abs_err=fleet_case["bf16_max_abs_err"], ms=fleet_case["ms"],
+        plain_ms=fleet_case["plain_ms"], bound_ms=fleet_case["bound_ms"],
+        bound_by=fleet_case["bound_by"],
+        library_ms=fleet_case["library_ms"]))
     qstep = qwen_serve["int8"]["step_8"]
     kernels.append(dict(
         name="int8_matmul_qwen", route="cuda",

@@ -79,7 +79,11 @@ __all__ = ["LlamaConfig", "init_params", "params_from_jax", "rms_norm",
            "serving_decode_step", "serving_decode_block", "decoder_layer",
            "forward", "loss_fn", "AdamW", "default_train_optimizer", "make_train_step",
            "make_batch", "params_to_numpy", "normal_init",
-           "one_device_trainer"]
+           "one_device_trainer", "SERVING_KERNELS"]
+
+# the kernel libraries serving_tick and serving_tick_block load on a CUDA
+# device (ops/kernels/_build.py names); int8 weights add int8_matmul
+SERVING_KERNELS = ("ragged_paged_attention",)
 
 
 @dataclasses.dataclass

@@ -63,9 +63,12 @@ __all__ = ["Qwen2MoeConfig", "init_params", "params_from_jax",
            "make_batch", "init_kv_cache", "forward_with_cache", "generate",
            "init_serving_pages", "serving_prefill", "serving_prefill_chunk",
            "serving_decode_step", "serving_decode_block", "serving_tick",
-           "serving_tick_block"]
+           "serving_tick_block", "SERVING_KERNELS"]
 
 params_from_jax = llama.params_from_jax
+# the serving ticks' kernel libraries: the routed experts run as plain
+# einsums in the decode block, so only the ragged attention kernel
+SERVING_KERNELS = ("ragged_paged_attention",)
 make_batch = llama.make_batch
 # the dense K/V cache and the serving page pools: the Llama layouts
 init_kv_cache = llama.init_kv_cache

@@ -9,7 +9,9 @@ an edited source or header builds anew and an unchanged one is reused.
 ``build`` starts one ``nvcc`` per source, all at once, and waits for
 them together. ``tile_counters`` holds the zeroed int32 counters with
 which the int8 and decode-attention kernels find the last block of a
-tile.
+tile. ``load`` records the seconds of each library's first load in the
+process (its build included) as the recompile sentinel's event
+(``observability/sentinel.py``).
 """
 from __future__ import annotations
 
@@ -18,8 +20,13 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
+import time
 from pathlib import Path
 from typing import Dict, Iterable
+
+from ...observability.sentinel import (COMPILE_EVENT,
+                                       record_event_duration_secs)
 
 __all__ = ["KERNELS", "BUILD_DIR", "build", "load", "tile_counters"]
 
@@ -33,6 +40,9 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _loaded: Dict[str, ctypes.CDLL] = {}
+# serializes first loads: two threads (a fleet's replicas) launching a
+# kernel first at once build and record it once
+_load_lock = threading.Lock()
 # Per (device, stream): counters that start at zero and that every launch
 # using them leaves zero. Launches on one stream run in order, so one
 # buffer serves all of them; two streams would mix their counts (a tile's
@@ -94,11 +104,20 @@ def build(names: Iterable[str] = KERNELS) -> Dict[str, Path]:
 
 
 def load(name: str) -> ctypes.CDLL:
-    """The loaded library of kernel ``name``, built first if needed."""
+    """The loaded library of kernel ``name``, built first if needed. A
+    first load is recorded as ``COMPILE_EVENT`` with its seconds."""
     lib = _loaded.get(name)
-    if lib is None:
+    if lib is not None:
+        return lib
+    with _load_lock:
+        lib = _loaded.get(name)
+        if lib is not None:
+            return lib
+        t0 = time.perf_counter()
         lib = ctypes.CDLL(str(build([name])[name]))
         _loaded[name] = lib
+    record_event_duration_secs(COMPILE_EVENT, time.perf_counter() - t0,
+                               library=name)
     return lib
 
 

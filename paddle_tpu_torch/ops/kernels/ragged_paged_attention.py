@@ -39,6 +39,7 @@ from __future__ import annotations
 
 import ctypes
 import math
+import threading
 
 import numpy as np
 import torch
@@ -271,6 +272,9 @@ _KERNEL = "ragged_paged_attention"
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIMS = (64, 128)         # the kernel's instantiations (csrc)
 GROUPS = (1, 2, 4, 8)         # query heads per kv head
+# the launch count is bumped by every thread that ticks an engine (a
+# fleet's replicas share the kernel): a bare += could lose an increment
+_count_lock = threading.Lock()
 
 
 def _lib():
@@ -353,7 +357,8 @@ def _launch(q, k_pages, v_pages, tok_slot, tok_qoff, q_len, kv_len, tables,
         raise RuntimeError(f"ragged paged-attention kernel launch failed "
                            f"(error {err}) for T={T} H={H} Hkv={Hkv} "
                            f"Dh={Dh} dtype={q.dtype}")
-    ragged_paged_attention_packed.launches += 1
+    with _count_lock:
+        ragged_paged_attention_packed.launches += 1
     return out
 
 

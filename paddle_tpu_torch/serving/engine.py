@@ -40,7 +40,18 @@ Port of ``paddle_tpu/serving/engine.py``:
     (``analysis/kv_invariants.py``) after every tick and around every
     defrag; ``alive``, ``inject``, ``close(hand_back=True)``,
     ``snapshot``, ``affinity_summary`` and ``on_chain_complete`` are the
-    surface a fleet drives;
+    surface a fleet drives (serving/fleet/);
+  - runtime observability (``paddle_tpu_torch/observability``): every
+    tick records engine-phase and per-slot lifecycle spans into a
+    bounded ring (``export_trace(path)`` -> Perfetto) and a flight
+    record; a ``KVInvariantError`` or an engine-loop crash writes a JSON
+    postmortem (``postmortem_path``); the recompile sentinel turns a
+    kernel library loaded after ``arm_sentinel()`` into a named WARN
+    metric and a ``RecompileWarning``. ``warm_programs()`` loads every
+    library of the engine's inventory before it is armed. Device-trace
+    annotations are ``torch.profiler.record_function`` ranges (the JAX
+    engine's ``RecordEvent`` sites), and every serving lock goes through
+    ``locktrace.wrap_lock``;
   - the model module comes from ``model=`` or the config's type
     (``llama``, ``qwen2_moe``): its ``init_serving_pages``,
     ``serving_tick`` and ``serving_tick_block`` run the ticks, and
@@ -73,10 +84,14 @@ import torch
 
 from ..analysis.kv_invariants import (KVInvariantError, audit_defrag_plan,
                                       audit_serving_state)
+from torch.profiler import record_function
+
 from ..device import resolve_device
 from ..inference.paged_kv import PagePool, apply_defrag
 from ..models import llama, qwen2_moe
+from ..observability import FlightRecorder, RecompileSentinel, SpanTracer
 from ..quantization.decode import is_quantized_params, quantize_for_decode
+from .locktrace import get_tracer, host_sync, wrap_lock
 from .metrics import ServingMetrics
 from .prefix_cache import ColdTier, PrefixCache, _fp_extend
 from .scheduler import (CANCELLED, COMPLETED, REJECTED, TIMED_OUT,
@@ -207,9 +222,8 @@ class ServingEngine:
     defrag; a violation raises ``KVInvariantError`` and fails the engine
     through its fail path. The default comes from
     ``PADDLE_TPU_SERVING_CHECK_INVARIANTS`` (the test suite sets it).
-    The JAX engine's flight-recorder postmortem (``postmortem_path``) is
-    not ported yet: the error itself names the violations and the
-    engine's geometry.
+    A violation (or any other engine-loop failure) also writes the
+    flight recorder's postmortem (see ``flight_ticks``).
     cold_tier_bytes: 0 (off) or a host-RAM budget for the cold tier
     (``ColdTier``): refcount-0 chains evicted under page pressure page
     out to host memory, keyed by chain fingerprint, and a queued prompt
@@ -222,6 +236,32 @@ class ServingEngine:
     held: keep it cheap) when a prefill registers or extends a prefix
     chain; ``info`` is ``{"fp", "fps", "pages", "prompt_tokens"}``, the
     deepest chain fingerprint and the per-page ones, from the prompt.
+    trace: span tracing (observability/tracer.py): per-tick engine phase
+    spans (admission, the tick, defrag, the invariant audit) and
+    per-request lifecycle spans (queue -> prefill chunks -> decode ticks
+    -> retire) on one track per slot, ring-bounded (``trace_capacity``
+    spans), exported as Perfetto JSON by ``export_trace(path)``. Default
+    from ``PADDLE_TPU_SERVING_TRACE`` (on when unset).
+    flight_ticks / flight_dir: the flight recorder keeps the last N tick
+    records; on ``KVInvariantError`` (after a tick or a defrag) or any
+    unhandled engine-loop exception a JSON postmortem (recent ticks,
+    span window, metrics, scheduler/pool/prefix state, the violation
+    list, the expected kernel libraries, the sentinel's report and, when
+    lock tracing is on, the lock report) is written under ``flight_dir``
+    (default ``PADDLE_TPU_FLIGHT_DIR`` or ``<tmp>/paddle_tpu_flight``)
+    and its path lands in ``postmortem_path``. The document's keys and
+    schema are the JAX engine's.
+    recompile_sentinel: watch kernel library loads at runtime
+    (observability/sentinel.py): after ``arm_sentinel()`` declares
+    warmup done, any first load of a kernel library in the process
+    raises a named ``RecompileWarning``, increments the labeled
+    ``recompiles`` counter and records a sentinel span. Default from
+    ``PADDLE_TPU_SERVING_SENTINEL`` (on when unset). Where the JAX
+    sentinel watches XLA compiles, the port's event is the library load
+    (the port compiles nothing per shape), and ``program_inventory`` is
+    the sorted list of kernel libraries the model and quantization reach
+    (``SERVING_KERNELS`` of the model module, plus ``int8_matmul`` for
+    int8 weights).
 
     Migration blobs keep the JAX engine's keys, ``{fp, page_size,
     tokens, k, v}`` with ``k``/``v`` numpy arrays ``[L, Hkv, n_pages,
@@ -245,7 +285,12 @@ class ServingEngine:
                  quantization: Optional[str] = None,
                  speculative=None, spec_k: int = 3,
                  check_invariants: Optional[bool] = None,
-                 cold_tier_bytes: int = 0, on_chain_complete=None):
+                 cold_tier_bytes: int = 0, on_chain_complete=None,
+                 trace: Optional[bool] = None,
+                 trace_capacity: int = 65536,
+                 flight_ticks: int = 64,
+                 flight_dir: Optional[str] = None,
+                 recompile_sentinel: Optional[bool] = None):
         if max_batch < 1:
             raise ValueError("max_batch must be >= 1")
         if decode_block_size < 1:
@@ -285,6 +330,28 @@ class ServingEngine:
             max_prompt_len=max_prompt_len, prefix_cache=self.prefix_cache,
             admission_window=admission_window)
         self.metrics = ServingMetrics()
+        # the kernel libraries the ticks load on a CUDA device: the
+        # sentinel's expected inventory and the postmortem's programs
+        kernels = set(getattr(self._mod, "SERVING_KERNELS", ()))
+        if is_quantized_params(params):
+            kernels.add("int8_matmul")
+        self.program_inventory = sorted(kernels)
+        # ------------------------------------------- observability ----
+        if trace is None:
+            trace = _env_flag("PADDLE_TPU_SERVING_TRACE", True)
+        self.tracer = SpanTracer(capacity=trace_capacity,
+                                 enabled=bool(trace))
+        self.flight = FlightRecorder(capacity=flight_ticks)
+        self._flight_dir = flight_dir
+        self.postmortem_path: Optional[str] = None
+        if recompile_sentinel is None:
+            recompile_sentinel = _env_flag("PADDLE_TPU_SERVING_SENTINEL",
+                                           True)
+        self.sentinel = RecompileSentinel(
+            expected=self.program_inventory, tracer=self.tracer,
+            metrics=self.metrics, label="serving-engine") \
+            if recompile_sentinel else None
+        self._tick_no = 0
         # speculative decoding: drafter + per-request adaptive-k policy
         self._drafter = resolve_drafter(speculative)
         if self._drafter is not None and int(spec_k) < 1:
@@ -328,8 +395,12 @@ class ServingEngine:
         if self._cold is not None:
             self.prefix_cache.spill = self._spill_node
 
+        # _cond stays a raw Condition (wait() releases its mutex, which a
+        # traced wrapper would not see); the tick lock goes through
+        # wrap_lock, so the lock tracer and fuzzer see every acquisition
         self._cond = threading.Condition()
-        self._tick_lock = threading.Lock()
+        self._tick_lock = wrap_lock(threading.Lock(),
+                                    "ServingEngine._tick_lock")
         self._closing = False
         self._drain = True
         # hand-back drain (a fleet's drain): admission stops and the
@@ -440,12 +511,16 @@ class ServingEngine:
                              "close finalizes, it cannot hand back)")
         with self._cond:
             if self._dead is not None and not self._worker.is_alive():
+                if self.sentinel is not None:
+                    self.sentinel.close()
                 return self._take_returned()
             self._closing = True
             self._drain = drain
             self._hand_back = bool(hand_back)
             self._cond.notify_all()
         self._worker.join()
+        if self.sentinel is not None:
+            self.sentinel.close()
         return self._take_returned()
 
     def _take_returned(self) -> "list[Request]":
@@ -548,6 +623,7 @@ class ServingEngine:
             tokens = [tuple(int(t) for t in nd.toks) for nd in nodes]
             k = _host_pages(self._kp, pages)
             v = _host_pages(self._vp, pages)
+            host_sync("serving.migrate_export")
         return {"fp": int(fp), "page_size": int(self.pool.page_size),
                 "tokens": tokens, "k": k, "v": v}
 
@@ -622,6 +698,7 @@ class ServingEngine:
             pages = [nd.page for nd in nodes]
             k = _host_pages(self._kp, pages)
             v = _host_pages(self._vp, pages)
+            host_sync("serving.migrate_export")
         return {"start": int(start), "count": len(nodes), "k": k, "v": v}
 
     def export_chain_end(self, xid: int) -> None:
@@ -757,20 +834,21 @@ class ServingEngine:
         fp = self.prefix_cache.node_fingerprint(nd)
         k = _gather(self._kp, [nd.page])
         v = _gather(self._vp, [nd.page])
+        host_sync("serving.cold_spill")
         if self._cold.put(fp, nd.toks, k, v):
             self.metrics.inc("cold_spills")
 
-    def _rewarm_cold(self) -> None:
+    def _rewarm_cold(self, reqs) -> None:
         """Before admission (engine loop, tick lock held): for each of
-        the first queued prompts whose warm trie match ends where a
-        spilled chain begins, re-adopt the contiguous cold run (alloc,
-        scatter, graft), so admission attaches it as a warm hit. Each
-        page's token tuple is compared with the prompt first (the
+        ``reqs`` (the first queued requests) whose warm trie match ends
+        where a spilled chain begins, re-adopt the contiguous cold run
+        (alloc, scatter, graft), so admission attaches it as a warm hit.
+        Each page's token tuple is compared with the prompt first (the
         fingerprint only indexes). Best-effort: a failure skips the
         request, never the loop."""
         pc = self.prefix_cache
         ps = self.pool.page_size
-        for req in self.scheduler.peek_queued(4):
+        for req in reqs:
             try:
                 max_pages = (int(req.prompt.size) - 1) // ps
                 if max_pages <= 0:
@@ -847,7 +925,8 @@ class ServingEngine:
 
     def _audit_or_raise(self) -> None:
         """Per-tick check (tick lock held)."""
-        violations = self._audit_state()
+        with self.tracer.span("serving.audit", track="engine.audit"):
+            violations = self._audit_state()
         if violations:
             self.metrics.inc("invariant_violations", len(violations))
             raise KVInvariantError(violations,
@@ -864,8 +943,10 @@ class ServingEngine:
         the tick lock, between ticks. With ``check_invariants`` the plan
         is audited before anything is rewritten (it must cover every
         live reference) and the state after it; a violation raises
-        ``KVInvariantError``."""
-        with self._tick_lock:
+        ``KVInvariantError``; a violation in the state after it also
+        writes the postmortem."""
+        with self._tick_lock, \
+                self.tracer.span("serving.defrag", track="engine.defrag"):
             plan = self.pool.defrag_plan()
             if not plan:
                 return 0
@@ -887,8 +968,144 @@ class ServingEngine:
                 ent["pages"] = [plan.get(p, p) for p in ent["pages"]]
             self.pool.commit_defrag(plan)
             if self._check_invariants:
-                self._audit_or_raise()
+                try:
+                    self._audit_or_raise()
+                except BaseException as e:
+                    # the caller gets the raise, the postmortem the state
+                    try:
+                        self._write_postmortem(e)
+                    except Exception:
+                        pass    # a failing dump must not hide the error
+                    raise
             return len(plan)
+
+    # ----------------------------------------------------- observability ----
+    def export_trace(self, path: str) -> str:
+        """Write the span tracer's ring as Perfetto-loadable Chrome-trace
+        JSON (one track per engine phase and per slot); returns
+        ``path``."""
+        return self.tracer.export(path)
+
+    def arm_sentinel(self) -> None:
+        """Declare warmup complete: from now on a first load of a kernel
+        library in this process raises ``RecompileWarning`` and
+        increments the labeled ``recompiles`` counter (no-op when the
+        sentinel is off). Call after :meth:`warm_programs`."""
+        if self.sentinel is not None:
+            self.sentinel.arm()
+
+    def warm_programs(self) -> int:
+        """Run one all-padding tick on each tick path this engine has —
+        the fused block, and the verify tick of a speculative engine or
+        else the ragged tick with and without the fused decode tail — so
+        every kernel library of ``program_inventory`` is loaded before
+        the sentinel is armed. Every packed token is the padding slot
+        and every KV write lands on the trash page; the outputs are
+        discarded. Safe any time (serialized against ticks); counts no
+        metric. Returns the number of ticks run."""
+        S = self.scheduler.max_batch
+        ps = self.pool.page_size
+        n = 0
+        with self._tick_lock:
+            tabs = np.full((S, self.scheduler.pages_per_slot),
+                           PagePool.TRASH, np.int32)
+            zs = np.zeros((S,), np.int32)
+            tail_live = self._to_dev(np.zeros((S,), bool))
+            if self._spec_k:
+                tok, meta = llama.pack_tick([], [], tabs, ps, self._dev,
+                                            spec_k=self._spec_k)
+                meta["tail_live"] = tail_live
+                _, _, _, self._kp, self._vp = self._mod.serving_tick(
+                    self._params, tok, meta, self._kp, self._vp, self._cfg,
+                    spec_k=self._spec_k)
+                n += 1
+            else:
+                for tail in sorted({self._decode_block - 1, 0},
+                                   reverse=True):
+                    tok, meta = llama.pack_tick([], [], tabs, ps, self._dev)
+                    meta["tail_live"] = tail_live
+                    _, _, self._kp, self._vp = self._mod.serving_tick(
+                        self._params, tok, meta, self._kp, self._vp,
+                        self._cfg, decode_tail=tail)
+                    n += 1
+            _, self._kp, self._vp = self._mod.serving_tick_block(
+                self._params, self._to_dev(zs), self._to_dev(zs),
+                self._to_dev(tabs), self._kp, self._vp, self._cfg,
+                num_steps=self._decode_block)
+            n += 1
+        return n
+
+    def _record_tick(self, t0: float, t1: float, live, spans,
+                     admitted: int) -> None:
+        """Per-tick evidence (tick lock held): slot-track spans for each
+        live decoder and prefill span, and one flight-recorder record of
+        the tick's geometry and the live pool/queue gauges. Requests may
+        have retired inside the tick: only ids are used."""
+        tick = self._tick_no
+        self._tick_no += 1
+        if self.tracer.enabled:
+            for slot, req in live:
+                self.tracer.add("decode", f"slot{slot}", t0, t1,
+                                req=req.id, tick=tick)
+            for slot, req, start, take in spans:
+                self.tracer.add("prefill.chunk", f"slot{slot}", t0, t1,
+                                req=req.id, tick=tick, start=int(start),
+                                tokens=int(take))
+        self.flight.record_tick(
+            tick=tick, t_mono_s=round(t0, 6), dur_s=round(t1 - t0, 6),
+            live=len(live), prefill_spans=len(spans),
+            span_tokens=int(sum(t for _, _, _, t in spans)),
+            admitted=int(admitted), queued=self.scheduler.queued(),
+            occupancy=self.scheduler.occupancy,
+            free_pages=self.pool.free_pages,
+            prefill_queue_depth=len(self._prefill_q))
+
+    def _write_postmortem(self, e: BaseException) -> str:
+        """Dump the flight-recorder postmortem (tick lock held): the
+        error (with the violation list when a ``KVInvariantError`` is the
+        killer), the engine geometry and its kernel libraries, the last
+        tick records, the span window, a metrics snapshot, the sentinel's
+        report and the scheduler/pool/prefix state at death. Returns the
+        path written (also kept in ``postmortem_path``)."""
+        slots = []
+        for slot, req in enumerate(self.scheduler.slots):
+            if req is None:
+                continue
+            slots.append({
+                "slot": slot, "req": req.id, "state": req.state,
+                "length": int(self.scheduler.lengths[slot]),
+                "prefilling": bool(req.prefilling),
+                "chunk_done": int(req.chunk_done),
+                "cached_len": int(req.cached_len),
+                "private_pages": len(req.pages),
+                "prefix_pages": len(req.prefix_nodes),
+                "row": self.scheduler.effective_row(slot).tolist(),
+            })
+        state = {
+            "slots": slots,
+            "queued": self.scheduler.queued(),
+            "prefill_queue": [req.id for _, req in self._prefill_q],
+            "pool": {"total_pages": self.pool.total_pages,
+                     "page_size": self.pool.page_size,
+                     "free_pages": self.pool.free_pages},
+        }
+        if self.prefix_cache is not None:
+            state["prefix_cache"] = self.prefix_cache.stats()
+        lt = get_tracer()
+        if lt is not None:
+            # the acquisition graph and wait/hold aggregates: which lock
+            # the dying engine was living under
+            state["lock_trace"] = lt.report()
+        spans = [sp.to_dict() for sp in self.tracer.spans()] \
+            if self.tracer.enabled else None
+        self.postmortem_path = self.flight.dump(
+            dir=self._flight_dir, error=e,
+            geometry=self._geometry_desc(),
+            programs=self.program_inventory, state=state, spans=spans,
+            metrics=self.metrics.snapshot(),
+            sentinel=(self.sentinel.report()
+                      if self.sentinel is not None else None))
+        return self.postmortem_path
 
     # ------------------------------------------------------------ tokens ----
     def _emit(self, slot: int, req: Request, tok: int) -> bool:
@@ -898,6 +1115,9 @@ class ServingEngine:
         if req.first_token_t is None:
             req.first_token_t = now
             self.metrics.observe("ttft_s", now - req.submit_t)
+            # on the metric's own stamps: the span equals the observation
+            self.tracer.add("ttft", f"slot{slot}", req.submit_t, now,
+                            req=req.id)
         req.tokens.append(tok)
         req.stream.put(tok)
         self._produced[slot] += 1
@@ -907,13 +1127,17 @@ class ServingEngine:
                         and tok == req.eos_token_id))
 
     def _retire(self, slot: int, state: str) -> None:
-        self.scheduler.retire(slot, state)
+        req = self.scheduler.retire(slot, state)
         self._cur_tok[slot] = 0
         self._produced[slot] = 0
         self._key_data[slot] = 0
         self._samp_cache = None
         self.metrics.inc({COMPLETED: "completed", CANCELLED: "cancelled",
                           TIMED_OUT: "timed_out"}[state])
+        # the whole lifecycle, submit -> retirement, on the slot track
+        self.tracer.add("request", f"slot{slot}", req.submit_t,
+                        req.finish_t, req=req.id, state=state,
+                        tokens=len(req.tokens))
 
     def _emit_toks(self, slot: int, req: Request, toks_row,
                    j0: int, j1: int) -> None:
@@ -1025,6 +1249,7 @@ class ServingEngine:
         ``1 <= k_s <= spec_k``; slots with no entry decode plainly. The
         budget is ``max_new_tokens - produced - 1``: positions past it
         are not funded by the slot's pages."""
+        t0 = time.monotonic()
         drafts = {}
         # a drafter that declares its history window gets only that tail
         window = getattr(self._drafter, "max_history", None)
@@ -1043,6 +1268,11 @@ class ServingEngine:
                            np.int32).reshape(-1)[:k]
             if d.size:
                 drafts[slot] = d
+        if drafts and self.tracer.enabled:
+            self.tracer.add(
+                "serving.draft", "engine.draft", t0, time.monotonic(),
+                slots=len(drafts),
+                tokens=int(sum(d.size for d in drafts.values())))
         return drafts
 
     # -------------------------------------------------------------- tick ----
@@ -1119,17 +1349,31 @@ class ServingEngine:
             spec_k=spec)
         meta["tail_live"] = self._to_dev(tail_live)
         meta.update(self._sampling_arrays())
+        span_tok = (sum(take for _, _, _, take in spans)
+                    + sum(1 + d.size for d in drafts.values()))
         t0 = time.perf_counter()
-        if spec:
-            toks, accept, _, self._kp, self._vp = self._mod.serving_tick(
-                self._params, tok, meta, self._kp, self._vp, self._cfg,
-                spec_k=spec)
-            accept = accept.cpu().numpy()
-        else:
-            toks, _, self._kp, self._vp = self._mod.serving_tick(
-                self._params, tok, meta, self._kp, self._vp, self._cfg,
-                decode_tail=tail)
-        toks = toks.cpu().numpy()       # the one host read-back per tick
+        m0 = time.monotonic()
+        with record_function("serving.tick"), \
+                self.tracer.span("serving.tick", track="engine.decode",
+                                 tick=self._tick_no, width=int(span_tok),
+                                 live=len(live), span_tokens=int(span_tok),
+                                 tail=int(tail), spec=len(drafts)):
+            if spec:
+                toks, accept, _, self._kp, self._vp = \
+                    self._mod.serving_tick(
+                        self._params, tok, meta, self._kp, self._vp,
+                        self._cfg, spec_k=spec)
+                # the tick's read-back: tokens [S, 1 + spec_k] and accept
+                accept = accept.cpu().numpy()
+                toks = toks.cpu().numpy()
+                host_sync("serving.tick.readback")
+            else:
+                toks, _, self._kp, self._vp = self._mod.serving_tick(
+                    self._params, tok, meta, self._kp, self._vp, self._cfg,
+                    decode_tail=tail)
+                toks = toks.cpu().numpy()   # the one host read-back
+                host_sync("serving.tick.readback")
+        m1 = time.monotonic()
         self.metrics.inc("model_steps", 1 + tail)
         if toks.ndim == 1:
             toks = toks[:, None]
@@ -1149,6 +1393,13 @@ class ServingEngine:
                 self.metrics.inc("draft_rejected", k_s - a)
                 self.metrics.observe("spec_accept_rate", a / k_s)
                 self._spec_policy.update(req, k_s, a)
+                if self.tracer.enabled:
+                    self.tracer.add("spec.verify", f"slot{slot}", m0, m1,
+                                    req=req.id, drafted=k_s, accepted=a)
+                    if k_s > a:
+                        self.tracer.add("spec.rollback", f"slot{slot}",
+                                        m1, m1, req=req.id,
+                                        rejected=k_s - a)
                 self._emit_toks(slot, req, toks[slot], 0, a + 1)
                 continue
             self.scheduler.lengths[slot] += 1 + tail
@@ -1177,12 +1428,17 @@ class ServingEngine:
         lands on the trash page or past the length)."""
         k = self._decode_block
         t0 = time.perf_counter()
-        toks, self._kp, self._vp = self._mod.serving_tick_block(
-            self._params, self._to_dev(self._cur_tok),
-            self._to_dev(self.scheduler.lengths),
-            self._to_dev(self.scheduler.tables), self._kp, self._vp,
-            self._cfg, num_steps=k, sampling=self._sampling_arrays())
-        toks = toks.cpu().numpy()
+        with record_function("serving.decode_step"), \
+                self.tracer.span("serving.tick", track="engine.decode",
+                                 tick=self._tick_no, kind="block",
+                                 live=len(live), steps=k):
+            toks, self._kp, self._vp = self._mod.serving_tick_block(
+                self._params, self._to_dev(self._cur_tok),
+                self._to_dev(self.scheduler.lengths),
+                self._to_dev(self.scheduler.tables), self._kp, self._vp,
+                self._cfg, num_steps=k, sampling=self._sampling_arrays())
+            toks = toks.cpu().numpy()   # the block's read-back [S, k]
+            host_sync("serving.tick.readback")
         self.metrics.inc("model_steps", k)
         self.metrics.inc("decode_steps", k)
         self.metrics.observe("decode_step_s",
@@ -1228,6 +1484,14 @@ class ServingEngine:
                 self._run()
         except BaseException as e:  # fail every caller, then surface
             self._dead = e
+            try:
+                # the postmortem snapshots the state BEFORE _fail_all
+                # retires everything, under the tick lock (a caller in
+                # defragment() must not rewrite it while the dump walks it)
+                with self._tick_lock:
+                    self._write_postmortem(e)
+            except Exception:
+                pass        # a failing dump must not hide the error
             with self._tick_lock:
                 self._fail_all(e)
             raise
@@ -1261,14 +1525,36 @@ class ServingEngine:
                     if handed:
                         self._returned.extend(handed)
                         self.metrics.inc("handed_back", len(handed))
-                if self._cold is not None and len(self._cold) \
-                        and self.scheduler.queued():
-                    # rewarm BEFORE admission, so it sees a warm hit
-                    self._rewarm_cold()
-                for slot, req in self.scheduler.admit():
+                frontier = None
+                if self._cold is not None and len(self._cold):
+                    # rewarm BEFORE admission, so it sees a warm hit; and
+                    # admit only the requests queued at this look: one
+                    # submitted after it waits a loop turn instead of
+                    # being admitted without its rewarm
+                    frontier = self.scheduler.peek_queued(
+                        self.scheduler.max_batch
+                        + self.scheduler.admission_window)
+                    if frontier:
+                        self._rewarm_cold(frontier[:4])
+                t_adm = time.monotonic()
+                with record_function("serving.admit"):
+                    admitted = self.scheduler.admit(only=frontier)
+                if admitted:
+                    # only when work happened: an idle engine polls
+                    # admission every 50 ms and must not flush real spans
+                    # out of the ring
+                    self.tracer.add("serving.admission", "engine.admission",
+                                    t_adm, time.monotonic(),
+                                    admitted=len(admitted))
+                for slot, req in admitted:
                     self.metrics.inc("admitted")
                     self.metrics.observe("queue_wait_s",
                                          req.admit_t - req.submit_t)
+                    # on the request's own stamps (== the observation)
+                    self.tracer.add("queue", f"slot{slot}", req.submit_t,
+                                    req.admit_t, req=req.id,
+                                    prompt=int(req.prompt.size),
+                                    cached=int(req.cached_len))
                     self._park(slot, req)
                 spans = self._collect_spans()
                 live = self.scheduler.live()
@@ -1286,10 +1572,14 @@ class ServingEngine:
                     if live and self._last_decode_t is not None:
                         self.metrics.observe("decode_stall_s",
                                              t - self._last_decode_t)
+                    t_tick0 = time.monotonic()
                     self._decode_tick(live, spans)
+                    t_tick1 = time.monotonic()
                     self.metrics.inc("ticks")
                     self._last_decode_t = (time.perf_counter()
                                            if live else None)
+                    self._record_tick(t_tick0, t_tick1, live, spans,
+                                      len(admitted))
                     if self._check_invariants:
                         self._audit_or_raise()
                 else:

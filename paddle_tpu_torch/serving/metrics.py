@@ -15,6 +15,8 @@ from typing import Dict, Optional, Tuple
 
 import numpy as np
 
+from .locktrace import wrap_lock
+
 __all__ = ["Histogram", "ServingMetrics", "merge_exposition"]
 
 
@@ -73,8 +75,9 @@ class ServingMetrics:
     token), the invariants audit (invariant_violations), the hand-back
     drain (handed_back) and the cold tier (cold_hits / cold_hit_pages —
     rewarms and the pages they re-adopted — and cold_spills — pages
-    paged out). recompiles, the JAX engine's recompile sentinel, stays
-    in the list and reads 0 until the sentinel is ported.
+    paged out), and the recompile sentinel's alarms (recompiles: kernel
+    library loads after ``arm()``, also labeled by the span they
+    interrupted).
     Labeled counters (``inc_labeled``): the same monotonic semantics
     with a small label set, exposed as their own
     ``*_breakdown_total`` Prometheus family so aggregating either family
@@ -105,7 +108,7 @@ class ServingMetrics:
                   "spec_accept_rate", "cold_adopt_s")
 
     def __init__(self):
-        self._lock = threading.Lock()
+        self._lock = wrap_lock(threading.Lock(), "ServingMetrics._lock")
         self.counters = {k: 0 for k in self.COUNTERS}
         self.histograms = {k: Histogram() for k in self.HISTOGRAMS}
         # name -> {tuple(sorted(label items)) -> count}

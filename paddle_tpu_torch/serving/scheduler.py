@@ -22,6 +22,7 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 
 from ..inference.paged_kv import PagePool
+from .locktrace import wrap_lock
 
 __all__ = ["Request", "RequestHandle", "Scheduler",
            "QUEUED", "RUNNING", "COMPLETED", "CANCELLED", "TIMED_OUT",
@@ -188,7 +189,7 @@ class Scheduler:
         # advertised skip-ahead bound real under a stream of arrivals
         self._head_id: Optional[int] = None
         self._head_overtakes = 0
-        self._lock = threading.Lock()
+        self._lock = wrap_lock(threading.Lock(), "Scheduler._lock")
         self._queue: "deque[Request]" = deque()
         self.slots: List[Optional[Request]] = [None] * self.max_batch
         # host-side mirrors of the tick's table/length operands
@@ -288,9 +289,12 @@ class Scheduler:
         req.pages = self.pool.alloc(need)
         return True
 
-    def admit(self) -> List[Tuple[int, Request]]:
+    def admit(self, only=None) -> List[Tuple[int, Request]]:
         """Admit queued requests while a free slot AND their remaining
-        (non-prefix-cached) page budget are available."""
+        (non-prefix-cached) page budget are available. ``only`` (a list
+        of requests, a prefix of the queue) stops the scan at the first
+        request not in it."""
+        allowed = None if only is None else {r.id for r in only}
         admitted = []
         while True:
             free = [i for i, r in enumerate(self.slots) if r is None]
@@ -306,6 +310,8 @@ class Scheduler:
                 budget = self.admission_window - self._head_overtakes
                 for idx in range(min(len(self._queue), budget + 1)):
                     cand = self._queue[idx]
+                    if allowed is not None and cand.id not in allowed:
+                        break
                     if self._try_reserve(cand):
                         del self._queue[idx]
                         if idx > 0:

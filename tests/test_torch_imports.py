@@ -27,6 +27,13 @@ from paddle_tpu_torch.serving import (ColdTier, ServingEngine, metrics,
                                       prefix_cache, prefix_fingerprints,
                                       scheduler, speculative)
 from paddle_tpu_torch import prng
+from paddle_tpu_torch.observability import (FlightRecorder,
+                                            RecompileSentinel, SpanTracer,
+                                            flight, sentinel, tracer)
+from paddle_tpu_torch.serving import locktrace
+from paddle_tpu_torch.serving.fleet import (FleetRouter, Replica,
+                                            ServingFleet, fleet, replica,
+                                            router)
 bad = sorted(m for m in sys.modules
              if m.split('.')[0] in ('jax', 'jaxlib', 'paddle_tpu'))
 print(','.join(bad))
@@ -46,7 +53,7 @@ def test_entry_points_raise_without_cuda_or_device():
     from paddle_tpu_torch import resolve_device
     from paddle_tpu_torch.inference import GenerationPredictor
     from paddle_tpu_torch.models import llama, qwen2_moe, resnet
-    from paddle_tpu_torch.serving import ServingEngine
+    from paddle_tpu_torch.serving import ServingEngine, ServingFleet
     from paddle_tpu_torch.vision.models import resnet50
     cfg = llama.LlamaConfig.tiny()
     qcfg = qwen2_moe.Qwen2MoeConfig.tiny(moe_impl="dropless")
@@ -66,6 +73,9 @@ def test_entry_points_raise_without_cuda_or_device():
         lambda: GenerationPredictor({"embed": torch.zeros(1)}, cfg),
         lambda: ServingEngine({"embed": torch.zeros(1)}, cfg,
                               quantization="int8"),
+        lambda: ServingFleet(
+            lambda: ServingEngine({"embed": torch.zeros(1)}, cfg),
+            replicas=1),
         lambda: qwen2_moe.make_train_step(qcfg),
         lambda: qwen2_moe.init_params(qcfg, torch.Generator()),
         lambda: qwen2_moe.make_batch(qcfg, 1, 8),

@@ -19,6 +19,7 @@ inputs (a tiny 2-layer f32 Llama, page 4, as tests/test_migration.py):
 import dataclasses
 import functools
 import pickle
+import threading
 
 import ml_dtypes
 import numpy as np
@@ -408,6 +409,38 @@ def test_cold_tier_spill_rewarm_bitwise_counters_match_jax(jparams,
     assert t_snap["gauges"]["cold_tier"]["bytes"] > 0
     assert t_snap["histograms"]["cold_adopt_s"]["count"] == 1
     assert teng.pool.used_pages == 0
+
+
+def test_cold_tier_rewarms_a_request_submitted_during_admission(tparams):
+    """A request that lands between the loop's rewarm look and its
+    admission waits one loop turn and is rewarmed, instead of being
+    admitted cold: p1 is submitted from inside ``Scheduler.admit``."""
+    eng = _engine(tparams, **COLD_KW)
+    try:
+        p1, p2, p3 = (list(range(b, b + 12)) for b in (1, 101, 201))
+        first = eng.submit(_arr(*p1), 4).result(timeout=300)
+        for p in (p2, p3):
+            eng.submit(_arr(*p), 4).result(timeout=300)
+        assert eng.export_chain(_fp(p1)) is None    # spilled
+        late, submitted = {}, threading.Event()
+        admit = eng.scheduler.admit
+
+        def admit_after_a_late_submit(*a, **kw):
+            if not submitted.is_set():
+                late["h"] = eng.submit(_arr(*p1), 4)
+                submitted.set()
+            return admit(*a, **kw)
+        eng.scheduler.admit = admit_after_a_late_submit
+        assert submitted.wait(60)   # the loop's next admission
+        out = late["h"].result(timeout=300)
+        with eng._tick_lock:        # the tick's counters are in
+            pass
+        c = eng.snapshot()["counters"]
+        assert (c["cold_hits"], c["cold_hit_pages"]) == (1, 2)
+        np.testing.assert_array_equal(out, first)
+        assert eng.audit() == []
+    finally:
+        eng.close()
 
 
 def test_cold_tier_bounded_lru():
