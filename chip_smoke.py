@@ -221,8 +221,36 @@ Phases (any failed check raises; nothing is caught):
    handoff's ms a chain, and the tracer's share of the tick wall on phase
    4's wave (reported, not gated).
 
-Phases run in the order 1, 2, 3, 5, 7, 4, 8, 13, 15, 16, 14, 6, 9, 10,
-11, 12: phase 14 starts after the 8B serving state is freed, phase 6
+17. the worker-process serving fleet on ``llama3_8b`` (``serving/fleet/
+   proc``; phase 4's params as the parent's reference; every worker
+   spawned from one ``WorkerSpec``: llama3_8b bf16 from seed 0 on the
+   card, phase 16's engine kwargs, warmed; at most two workers at a time,
+   16 GB of weights each; the ragged kernel at the decode worker's turn-2
+   shapes against its plain version first): (a) two general workers,
+   round robin: each ready frame names a CUDA device and its own pid, each
+   sentinel's warm-up loads name the ragged kernel's library; phase 4's 16
+   requests in pairs (each alone on its worker) equal the parent's engine
+   alone bitwise; ragged launches = 32 x each worker's model steps; the
+   merged scrape (one ``# TYPE`` a family, both workers, the fleet
+   generation); (c) on the same fleet, armed: 10 requests, each alone on
+   its worker (a bf16 stream depends on its batch), worker 0 SIGKILLed
+   once its request streamed 8 of 64 tokens, that request re-decoded
+   alone on worker 1 (exactly once: the delivered tokens dropped), every
+   handle completed and equal to the parent's engine alone, crashes 1, no
+   failed re-dispatch, the survivor's sentinel clean, 15 GiB of card
+   memory back within 30 s; (b) roles
+   [prefill, decode], auto_migrate, 8-page chunks: four 1040-token
+   sessions on the prefill worker, their 65-page chains across the
+   process boundary, turn 2 routed there (``routed_migrated`` 4, 4 x 1040
+   adopted tokens), session 0's turns equal to the parent's engine
+   bitwise, a fifth chain handed across with both workers idle; the
+   workers' card memory back before phase 14; (d) reported:
+   fleet and one-engine tok/s on phase 4's wave, the router's ms a
+   submit, an rpc ping, the handoff's ms and GB/s a chain, each worker's
+   bring-up (spawn and imports, weights, engine, warm).
+
+Phases run in the order 1, 2, 3, 5, 7, 4, 8, 13, 15, 16, 17, 14, 6, 9,
+10, 11, 12: phase 14 starts after the 8B serving state is freed, phase 6
 after phase 14's, phases 9 and 10 after phase 6's.
 
 The last two lines of standard output are the card's name and power
@@ -232,6 +260,7 @@ is not available.
 """
 from __future__ import annotations
 
+import dataclasses
 import gc
 import json
 import math
@@ -2971,7 +3000,7 @@ def _wait_for(cond, what: str, timeout_s: float = 300.0) -> None:
     deadline = time.monotonic() + timeout_s
     while not cond():
         if time.monotonic() > deadline:
-            raise RuntimeError(f"phase 16: timed out waiting for {what}")
+            raise RuntimeError(f"timed out waiting for {what}")
         time.sleep(0.005)
 
 
@@ -3312,6 +3341,456 @@ def fleet_phase(params, cfg) -> dict:
         + f" ms; trace=True {on * 1e3:.3f} ms vs trace=False "
         f"{off * 1e3:.3f} ms = {rec['tick_wall_ms']['share'] * 100:+.2f} % "
         f"(the JAX package pins its tracer at <= 3 %) [{smi}]")
+    return rec
+
+
+# ---------------------------------------------------------------------------
+# the worker-process serving fleet (phase 17)
+# ---------------------------------------------------------------------------
+
+# every worker of phase 17 comes from one WorkerSpec: llama3_8b in bf16
+# drawn from seed 0 on the card (bitwise phase 4's params, which the
+# parent keeps as its reference) and phase 16's engine geometry
+# (FLEET_GEOM), warmed before it reports ready. A worker holds its own
+# 16 GB of weights and a 640 MiB pool: at most two live at a time beside
+# the parent's 16 GB, and each fleet closes before the next starts.
+PROC_START_S = 300.0     # a worker's bring-up limit, spawn to ready
+PROC_KILL_N = 10         # (c): requests of 12-40 new tokens
+PROC_KILL_NEW = 64       # (c): the victim's new tokens
+PROC_KILL_AT = 8         # (c): w0 dies once its request streamed these
+PROC_FREED_GIB = 15      # (c): card memory back within 30 s of the kill
+PROC_PINGS = 50
+
+
+def proc_spec(cfg):
+    """The one WorkerSpec of phase 17."""
+    from paddle_tpu_torch.serving.fleet.proc import WorkerSpec
+    cfg_kw = dict(dataclasses.asdict(cfg), dtype="bfloat16")
+    return WorkerSpec(cfg_kw=cfg_kw, params_seed=0,
+                      engine_kw=dict(FLEET_GEOM), device="cuda", warm=True)
+
+
+def _proc_fleet(spec, **kw):
+    """A 2-worker ``ProcServingFleet``: checks each worker's ready frame
+    (a CUDA device, its own pid) and its sentinel's warm-up loads (the
+    ragged kernel's library among them); returns the fleet and each
+    worker's bring-up times (spawn and imports up to ``worker_main``,
+    weight init, the rest of the engine build, warm)."""
+    from paddle_tpu_torch.serving.fleet.proc import ProcServingFleet
+    t0 = time.time()
+    fleet = ProcServingFleet(spec, replicas=2, start_timeout=PROC_START_S,
+                             **kw)
+    up_s = time.time() - t0
+    bring = {}
+    for rep in fleet.replicas():
+        info = rep._t.ready
+        st = info["startup"]
+        assert info["device"].startswith("cuda"), info
+        assert info["pid"] == rep.pid and rep.pid != os.getpid(), info
+        bring[rep.name] = dict(spawn_imports_s=st["main_at"] - t0,
+                               init_s=st["init_s"],
+                               engine_s=st["build_s"] - st["init_s"],
+                               warm_s=st["warm_s"])
+        _check_warm_loads(rep)
+    bring["ready_s"] = up_s
+    return fleet, bring
+
+
+def _check_warm_loads(rep) -> None:
+    """The worker's sentinel, not armed yet, counted the warm-up's kernel
+    library loads: the ragged kernel's among them."""
+    s = rep.sentinel_report()
+    libs = sorted({e["library"] for e in s["events"]})
+    assert "ragged_paged_attention" in libs, s
+    assert not s["armed"] and s["clean"], s
+
+
+def _worker_counters(rep) -> dict:
+    """A worker's counters after its tick in flight ended: the first
+    snapshot waits on the worker's tick lock, the second reads what that
+    tick counted."""
+    rep.snapshot_dict()
+    return rep.snapshot_dict()["counters"]
+
+
+def _zero_launches(fleet) -> None:
+    for rep in fleet.replicas("serving"):
+        rep._rpc("launches", {"zero": True})
+
+
+def _worker_launches(rep) -> int:
+    n = rep._rpc("launches")
+    assert n["int8_matmul"] == 0, n
+    return n["ragged_paged_attention"]
+
+
+def _record_dispatch(fleet) -> list:
+    """The worker name each dispatch (submit or re-dispatch) chose, in
+    order, as ``(request id, name)``."""
+    names = []
+    orig = fleet.router._dispatch
+
+    def rec(req, exclude=()):
+        name = orig(req, exclude)
+        names.append((req.id, name))
+        return name
+    fleet.router._dispatch = rec
+    return names
+
+
+def _alone_refs(params, cfg, dev, order) -> list:
+    """Each request of ``order`` (prompt, new) alone, in order, on one
+    fresh in-process engine of the workers' kwargs: a worker's stream of
+    a request it served alone after the same requests."""
+    from paddle_tpu_torch.serving import ServingEngine
+    eng = ServingEngine(params, cfg, device=dev, **FLEET_GEOM)
+    try:
+        return [eng.generate(p, n) for p, n in order]
+    finally:
+        eng.close()
+
+
+def _wave_tok_s(submit, prompts, new) -> tuple:
+    """Phase 4's wave, submissions 20 ms apart: (tok/s, the outputs, the
+    median and max ms of a submit call)."""
+    t0 = time.perf_counter()
+    hs, sub = [], []
+    for p, n in zip(prompts, new):
+        t1 = time.perf_counter()
+        hs.append(submit(p, n))
+        sub.append(time.perf_counter() - t1)
+        time.sleep(0.02)
+    outs = [h.result(timeout=600) for h in hs]
+    wall = time.perf_counter() - t0
+    for o, n in zip(outs, new):
+        assert o.shape == (n,), (o.shape, n)
+    return (sum(new) / wall, outs, float(np.median(sub)) * 1e3,
+            float(np.max(sub)) * 1e3)
+
+
+def proc_fleet_phase(params, cfg) -> dict:
+    """Phase 17: the worker-process fleet at llama3_8b's full width and
+    depth, every worker from ``proc_spec``. (a) two general workers,
+    round robin, phase 4's 16 requests in pairs (each alone on its
+    worker): every stream equals the parent's engine bitwise, launches =
+    32 x model steps in each worker, the merged scrape; the wave as a
+    burst for tok/s; (c) on the same fleet, armed: 10 requests, each
+    alone on its worker, worker 0 SIGKILLed mid-stream and its request
+    re-decoded alone on worker 1, every handle equal to the parent's
+    engine, crashes 1, no failed re-dispatch, its card memory back; (b)
+    roles [prefill, decode], auto_migrate, 8-page chunks: four 1040-token
+    sessions on the prefill worker, their 65-page chains handed to the
+    decode worker, turn 2 routed there (routed_migrated 4, 1040 adopted
+    tokens each), session 0 equal to the parent's engine bitwise, then a
+    fifth chain handed across with both workers idle; (d) times,
+    reported."""
+    from paddle_tpu_torch.serving import ServingEngine
+    from paddle_tpu_torch.serving.fleet.proc import WorkerDied
+
+    L = cfg.num_hidden_layers
+    dev = params["embed"].device
+    smi = nvidia_smi_line()
+    spec = proc_spec(cfg)
+    gc.collect()
+    torch.cuda.empty_cache()
+    free0 = torch.cuda.mem_get_info()[0]
+    rec = {"free_gib_before": free0 / 2 ** 30}
+    prompts, new = _requests(cfg.vocab_size)
+
+    # one in-process engine on phase 4's wave, cold then warm (the (d)
+    # yardstick: the fleet's wave runs after (a) left every chain cached
+    # on the worker the wave routes it to)
+    eng = ServingEngine(params, cfg, device=dev, **FLEET_GEOM)
+    try:
+        eng.warm_programs()
+        one_cold, _, _, _ = _wave_tok_s(eng.submit, prompts, new)
+        one_tok_s, one_outs, _, _ = _wave_tok_s(eng.submit, prompts, new)
+    finally:
+        eng.close()
+
+    # (a) two general workers, round robin
+    fleet, bring_a = _proc_fleet(spec, policy="round_robin")
+    try:
+        reps = fleet.replicas()
+        pings = []
+        for _ in range(PROC_PINGS):
+            t0 = time.perf_counter()
+            assert reps[0]._rpc("ping")["pid"] == reps[0].pid
+            pings.append(time.perf_counter() - t0)
+        fleet.arm_sentinels()
+        routed = _record_dispatch(fleet)
+        _zero_launches(fleet)
+        c0 = {r.name: _worker_counters(r) for r in reps}
+        outs, ids = {}, {}
+        for i in range(0, len(prompts), 2):
+            hs = {j: fleet.submit(prompts[j], new[j]) for j in (i, i + 1)}
+            for j, h in hs.items():
+                outs[j] = h.result(timeout=600)
+                ids[h.id] = j
+        where = {ids[rid]: name for rid, name in routed}
+        for i in range(0, len(prompts), 2):    # a pair spans both workers
+            assert where[i] != where[i + 1], where
+        steps_a, launches_a = {}, {}
+        for r in reps:
+            c1 = _worker_counters(r)
+            steps_a[r.name] = c1["model_steps"] - c0[r.name]["model_steps"]
+            launches_a[r.name] = _worker_launches(r)
+            assert launches_a[r.name] == L * steps_a[r.name], \
+                (r.name, launches_a, steps_a)
+            assert c1["completed"] - c0[r.name]["completed"] == 8, c1
+        for r in reps:
+            mine = [j for j in range(len(prompts)) if where[j] == r.name]
+            refs = _alone_refs(params, cfg, dev,
+                               [(prompts[j], new[j]) for j in mine])
+            for j, ref in zip(mine, refs):
+                assert np.array_equal(outs[j], ref), (j, outs[j], ref)
+        text = fleet.expose()
+        types = [ln for ln in text.splitlines() if ln.startswith("# TYPE")]
+        assert len(types) == len(set(types)), "a family TYPEd twice"
+        assert 'replica="w0"' in text and 'replica="w1"' in text
+        assert "paddle_serving_fleet_generation" in text
+        # (d) phase 4's wave as a burst on the two workers
+        del routed[:]
+        fleet_tok_s, wave_outs, sub_ms, sub_max = _wave_tok_s(
+            fleet.submit, prompts, new)
+        # a greedy bf16 stream depends on its batch: how many of the
+        # burst's streams equal the same requests run alone, and the same
+        # burst on one engine
+        agree = sum(int(np.array_equal(a, b))
+                    for a, b in zip(wave_outs, one_outs))
+        agree_alone = sum(int(np.array_equal(wave_outs[j], outs[j]))
+                          for j in range(len(prompts)))
+        log(f"proc fleet (a) 2 workers (round robin) on {smi}: bring-up "
+            + "; ".join(f"{n} spawn+imports {b['spawn_imports_s']:.2f} s, "
+                        f"weights {b['init_s']:.2f} s, engine "
+                        f"{b['engine_s']:.2f} s, warm {b['warm_s']:.2f} s"
+                        for n, b in bring_a.items() if n != "ready_s")
+            + f", both ready in {bring_a['ready_s']:.2f} s; phase 4's 16 "
+            f"requests in pairs, each alone on its worker: every stream == "
+            f"the parent's engine alone (bitwise); ragged launches "
+            f"{launches_a} = {L} x model steps {steps_a}; ping "
+            f"{np.median(pings) * 1e3:.3f} ms (median of {PROC_PINGS}); "
+            f"phase 4's wave as a burst, prompts cached: fleet "
+            f"{fleet_tok_s:.1f} tok/s vs one engine {one_tok_s:.1f} tok/s "
+            f"(cold {one_cold:.1f}), router "
+            f"{sub_ms:.3f} ms a submit (median, max "
+            f"{sub_max:.3f}); the burst's streams equal to the same "
+            f"requests alone: {agree_alone}/16, to one engine's burst: "
+            f"{agree}/16")
+
+        # (c) kill w0 mid-stream. A greedy bf16 stream depends on its
+        # batch's composition (the GEMMs' shapes), so every request runs
+        # alone on its worker before and after the kill: two pairs (a
+        # request a worker), then the victim on w0 beside a short partner
+        # on w1; w0 dies once the partner finished and the victim streamed
+        # PROC_KILL_AT tokens; the victim re-decodes alone on w1, which
+        # drops the tokens already delivered; the rest run one at a time
+        rng = np.random.RandomState(172)
+        kp = [rng.randint(0, cfg.vocab_size, int(n)).astype(np.int32)
+              for n in rng.randint(64, 513, PROC_KILL_N)]
+        kn = [int(n) for n in rng.randint(12, 41, PROC_KILL_N)]
+        vi = 4                              # the victim, and its partner
+        kn[vi], kn[vi + 1] = PROC_KILL_NEW, 12
+        victim, survivor = fleet.replica("w0"), fleet.replica("w1")
+        _zero_launches(fleet)
+        cs0 = _worker_counters(survivor)
+        del routed[:]
+        hs = {}
+
+        def pair(i):
+            """Request i to w0 and i + 1 to w1 (the round robin's next
+            pick is pool[(rr + 1) % 2])."""
+            w0_next = (fleet.router._rr + 1) % 2 == 0
+            for j in ((i, i + 1) if w0_next else (i + 1, i)):
+                hs[j] = fleet.submit(kp[j], kn[j])
+        for i in (0, 2):
+            pair(i)
+            for j in (i, i + 1):
+                hs[j].result(timeout=600)
+        pair(vi)
+        hs[vi + 1].result(timeout=600)
+        _wait_for(lambda: len(hs[vi].tokens_so_far) >= PROC_KILL_AT,
+                  "the victim's stream")
+        streamed = len(hs[vi].tokens_so_far)
+        assert streamed < kn[vi], "the victim ended before the kill"
+        where = {}
+        for rid, name in routed:
+            where.setdefault(rid, name)
+        assert [where[hs[j].id] for j in range(6)] \
+            == ["w0", "w1"] * 3, where
+        free_k = torch.cuda.mem_get_info()[0]
+        t_kill = time.perf_counter()
+        fleet.kill_hard("w0", timeout=60)
+        while torch.cuda.mem_get_info()[0] - free_k \
+                < PROC_FREED_GIB * 2 ** 30:
+            assert time.perf_counter() - t_kill < 30, \
+                "the killed worker's card memory did not come back"
+            time.sleep(0.05)
+        freed = (torch.cuda.mem_get_info()[0] - free_k) / 2 ** 30
+        freed_s = time.perf_counter() - t_kill
+        hs[vi].result(timeout=600)
+        for j in range(vi + 2, PROC_KILL_N):
+            hs[j] = fleet.submit(kp[j], kn[j])
+            hs[j].result(timeout=600)
+        hs = [hs[j] for j in range(PROC_KILL_N)]
+        kouts = [h.result(timeout=600) for h in hs]
+        assert [name for rid, name in routed if rid == hs[vi].id] \
+            == ["w0", "w1"], routed
+        for h in hs:
+            assert h.status == "completed", h.status
+        refs = _alone_refs(params, cfg, dev, list(zip(kp, kn)))
+        for i, (o, r) in enumerate(zip(kouts, refs)):
+            assert np.array_equal(o, r), (i, o, r)
+        snap = fleet.snapshot()
+        assert snap["fleet"]["crashes"] == 1, snap["fleet"]
+        assert snap["router"]["redispatch_failed"] == 0, snap["router"]
+        handed = snap["fleet"]["handed_back"]
+        assert handed == 1 and snap["router"]["redispatched"] == 1, snap
+        assert victim.state == "gone"
+        try:
+            victim._rpc("ping", timeout=5)
+            raise AssertionError("a killed worker answered")
+        except WorkerDied:
+            pass
+        s = survivor.sentinel_report()
+        assert s["armed"] and s["clean"], s
+        cs1 = _worker_counters(survivor)
+        steps_c = cs1["model_steps"] - cs0["model_steps"]
+        launches_c = _worker_launches(survivor)
+        assert launches_c == L * steps_c, (launches_c, L, steps_c)
+        log(f"proc fleet (c) w0 SIGKILLed after its request streamed "
+            f"{streamed} of {kn[vi]} tokens: {handed} handed back and "
+            f"re-decoded alone on w1, all {PROC_KILL_N} handles completed "
+            f"== the parent's engine alone (bitwise, no token twice), "
+            f"crashes 1, redispatch_failed 0, survivor's sentinel "
+            f"clean; {freed:.1f} GiB of card memory back {freed_s:.2f} s "
+            f"after the kill; survivor's ragged "
+            f"launches {launches_c} = {L} x {steps_c}")
+    finally:
+        fleet.close()
+    rec.update(bring_a=bring_a, ping_ms=float(np.median(pings)) * 1e3,
+               fleet_tok_s=fleet_tok_s, one_engine_tok_s=one_tok_s,
+               one_engine_cold_tok_s=one_cold, freed_s=freed_s,
+               submit_ms=sub_ms, submit_ms_max=sub_max, burst_agree=agree,
+               burst_agree_alone=agree_alone,
+               launches_a=launches_a, steps_a=steps_a, handed_back=handed,
+               freed_gib=freed)
+
+    # (b) prefill -> decode across the process boundary
+    fleet, bring_b = _proc_fleet(spec, roles=["prefill", "decode"],
+                                 prefill_len_ratio=FLEET_RATIO,
+                                 migrate_chunk_pages=8)
+    handoff_s = []
+    migrate = fleet.migrate_chain
+
+    def timed_migrate(*a, **kw):
+        t0 = time.perf_counter()
+        out = migrate(*a, **kw)
+        handoff_s.append(time.perf_counter() - t0)
+        return out
+    fleet.migrate_chain = timed_migrate
+    try:
+        assert fleet.auto_migrate
+        pre, dec = fleet.replica("w0"), fleet.replica("w1")
+        assert (pre.role, dec.role) == ("prefill", "decode")
+        fleet.arm_sentinels()
+        _zero_launches(fleet)
+        cp0, cd0 = _worker_counters(pre), _worker_counters(dec)
+        rng = np.random.RandomState(171)
+        sessions = [rng.randint(0, cfg.vocab_size, FLEET_PROMPT)
+                    .astype(np.int32) for _ in range(4)]
+        t0 = time.perf_counter()
+        out1 = [fleet.submit(s, FLEET_NEW1).result(timeout=600)
+                for s in sessions]
+        t_turn1 = time.perf_counter() - t0
+        _wait_for(lambda: fleet.counters["migrations"]
+                  + fleet.counters["migration_failed"] >= 4,
+                  "4 chain handoffs")
+        assert fleet.counters["migration_failed"] == 0, fleet.counters
+        assert fleet.counters["migrations"] == 4, fleet.counters
+        turn2 = [np.concatenate([s, o, rng.randint(0, cfg.vocab_size, 8)
+                                 .astype(np.int32)])
+                 for s, o in zip(sessions, out1)]
+        cd1 = _worker_counters(dec)
+        t0 = time.perf_counter()
+        alone = fleet.submit(turn2[0], FLEET_NEW2).result(timeout=600)
+        rest = [fleet.submit(p, FLEET_NEW2) for p in turn2[1:]]
+        out2 = [alone] + [h.result(timeout=600) for h in rest]
+        t_turn2 = time.perf_counter() - t0
+        for o in out2:
+            assert o.shape == (FLEET_NEW2,), o.shape
+        assert fleet.router.counters["routed_migrated"] == 4, \
+            fleet.router.counters
+        cd2 = _worker_counters(dec)
+        assert cd2["completed"] - cd1["completed"] == 4, cd2
+        assert cd2["prefix_hit_tokens"] - cd1["prefix_hit_tokens"] \
+            == 4 * FLEET_PROMPT, (cd1, cd2)
+        cp2 = _worker_counters(pre)
+        assert cp2["completed"] - cp0["completed"] == 4, cp2
+        for r in (pre, dec):
+            s = r.sentinel_report()
+            assert s["armed"] and s["clean"], s
+        launches_b = {pre.name: _worker_launches(pre),
+                      dec.name: _worker_launches(dec)}
+        steps_b = {pre.name: cp2["model_steps"] - cp0["model_steps"],
+                   dec.name: cd2["model_steps"] - cd0["model_steps"]}
+        for n in launches_b:
+            assert launches_b[n] == L * steps_b[n], (launches_b, steps_b)
+        # a fifth session of one new token: its chain crosses while
+        # neither worker ticks (the four above crossed beside turn 1)
+        idle = rng.randint(0, cfg.vocab_size, FLEET_PROMPT).astype(np.int32)
+        fleet.submit(idle, 1).result(timeout=600)
+        _wait_for(lambda: fleet.counters["migrations"]
+                  + fleet.counters["migration_failed"] >= 5,
+                  "the idle handoff")
+        assert fleet.counters["migrations"] == 5, fleet.counters
+    finally:
+        fleet.close()
+    # session 0 on the parent's engine, alone, turn 1 then turn 2
+    eng = ServingEngine(params, cfg, device=dev, **FLEET_GEOM)
+    try:
+        ref1 = eng.generate(sessions[0], FLEET_NEW1)
+        h0 = eng.snapshot()["counters"]["prefix_hit_tokens"]
+        ref2 = eng.generate(turn2[0], FLEET_NEW2)
+        assert eng.snapshot()["counters"]["prefix_hit_tokens"] - h0 \
+            == FLEET_PROMPT
+    finally:
+        eng.close()
+    assert np.array_equal(out1[0], ref1), (out1[0], ref1)
+    assert np.array_equal(alone, ref2), (alone, ref2)
+    chain_bytes = (FLEET_PROMPT // FLEET_GEOM["page_size"]) * 2 * L \
+        * cfg.num_key_value_heads * FLEET_GEOM["page_size"] \
+        * cfg.head_dim * 2
+    rec.update(bring_b=bring_b, turn1_s=t_turn1, turn2_s=t_turn2,
+               handoff_ms=[t * 1e3 for t in handoff_s],
+               handoff_gb_s=[chain_bytes / t / 1e9 for t in handoff_s],
+               launches_b=launches_b, steps_b=steps_b)
+    log(f"proc fleet (b) [prefill, decode] on {smi}: turn 1 (4 sessions of "
+        f"{FLEET_PROMPT} tokens, {FLEET_NEW1} new, one at a time) "
+        f"{t_turn1:.3f} s on the prefill worker; 4 chains of 65 pages "
+        f"({chain_bytes / 2 ** 20:.0f} MiB each) handed across in 8-page "
+        f"chunks beside turn 1 in "
+        + ", ".join(f"{t * 1e3:.1f}" for t in handoff_s[:4])
+        + " ms (" + ", ".join(f"{chain_bytes / t / 1e9:.3f}"
+                              for t in handoff_s[:4])
+        + f" GB/s), a fifth with both workers idle in "
+        f"{handoff_s[4] * 1e3:.1f} ms ({chain_bytes / handoff_s[4] / 1e9:.3f}"
+        f" GB/s); turn 2 (1064 tokens, {FLEET_NEW2} new) {t_turn2:.3f} s "
+        f"on the decode worker: routed_migrated 4, {4 * FLEET_PROMPT} "
+        f"adopted tokens attached; session 0 (turn 1 and turn 2) == the "
+        f"parent's engine alone (bitwise); ragged launches {launches_b} = "
+        f"{L} x model steps {steps_b}; sentinels clean")
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    free1 = torch.cuda.mem_get_info()[0]
+    assert free1 >= free0 - 2 ** 30, (free0 / 2 ** 30, free1 / 2 ** 30)
+    rec["free_gib_after"] = free1 / 2 ** 30
+    rec["launches"] = sum(launches_a.values()) + launches_c \
+        + sum(launches_b.values())
+    log(f"proc fleet: the workers' card memory came back "
+        f"({free0 / 2 ** 30:.2f} GiB free before, {free1 / 2 ** 30:.2f} "
+        f"after); {rec['launches']} ragged launches in the workers")
     return rec
 
 
@@ -4697,6 +5176,11 @@ def main() -> int:
     migration = migration_phase(params, cfg)
     fleet_case = fleet_kernel_case()
     fleet = fleet_phase(params, cfg)
+    # phase 17: the same kernel check at the decode worker's shapes, then
+    # the worker-process fleet (phase 16's engines closed, the parent's
+    # cached blocks returned before the workers spawn)
+    proc_case = fleet_kernel_case()
+    proc = proc_fleet_phase(params, cfg)
     # free the 8B serving state before Qwen2-MoE's 43 GB of weights and
     # the train step's 61 GiB peak
     del params
@@ -4815,6 +5299,16 @@ def main() -> int:
         plain_ms=fleet_case["plain_ms"], bound_ms=fleet_case["bound_ms"],
         bound_by=fleet_case["bound_by"],
         library_ms=fleet_case["library_ms"]))
+    # phase 17: the ragged kernel on every tick of every worker process
+    kernels.append(dict(
+        name="ragged_paged_attention_proc", route="cuda",
+        source="paddle_tpu_torch/csrc/ragged_paged_attention.cu",
+        replaces="paddle_tpu/ops/pallas/ragged_paged_attention.py:301",
+        launches=proc["launches"],
+        max_abs_err=proc_case["bf16_max_abs_err"], ms=proc_case["ms"],
+        plain_ms=proc_case["plain_ms"], bound_ms=proc_case["bound_ms"],
+        bound_by=proc_case["bound_by"],
+        library_ms=proc_case["library_ms"]))
     qstep = qwen_serve["int8"]["step_8"]
     kernels.append(dict(
         name="int8_matmul_qwen", route="cuda",

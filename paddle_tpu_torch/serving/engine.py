@@ -273,6 +273,29 @@ class ServingEngine:
     mismatch does, before anything is allocated.
     """
 
+    # Sanctioned lock-free READS (analysis/concurrency.py guarded-by
+    # pass; writes still flag). These engine-private objects are
+    # mutated only on the worker tick thread under the tick lock;
+    # cross-thread readers either call internally-synchronized
+    # methods or take the tick lock themselves right after the
+    # None/flag check, and tolerate one-tick staleness.
+    _CC_LOCK_FREE_READS = {
+        "scheduler": "queue methods serialize on Scheduler._lock; "
+                     "slot/table state is read only under the tick "
+                     "lock or after worker join",
+        "prefix_cache": "is-enabled None-check only; every trie "
+                        "touch below it runs under the tick lock",
+        "tracer": "SpanTracer serializes on its own internal lock",
+        "_closing": "handshake flag written under the _cond mutex; "
+                    "the tick loop re-reads it each iteration "
+                    "(worst case: one extra idle tick)",
+    }
+    # Caller-must-hold contracts the entry-point detector cannot see.
+    _CC_REQUIRES = {
+        "_spill_node": ["_tick_lock", "trie spill hook: PrefixCache "
+                        "only evicts under the engine tick lock"],
+    }
+
     def __init__(self, params, cfg, *, model=None, device=None,
                  max_batch: int = 8,
                  page_size: int = 16, total_pages: Optional[int] = None,
@@ -514,9 +537,9 @@ class ServingEngine:
                 if self.sentinel is not None:
                     self.sentinel.close()
                 return self._take_returned()
-            self._closing = True
-            self._drain = drain
-            self._hand_back = bool(hand_back)
+            self._closing = True     # noqa: CC001(handshake flags are written under the _cond mutex; the tick loop re-reads them under the tick lock every iteration)
+            self._drain = drain      # noqa: CC001(same _cond handshake as _closing above)
+            self._hand_back = bool(hand_back)  # noqa: CC001(same _cond handshake as _closing above)
             self._cond.notify_all()
         self._worker.join()
         if self.sentinel is not None:
@@ -527,7 +550,7 @@ class ServingEngine:
         """Take the hand-back list (the worker has exited; the cond lock
         serializes racing closers)."""
         with self._cond:
-            out, self._returned = self._returned, []
+            out, self._returned = self._returned, []  # noqa: CC001(worker has exited by the time any closer gets here; the _cond mutex serializes racing closers)
         return out
 
     def __enter__(self):
@@ -640,9 +663,11 @@ class ServingEngine:
             raise RuntimeError("adopt_chain needs prefix_cache=True")
         self._check_page_size(blob["page_size"])
         tokens = [tuple(int(t) for t in tt) for tt in blob["tokens"]]
-        k = _blob_tensor(blob["k"], self._kp, len(tokens))
-        v = _blob_tensor(blob["v"], self._vp, len(tokens))
         with self._tick_lock:
+            # the pools are rebound by every tick: read them under the
+            # lock (the checks raise before anything is allocated)
+            k = _blob_tensor(blob["k"], self._kp, len(tokens))
+            v = _blob_tensor(blob["v"], self._vp, len(tokens))
             pc = self.prefix_cache
             have = pc.match_chain(tokens)
             need = len(tokens) - have
@@ -751,9 +776,9 @@ class ServingEngine:
         from :meth:`export_chain_chunk`) into the transfer's pages.
         Chunks may arrive in any order; commit checks completeness."""
         count = int(np.shape(k)[2])
-        kt = _blob_tensor(k, self._kp, count)
-        vt = _blob_tensor(v, self._vp, count)
         with self._tick_lock:
+            kt = _blob_tensor(k, self._kp, count)
+            vt = _blob_tensor(v, self._vp, count)
             ent = self._adopts[aid]
             off = int(start) - ent["have"]
             if off < 0 or off + count > len(ent["pages"]):

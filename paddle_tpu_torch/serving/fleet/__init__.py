@@ -14,8 +14,10 @@ prefill/decode disaggregation and drain-on-failure, in one process.
 
 The affinity signal is ``PrefixCache.affinity_summary`` matched against
 ``prefix_cache.prefix_fingerprints(prompt, ...)``; the drain contract is
-``ServingEngine.close(drain=True, hand_back=True)``. The JAX package's
-worker-process fleet (``fleet.proc``) is not ported yet.
+``ServingEngine.close(drain=True, hand_back=True)``. The worker-process
+fleet (``fleet.proc``: ``ProcServingFleet`` over spawned workers, one
+engine and CUDA context each) is imported on demand, as in the JAX
+package, and is kept out of this module's eager imports.
 """
 from .fleet import ServingFleet  # noqa: F401
 from .replica import (DRAINING, GONE, JOINING, ROLE_DECODE,  # noqa: F401

@@ -71,11 +71,15 @@ class Replica:
     join) before paying engine bring-up.
     """
 
-    # Lock-free reads, by design: ``engine`` (accessors bind it once and
-    # tolerate a concurrent close nulling it: a refusal or an empty view,
-    # never a torn read) and ``state`` (one string replaced under _lock;
-    # health and load readers accept one stale transition, the router
-    # re-polls).
+    _CC_LOCK_FREE_READS = {
+        "engine": "health-view snapshot pattern: accessors bind eng = "
+                  "self.engine once and tolerate staleness; close() "
+                  "races degrade to a refusal or an empty view, never "
+                  "a torn read",
+        "state": "single opaque string replaced atomically under "
+                 "_lock; health/load readers accept one stale "
+                 "transition by design (the router re-polls)",
+    }
 
     def __init__(self, name: str, engine_factory: Callable, *,
                  role: str = ROLE_GENERAL, generation: int = 0):

@@ -34,6 +34,11 @@ from paddle_tpu_torch.serving import locktrace
 from paddle_tpu_torch.serving.fleet import (FleetRouter, Replica,
                                             ServingFleet, fleet, replica,
                                             router)
+from paddle_tpu_torch.serving.fleet.proc import (
+    ProcReplica, ProcServingFleet, WorkerSpec, WorkerTransport)
+from paddle_tpu_torch.serving.fleet.proc import (
+    fleet, replica, transport, wire, worker)
+from paddle_tpu_torch.analysis import concurrency
 bad = sorted(m for m in sys.modules
              if m.split('.')[0] in ('jax', 'jaxlib', 'paddle_tpu'))
 print(','.join(bad))
