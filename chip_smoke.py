@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's serving paths (Llama-3-8B with sampling and
 speculative decoding, Qwen2-MoE), training paths (Llama-3-8B, Qwen2-MoE
-dropless training) and ResNet-50 inference on one NVIDIA H100 and check
-them.
+dropless training), ResNet-50 and the rest of the vision zoo (inference)
+on one NVIDIA H100 and check them.
 
 Run from the repository root with no arguments:
 
@@ -249,8 +249,25 @@ Phases (any failed check raises; nothing is caught):
    submit, an rpc ping, the handoff's ms and GB/s a chain, each worker's
    bring-up (spawn and imports, weights, engine, warm).
 
+18. the vision zoo: ``ZOO_MODELS`` (LeNet, AlexNet, VGG-16 with and
+   without BN, SqueezeNet 1.1, MobileNet V1 / V2 / V3 Small / V3 Large,
+   ShuffleNetV2 x 1.0 / x 0.5, DenseNet-121, GoogLeNet, Inception v3) at
+   published widths (224 x 224, 1000 classes; Inception v3 at 299 x 299;
+   LeNet 1 x 28 x 28, 10 classes), seeded random weights, BN statistics
+   and conv biases, eval, channels-last, B 8, ``fold_conv_bn``: fired
+   sites and kernel sites as ``ZOO_SITES`` pins them, f32 folded vs
+   unfolded (TF32 off) within ``ZOO_F32_LOGITS_REL`` with top-1 equal,
+   bf16 folded vs unfolded and vs the plain versions within
+   ``ZOO_BF16_LOGITS_REL``; launches = kernel sites x forwards (the
+   routed ShuffleNet sites launch nothing), row-wise input copies as
+   pinned; then the kernel against its plain version at every (M, K, N)
+   the zoo put on it (phase 11's bounds, relu as the sites use it), rows
+   of one image alone = the same rows at B 8 bitwise, and kernel, plain,
+   bound and library times per shape, summed per model. Printed: ms per
+   forward, images/s, busy ms and peak memory, folded and unfolded.
+
 Phases run in the order 1, 2, 3, 5, 7, 4, 8, 13, 15, 16, 17, 14, 6, 9,
-10, 11, 12: phase 14 starts after the 8B serving state is freed, phase 6
+10, 11, 12, 18: phase 14 starts after the 8B serving state is freed, phase 6
 after phase 14's, phases 9 and 10 after phase 6's.
 
 The last two lines of standard output are the card's name and power
@@ -4757,14 +4774,16 @@ def check_conv_epilogue(M: int, K: int, N: int, seed: int,
     return errs
 
 
-def check_conv_epilogue_rows(seed: int = 112) -> None:
-    """B 1 against B 8 at layer 4's shapes, bitwise, f32 and bf16: the
-    first image's 49 rows alone and the fourth image's (rows 147-195,
-    inside the second 128-row tile) equal the same rows of the M = 392
+def check_conv_epilogue_rows(seed: int = 112,
+                             shapes=RESNET_B1_LAYER4) -> None:
+    """B 1 against B 8 at each (M1, K, N) of ``shapes`` (M1 the rows of
+    one image; layer 4's by default), bitwise, f32 and bf16: the first
+    image's M1 rows alone and the fourth image's (layer 4: rows 147-195,
+    inside the second 128-row tile) equal the same rows of the M = 8 M1
     call."""
     from paddle_tpu_torch.ops.kernels.conv_epilogue import matmul_bias_act
     gen = torch.Generator(device="cuda").manual_seed(seed)
-    for M1, K, N in RESNET_B1_LAYER4:
+    for M1, K, N in shapes:
         x, w, b = _mba_operands(8 * M1, K, N, gen)
         for dt in (torch.float32, torch.bfloat16):
             a, ww = x.to(dt), w.to(dt)
@@ -4863,10 +4882,12 @@ def host_us(fn, reps: int = 200) -> float:
     return dt / reps * 1e6
 
 
-def conv_epilogue_times(seed: int = 114, batch: int = 8) -> dict:
+def conv_epilogue_times(seed: int = 114, batch: int = 8,
+                        sites=RESNET_B8_SITES) -> dict:
     """bf16 kernel, plain-version and library times (ms) and bounds at the
-    12 1x1 shapes of a ResNet-50 forward at B ``batch`` (the B-8 shapes'
-    rows times batch / 8), and their sums over the forward's 33 sites; the
+    1x1 shapes of ``sites`` ((M, K, N, relu) at B 8 -> sites a forward;
+    ResNet-50's 12 by default) at B ``batch`` (the B-8 shapes' rows times
+    batch / 8), and their sums over the forward's sites; the
     kernel's host µs per call (``host_us``). The library call (the port
     never calls it) adds the bias in bf16:
     ``torch._addmm_activation(bias, x, w, use_gelu=False)`` for the relu
@@ -4878,7 +4899,7 @@ def conv_epilogue_times(seed: int = 114, batch: int = 8) -> dict:
     gen = torch.Generator(device="cuda").manual_seed(seed)
     keys = ("ms", "plain_ms", "library_ms", "bound_ms", "host_us")
     shapes, total = {}, dict.fromkeys(keys, 0.0)
-    for (M8, K, N, relu), sites in RESNET_B8_SITES.items():
+    for (M8, K, N, relu), count in sites.items():
         M = M8 * batch // 8
         x, w, b = _mba_operands(M, K, N, gen)
         a, ww, bb = x.bfloat16(), w.bfloat16(), b.bfloat16()
@@ -4898,13 +4919,13 @@ def conv_epilogue_times(seed: int = 114, batch: int = 8) -> dict:
                 plain_ms=time_ms(lambda: matmul_bias_act_reference(
                     a, ww, b, relu), reps=5),
                 library_ms=time_ms(lib), bound_ms=bound, bound_by=by,
-                sites=sites)
+                sites=count)
         shapes[f"{M}x{K}x{N}{'_relu' if relu else ''}"] = t
         for k in keys:
-            total[k] += sites * t[k]
+            total[k] += count * t[k]
         del x, w, a, ww
     torch.cuda.empty_cache()
-    # what bounds the forward's 33 launches: the side that bounds most of
+    # what bounds the forward's launches: the side that bounds most of
     # their summed bound
     total["bound_by"] = max(("bytes", "operations"), key=lambda by: sum(
         t["sites"] * t["bound_ms"] for t in shapes.values()
@@ -5125,6 +5146,276 @@ def resnet_phase() -> dict:
     return rec
 
 
+# ---------------------------------------------------------------------------
+# the vision zoo with the conv-bn fold
+# ---------------------------------------------------------------------------
+
+# (name, factory, kwargs, image size, input channels): each model at its
+# published widths, 1000 classes at 224 x 224; Inception v3 at 299 x 299;
+# LeNet at its published 1 x 28 x 28 and 10 classes
+ZOO_MODELS = (
+    ("lenet", "LeNet", {}, 28, 1),
+    ("alexnet", "alexnet", {}, 224, 3),
+    ("vgg16", "vgg16", {}, 224, 3),
+    ("vgg16_bn", "vgg16", {"batch_norm": True}, 224, 3),
+    ("squeezenet1_1", "squeezenet1_1", {}, 224, 3),
+    ("mobilenet_v1", "mobilenet_v1", {}, 224, 3),
+    ("mobilenet_v2", "mobilenet_v2", {}, 224, 3),
+    ("mobilenet_v3_small", "mobilenet_v3_small", {}, 224, 3),
+    ("mobilenet_v3_large", "mobilenet_v3_large", {}, 224, 3),
+    ("shufflenet_v2_x1_0", "shufflenet_v2_x1_0", {}, 224, 3),
+    ("shufflenet_v2_x0_5", "shufflenet_v2_x0_5", {}, 224, 3),
+    ("densenet121", "densenet121", {}, 224, 3),
+    ("googlenet", "googlenet", {}, 224, 3),
+    ("inception_v3", "inception_v3", {}, 299, 3),
+)
+# a forward's fold: (sites fired, sites on the conv-epilogue kernel,
+# row-wise inputs copied). No site where every conv carries a bias (LeNet,
+# AlexNet, VGG even with BN, SqueezeNet, GoogLeNet), as the JAX pass finds
+# none; ShuffleNetV2 x 1.0's 26 1x1 sites of widths 58 and 116 are routed
+# onto the conv route and launch nothing; each ShuffleUnit whose first 1x1
+# is on the kernel copies its strided half (x 1.0: stage 3's 3; x 0.5: 13).
+ZOO_SITES = {
+    "lenet": (0, 0, 0), "alexnet": (0, 0, 0), "vgg16": (0, 0, 0),
+    "vgg16_bn": (0, 0, 0), "squeezenet1_1": (0, 0, 0),
+    "mobilenet_v1": (27, 13, 0), "mobilenet_v2": (52, 34, 0),
+    "mobilenet_v3_small": (34, 22, 0), "mobilenet_v3_large": (46, 30, 0),
+    "shufflenet_v2_x1_0": (56, 10, 3), "shufflenet_v2_x0_5": (56, 36, 13),
+    "densenet121": (59, 58, 0), "googlenet": (0, 0, 0),
+    "inception_v3": (94, 40, 0),
+}
+ZOO_B = 8
+ZOO_REPS = 10
+# folded vs unfolded, phase 12's bounds: f32 (TF32 off) within
+# RESNET_F32_LOGITS_REL of the logit scale, top-1 equal; bf16 within
+# RESNET_BF16_LOGITS_REL (and the folded model on the kernel vs on the
+# plain versions within the same)
+ZOO_F32_LOGITS_REL = RESNET_F32_LOGITS_REL
+ZOO_BF16_LOGITS_REL = RESNET_BF16_LOGITS_REL
+
+
+@torch.no_grad()
+def seed_zoo_stats(model, seed: int) -> None:
+    """``seed_resnet_bn_stats``, and every conv bias N(0, 0.01)."""
+    seed_resnet_bn_stats(model, seed)
+    gen = torch.Generator().manual_seed(seed + 1)
+    for m in model.modules():
+        if isinstance(m, torch.nn.Conv2d) and m.bias is not None:
+            m.bias.copy_(0.01 * torch.randn(m.bias.shape, generator=gen))
+
+
+def make_zoo_model(factory: str, kwargs: dict, seed: int):
+    """The zoo factory on the card (its default device) in f32 with
+    seeded random weights, BN statistics and conv biases, eval,
+    channels-last."""
+    from paddle_tpu_torch.vision import models
+    model = getattr(models, factory)(
+        generator=torch.Generator().manual_seed(seed), **kwargs)
+    seed_zoo_stats(model, seed + 1)
+    return model.to(memory_format=torch.channels_last).eval()
+
+
+def _logits(out):
+    return out[0] if isinstance(out, tuple) else out
+
+
+def _rel(got, ref) -> tuple:
+    scale = float(ref.float().abs().max())
+    return float((got.float() - ref.float()).abs().max()) / scale, scale
+
+
+def busy_ms(model, x, reps: int = 5) -> tuple:
+    """Device ms of one forward and the host's ms to queue it: each
+    forward is queued behind a ~50 ms device sleep, so the events around
+    it time the device's work alone while the host queue stays ahead
+    (the host ms says whether it did)."""
+    dev, host = [], []
+    with torch.no_grad():
+        model(x)
+        for _ in range(reps):
+            torch.cuda.synchronize()
+            torch.cuda._sleep(100_000_000)
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            t0 = time.perf_counter()
+            model(x)
+            host.append((time.perf_counter() - t0) * 1e3)
+            b.record()
+            b.synchronize()
+            dev.append(a.elapsed_time(b))
+    return float(np.median(dev)), float(np.median(host))
+
+
+def zoo_model_run(name: str, factory: str, kwargs: dict, size: int,
+                  chans: int, seed: int, smi: str) -> dict:
+    """One zoo model: f32 folded vs unfolded, then the main path (bf16
+    folded, counted: launches = kernel sites x forwards, copies as
+    pinned), bf16 folded vs unfolded and vs the plain versions, times."""
+    import collections
+    import copy
+    from paddle_tpu_torch.analysis import (ConvBnAct, fold_conv_bn,
+                                           site_routes)
+    from paddle_tpu_torch.ops.kernels import conv_epilogue as ce
+    fired_want, sites, copies = ZOO_SITES[name]
+    m32 = make_zoo_model(factory, kwargs, seed)
+    n_params = sum(p.numel() for p in m32.parameters())
+    folded32, fired = fold_conv_bn(m32)
+    assert fired == {"conv-bn-fold": fired_want}, (name, fired)
+    routes = site_routes(folded32)
+    assert routes.get("kernel", 0) == sites, (name, routes)
+    gen = torch.Generator(device="cuda").manual_seed(seed + 7)
+    x32 = torch.randn((ZOO_B, chans, size, size), generator=gen,
+                      device="cuda").contiguous(
+        memory_format=torch.channels_last)
+    with torch.no_grad():
+        ref32 = _logits(m32(x32))
+        got32 = _logits(folded32(x32))
+    rel32, scale32 = _rel(got32, ref32)
+    assert torch.isfinite(got32).all() and rel32 <= ZOO_F32_LOGITS_REL, \
+        (name, rel32)
+    assert torch.equal(got32.argmax(-1), ref32.argmax(-1)), name
+    top32 = ref32.argmax(-1)
+    del folded32, got32
+
+    model = copy.deepcopy(m32).to(torch.bfloat16)
+    del m32
+    folded, _ = fold_conv_bn(model)
+    plain, _ = fold_conv_bn(model, impl="reference")
+    x = x32.to(torch.bfloat16)
+    # the main path: every forward of the folded bf16 model, counted
+    ce.matmul_bias_act.launches = 0
+    ConvBnAct.input_copies = 0
+    seen: list = []
+    hooks = _zoo_site_hooks(folded, seen)
+    with torch.no_grad():
+        logits = _logits(folded(x))
+    for h in hooks:
+        h.remove()
+    assert len(seen) == sites, (name, len(seen), sites)
+    assert ConvBnAct.input_copies == copies, (name, ConvBnAct.input_copies)
+    ms, peak = time_forwards(folded, x, reps=ZOO_REPS)
+    busy, queue = busy_ms(folded, x)
+    forwards = 1 + 3 + ZOO_REPS + 1 + 5
+    launches = ce.matmul_bias_act.launches
+    assert launches == sites * forwards, (name, launches, forwards)
+    assert ConvBnAct.input_copies == copies * forwards, name
+
+    with torch.no_grad():
+        ref = _logits(model(x))
+        ref_plain = _logits(plain(x))
+    torch.cuda.synchronize()
+    assert torch.isfinite(logits).all() and logits.shape == ref32.shape
+    rel, scale = _rel(logits, ref)
+    rel_plain, _ = _rel(logits, ref_plain)
+    assert rel <= ZOO_BF16_LOGITS_REL and \
+        rel_plain <= ZOO_BF16_LOGITS_REL, (name, rel, rel_plain)
+    agree = int((logits.argmax(-1) == top32).sum())
+    del plain, folded
+    ums, upeak = time_forwards(model, x, reps=ZOO_REPS)
+    ubusy, uqueue = busy_ms(model, x)
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    rec = dict(params=n_params, fired=fired_want, routes=routes,
+               kernel_sites=sites, input_copies=copies, launches=launches,
+               f32_rel=rel32, bf16_rel=rel, bf16_plain_rel=rel_plain,
+               logit_scale=scale, top1_agree=agree,
+               shapes=collections.Counter(seen),
+               folded=dict(ms=ms, images_per_s=ZOO_B / ms * 1e3,
+                           peak_gib=peak, busy_ms=busy, queue_ms=queue),
+               unfolded=dict(ms=ums, images_per_s=ZOO_B / ums * 1e3,
+                             peak_gib=upeak, busy_ms=ubusy,
+                             queue_ms=uqueue))
+    f, u = rec["folded"], rec["unfolded"]
+    log(f"zoo {name} ({n_params / 1e6:.2f} M params, {size}x{size}, B "
+        f"{ZOO_B}): fold {fired_want} sites {routes}, launches {launches} "
+        f"= {sites} x {forwards} forwards, input copies {copies} a "
+        f"forward; f32 folded vs unfolded {rel32:.3g} of {scale32:.4g}, "
+        f"top-1 equal; bf16 folded vs unfolded {rel:.4g}, vs plain "
+        f"versions {rel_plain:.4g} of {scale:.4g} (bound "
+        f"{ZOO_BF16_LOGITS_REL}), top-1 = f32's on {agree}/{ZOO_B}")
+    log(f"zoo {name} bf16 B {ZOO_B}: folded {f['ms']:.3f} ms/forward "
+        f"({f['images_per_s']:.1f} images/s, busy {f['busy_ms']:.3f} ms, "
+        f"queued in {f['queue_ms']:.3f} ms, peak {f['peak_gib']:.2f} GiB); "
+        f"unfolded {u['ms']:.3f} ms ({u['images_per_s']:.1f} images/s, "
+        f"busy {u['busy_ms']:.3f} ms, queued in {u['queue_ms']:.3f} ms, "
+        f"peak {u['peak_gib']:.2f} GiB); [{smi}]")
+    return rec
+
+
+def _zoo_site_hooks(folded, seen: list):
+    """Forward hooks on the kernel-route sites: each records (M, K, N,
+    relu)."""
+    from paddle_tpu_torch.analysis import ConvBnAct
+
+    def hook(mod, args, out):
+        b, c, h, w = args[0].shape
+        seen.append((b * h * w, c, mod.weight.shape[1], mod.relu))
+
+    return [m.register_forward_hook(hook) for m in folded.modules()
+            if isinstance(m, ConvBnAct) and m.rowwise]
+
+
+def zoo_phase() -> dict:
+    """Phase 18: the vision zoo at published widths in bf16 on the card,
+    folded (``zoo_model_run`` per model), then the conv-epilogue kernel
+    against its plain version at every (M, K, N) the zoo put on it, rows
+    bitwise across M (B 1 against B 8), and its time against the library
+    call on the same shapes."""
+    import collections
+    smi = nvidia_smi_line()
+    models, shapes = {}, collections.Counter()
+    for i, (name, factory, kwargs, size, chans) in enumerate(ZOO_MODELS):
+        models[name] = zoo_model_run(name, factory, kwargs, size, chans,
+                                     seed=180 + 10 * i, smi=smi)
+        shapes.update(models[name]["shapes"])
+    relus = collections.defaultdict(set)
+    for M, K, N, relu in shapes:
+        relus[(M, K, N)].add(relu)
+    errs = {}
+    for i, ((M, K, N), rs) in enumerate(sorted(relus.items())):
+        errs[(M, K, N)] = check_conv_epilogue(M, K, N, seed=300 + i,
+                                              relus=tuple(sorted(rs)))
+    worst = {k: max(e[k] for e in errs.values())
+             for k in ("f32", "plain", "exact", "max_abs_err")}
+    check_conv_epilogue_rows(seed=116, shapes=[(M // ZOO_B, K, N)
+                                               for M, K, N in relus])
+    log(f"zoo conv_epilogue at {len(errs)} shapes (M {min(relus)[0]}.."
+        f"{max(M for M, _, _ in relus)}, K {min(k for _, k, _ in relus)}.."
+        f"{max(k for _, k, _ in relus)}, N {min(n for _, _, n in relus)}.."
+        f"{max(n for _, _, n in relus)}): worst " + " ".join(
+            f"{k}={v:.4g}" for k, v in worst.items())
+        + f" (bounds {CONV_EPILOGUE_BOUNDS}); rows of one image alone = "
+        "the same rows at B 8 bitwise (f32, bf16)")
+    times = conv_epilogue_times(seed=117, sites=dict(shapes))
+    per_model = {}
+    for name, rec in models.items():
+        tot = dict.fromkeys(("ms", "plain_ms", "library_ms", "bound_ms"),
+                            0.0)
+        for (M, K, N, relu), count in rec["shapes"].items():
+            t = times["shapes"][f"{M}x{K}x{N}{'_relu' if relu else ''}"]
+            for k in tot:
+                tot[k] += count * t[k]
+        per_model[name] = tot
+        if rec["kernel_sites"]:
+            log(f"zoo {name} conv_epilogue per B-{ZOO_B} forward "
+                f"({rec['kernel_sites']} sites): kernel {tot['ms']:.4f} ms,"
+                f" plain {tot['plain_ms']:.4f} ms, library "
+                f"({times['library']}) {tot['library_ms']:.4f} ms, bound "
+                f"{tot['bound_ms']:.4f} ms; [{smi}]")
+    pf = times["per_forward"]
+    launches = sum(r["launches"] for r in models.values())
+    log(f"zoo conv_epilogue over one forward of each model "
+        f"({sum(r['kernel_sites'] for r in models.values())} sites, "
+        f"{len(times['shapes'])} shapes): kernel {pf['ms']:.4f} ms, plain "
+        f"{pf['plain_ms']:.4f} ms, library {pf['library_ms']:.4f} ms, bound "
+        f"{pf['bound_ms']:.4f} ms ({pf['bound_by']}); host "
+        f"{pf['host_us']:.1f} us; launches in phase 18: {launches}; [{smi}]")
+    return dict(pf, max_abs_err=worst["max_abs_err"], launches=launches,
+                models=models, per_model=per_model, times=times)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -5198,6 +5489,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     ce_rec = conv_epilogue_phase()
     resnet = resnet_phase()
+    zoo = zoo_phase()
 
     a = rec["a_serving_mix"]
     kernels = [{
@@ -5326,6 +5618,15 @@ def main() -> int:
         ms=ce_rec["ms"], plain_ms=ce_rec["plain_ms"],
         bound_ms=ce_rec["bound_ms"], bound_by=ce_rec["bound_by"],
         library_ms=ce_rec["library_ms"]))
+    # phase 18: row 12 at the zoo's shapes, summed over one B-8 forward of
+    # each model
+    kernels.append(dict(
+        name="conv_epilogue_zoo", route="cuda",
+        source="paddle_tpu_torch/csrc/conv_epilogue.cu",
+        replaces="paddle_tpu/ops/pallas/conv_epilogue.py:46",
+        launches=zoo["launches"], max_abs_err=zoo["max_abs_err"],
+        ms=zoo["ms"], plain_ms=zoo["plain_ms"], bound_ms=zoo["bound_ms"],
+        bound_by=zoo["bound_by"], library_ms=zoo["library_ms"]))
     for k in kernels:     # every kernel of the line ran on its path
         assert k["launches"] > 0, k
     log(f"chip_smoke: all phases passed in "

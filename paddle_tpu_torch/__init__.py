@@ -22,10 +22,11 @@ steps, ``inference.GenerationPredictor``,
 ``quantization.quantize_for_decode``) on the paged-attention and int8
 matmul kernels; Qwen2-MoE training with dropless experts
 (``models.qwen2_moe.make_train_step``, ``incubate.moe``) on the
-grouped-matmul kernels (``ops/kernels/grouped_matmul.py``); ResNet
-inference (``models.resnet``, ``vision.models``) folded by
-``analysis.fold_conv_bn``, its 1x1 convs on the conv-epilogue kernel
-(``ops/kernels/conv_epilogue.py``).
+grouped-matmul kernels (``ops/kernels/grouped_matmul.py``); vision
+inference, ResNet and the rest of the zoo (``vision.models``: LeNet,
+AlexNet, VGG, SqueezeNet, MobileNet V1-V3, ShuffleNetV2, DenseNet,
+GoogLeNet, Inception v3), folded by ``analysis.fold_conv_bn``, its 1x1
+convs on the conv-epilogue kernel (``ops/kernels/conv_epilogue.py``).
 """
 from .device import resolve_device
 

@@ -8,9 +8,10 @@ from .concurrency import (analyze_source, analyze_tree, check_tree,
                           fuzz_fleet_scenario, mutate_remove_with)
 from .kv_invariants import (KVInvariantError, Violation, audit_defrag_plan,
                             audit_engine, audit_serving_state)
-from .rewrite_conv import ConvBnAct, FoldResult, fold_conv_bn
+from .rewrite_conv import ConvBnAct, FoldResult, fold_conv_bn, site_routes
 
-__all__ = ["ConvBnAct", "FoldResult", "fold_conv_bn", "KVInvariantError",
+__all__ = ["ConvBnAct", "FoldResult", "fold_conv_bn", "site_routes",
+           "KVInvariantError",
            "Violation", "audit_serving_state", "audit_defrag_plan",
            "audit_engine", "concurrency", "analyze_source", "analyze_tree",
            "check_tree", "fuzz_fleet_scenario", "mutate_remove_with"]

@@ -10,34 +10,52 @@ that holds the folded weight and bias, computed once in f32 exactly as
 ``w' = w·s``, ``bias = β − mean·s``; ``w'`` stored in the conv's dtype,
 the bias in f32). Its forward is ``conv_bn_act_nchw``'s arithmetic:
 
-* 1x1 / stride-1 / unpadded / ungrouped convs: the epilogue kernel
-  (``ops/kernels/conv_epilogue.py`` ``matmul_bias_act``) on the
+* ``route == "kernel"``: 1x1 / stride-1 / unpadded / ungrouped convs
+  whose Cin and Cout the kernel takes (multiples of 8): the epilogue
+  kernel (``ops/kernels/conv_epilogue.py`` ``matmul_bias_act``) on the
   activation's ``[B·H·W, C]`` rows, with ``w'`` stored ``[K, N]``;
-* the 7x7 / stride-2 / pad-3 stem over 3 channels at an even image size:
-  the dense 4x4 conv on the space-to-depth input, with the s2d kernel of
-  ``w'`` stored;
-* every other conv: ``F.conv2d`` with ``w'``, then the bias and the relu.
+* ``"routed"``: the same 1x1 convs with Cin or Cout not a multiple of 8
+  (ShuffleNetV2's branch widths 12, 58, 116, 122), chosen at fold time by
+  the shapes: the conv route below. The JAX entry sends such shapes to a
+  ``jnp`` matmul that adds the bias after rounding; here the bias is
+  added to the conv's output in its dtype, as on the conv route;
+* ``"stem"``: the 7x7 / stride-2 / pad-3 stem over 3 channels at an even
+  image size: the dense 4x4 conv on the space-to-depth input, with the
+  s2d kernel of ``w'`` stored;
+* ``"conv"``: every other conv, depthwise and grouped ones included:
+  ``F.conv2d`` with ``w'``, then the bias and the relu.
+
+``site_routes`` counts a folded model's sites by route, so a caller can
+pin its kernel launches a forward.
 
 Matching rules, as the JAX pass's: the conv (2-D, no bias, zero padding)
 feeds only the BN and the BN's channels are the conv's outputs; the relu
 is folded when it is the BN's only consumer, else the site folds without
 it. In a bottleneck, ``conv3 → bn3`` and each downsample fold with
 ``relu=False``; the residual add and its relu stay separate ops, as in
-the JAX graph. A model in training mode is refused: BN then normalises
-with the batch's statistics, which cannot fold into weights (the JAX
-pass's structural no-fire on BN-train).
+the JAX graph. Any other activation after the BN (ReLU6, hardswish,
+swish) stays a separate op after a site folded with ``relu=False``. A
+conv with a bias does not fold (the JAX pattern has no add between the
+conv and the BN), nor one whose output has another user besides the BN.
+A model in training mode is refused: BN then normalises with the
+batch's statistics, which cannot fold into weights (the JAX pass's
+structural no-fire on BN-train).
 
 Layout: the folded weights are ``torch.channels_last``, so every conv
 returns NHWC memory, pooling, add and relu keep it, and a row-wise
 site's ``[B·H·W, C]`` operand is a view of its input. An input that is
 not channels-last is converted once and counted in
-``ConvBnAct.input_copies`` (zero on ResNet, which the smoke asserts).
+``ConvBnAct.input_copies`` (zero on ResNet, which the smoke asserts;
+channel concats keep channels-last, and ShuffleNetV2's channel shuffle
+is written to keep it, but a channel slice of a channels-last tensor is
+strided and is copied).
 
 ``StemSpaceToDepthPass`` and ``ConvNhwcLayoutPass`` fire only on training
 graphs in the JAX package and are not ported yet.
 """
 from __future__ import annotations
 
+import collections
 from typing import Dict, NamedTuple
 
 import torch
@@ -45,11 +63,11 @@ import torch.fx
 import torch.nn.functional as F
 from torch import nn
 
-from ..models.resnet import BatchNorm2D
+from ..models._layers import BatchNorm2D
 from ..ops.fused import conv_epilogue as _fused
 from ..ops.kernels import conv_epilogue as _kernels
 
-__all__ = ["ConvBnAct", "FoldResult", "fold_conv_bn"]
+__all__ = ["ConvBnAct", "FoldResult", "fold_conv_bn", "site_routes"]
 
 RULE = "conv-bn-fold"
 
@@ -61,8 +79,10 @@ def _padding(conv: nn.Conv2d):
 
 class ConvBnAct(nn.Module):
     """One folded ``conv → BN → relu?`` site (module docstring). Buffers:
-    ``weight`` (``[K, N]`` for a row-wise site, else OIHW, channels-last),
-    ``weight_s2d`` (the stem's s2d kernel, OIHW) and the f32 ``bias``."""
+    ``weight`` (``[K, N]`` on the kernel route, else OIHW,
+    channels-last), ``weight_s2d`` (the stem's s2d kernel, OIHW) and the
+    f32 ``bias``. ``route`` is ``"kernel"``, ``"routed"``, ``"stem"`` or
+    ``"conv"``, chosen once by the conv's shapes."""
 
     #: row-wise inputs that were not channels-last and had to be copied
     input_copies = 0
@@ -81,12 +101,14 @@ class ConvBnAct(nn.Module):
             wf, bias = _fused.fold_bn(conv.weight, bn.weight, bn.bias,
                                       bn._mean, bn._variance, bn.epsilon)
             hwio = wf.permute(2, 3, 1, 0)
-            self.rowwise = _fused._is_rowwise_matmul(
-                hwio, self.strides, self.padding, self.dilation,
-                self.groups)
-            self.stem = _fused._is_stem_shape(
-                conv.weight, self.strides, self.padding, self.dilation,
-                self.groups, (0, 0))
+            geometry = (self.strides, self.padding, self.dilation,
+                        self.groups)
+            self.route = (
+                "kernel" if _fused._is_rowwise_matmul(hwio, *geometry)
+                else "routed" if _fused._is_pointwise(hwio, *geometry)
+                else "stem" if _fused._is_stem_shape(conv.weight, *geometry,
+                                                     (0, 0))
+                else "conv")
             if self.rowwise:
                 weight = hwio.reshape(hwio.shape[2], hwio.shape[3])
                 weight = weight.to(dtype).contiguous()
@@ -101,6 +123,14 @@ class ConvBnAct(nn.Module):
                     3, 2, 0, 1).to(dtype).contiguous(
                     memory_format=torch.channels_last)
             self.register_buffer("weight_s2d", s2d)
+
+    @property
+    def rowwise(self) -> bool:
+        return self.route == "kernel"
+
+    @property
+    def stem(self) -> bool:
+        return self.route == "stem"
 
     def forward(self, x):
         w = self.weight if self.weight.dtype == x.dtype else \
@@ -123,6 +153,13 @@ class ConvBnAct(nn.Module):
             out = _fused._conv_nchw(x, w, self.strides, self.padding,
                                     self.dilation, self.groups)
         return _fused._bias_act(out, self.bias, self.relu)
+
+
+def site_routes(module: nn.Module) -> Dict[str, int]:
+    """The folded sites of ``module`` by ``ConvBnAct.route``: one
+    forward launches the conv-epilogue kernel ``["kernel"]`` times."""
+    return dict(collections.Counter(m.route for m in module.modules()
+                                    if isinstance(m, ConvBnAct)))
 
 
 class FoldResult(NamedTuple):

@@ -7,21 +7,9 @@ the JAX package's structure and attribute names (``conv1``, ``bn1``,
 ``layer1..4``, ``downsample`` as a two-module ``Sequential``, ``fc``), so
 ``state_dict`` names line up with the JAX model's (``params_from_jax``).
 
-Semantics carried over from the Paddle layers:
-
-* ``BatchNorm2D``: ``epsilon=1e-5``, parameters ``weight`` / ``bias`` and
-  buffers ``_mean`` / ``_variance`` (``paddle_tpu/nn/modules_norm.py``).
-  Only inference is ported: the forward uses the running statistics and
-  raises in training mode (the train step is a later slice; there
-  Paddle's ``momentum=0.9`` weighs the old running value, what torch
-  calls ``momentum=0.1``).
-* ``MaxPool2D(3, 2, 1)`` pads with −inf, as ``F.max_pool2d`` does;
-  ``AdaptiveAvgPool2D((1, 1))``.
-* ``Linear``'s weight is ``[in, out]`` (Paddle's layout), used as the
-  transposed operand of ``F.linear`` (a view, no copy).
-* Conv weights are OIHW; the default init is Paddle's
-  ``Uniform(±sqrt(1 / fan_in))``, Linear's ``XavierNormal`` with a zero
-  bias, BN ``weight = 1``, ``bias = 0``, ``_mean = 0``, ``_variance = 1``.
+The Paddle-semantics layers (``BatchNorm2D``, ``Linear``, the conv and its
+default init) are those of ``models/_layers.py``; ``MaxPool2D(3, 2, 1)``
+pads with −inf, as ``F.max_pool2d`` does; ``AdaptiveAvgPool2D((1, 1))``.
 
 Factories take ``device=None`` (the card unless asked, see
 ``device.resolve_device``), ``dtype`` and a ``torch.Generator`` for the
@@ -33,14 +21,14 @@ inference model.
 """
 from __future__ import annotations
 
-import math
 from typing import Optional
 
 import torch
-import torch.nn.functional as F
 from torch import nn
 
 from ..device import resolve_device
+from ._layers import BatchNorm2D, Linear, conv as _conv, place
+from ._zoo import check_no_pretrained
 from .llama import params_from_jax
 
 __all__ = ["BatchNorm2D", "Linear", "BasicBlock", "BottleneckBlock",
@@ -48,48 +36,6 @@ __all__ = ["BatchNorm2D", "Linear", "BasicBlock", "BottleneckBlock",
            "resnet101", "resnet152", "wide_resnet50_2", "wide_resnet101_2",
            "resnext50_32x4d", "resnext50_64x4d", "resnext101_32x4d",
            "resnext101_64x4d", "resnext152_32x4d", "resnext152_64x4d"]
-
-
-class BatchNorm2D(nn.Module):
-    """Paddle's ``BatchNorm2D`` in inference: ``(x − _mean) ·
-    rsqrt(_variance + epsilon) · weight + bias`` per channel of NCHW."""
-
-    def __init__(self, num_features: int, epsilon: float = 1e-5):
-        super().__init__()
-        self.num_features = num_features
-        self.epsilon = epsilon
-        self.weight = nn.Parameter(torch.ones(num_features))
-        self.bias = nn.Parameter(torch.zeros(num_features))
-        self.register_buffer("_mean", torch.zeros(num_features))
-        self.register_buffer("_variance", torch.ones(num_features))
-
-    def forward(self, x):
-        if self.training:
-            raise NotImplementedError(
-                "BatchNorm2D is ported for inference only: call .eval() "
-                "(training with batch statistics is not ported yet)")
-        return F.batch_norm(x, self._mean, self._variance, self.weight,
-                            self.bias, training=False, eps=self.epsilon)
-
-
-class Linear(nn.Module):
-    """``y = x @ weight + bias`` with ``weight`` ``[in, out]``."""
-
-    def __init__(self, in_features: int, out_features: int):
-        super().__init__()
-        self.in_features = in_features
-        self.out_features = out_features
-        self.weight = nn.Parameter(torch.empty(in_features, out_features))
-        self.bias = nn.Parameter(torch.zeros(out_features))
-
-    def forward(self, x):
-        return F.linear(x, self.weight.t(), self.bias)
-
-
-def _conv(cin: int, cout: int, k: int, stride: int = 1, padding: int = 0,
-          groups: int = 1, dilation: int = 1) -> nn.Conv2d:
-    return nn.Conv2d(cin, cout, k, stride=stride, padding=padding,
-                     dilation=dilation, groups=groups, bias=False)
 
 
 class BasicBlock(nn.Module):
@@ -187,8 +133,7 @@ class ResNet(nn.Module):
             self.avgpool = nn.AdaptiveAvgPool2d((1, 1))
         if num_classes > 0:
             self.fc = Linear(512 * block.expansion, num_classes)
-        _init_params(self, generator)
-        self.to(device=dev, dtype=dtype)
+        place(self, dev, dtype, generator)
 
     def _make_layer(self, block, planes, blocks, stride=1):
         downsample = None
@@ -219,26 +164,8 @@ class ResNet(nn.Module):
         return x
 
 
-@torch.no_grad()
-def _init_params(model: nn.Module, generator) -> None:
-    """Paddle's default init (module docstring), drawn from
-    ``generator`` (torch's default generator when None)."""
-    for m in model.modules():
-        if isinstance(m, nn.Conv2d):
-            fan_in = m.in_channels // m.groups * math.prod(m.kernel_size)
-            bound = math.sqrt(1.0 / fan_in)
-            m.weight.uniform_(-bound, bound, generator=generator)
-        elif isinstance(m, Linear):
-            std = math.sqrt(2.0 / (m.in_features + m.out_features))
-            m.weight.normal_(0.0, std, generator=generator)
-            m.bias.zero_()
-
-
 def _resnet(depth, pretrained=False, **kwargs):
-    if pretrained:
-        raise NotImplementedError(
-            "no pretrained weights are shipped; load a local checkpoint "
-            "with load_state_dict instead")
+    check_no_pretrained(pretrained)
     return ResNet(depth=depth, **kwargs)
 
 

@@ -7,7 +7,9 @@ JAX package's layouts and arguments, so the tests compare like with like:
 * ``conv_bias_act`` — NHWC ``x``, HWIO ``w``, f32 ``bias``: a 1x1,
   stride-1, unpadded, undilated, ungrouped conv is a matmul over the
   ``B·H·W`` pixel rows and goes to the epilogue kernel
-  (``ops/kernels/conv_epilogue.py`` ``matmul_bias_act``); every other conv
+  (``ops/kernels/conv_epilogue.py`` ``matmul_bias_act``) when the kernel
+  takes its Cin and Cout (multiples of 8; the JAX entry sends the shapes
+  its tiles do not divide to a ``jnp`` matmul instead); every other conv
   is ``torch.nn.functional.conv2d`` (cuDNN on the card, as the JAX package
   leaves it to ``lax.conv_general_dilated``) plus the bias in the conv
   output's dtype and the relu, in that order;
@@ -42,11 +44,22 @@ __all__ = ["conv_bias_act", "conv_bn_act_nchw", "space_to_depth_nhwc",
            "fold_bn"]
 
 
-def _is_rowwise_matmul(w_hwio, strides, padding, dilation, groups) -> bool:
+def _is_pointwise(w_hwio, strides, padding, dilation, groups) -> bool:
+    """A 1x1, stride-1, unpadded, undilated, ungrouped conv: a matmul over
+    the pixel rows."""
     kh, kw = w_hwio.shape[0], w_hwio.shape[1]
     return (kh == 1 and kw == 1 and tuple(strides) == (1, 1)
             and all(tuple(p) == (0, 0) for p in padding)
             and tuple(dilation) == (1, 1) and groups == 1)
+
+
+def _is_rowwise_matmul(w_hwio, strides, padding, dilation, groups) -> bool:
+    """A pointwise conv whose shapes the epilogue kernel takes
+    (``kernel_takes``): it goes to ``matmul_bias_act``. A pointwise conv
+    with Cin or Cout not a multiple of 8 takes the conv route, chosen by
+    its shapes before anything runs."""
+    return (_is_pointwise(w_hwio, strides, padding, dilation, groups)
+            and _kernels.kernel_takes(w_hwio.shape[2], w_hwio.shape[3]))
 
 
 def _conv_nchw(x, w_oihw, strides, padding, dilation, groups):

@@ -32,11 +32,17 @@ import torch
 
 from . import _build
 
-__all__ = ["matmul_bias_act", "matmul_bias_act_reference"]
+__all__ = ["matmul_bias_act", "matmul_bias_act_reference", "kernel_takes"]
 
 _KERNEL = "conv_epilogue"
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _IMPLS = ("auto", "kernel", "reference")
+
+
+def kernel_takes(K: int, N: int) -> bool:
+    """Whether the kernel takes a product of depth ``K`` and width ``N``:
+    both multiples of 8 (its 16-byte copies of bf16 and f32 rows)."""
+    return K % 8 == 0 and N % 8 == 0
 
 
 def matmul_bias_act_reference(x2, w, bias, relu: bool = True):
@@ -76,7 +82,7 @@ def _launch(x2, w, bias, relu: bool):
                         f"{bias.dtype}")
     M, K = x2.shape
     N = w.shape[1]
-    if K % 8 or N % 8:
+    if not kernel_takes(K, N):
         raise ValueError(f"the conv-epilogue kernel takes K and N multiples "
                          f"of 8 (16-byte copies); got K={K}, N={N}")
     for name, t in (("x2", x2), ("w", w), ("bias", bias)):

@@ -58,12 +58,18 @@ Port of ``paddle_tpu/serving/engine.py``:
     ``llama.pack_tick`` packs them for every model.
 
 Correctness bar (tests/test_torch_serving.py, test_torch_sampling.py,
-test_torch_speculative.py, test_torch_migration.py): every request's
-greedy tokens equal a standalone ``generate()`` run token for token,
-whatever else shares the batch, with or without speculation, before or
-after a defrag, over adopted or rewarmed pages; a sampled request's
-tokens are the same stream alone, beside neighbours, under any decode
-block and on a speculative engine, and equal the JAX engine's.
+test_torch_speculative.py, test_torch_migration.py), in f32 (the CPU
+tests): every request's greedy tokens equal a standalone ``generate()``
+run token for token, whatever else shares the batch, with or without
+speculation, before or after a defrag, over adopted or rewarmed pages;
+a sampled request's tokens are the same stream alone, beside
+neighbours, under any decode block and on a speculative engine, and
+equal the JAX engine's. In bf16 on the card only this holds: a request
+run alone on an engine streams the same tokens as the same request run
+alone on the same engine, bitwise. Beside other requests it may leave
+that stream (and a lone ``generate()``) wherever two logits sit within
+a bf16 rounding: the dense products go to cuBLAS, whose rows are not
+invariant across batch shapes.
 
 PyTorch runs eagerly, so the packed stream has exactly the tick's
 tokens: the JAX engine's packed-width grid (which bounded its compiled

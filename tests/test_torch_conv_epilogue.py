@@ -98,6 +98,9 @@ CONV_CASES = {
     "3x3_s2": (16, 32, 3, 2, 1, 1),
     "1x1_s2": (32, 64, 1, 2, 0, 1),       # ResNet's downsample
     "3x3_grouped": (32, 32, 3, 1, 1, 8),  # ResNeXt's conv2
+    # a 1x1 the kernel cannot take (ShuffleNetV2 x 1.0's branch width):
+    # the conv route, chosen by the shapes
+    "1x1_s1_width_58": (58, 58, 1, 1, 0, 1),
 }
 
 

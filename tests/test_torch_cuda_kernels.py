@@ -472,3 +472,32 @@ def test_folded_resnet50_runs_its_1x1_sites_on_the_kernel(cuda):
     scale = float(ref.float().abs().max())
     assert float((got.float() - ref.float()).abs().max()) <= \
         smoke.RESNET_BF16_LOGITS_REL * scale
+
+
+@pytest.mark.parametrize("name", ["shufflenet_v2_x1_0", "mobilenet_v2",
+                                  "inception_v3"])
+def test_folded_zoo_models_run_their_kernel_sites(cuda, name):
+    """One folded bf16 forward at B 2: launches = the smoke's pinned
+    kernel sites (ShuffleNetV2 x 1.0's routed 1x1 sites launch nothing,
+    and nothing raises), copies as pinned, logits within the smoke's
+    bound of the plain versions'."""
+    from paddle_tpu_torch.analysis import ConvBnAct, fold_conv_bn
+    from paddle_tpu_torch.ops.kernels import conv_epilogue as ce
+    _, factory, kwargs, size, chans = next(
+        m for m in smoke.ZOO_MODELS if m[0] == name)
+    fired, sites, copies = smoke.ZOO_SITES[name]
+    model = smoke.make_zoo_model(factory, kwargs, seed=0).bfloat16()
+    folded, got_fired = fold_conv_bn(model)
+    plain, _ = fold_conv_bn(model, impl="reference")
+    assert got_fired == {"conv-bn-fold": fired}
+    x = torch.randn(2, chans, size, size, device=cuda).bfloat16(
+    ).contiguous(memory_format=torch.channels_last)
+    before, copied = ce.matmul_bias_act.launches, ConvBnAct.input_copies
+    with torch.no_grad():
+        got = folded(x)
+        assert ce.matmul_bias_act.launches == before + sites
+        assert ConvBnAct.input_copies == copied + copies
+        ref = plain(x)
+    scale = float(ref.float().abs().max())
+    assert float((got.float() - ref.float()).abs().max()) <= \
+        smoke.ZOO_BF16_LOGITS_REL * scale

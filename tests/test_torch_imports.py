@@ -18,6 +18,11 @@ from paddle_tpu_torch.ops.kernels import (
 from paddle_tpu_torch.ops.fused import conv_epilogue
 from paddle_tpu_torch.analysis import fold_conv_bn, kv_invariants
 from paddle_tpu_torch.vision.models import resnet50
+from paddle_tpu_torch.models import (
+    _layers, _zoo, alexnet, densenet, googlenet, inceptionv3, lenet,
+    mobilenet, shufflenetv2, squeezenet, vgg)
+from paddle_tpu_torch.vision import models
+from paddle_tpu_torch.analysis import site_routes
 from paddle_tpu_torch.incubate.moe import functional
 from paddle_tpu_torch.ops.fused import fused_softmax_cross_entropy
 from paddle_tpu_torch.ops.fused import int8_matmul
@@ -59,6 +64,7 @@ def test_entry_points_raise_without_cuda_or_device():
     from paddle_tpu_torch.inference import GenerationPredictor
     from paddle_tpu_torch.models import llama, qwen2_moe, resnet
     from paddle_tpu_torch.serving import ServingEngine, ServingFleet
+    from paddle_tpu_torch.vision import models as zoo
     from paddle_tpu_torch.vision.models import resnet50
     cfg = llama.LlamaConfig.tiny()
     qcfg = qwen2_moe.Qwen2MoeConfig.tiny(moe_impl="dropless")
@@ -88,6 +94,20 @@ def test_entry_points_raise_without_cuda_or_device():
         lambda: resnet.resnext50_32x4d(num_classes=10),
         lambda: resnet.ResNet(depth=18, dtype=torch.bfloat16),
         lambda: resnet.params_from_jax({}),
+        lambda: zoo.LeNet(),
+        lambda: zoo.alexnet(num_classes=10),
+        lambda: zoo.vgg11(batch_norm=True),
+        lambda: zoo.squeezenet1_1(),
+        lambda: zoo.mobilenet_v1(scale=0.25),
+        lambda: zoo.mobilenet_v2(),
+        lambda: zoo.mobilenet_v3_small(),
+        lambda: zoo.mobilenet_v3_large(dtype=torch.bfloat16),
+        lambda: zoo.shufflenet_v2_x1_0(),
+        lambda: zoo.shufflenet_v2_swish(),
+        lambda: zoo.densenet121(),
+        lambda: zoo.googlenet(),
+        lambda: zoo.inception_v3(),
+        lambda: zoo.params_from_jax({}),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="CUDA"):

@@ -1,12 +1,15 @@
 #!/usr/bin/env python3
-"""Where a ResNet-50 inference forward of the PyTorch port spends its time
-on the card.
+"""Where an inference forward of the PyTorch port's vision models spends
+its time on the card.
 
-Runs ``resnet50(num_classes=1000)`` on one NVIDIA GPU, bf16, 224 x 224,
-seeded random weights and BN statistics, eval, channels-last
-(``chip_smoke.make_resnet50``), folded by ``analysis.fold_conv_bn`` (the
-1x1 sites on the conv-epilogue kernel) and unfolded (conv -> BN -> relu,
-cuDNN), at B 8 and B 128. Prints one JSON line per (model, batch): host ms
+Runs ``resnet50(num_classes=1000)`` (``chip_smoke.make_resnet50``) and,
+with ``--models``, the vision zoo's models of ``chip_smoke.ZOO_MODELS``
+(``chip_smoke.make_zoo_model``; ``zoo`` names them all) on one NVIDIA GPU,
+bf16, at their published widths and image sizes, seeded random weights
+and BN statistics, eval, channels-last, folded by
+``analysis.fold_conv_bn`` (the 1x1 sites on the conv-epilogue kernel)
+and unfolded (conv -> BN -> act, cuDNN), at B 8 and B 128 (``--batches``).
+Prints one JSON line per (model, fold, batch): host ms
 per forward (``--reps`` forwards ending in a synchronize), the device span
 per forward (CUDA events around the same forwards), the summed device time
 of its kernels from ``torch.profiler`` (and so the device's idle share of
@@ -15,7 +18,8 @@ convs, BN, the fc GEMM, everything else: pooling, residual adds, relu,
 layout), the top kernels, and the card's name and power limit as
 ``nvidia-smi`` reports them.
 
-    python3 tools/torch_resnet_profile.py [--batches 8 128] [--reps 20]
+    python3 tools/torch_resnet_profile.py [--models resnet50 zoo ...]
+        [--batches 8 128] [--reps 20]
 """
 from __future__ import annotations
 
@@ -31,8 +35,8 @@ import torch
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 sys.path.insert(0, str(Path(__file__).resolve().parent))
 
-from chip_smoke import (make_resnet50, nvidia_smi_line,  # noqa: E402
-                        resnet_input)
+from chip_smoke import (ZOO_MODELS, make_resnet50,  # noqa: E402
+                        make_zoo_model, nvidia_smi_line)
 from paddle_tpu_torch.analysis import fold_conv_bn  # noqa: E402
 from paddle_tpu_torch.ops.kernels import _build  # noqa: E402
 from torch_train_profile import _kernel_times  # noqa: E402
@@ -58,6 +62,7 @@ def profile(model, x, reps: int) -> dict:
     with torch.no_grad():
         for _ in range(3):                            # warm-up
             model(x)
+        torch.cuda.reset_peak_memory_stats()
         torch.cuda.synchronize()
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
@@ -87,6 +92,7 @@ def profile(model, x, reps: int) -> dict:
             "kernel_busy_ms_per_forward": busy_ms,
             "idle_share": max(0.0, 1.0 - busy_ms / span_ms),
             "images_per_s": x.shape[0] / host_ms * 1e3,
+            "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
             "busy_ms_by_family": {k: round(v, 4) for k, v in
                                   sorted(fams.items(), key=lambda kv: -kv[1])},
             "top_kernels_ms_per_forward": [
@@ -94,8 +100,19 @@ def profile(model, x, reps: int) -> dict:
                 for k, (t, c) in top]}
 
 
+def build(name: str):
+    """(the bf16 model, its input channels, its image size)."""
+    if name == "resnet50":
+        return make_resnet50(torch.bfloat16), 3, 224
+    _, factory, kwargs, size, chans = next(
+        m for m in ZOO_MODELS if m[0] == name)
+    return make_zoo_model(factory, kwargs, seed=0).bfloat16(), chans, size
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
+    ap.add_argument("--models", nargs="+", default=["resnet50"],
+                    choices=["resnet50", "zoo"] + [m[0] for m in ZOO_MODELS])
     ap.add_argument("--batches", type=int, nargs="+", default=[8, 128])
     ap.add_argument("--reps", type=int, default=20)
     args = ap.parse_args()
@@ -103,17 +120,26 @@ def main() -> int:
         print("torch_resnet_profile: no CUDA device", file=sys.stderr)
         return 2
     _build.build(["conv_epilogue"])
-    unfolded = make_resnet50(torch.bfloat16)
-    folded, fired = fold_conv_bn(copy.deepcopy(unfolded))
     smi = nvidia_smi_line()
-    for B in args.batches:
-        x = resnet_input(B, torch.bfloat16)
-        for name, model in (("folded", folded), ("unfolded", unfolded)):
-            print(json.dumps({
-                "device": torch.cuda.get_device_name(0), "nvidia_smi": smi,
-                "model": f"resnet50 bf16 {name}", "batch": B,
-                "image": x.shape[-1], "fold_sites": fired["conv-bn-fold"],
-                **profile(model, x, args.reps)}), flush=True)
+    names = [n for m in args.models for n in
+             ([z[0] for z in ZOO_MODELS] if m == "zoo" else [m])]
+    for mname in names:
+        unfolded, chans, size = build(mname)
+        folded, fired = fold_conv_bn(copy.deepcopy(unfolded))
+        for B in args.batches:
+            gen = torch.Generator(device="cuda").manual_seed(5)
+            x = torch.randn((B, chans, size, size), generator=gen,
+                            device="cuda").to(torch.bfloat16).contiguous(
+                memory_format=torch.channels_last)
+            for name, model in (("folded", folded), ("unfolded", unfolded)):
+                print(json.dumps({
+                    "device": torch.cuda.get_device_name(0),
+                    "nvidia_smi": smi, "model": f"{mname} bf16 {name}",
+                    "batch": B, "image": size,
+                    "fold_sites": fired["conv-bn-fold"],
+                    **profile(model, x, args.reps)}), flush=True)
+        del folded, unfolded
+        torch.cuda.empty_cache()
     return 0
 
 
