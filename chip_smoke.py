@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's serving paths (Llama-3-8B with sampling and
 speculative decoding, Qwen2-MoE), training paths (Llama-3-8B, Qwen2-MoE
-dropless training), ResNet-50 and the rest of the vision zoo (inference)
-on one NVIDIA H100 and check them.
+dropless training), ResNet-50 and the rest of the vision zoo (inference
+and the train step) on one NVIDIA H100 and check them.
 
 Run from the repository root with no arguments:
 
@@ -266,9 +266,35 @@ Phases (any failed check raises; nothing is caught):
    bound and library times per shape, summed per model. Printed: ms per
    forward, images/s, busy ms and peak memory, folded and unfolded.
 
+19. the vision train step (``vision.train.make_train_step``; no kernel
+   of the port lies on it): (a) ResNet-50 at ``tools/resnet_bench.py``'s
+   configuration (B 128, 224 x 224, 1000 classes, seeded weights and
+   data, AMP O1 bf16, SGD lr 0.1 with momentum 0.9),
+   ``prepare_training`` firing where the JAX passes fire (stem 1, NHWC
+   layout 52), channels-last: the first step's loss within the passes'
+   contract of the same step without the transforms from one state;
+   ``bn1``'s running statistics after one step = 0.9 · old + 0.1 · the
+   stem output's mean and biased variance (f64, from a hook) within
+   ``BN_STATS_*``; five steps on one batch, every loss finite, the loss
+   below the first step's within them; the same five steps from the
+   same state in f32 (TF32 off, the path (b) holds against the CPU) as
+   the witness, within ``WITNESS_*``: the O1 step's first gradients in
+   norm against the f32 step's, the head's (fc) in direction and norm,
+   the O1 losses against the f32 ones through step 3; ms a step chained as
+   ``resnet_bench.py`` times it (2 warm-up, ``(t(10) − t(2)) / 8``, one
+   host sync a run), images/s, MFU against 989 TFLOP/s at ``resnet_
+   bench``'s 3 · 2 · 4.089e9 FLOPs an image, peak memory, busy ms and
+   idle share, busy ms by family (``train_family``); (b) one f32 step
+   of ResNet-18 (B 8, 64 x 64, TF32 off) on the card against the same
+   step on the CPU from one state: loss, gradients, parameters and BN
+   buffers within ``CARD_CPU_*``; (c) every ``ZOO_MODELS`` entry at
+   published widths, ``prepare_training``, three O1 steps at B 32
+   (GoogLeNet with its auxiliary heads' loss), every loss finite;
+   printed: ms a step, images/s and peak memory.
+
 Phases run in the order 1, 2, 3, 5, 7, 4, 8, 13, 15, 16, 17, 14, 6, 9,
-10, 11, 12, 18: phase 14 starts after the 8B serving state is freed, phase 6
-after phase 14's, phases 9 and 10 after phase 6's.
+10, 11, 12, 18, 19: phase 14 starts after the 8B serving state is freed,
+phase 6 after phase 14's, phases 9 and 10 after phase 6's.
 
 The last two lines of standard output are the card's name and power
 limit, then ``{"ok": true, "device": {...}}``; the line before them is
@@ -5416,6 +5442,497 @@ def zoo_phase() -> dict:
                 models=models, per_model=per_model, times=times)
 
 
+# ---------------------------------------------------------------------------
+# phase 19: the vision train step
+# ---------------------------------------------------------------------------
+
+# tools/resnet_bench.py's ResNet-50 step: B 128, 224 x 224, 1000 classes,
+# AMP O1 bf16, SGD lr 0.1 with momentum 0.9
+TRAIN_B, TRAIN_IMAGE, TRAIN_CLASSES = 128, 224, 1000
+TRAIN_LR, TRAIN_MOMENTUM = 0.1, 0.9
+# resnet_bench.py:155's analytic FLOPs of a step (forward and backward)
+RESNET50_STEP_FLOPS_PER_IMAGE = 3 * 2 * 4.089e9
+H100_BF16_PEAK_FLOPS = 989e12
+# the first BN's running statistics after one step against 0.9 · old +
+# 0.1 · (the stem output's mean and biased variance, in f64): f32 sums
+# of 128 · 112 · 112 values taken in another order
+BN_STATS_RTOL, BN_STATS_ATOL = 1e-4, 1e-5
+# prepare_training's transforms keep the JAX passes' contract
+TRANSFORM_RTOL, TRANSFORM_ATOL = 5e-2, 2e-2
+# the train-time transforms' sites on ResNet-50: the JAX passes'
+# count_matches over its train graph
+RESNET50_TRAIN_FIRED = {"stem-space-to-depth": 1, "conv-nhwc-layout": 52}
+# (a)'s witness: the same five steps from the same state in f32 (TF32
+# off, the path (b) holds against the CPU). A random-init ResNet-50's BN
+# backward amplifies a rounding difference layer by layer toward the
+# input: O1's first gradients against f32's have a cosine of 0.14 over
+# all tensors, as the JAX package's own O1 and f32 steps do on the CPU
+# (0.22 at B 8, 64²), though their norms agree (ratio 1.004). So the
+# witness holds what is conditioned: the norm ratio, the head's
+# gradients in direction and size (``grad_agreement``'s "fc" group:
+# cosine 0.9956, ratio 0.9998), and the losses through step 3
+# (measured within 2.2 %); after it they part
+# (two f32 runs differ by 2.4 % at step 4: cuDNN's backward is not
+# bitwise repeatable) and are printed only. A zeroed or halved gradient
+# fails the ratio, a sign-flipped one the head and the second loss.
+WITNESS_LOSS_STEPS, WITNESS_LOSS_REL = 3, 0.05
+WITNESS_RATIO = (0.9, 1.1)
+WITNESS_HEAD_COS, WITNESS_HEAD_RATIO = 0.9, (0.8, 1.25)
+# (b) one f32 step of ResNet-18 (B 8, 64 x 64, 10 classes, TF32 off) on
+# the card against the same step on the CPU: cuDNN's and the CPU's convs
+# sum in other orders (f32 resolves this step to ~1e-5 of its gradient
+# scale, tests/test_torch_vision_train.py); gradients and buffers are
+# held relative to their tensor's scale (or 1e-3 of the largest)
+CARD_CPU_B, CARD_CPU_IMAGE = 8, 64
+CARD_CPU_LOSS_RTOL, CARD_CPU_GRAD_TOL = 1e-5, 1e-4
+CARD_CPU_PARAM_ATOL, CARD_CPU_BUF_TOL = 3e-5, 1e-5
+# (c) every ZOO_MODELS entry in training, AMP O1, this batch
+ZOO_TRAIN_B, ZOO_TRAIN_STEPS = 32, 3
+# busy time of a step by kernel family: cuDNN convs and the fc GEMM (split
+# into forward and backward by the window that launched them), torch's
+# batch-norm kernels; every other kernel of the forward and backward is
+# "elementwise" (relu, residual adds, the BN affine and its backward, the
+# running statistics' reduction, casts, pooling, the loss); every kernel
+# of the optimizer's window is "optimizer"
+TRAIN_BN_KEYS = ("batch_norm", "batchnorm", "bn_fw", "bn_bw", "bn_")
+TRAIN_CONV_KEYS = ("conv", "fprop", "dgrad", "wgrad", "xmma", "cudnn",
+                   "implicit", "winograd", "cutlass", "gemm", "nvjet",
+                   "cublas", "sm90_", "sm80_")
+
+
+def train_family(name: str) -> str:
+    low = name.lower()
+    if any(k in low for k in TRAIN_BN_KEYS):
+        return "batch_norm"
+    if any(k in low for k in TRAIN_CONV_KEYS):
+        return "conv"
+    return "elementwise"
+
+
+def kernel_times(prof) -> dict:
+    """{kernel name: (device µs, launches)} from a profile's averages."""
+    from torch.autograd import DeviceType
+    out = {}
+    for it in prof.key_averages():
+        if it.device_type != DeviceType.CUDA:
+            continue
+        t = getattr(it, "self_device_time_total", None)
+        if t is None:
+            t = it.self_cuda_time_total
+        out[it.key] = (float(t), int(it.count))
+    return out
+
+
+def profile_kernels(fn) -> tuple:
+    """``fn()`` under ``torch.profiler`` (ending in a synchronize):
+    (``kernel_times``, what ``fn`` returned)."""
+    from torch.profiler import ProfilerActivity
+    with torch.profiler.profile(activities=[ProfilerActivity.CPU,
+                                            ProfilerActivity.CUDA]) as prof:
+        out = fn()
+        torch.cuda.synchronize()
+    return kernel_times(prof), out
+
+
+def train_batch(B: int, chans: int, size: int, classes: int, seed: int,
+                device="cuda"):
+    """Seeded random images (channels-last) and labels on ``device``."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    x = torch.randn((B, chans, size, size), generator=gen, device=device)
+    y = torch.randint(0, classes, (B,), generator=gen, device=device)
+    return x.contiguous(memory_format=torch.channels_last), y
+
+
+def chained_step_ms(step, x, y, n0: int = 2, n1: int = 10) -> float:
+    """``resnet_bench.py``'s timing (:130-148): ``n`` chained steps end in
+    one host sync; 2 warm-up steps, then the best of two runs of ``n0``
+    and of ``n1`` steps, ``(t(n1) − t(n0)) / (n1 − n0)``."""
+    def run(n):
+        loss = None
+        for _ in range(n):
+            loss = step(x, y)
+        return float(loss)
+
+    run(2)
+    t = {}
+    for n in (n0, n1):
+        best = float("inf")
+        for _ in range(2):
+            t0 = time.perf_counter()
+            run(n)
+            best = min(best, time.perf_counter() - t0)
+        t[n] = best
+    return (t[n1] - t[n0]) / (n1 - n0) * 1e3
+
+
+def train_step_profile(model, step, x, y, loss_fn, reps: int = 3) -> dict:
+    """Busy ms a step (its kernels' time under the profiler) and the
+    device's idle share against the span of ``reps`` chained steps
+    without the profiler (CUDA events around them: the profiler's host
+    tracing would lengthen the span), then one step in three profiled
+    windows (forward with the loss, backward, optimizer) for the busy
+    time by family (``train_family``) and the top kernels."""
+    from paddle_tpu_torch.amp import auto_cast
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+
+    def chained():
+        for _ in range(reps):
+            step(x, y)
+
+    torch.cuda.synchronize()
+    a.record()
+    chained()
+    b.record()
+    b.synchronize()
+    span = a.elapsed_time(b) / reps
+    kern, _ = profile_kernels(chained)
+    busy = sum(t for t, _ in kern.values()) / 1e3 / reps
+    fams = dict.fromkeys(("conv_forward", "conv_backward", "batch_norm",
+                          "elementwise", "optimizer"), 0.0)
+
+    def forward():
+        with auto_cast(True):
+            return loss_fn(model(x), y)
+
+    windows = {}
+    windows["forward"], loss = profile_kernels(forward)
+    windows["backward"], _ = profile_kernels(loss.backward)
+    windows["optimizer"], _ = profile_kernels(step.optimizer.step)
+    top = {}
+    for w, kw in windows.items():
+        for name, (t, c) in kw.items():
+            fam = "optimizer" if w == "optimizer" else train_family(name)
+            if fam == "conv":
+                fam = f"conv_{w}"
+            fams[fam] += t / 1e3
+            top[name] = top.get(name, 0.0) + t / 1e3
+    return dict(busy_ms=busy, span_ms=span,
+                idle_share=max(0.0, 1.0 - busy / span),
+                busy_ms_by_family=fams,
+                top=sorted(top.items(), key=lambda kv: -kv[1])[:8])
+
+
+def spy_grads(step, model) -> dict:
+    """A dict that ``step``'s next optimizer call fills with the gradients
+    by parameter name (f32 copies, where they are), read before the
+    optimizer frees them; later calls are not read."""
+    opt = step.optimizer
+    real = opt.step
+    names = {id(p): n for n, p in model.named_parameters()}
+    rec = {}
+
+    def spy():
+        rec.update({names[id(p)]: p.grad.detach().float().clone()
+                    for p in opt.parameters})
+        opt.step = real
+        real()
+
+    opt.step = spy
+    return rec
+
+
+def grad_group(name: str) -> str:
+    """A ResNet parameter's group: ``stem`` (conv1, bn1), ``layer1`` ..
+    ``layer4``, ``fc``."""
+    head = name.split(".")[0]
+    return "stem" if head in ("conv1", "bn1") else head
+
+
+def grad_agreement(got: dict, want: dict) -> dict:
+    """How far one step's gradients ``got`` are from ``want`` (by name):
+    the cosine of all of them as one vector and the ratio of their norms,
+    the same for each ``grad_group``, and over the tensors the least
+    cosine and the least and largest norm ratio (f64 sums)."""
+    sums, cos, ratio = {}, [], []
+    for k, w in want.items():
+        a, b = got[k].double(), w.double()
+        d, na, nb = (float((a * b).sum()), float((a * a).sum()),
+                     float((b * b).sum()))
+        for g in ("all", grad_group(k)):
+            s = sums.setdefault(g, [0.0, 0.0, 0.0])
+            s[0], s[1], s[2] = s[0] + d, s[1] + na, s[2] + nb
+        if nb > 0:
+            cos.append(d / math.sqrt(max(na * nb, 1e-300)))
+            ratio.append(math.sqrt(na / nb))
+    groups = {g: (d / math.sqrt(max(na * nb, 1e-300)),
+                  math.sqrt(na / max(nb, 1e-300)))
+              for g, (d, na, nb) in sums.items()}
+    return dict(cos=groups["all"][0], ratio=groups["all"][1],
+                groups=groups, tensor_cos_min=min(cos),
+                tensor_ratio_min=min(ratio), tensor_ratio_max=max(ratio))
+
+
+def resnet50_f32_witness(seed: int, x, y, n: int) -> tuple:
+    """(a)'s witness: ``n`` f32 steps (TF32 off) of the model
+    ``make_train_resnet50(seed, prepare=True)`` builds, the state (a)'s
+    O1 steps start from: (losses, the first step's gradients)."""
+    from paddle_tpu_torch.vision.train import make_train_step
+    flags = (torch.backends.cudnn.allow_tf32,
+             torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        model, _ = make_train_resnet50(seed, prepare=True)
+        step = make_train_step(model, lr=TRAIN_LR, momentum=TRAIN_MOMENTUM,
+                               amp=False)
+        grads = spy_grads(step, model)
+        losses = [float(step(x, y)) for _ in range(n)]
+    finally:
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32) = flags
+    return losses, grads
+
+
+def make_train_resnet50(seed: int, prepare: bool):
+    """``resnet50(num_classes=1000)`` on the card, f32 parameters (AMP O1
+    casts at the ops), seeded weights, the train-time transforms when
+    ``prepare``."""
+    from paddle_tpu_torch.analysis import prepare_training
+    from paddle_tpu_torch.models.resnet import resnet50
+    model = resnet50(num_classes=TRAIN_CLASSES,
+                     generator=torch.Generator().manual_seed(seed))
+    return prepare_training(model) if prepare else (model, None)
+
+
+def resnet50_train_run(seed: int = 190, profile: bool = True) -> dict:
+    """Phase 19 (a): ResNet-50 at ``resnet_bench.py``'s configuration."""
+    from paddle_tpu_torch.vision.train import (classification_loss,
+                                               make_train_step)
+    smi = nvidia_smi_line()
+    x, y = train_batch(TRAIN_B, 3, TRAIN_IMAGE, TRAIN_CLASSES, seed + 1)
+    # one state, one step without the transforms (NCHW weights and input,
+    # the 7x7 stem), then with them
+    plain, _ = make_train_resnet50(seed, prepare=False)
+    loss_plain = float(make_train_step(plain, lr=TRAIN_LR,
+                                       momentum=TRAIN_MOMENTUM)(
+        x.contiguous(), y))
+    del plain
+    gc.collect()
+    torch.cuda.empty_cache()
+    model, fired = make_train_resnet50(seed, prepare=True)
+    assert fired == RESNET50_TRAIN_FIRED, fired
+    assert model.conv1.stem_s2d
+    stem = {}
+
+    def hook(mod, args, out):
+        o = out.detach().double()
+        stem["mean"] = o.mean((0, 2, 3))
+        stem["var"] = o.var((0, 2, 3), correction=0)
+
+    h = model.conv1.register_forward_hook(hook)
+    bn = model.bn1
+    old = bn._mean.double().clone(), bn._variance.double().clone()
+    step = make_train_step(model, lr=TRAIN_LR, momentum=TRAIN_MOMENTUM)
+    grads = spy_grads(step, model)
+    losses = [step(x, y)]
+    h.remove()
+    assert stem["mean"].shape == (64,)
+    stats_err = 0.0
+    for buf, prev, batch in ((bn._mean, old[0], stem["mean"]),
+                             (bn._variance, old[1], stem["var"])):
+        want = 0.9 * prev + 0.1 * batch
+        err = float((buf.double() - want).abs().max())
+        assert err <= BN_STATS_ATOL + BN_STATS_RTOL * float(
+            want.abs().max()), err
+        stats_err = max(stats_err, err)
+    loss_prep = float(losses[0])
+    assert abs(loss_prep - loss_plain) <= TRANSFORM_ATOL + \
+        TRANSFORM_RTOL * abs(loss_plain), (loss_prep, loss_plain)
+    for _ in range(4):
+        losses.append(step(x, y))
+    losses = [float(v) for v in losses]
+    assert all(math.isfinite(v) for v in losses), losses
+    # the loss falls below the first step's within the five (at lr 0.1
+    # and momentum 0.9 on one batch it overshoots after the second step;
+    # the f32 witness below takes the same path)
+    assert min(losses[1:]) < losses[0], losses
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ms = chained_step_ms(step, x, y)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    flops = RESNET50_STEP_FLOPS_PER_IMAGE * TRAIN_B
+    mfu = flops / (ms / 1e3) / H100_BF16_PEAK_FLOPS
+    rec = dict(fired=fired, losses=losses, loss_plain=loss_plain,
+               bn_stats_max_abs_err=stats_err, step_ms=ms,
+               images_per_s=TRAIN_B / ms * 1e3, mfu=mfu, peak_gib=peak)
+    if profile:
+        rec.update(train_step_profile(model, step, x, y,
+                                      classification_loss))
+    log(f"vision train resnet50 (B {TRAIN_B}, {TRAIN_IMAGE}x{TRAIN_IMAGE}, "
+        f"{TRAIN_CLASSES} classes, AMP O1 bf16, SGD lr {TRAIN_LR} momentum "
+        f"{TRAIN_MOMENTUM}, prepare_training {fired}, channels-last): "
+        f"losses {[round(v, 4) for v in losses]}; first-step loss "
+        f"{loss_prep:.6f} with the transforms, {loss_plain:.6f} without; "
+        f"bn1 running stats vs 0.9 old + 0.1 batch (f64 from the stem's "
+        f"output) max abs err {stats_err:.3g}; [{smi}]")
+    msg = (f"vision train resnet50 B {TRAIN_B}: {ms:.3f} ms/step (chained, "
+           f"(t(10) - t(2)) / 8), {rec['images_per_s']:.1f} images/s, MFU "
+           f"{mfu:.4f} of {H100_BF16_PEAK_FLOPS / 1e12:.0f} TFLOP/s "
+           f"(3 x 2 x 4.089e9 FLOPs an image), peak {peak:.2f} GiB")
+    if profile:
+        fam = ", ".join(f"{k} {v:.3f}" for k, v in
+                        rec["busy_ms_by_family"].items())
+        msg += (f"; busy {rec['busy_ms']:.3f} ms of a {rec['span_ms']:.3f} "
+                f"ms span (idle share {rec['idle_share']:.4f}); busy ms by "
+                f"family: {fam}; top kernels: " + "; ".join(
+                    f"{k[:60]} {v:.3f}" for k, v in rec["top"][:5]))
+    log(msg + f"; [{smi}]")
+    del model, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    # the witness: the same steps from the same state in f32
+    losses32, grads32 = resnet50_f32_witness(seed, x, y, len(losses))
+    agree = grad_agreement(grads, grads32)
+    del grads, grads32
+    gc.collect()
+    torch.cuda.empty_cache()
+    loss_rel = [abs(a - b) / abs(b) for a, b in zip(losses, losses32)]
+    rec.update(losses_f32=losses32, grad_agreement=agree,
+               witness_loss_rel=loss_rel)
+    groups = ", ".join(f"{g} {c:.4f} / {r:.4f}"
+                       for g, (c, r) in agree["groups"].items())
+    log(f"vision train resnet50 witness: f32 (TF32 off) losses "
+        f"{[round(v, 4) for v in losses32]} from the same state; O1 vs f32 "
+        f"loss rel {[f'{v:.3g}' for v in loss_rel]} (bound "
+        f"{WITNESS_LOSS_REL} through step {WITNESS_LOSS_STEPS}); first-step "
+        f"gradients O1 vs f32, cosine / norm ratio: {groups} (bounds: all "
+        f"ratio {WITNESS_RATIO}, fc cosine >= {WITNESS_HEAD_COS}, ratio "
+        f"{WITNESS_HEAD_RATIO}); per tensor cosine >= "
+        f"{agree['tensor_cos_min']:.4f}, norm ratio "
+        f"{agree['tensor_ratio_min']:.4f} .. "
+        f"{agree['tensor_ratio_max']:.4f}; [{smi}]")
+    assert max(loss_rel[:WITNESS_LOSS_STEPS]) <= WITNESS_LOSS_REL, (
+        losses, losses32)
+    assert WITNESS_RATIO[0] <= agree["ratio"] <= WITNESS_RATIO[1], agree
+    head_cos, head_ratio = agree["groups"]["fc"]
+    assert head_cos >= WITNESS_HEAD_COS, agree
+    assert WITNESS_HEAD_RATIO[0] <= head_ratio <= WITNESS_HEAD_RATIO[1], \
+        agree
+    return rec
+
+
+def train_record(model, x, y, device) -> dict:
+    """One f32 step of ``make_train_step`` on ``device``: the loss, the
+    gradients (read before the optimizer frees them), the parameters and
+    buffers after it, on the CPU in f64."""
+    from paddle_tpu_torch.vision.train import make_train_step
+    step = make_train_step(model, lr=TRAIN_LR, momentum=TRAIN_MOMENTUM,
+                           amp=False, device=device)
+    grads = spy_grads(step, model)
+    rec = dict(loss=float(step(x, y)))
+    rec["grads"] = {k: v.double().cpu() for k, v in grads.items()}
+    rec["params"] = {n: p.detach().double().cpu()
+                     for n, p in model.named_parameters()}
+    rec["bufs"] = {n: b.detach().double().cpu()
+                   for n, b in model.named_buffers()}
+    return rec
+
+
+def norm_gap(got: dict, want: dict) -> float:
+    """max over tensors of max|got − want| / max(max|want|, 1e-3·G), G the
+    largest |value| of all of ``want``."""
+    big = max(float(v.abs().max()) for v in want.values())
+    return max(float((got[k] - v).abs().max())
+               / max(float(v.abs().max()), 1e-3 * big)
+               for k, v in want.items())
+
+
+def resnet18_card_vs_cpu(seed: int = 195) -> dict:
+    """Phase 19 (b): one f32 step of ResNet-18 on the card against the
+    same step on the CPU, from one state and one batch."""
+    import copy
+    from paddle_tpu_torch.vision.models import resnet18
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cpu = resnet18(num_classes=10, device="cpu",
+                   generator=torch.Generator().manual_seed(seed))
+    card = copy.deepcopy(cpu).to("cuda")
+    x, y = train_batch(CARD_CPU_B, 3, CARD_CPU_IMAGE, 10, seed + 1,
+                       device="cpu")
+    want = train_record(cpu, x, y, "cpu")
+    got = train_record(card, x.to("cuda"), y.to("cuda"), "cuda")
+    loss_rel = abs(got["loss"] - want["loss"]) / abs(want["loss"])
+    grad = norm_gap(got["grads"], want["grads"])
+    param = max(float((got["params"][k] - v).abs().max())
+                for k, v in want["params"].items())
+    buf = norm_gap(got["bufs"], want["bufs"])
+    assert math.isfinite(got["loss"]) and loss_rel <= CARD_CPU_LOSS_RTOL, \
+        loss_rel
+    assert grad <= CARD_CPU_GRAD_TOL, grad
+    assert param <= CARD_CPU_PARAM_ATOL, param
+    assert buf <= CARD_CPU_BUF_TOL, buf
+    log(f"vision train resnet18 f32 (B {CARD_CPU_B}, {CARD_CPU_IMAGE}x"
+        f"{CARD_CPU_IMAGE}, TF32 off) card vs CPU, one step: loss "
+        f"{got['loss']:.7f} vs {want['loss']:.7f} (rel {loss_rel:.3g}, bound "
+        f"{CARD_CPU_LOSS_RTOL}), gradients {grad:.3g} of their scale (bound "
+        f"{CARD_CPU_GRAD_TOL}), parameters max abs {param:.3g} (bound "
+        f"{CARD_CPU_PARAM_ATOL}), BN buffers {buf:.3g} (bound "
+        f"{CARD_CPU_BUF_TOL}); [{nvidia_smi_line()}]")
+    return dict(loss_rel=loss_rel, grad_gap=grad, param_max_abs=param,
+                buf_gap=buf)
+
+
+def zoo_train_run(name: str, factory: str, kwargs: dict, size: int,
+                  chans: int, seed: int, smi: str) -> dict:
+    """Phase 19 (c), one model: ``prepare_training``, then
+    ``ZOO_TRAIN_STEPS`` O1 steps at ``ZOO_TRAIN_B`` (GoogLeNet with its
+    auxiliary heads' loss); every loss finite; ms a step over the steps
+    after the first."""
+    from paddle_tpu_torch.analysis import prepare_training
+    from paddle_tpu_torch.vision import models
+    from paddle_tpu_torch.vision.train import (googlenet_aux_loss,
+                                               make_train_step)
+    model = getattr(models, factory)(
+        generator=torch.Generator().manual_seed(seed), **kwargs)
+    model, fired = prepare_training(model)
+    classes = model.num_classes
+    x, y = train_batch(ZOO_TRAIN_B, chans, size, classes, seed + 1)
+    step = make_train_step(
+        model, lr=TRAIN_LR, momentum=TRAIN_MOMENTUM,
+        loss_fn=googlenet_aux_loss if name == "googlenet" else None)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses = [step(x, y)]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(ZOO_TRAIN_STEPS - 1):
+        losses.append(step(x, y))
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3 / (ZOO_TRAIN_STEPS - 1)
+    losses = [float(v) for v in losses]
+    assert all(math.isfinite(v) for v in losses), (name, losses)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    rec = dict(fired=fired, losses=losses, step_ms=ms,
+               images_per_s=ZOO_TRAIN_B / ms * 1e3, peak_gib=peak)
+    log(f"vision train zoo {name} ({size}x{size}, {classes} classes, B "
+        f"{ZOO_TRAIN_B}, AMP O1 bf16, prepare_training {fired}): losses "
+        f"{[round(v, 4) for v in losses]}, {ms:.3f} ms/step, "
+        f"{rec['images_per_s']:.1f} images/s, peak {peak:.2f} GiB; [{smi}]")
+    del model, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rec
+
+
+def vision_train_phase() -> dict:
+    """Phase 19: the vision train step. (a) ResNet-50 at
+    ``resnet_bench.py``'s configuration, (b) ResNet-18 card vs CPU, (c)
+    every ``ZOO_MODELS`` entry in training."""
+    smi = nvidia_smi_line()
+    t0 = time.perf_counter()
+    rec = dict(resnet50=resnet50_train_run())
+    gc.collect()
+    torch.cuda.empty_cache()
+    rec["card_vs_cpu"] = resnet18_card_vs_cpu()
+    rec["zoo"] = {name: zoo_train_run(name, factory, kwargs, size, chans,
+                                      seed=400 + 10 * i, smi=smi)
+                  for i, (name, factory, kwargs, size, chans)
+                  in enumerate(ZOO_MODELS)}
+    log(f"phase 19 (vision train step) in {time.perf_counter() - t0:.1f} s")
+    return rec
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -5490,6 +6007,9 @@ def main() -> int:
     ce_rec = conv_epilogue_phase()
     resnet = resnet_phase()
     zoo = zoo_phase()
+    gc.collect()
+    torch.cuda.empty_cache()
+    vision_train_phase()
 
     a = rec["a_serving_mix"]
     kernels = [{

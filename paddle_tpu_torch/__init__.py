@@ -26,7 +26,12 @@ grouped-matmul kernels (``ops/kernels/grouped_matmul.py``); vision
 inference, ResNet and the rest of the zoo (``vision.models``: LeNet,
 AlexNet, VGG, SqueezeNet, MobileNet V1-V3, ShuffleNetV2, DenseNet,
 GoogLeNet, Inception v3), folded by ``analysis.fold_conv_bn``, its 1x1
-convs on the conv-epilogue kernel (``ops/kernels/conv_epilogue.py``).
+convs on the conv-epilogue kernel (``ops/kernels/conv_epilogue.py``);
+the vision train step (``vision.train.make_train_step``: BN and dropout
+in training, O1 ``amp.auto_cast``, ``nn.functional.cross_entropy``,
+``optimizer.Momentum``, the key stream ``core.Generator``) for ResNet
+and the zoo, with the train-time transforms
+``analysis.prepare_training``.
 """
 from .device import resolve_device
 

@@ -50,8 +50,21 @@ channel concats keep channels-last, and ShuffleNetV2's channel shuffle
 is written to keep it, but a channel slice of a channels-last tensor is
 strided and is copied).
 
-``StemSpaceToDepthPass`` and ``ConvNhwcLayoutPass`` fire only on training
-graphs in the JAX package and are not ported yet.
+The JAX package's two train-time passes, ``StemSpaceToDepthPass``
+(:184-226) and ``ConvNhwcLayoutPass`` (:229-275), fire only where the
+fold cannot: on training graphs. ``prepare_training`` is their
+load-time counterpart on a training model. The 7x7 / stride-2 / pad-3
+stem conv over 3 channels (``stem-space-to-depth``) is marked
+``Conv2D.stem_s2d``, so an even-sized input runs through
+``stem_s2d_conv_nchw`` with the same ``weight`` parameter (the
+``state_dict`` keys do not move, and the gradient reaches it through
+the transform). Every other conv (``conv-nhwc-layout``) gets its weight
+in ``torch.channels_last`` memory, the same parameter: cuDNN then runs
+the conv, and its backward, in NHWC and returns NHWC activations, which
+BN, relu, pooling and the adds keep. The counts are the JAX
+``count_matches`` of the two rules over a ResNet train graph; the
+results keep the JAX passes' contract (rtol 5e-2 / atol 2e-2, f32 within
+about 1e-7: the same taps summed in another order).
 """
 from __future__ import annotations
 
@@ -63,13 +76,16 @@ import torch.fx
 import torch.nn.functional as F
 from torch import nn
 
-from ..models._layers import BatchNorm2D
+from ..models._layers import BatchNorm2D, Conv2D
 from ..ops.fused import conv_epilogue as _fused
 from ..ops.kernels import conv_epilogue as _kernels
 
-__all__ = ["ConvBnAct", "FoldResult", "fold_conv_bn", "site_routes"]
+__all__ = ["ConvBnAct", "FoldResult", "fold_conv_bn", "site_routes",
+           "TrainPrep", "prepare_training"]
 
 RULE = "conv-bn-fold"
+STEM_RULE = "stem-space-to-depth"
+LAYOUT_RULE = "conv-nhwc-layout"
 
 
 def _padding(conv: nn.Conv2d):
@@ -169,7 +185,7 @@ class FoldResult(NamedTuple):
 
 class _Tracer(torch.fx.Tracer):
     def is_leaf_module(self, m: nn.Module, qualname: str) -> bool:
-        return isinstance(m, (BatchNorm2D, ConvBnAct)) or \
+        return isinstance(m, (BatchNorm2D, ConvBnAct, Conv2D)) or \
             super().is_leaf_module(m, qualname)
 
 
@@ -235,3 +251,37 @@ def fold_conv_bn(model: nn.Module, *, impl: str = "auto") -> FoldResult:
     gm.delete_all_unused_submodules()
     gm.eval()
     return FoldResult(gm, {RULE: fired})
+
+
+class TrainPrep(NamedTuple):
+    module: nn.Module
+    fired: Dict[str, int]
+
+
+def _is_stem_conv(conv: nn.Conv2d) -> bool:
+    return (isinstance(conv, Conv2D) and conv.padding_mode == "zeros"
+            and not isinstance(conv.padding, str)
+            and _fused._is_stem_shape(conv.weight, conv.stride,
+                                      _padding(conv), conv.dilation,
+                                      conv.groups, (0, 0)))
+
+
+def prepare_training(model: nn.Module) -> TrainPrep:
+    """The train-time transforms of a training model, in place (module
+    docstring): the stem conv marked for the space-to-depth route, every
+    other conv's weight channels-last. Returns the model and
+    ``{"stem-space-to-depth": n, "conv-nhwc-layout": m}``. The conv-bn
+    fold stays an inference transform and still refuses the model."""
+    fired = {STEM_RULE: 0, LAYOUT_RULE: 0}
+    with torch.no_grad():
+        for m in model.modules():
+            if not isinstance(m, nn.Conv2d):
+                continue
+            if _is_stem_conv(m):
+                m.stem_s2d = True
+                fired[STEM_RULE] += 1
+            else:
+                m.weight.data = m.weight.data.contiguous(
+                    memory_format=torch.channels_last)
+                fired[LAYOUT_RULE] += 1
+    return TrainPrep(model, fired)

@@ -1,7 +1,8 @@
 """Models of the PyTorch port: Llama (serving, paged and int8 decode,
 training), Qwen2-MoE (training, cached decode, serving) and the vision
-zoo (inference): ResNet, LeNet, AlexNet, VGG, SqueezeNet, MobileNet
-V1-V3, ShuffleNetV2, DenseNet, GoogLeNet and Inception v3."""
+zoo (inference and the train step): ResNet, LeNet, AlexNet, VGG,
+SqueezeNet, MobileNet V1-V3, ShuffleNetV2, DenseNet, GoogLeNet and
+Inception v3."""
 from . import llama, qwen2_moe
 from .llama import LlamaConfig
 from .qwen2_moe import Qwen2MoeConfig

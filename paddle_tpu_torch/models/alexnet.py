@@ -1,4 +1,4 @@
-"""AlexNet (inference), as a ``torch.nn.Module``.
+"""AlexNet (inference and training), as a ``torch.nn.Module``.
 
 Port of ``paddle_tpu/models/alexnet.py``: 5 convs with bias and 3
 Linears, no LRN, attribute names ``features``, ``avgpool`` and

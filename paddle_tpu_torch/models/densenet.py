@@ -1,4 +1,4 @@
-"""DenseNet family (inference), as ``torch.nn.Module``s.
+"""DenseNet family (inference and training), as ``torch.nn.Module``s.
 
 Port of ``paddle_tpu/models/densenet.py``: ``DenseLayer`` (BN → relu →
 1x1 bottleneck → BN → relu → 3x3, concatenated onto its input),

@@ -1,13 +1,14 @@
-"""GoogLeNet, Inception v1 (inference), as a ``torch.nn.Module``.
+"""GoogLeNet, Inception v1 (inference and training), as a ``torch.nn.Module``.
 
 Port of ``paddle_tpu/models/googlenet.py``: ``Inception`` (four branches
 concatenated on channels), the two auxiliary heads and ``GoogLeNet``,
 with the JAX package's attribute names. The forward returns ``(main,
-aux1, aux2)`` as the JAX model does; only inference is ported, where
-the auxiliary heads return ``None`` (their weights are still in the
-state dict). Every conv has a bias and no BN: the conv-bn fold finds no
-site. Layers, init, ``device`` / ``dtype`` / ``generator``:
-``models/_layers.py``."""
+aux1, aux2)`` as the JAX model does: in training each auxiliary head
+returns its logits (through its ``Dropout(0.7)``: aux1's key is drawn
+before aux2's, both before the head's ``Dropout(0.4)``), in eval
+``None`` (their weights are still in the state dict). Every conv has a
+bias and no BN: the conv-bn fold finds no site. Layers, init,
+``device`` / ``dtype`` / ``generator``: ``models/_layers.py``."""
 from __future__ import annotations
 
 from typing import Optional

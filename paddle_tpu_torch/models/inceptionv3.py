@@ -1,4 +1,4 @@
-"""Inception v3 (inference), as a ``torch.nn.Module``.
+"""Inception v3 (inference and training), as a ``torch.nn.Module``.
 
 Port of ``paddle_tpu/models/inceptionv3.py``: ``BasicConv2D`` (a
 ``Sequential`` of conv, BN and relu), ``InceptionA`` … ``InceptionE``

@@ -1,4 +1,4 @@
-"""LeNet-5 (inference), as a ``torch.nn.Module``.
+"""LeNet-5 (inference and training), as a ``torch.nn.Module``.
 
 Port of ``paddle_tpu/models/lenet.py``: 1 x 28 x 28 input, two conv /
 relu / max-pool stages and three Linears (no activation between them,

@@ -1,4 +1,4 @@
-"""MobileNet V1 / V2 / V3 (inference), as ``torch.nn.Module``s.
+"""MobileNet V1 / V2 / V3 (inference and training), as ``torch.nn.Module``s.
 
 Port of ``paddle_tpu/models/mobilenet.py``: ``_make_divisible``,
 ``ConvBNReLU`` (a ``Sequential`` of conv, BN and the activation, which

@@ -1,4 +1,4 @@
-"""ResNet family (inference), as ``torch.nn.Module``s.
+"""ResNet family (inference and training), as ``torch.nn.Module``s.
 
 Port of ``paddle_tpu/models/resnet.py``: ``BasicBlock`` (:15),
 ``BottleneckBlock`` (:42), ``ResNet`` (:73) and every factory

@@ -1,4 +1,4 @@
-"""ShuffleNetV2 family (inference), as ``torch.nn.Module``s.
+"""ShuffleNetV2 family (inference and training), as ``torch.nn.Module``s.
 
 Port of ``paddle_tpu/models/shufflenetv2.py``: ``channel_shuffle``, the
 stride-1 ``ShuffleUnit`` (split the channels, transform one half,

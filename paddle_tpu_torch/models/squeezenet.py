@@ -1,4 +1,4 @@
-"""SqueezeNet 1.0 / 1.1 (inference), as ``torch.nn.Module``s.
+"""SqueezeNet 1.0 / 1.1 (inference and training), as ``torch.nn.Module``s.
 
 Port of ``paddle_tpu/models/squeezenet.py``: ``Fire`` (squeeze 1x1 ->
 expand 1x1 and 3x3, concatenated on channels), ``SqueezeNet`` and its

@@ -1,4 +1,4 @@
-"""VGG family (inference), as ``torch.nn.Module``s.
+"""VGG family (inference and training), as ``torch.nn.Module``s.
 
 Port of ``paddle_tpu/models/vgg.py``: ``make_layers`` over the configs
 'A' / 'B' / 'D' / 'E' (3x3 convs with bias, BN after each with

@@ -44,6 +44,13 @@ from paddle_tpu_torch.serving.fleet.proc import (
 from paddle_tpu_torch.serving.fleet.proc import (
     fleet, replica, transport, wire, worker)
 from paddle_tpu_torch.analysis import concurrency
+from paddle_tpu_torch import amp, core, nn, optimizer
+from paddle_tpu_torch.amp import auto_cast
+from paddle_tpu_torch.core import generator
+from paddle_tpu_torch.nn.functional import common, loss
+from paddle_tpu_torch.optimizer import momentum
+from paddle_tpu_torch.vision import train
+from paddle_tpu_torch.analysis import prepare_training
 bad = sorted(m for m in sys.modules
              if m.split('.')[0] in ('jax', 'jaxlib', 'paddle_tpu'))
 print(','.join(bad))
@@ -66,6 +73,7 @@ def test_entry_points_raise_without_cuda_or_device():
     from paddle_tpu_torch.serving import ServingEngine, ServingFleet
     from paddle_tpu_torch.vision import models as zoo
     from paddle_tpu_torch.vision.models import resnet50
+    from paddle_tpu_torch.vision.train import make_train_step
     cfg = llama.LlamaConfig.tiny()
     qcfg = qwen2_moe.Qwen2MoeConfig.tiny(moe_impl="dropless")
     prompt = [[1, 2, 3]]
@@ -108,6 +116,8 @@ def test_entry_points_raise_without_cuda_or_device():
         lambda: zoo.googlenet(),
         lambda: zoo.inception_v3(),
         lambda: zoo.params_from_jax({}),
+        lambda: make_train_step(
+            zoo.resnet18(num_classes=10, device="cpu")),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="CUDA"):

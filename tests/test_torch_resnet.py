@@ -163,8 +163,14 @@ def test_fold_refuses_a_training_model():
     model.layer1[0].bn1.train()
     with pytest.raises(ValueError, match="batch"):
         fold_conv_bn(model)
-    with pytest.raises(NotImplementedError, match="inference"):
-        model(torch.zeros(1, 3, 32, 32))
+    # the one BN in training normalises with the batch's statistics and
+    # moves its running ones (0.9 · old + 0.1 · batch; the batch is 0s)
+    with torch.no_grad():
+        assert torch.isfinite(model(torch.zeros(1, 3, 32, 32))).all()
+    bn = model.layer1[0].bn1
+    assert torch.equal(bn._mean, torch.zeros_like(bn._mean))
+    torch.testing.assert_close(bn._variance, torch.full_like(bn._variance,
+                                                             0.9))
 
 
 def test_fold_in_bfloat16_folds_every_site():

@@ -20,6 +20,18 @@ layout), the top kernels, and the card's name and power limit as
 
     python3 tools/torch_resnet_profile.py [--models resnet50 zoo ...]
         [--batches 8 128] [--reps 20]
+
+``--train`` times the train step of ``chip_smoke.py`` phase 19 (a)
+instead: ``resnet50(num_classes=1000)`` at B 128 (``--batches`` takes
+the first batch given when set), 224², AMP O1 bf16, SGD lr 0.1 with
+momentum 0.9, ``prepare_training``, channels-last (``chip_smoke.
+resnet50_train_run``), and prints one JSON line: ms a step chained as
+``tools/resnet_bench.py`` times it, images/s, MFU against 989 TFLOP/s,
+peak memory, busy ms and idle share over three chained steps, and busy
+ms by family (conv forward, conv backward, batch norm, elementwise,
+optimizer; ``chip_smoke.train_family``) with the top kernels.
+
+    python3 tools/torch_resnet_profile.py --train [--batches 128]
 """
 from __future__ import annotations
 
@@ -35,6 +47,7 @@ import torch
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 sys.path.insert(0, str(Path(__file__).resolve().parent))
 
+import chip_smoke  # noqa: E402
 from chip_smoke import (ZOO_MODELS, make_resnet50,  # noqa: E402
                         make_zoo_model, nvidia_smi_line)
 from paddle_tpu_torch.analysis import fold_conv_bn  # noqa: E402
@@ -109,16 +122,36 @@ def build(name: str):
     return make_zoo_model(factory, kwargs, seed=0).bfloat16(), chans, size
 
 
+def train(args) -> int:
+    """``--train``: phase 19 (a)'s step, profiled (module docstring)."""
+    if "--batches" in sys.argv:
+        chip_smoke.TRAIN_B = args.batches[0]
+    rec = chip_smoke.resnet50_train_run()
+    print(json.dumps({
+        "device": torch.cuda.get_device_name(0),
+        "nvidia_smi": nvidia_smi_line(),
+        "model": "resnet50 train step, AMP O1 bf16, prepare_training",
+        "batch": chip_smoke.TRAIN_B, "image": chip_smoke.TRAIN_IMAGE,
+        **{k: v for k, v in rec.items() if k != "top"},
+        "top_kernels_ms_per_step": [[k[:90], round(v, 4)]
+                                    for k, v in rec["top"]]}), flush=True)
+    return 0
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--models", nargs="+", default=["resnet50"],
                     choices=["resnet50", "zoo"] + [m[0] for m in ZOO_MODELS])
     ap.add_argument("--batches", type=int, nargs="+", default=[8, 128])
     ap.add_argument("--reps", type=int, default=20)
+    ap.add_argument("--train", action="store_true",
+                    help="time phase 19 (a)'s ResNet-50 train step")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("torch_resnet_profile: no CUDA device", file=sys.stderr)
         return 2
+    if args.train:
+        return train(args)
     _build.build(["conv_epilogue"])
     smi = nvidia_smi_line()
     names = [n for m in args.models for n in

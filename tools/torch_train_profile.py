@@ -30,6 +30,7 @@ import torch
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 
 from chip_smoke import QWEN_LAYERS, nvidia_smi_line  # noqa: E402
+from chip_smoke import kernel_times as _kernel_times  # noqa: E402
 from paddle_tpu_torch.models import llama, qwen2_moe  # noqa: E402
 from paddle_tpu_torch.ops.kernels import _build  # noqa: E402
 
@@ -51,20 +52,6 @@ def family(name: str) -> str:
         if any(k.lower() in low for k in keys):
             return fam
     return "other"
-
-
-def _kernel_times(prof):
-    """{kernel name: (device µs, count)} from the profiler's averages."""
-    from torch.autograd import DeviceType
-    out = {}
-    for it in prof.key_averages():
-        if it.device_type != DeviceType.CUDA:
-            continue
-        t = getattr(it, "self_device_time_total", None)
-        if t is None:
-            t = it.self_cuda_time_total
-        out[it.key] = (float(t), int(it.count))
-    return out
 
 
 def main() -> int:
