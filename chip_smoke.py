@@ -2,7 +2,9 @@
 """Drive the PyTorch port's serving paths (Llama-3-8B with sampling and
 speculative decoding, Qwen2-MoE), training paths (Llama-3-8B, Qwen2-MoE
 dropless training), ResNet-50 and the rest of the vision zoo (inference
-and the train step) on one NVIDIA H100 and check them.
+and the train step) and the deployment front end (``jit.save`` →
+``create_predictor``, ``DynamicBatcher``, ``to_static``) on one NVIDIA
+H100 and check them.
 
 Run from the repository root with no arguments:
 
@@ -292,9 +294,41 @@ Phases (any failed check raises; nothing is caught):
    (GoogLeNet with its auxiliary heads' loss), every loss finite;
    printed: ms a step, images/s and peak memory.
 
-Phases run in the order 1, 2, 3, 5, 7, 4, 8, 13, 15, 16, 17, 14, 6, 9,
-10, 11, 12, 18, 19: phase 14 starts after the 8B serving state is freed,
-phase 6 after phase 14's, phases 9 and 10 after phase 6's.
+20. the deployment front end: (a) ResNet-50 at published widths (224 x
+   224, 1000 classes, seeded, eval, bf16, channels-last), folded by
+   ``fold_conv_bn``, ``jit.save``'d with ``InputSpec([None, 3, 224,
+   224], "bfloat16")`` and served by ``create_predictor(Config(path))``
+   at B 1, 8 and 32: the program holds one ``matmul_bias_act`` node a
+   kernel site (33), each run launches the kernel 33 times (the eager
+   forwards it is held to and timed against run before the counted
+   runs of the program), the output equals the folded eager model's on
+   the same input bitwise (else the
+   largest difference in bf16 ulps and the first op that differs are
+   printed and the phase fails); printed: save, load and first-run
+   seconds, images/s of the program, of ``Predictor.run`` (numpy in and
+   out) and of the eager forward, with busy ms and idle share; (b)
+   ``DynamicBatcher(max_batch_size=32)`` over (a)'s predictor, 64
+   single-image requests from 8 threads: fewer batches than requests,
+   each caller's row = its row of a ``Predictor.run`` replay of its
+   batch, bitwise; coalescing ratio and p50 / p99 latency printed; (c)
+   (run after phase 8, on the 8B weights) ``DynamicBatcher(seq_buckets=
+   (256, 1024))`` over ``GenerationPredictor.generate_ragged`` on
+   ``llama3_8b``, 8 prompts of 5-700 tokens, 16 greedy tokens: each
+   caller's tokens = its row of a replay of its batch, the paged
+   attention kernel launched layers x 15 a batch; (d) ``jit.to_static``
+   (inductor) on LeNet (1 x 28 x 28, B 16, f32) in training: the
+   forward and every gradient of one backward within ``STATIC_REL`` of
+   the eager module's, one graph, no break; the compile seconds
+   printed; then the same module called under O1 ``auto_cast``: a
+   second program, bf16 logits within ``STATIC_O1_REL`` of the eager
+   module's under O1; (e) a program saved on the CPU served on the card, and one
+   saved on the card served under ``Config.disable_gpu()``, each = its
+   eager LeNet bitwise.
+
+Phases run in the order 1, 2, 3, 5, 7, 4, 8, 20 (c), 13, 15, 16, 17,
+14, 6, 9, 10, 11, 12, 18, 19, 20: phase 14 starts after the 8B serving
+state is freed, phase 6 after phase 14's, phases 9 and 10 after phase
+6's.
 
 The last two lines of standard output are the card's name and power
 limit, then ``{"ok": true, "device": {...}}``; the line before them is
@@ -5083,7 +5117,7 @@ def resnet_phase() -> dict:
     at full width and depth (224 x 224, 1000 classes), B 8 and B 128."""
     import collections
     import copy
-    from paddle_tpu_torch.analysis import ConvBnAct, fold_conv_bn
+    from paddle_tpu_torch.analysis import fold_conv_bn
     from paddle_tpu_torch.ops.kernels import conv_epilogue as ce
     # f32: folded (the f32 kernel) vs unfolded, TF32 off (set in main)
     m32 = make_resnet50(torch.float32)
@@ -5116,7 +5150,7 @@ def resnet_phase() -> dict:
 
     # the main path: every forward of the folded bf16 model, counted
     ce.matmul_bias_act.launches = 0
-    ConvBnAct.input_copies = 0
+    ce.matmul_bias_act.input_copies = 0
     seen: list = []
     hooks = _rowwise_hooks(folded, seen)
     with torch.no_grad():
@@ -5134,7 +5168,7 @@ def resnet_phase() -> dict:
                                    peak_gib=peak)
     launches = ce.matmul_bias_act.launches
     assert launches == 33 * forwards, (launches, forwards)
-    assert ConvBnAct.input_copies == 0, ConvBnAct.input_copies
+    assert ce.matmul_bias_act.input_copies == 0, ce.matmul_bias_act.input_copies
     rec["launches"] = launches
 
     with torch.no_grad():
@@ -5280,8 +5314,7 @@ def zoo_model_run(name: str, factory: str, kwargs: dict, size: int,
     pinned), bf16 folded vs unfolded and vs the plain versions, times."""
     import collections
     import copy
-    from paddle_tpu_torch.analysis import (ConvBnAct, fold_conv_bn,
-                                           site_routes)
+    from paddle_tpu_torch.analysis import fold_conv_bn, site_routes
     from paddle_tpu_torch.ops.kernels import conv_epilogue as ce
     fired_want, sites, copies = ZOO_SITES[name]
     m32 = make_zoo_model(factory, kwargs, seed)
@@ -5311,7 +5344,7 @@ def zoo_model_run(name: str, factory: str, kwargs: dict, size: int,
     x = x32.to(torch.bfloat16)
     # the main path: every forward of the folded bf16 model, counted
     ce.matmul_bias_act.launches = 0
-    ConvBnAct.input_copies = 0
+    ce.matmul_bias_act.input_copies = 0
     seen: list = []
     hooks = _zoo_site_hooks(folded, seen)
     with torch.no_grad():
@@ -5319,13 +5352,13 @@ def zoo_model_run(name: str, factory: str, kwargs: dict, size: int,
     for h in hooks:
         h.remove()
     assert len(seen) == sites, (name, len(seen), sites)
-    assert ConvBnAct.input_copies == copies, (name, ConvBnAct.input_copies)
+    assert ce.matmul_bias_act.input_copies == copies, (name, ce.matmul_bias_act.input_copies)
     ms, peak = time_forwards(folded, x, reps=ZOO_REPS)
     busy, queue = busy_ms(folded, x)
     forwards = 1 + 3 + ZOO_REPS + 1 + 5
     launches = ce.matmul_bias_act.launches
     assert launches == sites * forwards, (name, launches, forwards)
-    assert ConvBnAct.input_copies == copies * forwards, name
+    assert ce.matmul_bias_act.input_copies == copies * forwards, name
 
     with torch.no_grad():
         ref = _logits(model(x))
@@ -5933,6 +5966,400 @@ def vision_train_phase() -> dict:
     return rec
 
 
+# ---------------------------------------------------------------------------
+# phase 20: the deployment front end
+# ---------------------------------------------------------------------------
+
+PREDICTOR_BATCHES = (1, 8, 32)
+PREDICTOR_REPS = {1: 20, 8: 20, 32: 10}
+BATCHER_REQUESTS, BATCHER_THREADS, BATCHER_MAX_B = 64, 8, 32
+BATCHER_DELAY_MS = 20
+# (c): mixed-length prompts over two seq buckets, greedy
+RAGGED_PROMPTS = (17, 100, 250, 64, 513, 33, 700, 5)
+RAGGED_BUCKETS = (256, 1024)
+RAGGED_NEW = 16
+RAGGED_PAGE = 16
+# (d): LeNet at its published 1 x 28 x 28, B 16, f32 (TF32 off): the
+# compiled forward and gradients within this fraction of each tensor's
+# largest magnitude (inductor fuses the bias and relu into other kernels
+# and may sum in another order)
+STATIC_B = 16
+STATIC_REL = 1e-5
+# the same compiled module called under O1 auto_cast (bf16 convs and
+# matmuls) against the eager module under O1: within this fraction of
+# the logits' largest magnitude (a few bf16 ulps)
+STATIC_O1_REL = 2e-2
+
+
+def _bf16_ulps(got: np.ndarray, ref: np.ndarray) -> float:
+    """Largest |got - ref| in bf16 ulps of ref (f32 arrays holding bf16
+    values)."""
+    scale = np.maximum(np.abs(ref), np.float32(2.0 ** -126))
+    ulp = np.exp2(np.floor(np.log2(scale)) - 7)
+    return float((np.abs(got - ref) / ulp).max())
+
+
+def _first_difference(program, folded, x) -> str:
+    """The first node of the exported program whose output differs from
+    the eager forward's, by feeding both the same input; names the op."""
+    from torch.fx.interpreter import Interpreter
+    outs = {}
+
+    class Rec(Interpreter):
+        def run_node(self, n):
+            r = super().run_node(n)
+            if isinstance(r, torch.Tensor):
+                outs[n.name] = (n, r)
+            return r
+
+    try:
+        with torch.no_grad():
+            Rec(program.module()).run(x)
+    except Exception as e:   # a diagnostic only: the check already failed
+        return f"the program's nodes could not be replayed ({e!r})"
+    seen: list = []
+    hooks = [m.register_forward_hook(lambda mod, a, o: seen.append(
+        (type(mod).__name__, o))) for m in folded.modules()
+        if not list(m.children())]
+    with torch.no_grad():
+        folded(x)
+    for h in hooks:
+        h.remove()
+    produced = [(n, r) for n, r in outs.values()
+                if n.op == "call_function"]
+    for name, o in seen:
+        match = [n for n, r in produced if r.shape == o.shape and
+                 torch.equal(r, o)]
+        if not match:
+            near = [(n, float((r.float() - o.float()).abs().max()))
+                    for n, r in produced if r.shape == o.shape]
+            return (f"eager {name} output {tuple(o.shape)} matches no "
+                    f"program node; nearest "
+                    f"{min(near, key=lambda t: t[1]) if near else None}")
+    return "every eager module output appears in the program"
+
+
+def predictor_run(smi: str) -> dict:
+    """(a) ResNet-50 at published widths, bf16, folded, saved with a
+    dynamic batch and served by ``create_predictor`` at B 1, 8, 32."""
+    from paddle_tpu_torch import inference, jit
+    from paddle_tpu_torch.analysis import fold_conv_bn, site_routes
+    from paddle_tpu_torch.ops.kernels import conv_epilogue as ce
+    model = make_resnet50(torch.bfloat16, seed=200)
+    folded, fired = fold_conv_bn(model)
+    assert fired == {"conv-bn-fold": 53}, fired
+    sites = site_routes(folded)["kernel"]
+    assert sites == 33, site_routes(folded)
+    path = os.path.join(tempfile.mkdtemp(prefix="chip_smoke_jit_"),
+                        "resnet50")
+    t0 = time.perf_counter()
+    jit.save(folded, path, input_spec=[jit.InputSpec(
+        [None, 3, RESNET_IMAGE, RESNET_IMAGE], "bfloat16")])
+    save_s = time.perf_counter() - t0
+    mb = os.path.getsize(path + ".pdmodel") / 2 ** 20
+    t0 = time.perf_counter()
+    pred = inference.create_predictor(inference.Config(path))
+    load_s = time.perf_counter() - t0
+    program = pred.program.program
+    nodes = sum(1 for n in program.graph.nodes if n.op == "call_function"
+                and str(n.target).startswith("paddle_tpu.matmul_bias_act"))
+    assert nodes == sites, (nodes, sites)
+    assert pred.get_input_names() == ["input_0"]
+    rec = dict(save_s=save_s, load_s=load_s, artifact_mib=mb, nodes=nodes,
+               sites=sites)
+    log(f"predictor: resnet50 bf16 folded ({fired['conv-bn-fold']} sites, "
+        f"{sites} on the kernel) saved with InputSpec([None, 3, 224, 224], "
+        f"bfloat16) in {save_s:.2f} s ({mb:.1f} MiB), create_predictor in "
+        f"{load_s:.2f} s; the program holds {nodes} matmul_bias_act nodes; "
+        f"[{smi}]")
+    # the folded eager forward, outside the counted window: its outputs
+    # are what the program must give, its times the comparison
+    ce.matmul_bias_act.input_copies = 0
+    eager = {}
+    for i, B in enumerate(PREDICTOR_BATCHES):
+        x = resnet_input(B, torch.float32, seed=210 + i).cpu().numpy()
+        xb = torch.from_numpy(x).to("cuda", torch.bfloat16)
+        with torch.no_grad():
+            want = folded(xb).float().cpu().numpy()
+        eager_ms, _ = time_forwards(folded, xb, PREDICTOR_REPS[B])
+        eager_busy, _ = busy_ms(folded, xb)
+        eager[B] = (x, xb, want, eager_ms, eager_busy)
+    # the main path: the saved program's runs alone, counted; the
+    # program (device tensors in and out) and the predictor (numpy in
+    # and out)
+    ce.matmul_bias_act.launches = 0
+    forwards = 0
+    for B in PREDICTOR_BATCHES:
+        x, xb, want, eager_ms, eager_busy = eager[B]
+        before = ce.matmul_bias_act.launches
+        t0 = time.perf_counter()
+        got = pred.run([x])[0]
+        run_s = time.perf_counter() - t0
+        assert ce.matmul_bias_act.launches - before == sites, \
+            (ce.matmul_bias_act.launches - before, sites)
+        assert got.shape == (B, 1000) and np.isfinite(got).all()
+        if not np.array_equal(got, want):
+            raise AssertionError(
+                f"predictor B {B} differs from the folded eager model: "
+                f"{_bf16_ulps(got, want):.1f} bf16 ulps at most; "
+                f"{_first_difference(program, folded, xb)}")
+        reps = PREDICTOR_REPS[B]
+        prog_ms, peak = time_forwards(pred.program, xb, reps)
+        run_ms, _ = time_forwards(lambda _: pred.run([x]), xb, reps)
+        prog_busy, _ = busy_ms(pred.program, xb)
+        # time_forwards: 3 warm-up runs and reps; busy_ms: 1 and 5
+        forwards += 1 + 2 * (3 + reps) + 1 + 5
+        r = dict(first_run_s=run_s, program_ms=prog_ms, run_ms=run_ms,
+                 eager_ms=eager_ms, program_busy_ms=prog_busy,
+                 eager_busy_ms=eager_busy, peak_gib=peak,
+                 program_images_per_s=B / prog_ms * 1e3,
+                 run_images_per_s=B / run_ms * 1e3,
+                 eager_images_per_s=B / eager_ms * 1e3,
+                 program_busy_share=prog_busy / prog_ms,
+                 eager_busy_share=eager_busy / eager_ms)
+        rec[f"b{B}"] = r
+        log(f"predictor B {B}: output = the folded eager model's bitwise; "
+            f"first run {run_s:.3f} s; program {prog_ms:.3f} ms "
+            f"({r['program_images_per_s']:.1f} images/s, busy "
+            f"{prog_busy:.3f} ms, idle share "
+            f"{1 - r['program_busy_share']:.3f}), Predictor.run with numpy "
+            f"in and out {run_ms:.3f} ms ({r['run_images_per_s']:.1f} "
+            f"images/s), eager folded {eager_ms:.3f} ms "
+            f"({r['eager_images_per_s']:.1f} images/s, busy "
+            f"{eager_busy:.3f} ms, idle share "
+            f"{1 - r['eager_busy_share']:.3f}); peak {peak:.2f} GiB; "
+            f"[{smi}]")
+    launches = ce.matmul_bias_act.launches
+    assert launches == sites * forwards, (launches, sites, forwards)
+    # a kernel site copies its input neither in the program (which
+    # settles the layout when it runs) nor in the eager forward
+    assert ce.matmul_bias_act.input_copies == 0, \
+        ce.matmul_bias_act.input_copies
+    rec["launches"] = launches
+    rec["pred"], rec["folded"] = pred, folded
+    return rec
+
+
+def batcher_run(pred, sites: int, smi: str) -> dict:
+    """(b) ``DynamicBatcher(max_batch_size=32)`` over (a)'s predictor:
+    64 single-image requests from 8 threads; each caller's row equals its
+    row of a ``Predictor.run`` replay of the batch it rode in."""
+    from paddle_tpu_torch.inference import DynamicBatcher
+    from paddle_tpu_torch.ops.kernels import conv_epilogue as ce
+    gen = np.random.RandomState(220)
+    images = [gen.randn(3, RESNET_IMAGE, RESNET_IMAGE).astype(np.float32)
+              for _ in range(BATCHER_REQUESTS)]
+    formed: list = []
+
+    def fn(batch):
+        formed.append(batch.copy())
+        return pred.run([batch])[0]
+
+    futs = [None] * BATCHER_REQUESTS
+    lat = [None] * BATCHER_REQUESTS
+    ce.matmul_bias_act.launches = 0
+    with DynamicBatcher(fn, max_batch_size=BATCHER_MAX_B,
+                        max_delay_ms=BATCHER_DELAY_MS) as db:
+        def client(k):
+            for i in range(k, BATCHER_REQUESTS, BATCHER_THREADS):
+                t0 = time.perf_counter()
+                futs[i] = db.submit(images[i])
+                futs[i].add_done_callback(
+                    lambda f, i=i, t0=t0: lat.__setitem__(
+                        i, time.perf_counter() - t0))
+        t0 = time.perf_counter()
+        threads = [threading.Thread(target=client, args=(k,))
+                   for k in range(BATCHER_THREADS)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        rows = [f.result(timeout=300) for f in futs]
+        wall = time.perf_counter() - t0
+        stats = dict(db.stats)
+    launches = ce.matmul_bias_act.launches
+    assert stats["requests"] == BATCHER_REQUESTS, stats
+    assert stats["batches"] == len(formed) < BATCHER_REQUESTS, stats
+    assert launches == sites * len(formed), (launches, len(formed))
+    where = {}
+    for b, batch in enumerate(formed):
+        for r in range(batch.shape[0]):
+            where.setdefault(batch[r].tobytes(), (b, r))
+    replays = [pred.run([batch])[0] for batch in formed]
+    for i, row in enumerate(rows):
+        b, r = where[images[i].tobytes()]
+        assert np.array_equal(row, replays[b][r]), (i, b, r)
+    lat_ms = np.asarray(lat) * 1e3
+    rec = dict(batches=stats["batches"], padded_rows=stats["padded_rows"],
+               coalescing=BATCHER_REQUESTS / stats["batches"],
+               p50_ms=float(np.percentile(lat_ms, 50)),
+               p99_ms=float(np.percentile(lat_ms, 99)), wall_s=wall,
+               images_per_s=BATCHER_REQUESTS / wall, launches=launches,
+               sizes=[int(b.shape[0]) for b in formed])
+    log(f"batcher: {BATCHER_REQUESTS} single-image requests from "
+        f"{BATCHER_THREADS} threads in {stats['batches']} batches (sizes "
+        f"{rec['sizes']}, {stats['padded_rows']} padded rows; coalescing "
+        f"{rec['coalescing']:.2f} requests a batch); every row = its row "
+        f"of a Predictor.run replay of its batch, bitwise; latency p50 "
+        f"{rec['p50_ms']:.2f} ms, p99 {rec['p99_ms']:.2f} ms; "
+        f"{rec['images_per_s']:.1f} images/s; launches {launches} = "
+        f"{sites} x {stats['batches']}; [{smi}]")
+    return rec
+
+
+def ragged_batcher_run(params, cfg) -> dict:
+    """(c) ``DynamicBatcher(seq_buckets=...)`` over
+    ``GenerationPredictor.generate_ragged`` on ``llama3_8b`` (bf16,
+    greedy): each caller's tokens equal its row of a replay of the batch
+    it rode in (a bf16 stream depends on its batch, so not the request
+    run alone)."""
+    from paddle_tpu_torch.inference import DynamicBatcher, GenerationPredictor
+    smi = nvidia_smi_line()
+    pred = GenerationPredictor(params, cfg, max_len=2048)
+    gen = np.random.RandomState(230)
+    prompts = [gen.randint(0, cfg.vocab_size, n).astype(np.int32)
+               for n in RAGGED_PROMPTS]
+    formed: list = []
+
+    def fn(batch, lens):
+        formed.append((batch.copy(), lens.copy()))
+        return np.stack(pred.generate_ragged(
+            [r[:n] for r, n in zip(batch, lens)], RAGGED_NEW,
+            page_size=RAGGED_PAGE))
+
+    _zero_counts()
+    t0 = time.perf_counter()
+    with DynamicBatcher(fn, max_batch_size=8, max_delay_ms=200,
+                        seq_buckets=RAGGED_BUCKETS) as db:
+        futs = [db.submit(p) for p in prompts]
+        outs = [f.result(timeout=600) for f in futs]
+        stats = dict(db.stats)
+    wall = time.perf_counter() - t0
+    counts = _counts()
+    L = cfg.num_hidden_layers
+    assert counts == dict(paged_attention=0, ragged_paged_attention=0,
+                          int8_matmul=0, paged_attention_stats=L * (
+                              RAGGED_NEW - 1) * len(formed)), counts
+    assert stats["batches"] == len(formed) < len(prompts), stats
+    where = {}
+    for b, (batch, lens) in enumerate(formed):
+        for r in range(batch.shape[0]):
+            where.setdefault(batch[r, :lens[r]].tobytes(), (b, r))
+    replays = [np.stack(pred.generate_ragged(
+        [r[:n] for r, n in zip(batch, lens)], RAGGED_NEW,
+        page_size=RAGGED_PAGE)) for batch, lens in formed]
+    for i, out in enumerate(outs):
+        assert out.shape == (RAGGED_NEW,) and out.dtype == np.int32
+        assert ((out >= 0) & (out < cfg.vocab_size)).all()
+        b, r = where[prompts[i].tobytes()]
+        assert np.array_equal(out, replays[b][r]), (i, b, r)
+    log(f"ragged batcher: {len(prompts)} prompts of {RAGGED_PROMPTS} tokens,"
+        f" seq buckets {RAGGED_BUCKETS}, {RAGGED_NEW} greedy tokens each, "
+        f"in {stats['batches']} batches ({stats['padded_rows']} padded "
+        f"rows) in {wall:.2f} s; every caller's tokens = its row of a "
+        f"replay of its batch; launches {counts}; [{smi}]")
+    return dict(batches=stats["batches"], wall_s=wall,
+                launches=counts["paged_attention_stats"])
+
+
+def to_static_run(smi: str) -> dict:
+    """(d) ``jit.to_static`` with inductor on LeNet in training: the
+    forward and one backward against the eager module, f32, and the
+    forward under O1 ``auto_cast`` against the eager module's; then (e)
+    programs moved across devices by ``load``."""
+    from paddle_tpu_torch import amp, inference, jit
+    from paddle_tpu_torch.models.lenet import LeNet
+    gen = torch.Generator().manual_seed(240)
+    eager = LeNet(generator=gen)
+    static = LeNet(generator=torch.Generator().manual_seed(240))
+    static.load_state_dict(eager.state_dict())
+    jit.to_static(static)
+    x = torch.randn((STATIC_B, 1, 28, 28), generator=gen).cuda()
+    t0 = time.perf_counter()
+    out = static(x)
+    out.square().mean().backward()
+    torch.cuda.synchronize()
+    compile_s = time.perf_counter() - t0
+    ref = eager(x)
+    ref.square().mean().backward()
+    out, ref = out.detach(), ref.detach()
+    errs = {"out": float((out - ref).abs().max() / ref.abs().max())}
+    for (n, p), q in zip(static.named_parameters(), eager.parameters()):
+        errs[n] = float((p.grad - q.grad).abs().max() / q.grad.abs().max())
+    worst = max(errs.values())
+    assert torch.isfinite(out).all() and worst <= STATIC_REL, errs
+    stats = static.forward.graph_break_stats
+    assert stats["segments"] == 1 and stats["graph_breaks"] == 0, stats
+    t0 = time.perf_counter()
+    for _ in range(10):
+        static(x)
+    torch.cuda.synchronize()
+    static_ms = (time.perf_counter() - t0) / 10 * 1e3
+    # O1: the module captured outside auto_cast gets a program of its
+    # own inside it, which casts as the eager module does
+    with amp.auto_cast(), torch.no_grad():
+        got_o1, want_o1 = static(x), eager(x)
+    o1 = float((got_o1.float() - want_o1.float()).abs().max()
+               / want_o1.float().abs().max())
+    assert got_o1.dtype == want_o1.dtype == torch.bfloat16, \
+        (got_o1.dtype, want_o1.dtype)
+    assert o1 <= STATIC_O1_REL, o1
+    segments = static.forward.graph_break_stats["segments"]
+    assert segments == 2, segments
+    log(f"to_static (inductor) LeNet B {STATIC_B} f32 training: first "
+        f"forward + backward (capture and compile) {compile_s:.2f} s; "
+        f"output and every gradient within {worst:.3g} of their scale of "
+        f"the eager module's (bound {STATIC_REL}); {stats}; "
+        f"{static_ms:.3f} ms a compiled forward; called under O1 "
+        f"auto_cast: a second program, bf16 logits within {o1:.3g} of "
+        f"their scale of the eager O1 module's (bound {STATIC_O1_REL}); "
+        f"[{smi}]")
+    # (e) a program saved on the CPU runs on the card, and one saved on
+    # the card on the CPU (Config.disable_gpu), each = its eager model
+    d = tempfile.mkdtemp(prefix="chip_smoke_jit_")
+    spec = [jit.InputSpec([None, 1, 28, 28])]
+    xs = x[:3].cpu().numpy()
+    cpu_net = LeNet(device="cpu", generator=torch.Generator().manual_seed(1))
+    jit.save(cpu_net.eval(), os.path.join(d, "cpu"), input_spec=spec)
+    on_card = inference.create_predictor(inference.Config(
+        os.path.join(d, "cpu")))
+    card_net = LeNet(generator=torch.Generator().manual_seed(1)).eval()
+    with torch.no_grad():
+        want = card_net(torch.from_numpy(xs).cuda()).cpu().numpy()
+    assert on_card.device.type == "cuda"
+    moved = on_card.run([xs])[0]
+    assert np.array_equal(moved, want), np.abs(moved - want).max()
+    jit.save(card_net, os.path.join(d, "card"), input_spec=spec)
+    cfg = inference.Config(os.path.join(d, "card"))
+    cfg.disable_gpu()
+    on_cpu = inference.create_predictor(cfg)
+    with torch.no_grad():
+        want = cpu_net(torch.from_numpy(xs)).numpy()
+    assert on_cpu.device.type == "cpu"
+    back = on_cpu.run([xs])[0]
+    assert np.array_equal(back, want), np.abs(back - want).max()
+    log(f"jit.load moves programs: saved on the CPU, run on the card = the "
+        f"card's eager LeNet bitwise; saved on the card, run under "
+        f"Config.disable_gpu() = the CPU's eager LeNet bitwise; [{smi}]")
+    return dict(compile_s=compile_s, max_rel=worst, ms=static_ms,
+                stats=stats)
+
+
+def deployment_phase() -> dict:
+    """Phase 20 (a), (b), (d), (e): the predictor over a saved folded
+    ResNet-50, the batcher over it, ``to_static`` and device moves."""
+    smi = nvidia_smi_line()
+    pr = predictor_run(smi)
+    bt = batcher_run(pr.pop("pred"), pr["sites"], smi)
+    # the saved program's own runs: (a)'s and the batcher's
+    launches = pr["launches"] + bt["launches"]
+    del pr["folded"]
+    gc.collect()
+    torch.cuda.empty_cache()
+    st = to_static_run(smi)
+    return dict(predictor=pr, batcher=bt, to_static=st, launches=launches)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -5979,6 +6406,8 @@ def main() -> int:
     params, cfg = init_8b()
     serving = serving_phase(params, cfg)
     paths = paged_paths_phase(params, cfg)
+    # phase 20 (c): the ragged batcher while the 8B weights are alive
+    ragged = ragged_batcher_run(params, cfg)
     sampling_phase(params, cfg)
     adopted_rec = adopted_kernel_case()
     migration = migration_phase(params, cfg)
@@ -6010,6 +6439,9 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     vision_train_phase()
+    gc.collect()
+    torch.cuda.empty_cache()
+    deploy = deployment_phase()
 
     a = rec["a_serving_mix"]
     kernels = [{
@@ -6147,6 +6579,28 @@ def main() -> int:
         launches=zoo["launches"], max_abs_err=zoo["max_abs_err"],
         ms=zoo["ms"], plain_ms=zoo["plain_ms"], bound_ms=zoo["bound_ms"],
         bound_by=zoo["bound_by"], library_ms=zoo["library_ms"]))
+    # phase 20: row 12 through the saved program (its runs in (a) and
+    # the batcher's, not the eager forwards nor the replays they are
+    # held to; the times are phase 11's at ResNet-50's 33 sites at B 8,
+    # which the predictor runs), and rows 3-4's stats kernel under
+    # the ragged batcher (phase 7's bench-mix times)
+    kernels.append(dict(
+        name="conv_epilogue_predictor", route="cuda",
+        source="paddle_tpu_torch/csrc/conv_epilogue.cu",
+        replaces="paddle_tpu/ops/pallas/conv_epilogue.py:46",
+        launches=deploy["launches"], max_abs_err=ce_rec["max_abs_err"],
+        ms=ce_rec["ms"], plain_ms=ce_rec["plain_ms"],
+        bound_ms=ce_rec["bound_ms"], bound_by=ce_rec["bound_by"],
+        library_ms=ce_rec["library_ms"]))
+    bm = paged_rec["bench_mix"]
+    kernels.append(dict(
+        name="paged_attention_stats_batcher", route="cuda",
+        source="paddle_tpu_torch/csrc/paged_attention.cu",
+        replaces="paddle_tpu/inference/paged_kv.py:285",
+        launches=ragged["launches"], max_abs_err=bm["bf16_max_abs_err"],
+        ms=bm["stats"]["ms"], plain_ms=bm["plain_ms"],
+        bound_ms=bm["stats"]["bound_ms"], bound_by=bm["stats"]["bound_by"],
+        library_ms=bm["library_ms"]))
     for k in kernels:     # every kernel of the line ran on its path
         assert k["launches"] > 0, k
     log(f"chip_smoke: all phases passed in "

@@ -31,8 +31,20 @@ the vision train step (``vision.train.make_train_step``: BN and dropout
 in training, O1 ``amp.auto_cast``, ``nn.functional.cross_entropy``,
 ``optimizer.Momentum``, the key stream ``core.Generator``) for ResNet
 and the zoo, with the train-time transforms
-``analysis.prepare_training``.
+``analysis.prepare_training``; the deployment front end: ``jit``
+(``InputSpec``, ``save`` / ``load`` of ``torch.export`` programs,
+``TranslatedLayer``, ``to_static`` over ``torch.compile``,
+``bucketing``), ``inference`` (``Config``, ``Predictor``,
+``create_predictor``, ``DynamicBatcher`` in ``inference.serving``, the
+passes ``fold_batch_norms`` / ``remove_dropouts`` /
+``fuse_linear_chains`` in ``inference.passes``) and the dataflow trace
+``core.graph_trace``; the conv epilogue is the PyTorch operator
+``paddle_tpu::matmul_bias_act``, so a saved or compiled folded model
+still launches its kernel.
 """
 from .device import resolve_device
 
-__all__ = ["resolve_device"]
+# the JAX package's version, copied
+__version__ = "0.3.0"
+
+__all__ = ["resolve_device", "__version__"]

@@ -66,6 +66,11 @@ def _to_dtype(dtype) -> torch.dtype:
     return _DTYPES[str(dtype)]
 
 
+def amp_state() -> AMPState:
+    """The AMP state in force in this context."""
+    return _state.get()
+
+
 class auto_cast:
     """``with auto_cast(enable=True, custom_white_list=None,
     custom_black_list=None, level="O1", dtype="bfloat16"):`` — mixed
@@ -92,9 +97,12 @@ class auto_cast:
         return False
 
 
+@torch.compiler.assume_constant_result
 def amp_transform_args(op_name: str) -> Optional[torch.dtype]:
     """The dtype this op's floating inputs are cast to, or None to leave
-    them alone (the JAX package's decision, op by name)."""
+    them alone (the JAX package's decision, op by name). A captured
+    program takes the decision made while it is traced; ``jit.to_static``
+    keeps one program per AMP state."""
     st = _state.get()
     if not st.enabled:
         return None

@@ -43,12 +43,15 @@ structural no-fire on BN-train).
 
 Layout: the folded weights are ``torch.channels_last``, so every conv
 returns NHWC memory, pooling, add and relu keep it, and a row-wise
-site's ``[B·H·W, C]`` operand is a view of its input. An input that is
-not channels-last is converted once and counted in
-``ConvBnAct.input_copies`` (zero on ResNet, which the smoke asserts;
-channel concats keep channels-last, and ShuffleNetV2's channel shuffle
-is written to keep it, but a channel slice of a channels-last tensor is
-strided and is copied).
+site's ``[B·H·W, C]`` operand is a view of its input. A site hands
+``matmul_bias_act`` the NHWC view of its input, and the operator copies
+an input that is not channels-last once, when it runs, counting the
+copy in ``matmul_bias_act.input_copies`` (zero on ResNet, which the
+smoke asserts; channel concats keep channels-last, and ShuffleNetV2's
+channel shuffle is written to keep it, but a channel slice of a
+channels-last tensor is strided and is copied). A traced program
+(``jit.save``, ``jit.to_static``) decides the same way when it runs:
+the strides a trace sees are not always the ones the program meets.
 
 The JAX package's two train-time passes, ``StemSpaceToDepthPass``
 (:184-226) and ``ConvNhwcLayoutPass`` (:229-275), fire only where the
@@ -100,9 +103,6 @@ class ConvBnAct(nn.Module):
     f32 ``bias``. ``route`` is ``"kernel"``, ``"routed"``, ``"stem"`` or
     ``"conv"``, chosen once by the conv's shapes."""
 
-    #: row-wise inputs that were not channels-last and had to be copied
-    input_copies = 0
-
     def __init__(self, conv: nn.Conv2d, bn: BatchNorm2D, relu: bool,
                  impl: str = "auto"):
         super().__init__()
@@ -152,12 +152,9 @@ class ConvBnAct(nn.Module):
         w = self.weight if self.weight.dtype == x.dtype else \
             self.weight.to(x.dtype)
         if self.rowwise:
-            if not x.is_contiguous(memory_format=torch.channels_last):
-                x = x.contiguous(memory_format=torch.channels_last)
-                ConvBnAct.input_copies += 1
-            b, c, h, wd = x.shape
-            x2 = x.permute(0, 2, 3, 1).view(b * h * wd, c)
-            out = _kernels.matmul_bias_act(x2, w, self.bias, relu=self.relu,
+            b, _, h, wd = x.shape
+            out = _kernels.matmul_bias_act(x.permute(0, 2, 3, 1), w,
+                                           self.bias, relu=self.relu,
                                            impl=self.impl)
             return out.view(b, h, wd, -1).permute(0, 3, 1, 2)
         if self.stem and x.shape[2] % 2 == 0 and x.shape[3] % 2 == 0:

@@ -11,7 +11,7 @@ channels-last memory, so the 1x1 sites after it read their rows without
 a copy; it is an ``fx`` leaf, a function the
 conv-bn fold traces as one call. A ``ShuffleUnit``'s second half
 (``x[:, c:]``) is a strided view of a channels-last tensor: a 1x1 site
-on the kernel route copies it (``ConvBnAct.input_copies``).
+on the kernel route copies it (``matmul_bias_act.input_copies``).
 
 Branch widths that are not multiples of 8 (``× 0.25``: 12; ``× 1.0``:
 58 and 116; ``× 2.0``: 122) give 1x1 sites that the conv-epilogue

@@ -457,18 +457,19 @@ def test_conv_epilogue_counts_launches_and_rejects_bad_input(cuda):
 def test_folded_resnet50_runs_its_1x1_sites_on_the_kernel(cuda):
     """One folded bf16 forward at B 2, 64 x 64: 33 launches, no input
     copied, logits within the smoke's bound of the plain versions'."""
-    from paddle_tpu_torch.analysis import ConvBnAct, fold_conv_bn
+    from paddle_tpu_torch.analysis import fold_conv_bn
     from paddle_tpu_torch.ops.kernels import conv_epilogue as ce
     model = smoke.make_resnet50(torch.bfloat16)
     folded, fired = fold_conv_bn(model)
     plain, _ = fold_conv_bn(model, impl="reference")
     assert fired == {"conv-bn-fold": 53}
     x = torch.randn(2, 3, 64, 64, device=cuda).bfloat16()
-    before, copies = ce.matmul_bias_act.launches, ConvBnAct.input_copies
+    before, copies = ce.matmul_bias_act.launches, \
+        ce.matmul_bias_act.input_copies
     with torch.no_grad():
         got, ref = folded(x), plain(x)
     assert ce.matmul_bias_act.launches == before + 33
-    assert ConvBnAct.input_copies == copies
+    assert ce.matmul_bias_act.input_copies == copies
     scale = float(ref.float().abs().max())
     assert float((got.float() - ref.float()).abs().max()) <= \
         smoke.RESNET_BF16_LOGITS_REL * scale
@@ -481,7 +482,7 @@ def test_folded_zoo_models_run_their_kernel_sites(cuda, name):
     kernel sites (ShuffleNetV2 x 1.0's routed 1x1 sites launch nothing,
     and nothing raises), copies as pinned, logits within the smoke's
     bound of the plain versions'."""
-    from paddle_tpu_torch.analysis import ConvBnAct, fold_conv_bn
+    from paddle_tpu_torch.analysis import fold_conv_bn
     from paddle_tpu_torch.ops.kernels import conv_epilogue as ce
     _, factory, kwargs, size, chans = next(
         m for m in smoke.ZOO_MODELS if m[0] == name)
@@ -492,11 +493,12 @@ def test_folded_zoo_models_run_their_kernel_sites(cuda, name):
     assert got_fired == {"conv-bn-fold": fired}
     x = torch.randn(2, chans, size, size, device=cuda).bfloat16(
     ).contiguous(memory_format=torch.channels_last)
-    before, copied = ce.matmul_bias_act.launches, ConvBnAct.input_copies
+    before, copied = ce.matmul_bias_act.launches, \
+        ce.matmul_bias_act.input_copies
     with torch.no_grad():
         got = folded(x)
         assert ce.matmul_bias_act.launches == before + sites
-        assert ConvBnAct.input_copies == copied + copies
+        assert ce.matmul_bias_act.input_copies == copied + copies
         ref = plain(x)
     scale = float(ref.float().abs().max())
     assert float((got.float() - ref.float()).abs().max()) <= \

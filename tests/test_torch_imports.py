@@ -51,6 +51,15 @@ from paddle_tpu_torch.nn.functional import common, loss
 from paddle_tpu_torch.optimizer import momentum
 from paddle_tpu_torch.vision import train
 from paddle_tpu_torch.analysis import prepare_training
+from paddle_tpu_torch import jit
+from paddle_tpu_torch.jit import (BucketedFunction, InputSpec, StaticFunction,
+                                  TranslatedLayer, bucket_size, bucketed,
+                                  bucketing, load, save, to_static)
+from paddle_tpu_torch.inference import (
+    Config, DynamicBatcher, IOHandle, PlaceType, Predictor, create_predictor,
+    fold_batch_norms, fuse_linear_chains, get_version, passes,
+    remove_dropouts, serving)
+from paddle_tpu_torch.core import graph_trace
 bad = sorted(m for m in sys.modules
              if m.split('.')[0] in ('jax', 'jaxlib', 'paddle_tpu'))
 print(','.join(bad))
@@ -68,7 +77,8 @@ def test_entry_points_raise_without_cuda_or_device():
     if torch.cuda.is_available():
         pytest.skip("CUDA is present here: the default device is the card")
     from paddle_tpu_torch import resolve_device
-    from paddle_tpu_torch.inference import GenerationPredictor
+    from paddle_tpu_torch.inference import (Config, GenerationPredictor,
+                                            create_predictor)
     from paddle_tpu_torch.models import llama, qwen2_moe, resnet
     from paddle_tpu_torch.serving import ServingEngine, ServingFleet
     from paddle_tpu_torch.vision import models as zoo
@@ -118,6 +128,7 @@ def test_entry_points_raise_without_cuda_or_device():
         lambda: zoo.params_from_jax({}),
         lambda: make_train_step(
             zoo.resnet18(num_classes=10, device="cpu")),
+        lambda: create_predictor(Config("model")),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="CUDA"):

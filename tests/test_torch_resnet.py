@@ -144,12 +144,12 @@ def test_rowwise_sites_reach_the_kernel_entry(ref, monkeypatch):
 
     monkeypatch.setattr(TK, "matmul_bias_act", spy)
     folded, _ = fold_conv_bn(port_model(ref))
-    copies = ConvBnAct.input_copies
+    copies = real.input_copies
     launches = real.launches
     with torch.no_grad():
         folded(torch.from_numpy(ref["x"]))
     assert len(calls) == ROWWISE_SITES[ref["name"]]
-    assert ConvBnAct.input_copies == copies
+    assert real.input_copies == copies
     assert real.launches == launches
     # relu on the 16 bottlenecks' conv1, not on conv3 or the downsample
     assert sum(r for _, r in calls) == (16 if calls else 0)

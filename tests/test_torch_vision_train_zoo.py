@@ -21,7 +21,11 @@ its distance from the JAX f64 step within ``COND`` times the JAX f32
 step's, or the floors (the loss's raised to ``BN_F32_FLOORS``).
 
 Split from ``test_torch_vision_train.py`` because building the JAX train
-steps takes ~2 minutes on one CPU worker.
+steps takes ~2 minutes on one CPU worker; DenseNet-121
+(``test_torch_vision_train_densenet.py``) and Inception v3 / GoogLeNet
+(``test_torch_vision_train_inception.py``) sit in files of their own,
+which run this file's checks (``check_f32_step``, ``check_f64_step``),
+so that no one file holds a test worker for long.
 """
 import functools
 
@@ -56,16 +60,8 @@ ZOO = {
 ZOO_KEYS = {"vgg11": 2, "squeezenet1_1": 1, "mobilenet_v2": 1,
             "inception_v3": 1, "alexnet": 2, "googlenet": 3}
 DROP_SEED = 21
-
-
-def _port_step(port, x, y, name, dtype):
-    """The port's step with a key stream of DROP_SEED; (record, keys)."""
-    gen = Generator(DROP_SEED)
-    keys, real = [], gen.next_key
-    gen.next_key = lambda: keys.append(real()) or keys[-1]
-    loss_fn = TT.googlenet_aux_loss if name == "googlenet" else None
-    return port_run(port, x, y, 1, loss_fn=loss_fn, generator=gen,
-                    dtype=dtype), keys
+# the models whose steps run in files of their own (module docstring)
+SPLIT = ("densenet121", "inception_v3", "googlenet")
 
 
 # the families with BN: held in f64 on both sides
@@ -134,8 +130,7 @@ def _check_keys(jkeys, tkeys, name):
         np.testing.assert_array_equal(b.numpy().astype(np.uint32), a)
 
 
-@pytest.mark.parametrize("name", sorted(ZOO))
-def test_zoo_train_step_matches_jax(name):
+def check_f32_step(name):
     """One f32 step: the keys; the floors, or for a BN family the JAX
     f32 step's distance from the JAX f64 step times ``COND``."""
     ref = _jax_ref(name)
@@ -150,8 +145,7 @@ def test_zoo_train_step_matches_jax(name):
         check_conditioned(gaps(got, want), dict.fromkeys(FLOORS, 0.0))
 
 
-@pytest.mark.parametrize("name", BN_FAMILIES)
-def test_zoo_train_step_f64_matches_jax(name):
+def check_f64_step(name):
     """One f64 step of a BN family on both sides: the keys, the loss,
     every gradient, the parameters and BN buffers after it at the
     ResNets' bounds (``check_step``)."""
@@ -159,3 +153,13 @@ def test_zoo_train_step_f64_matches_jax(name):
     got, tkeys = _port_step(ref, name, torch.float64)
     _check_keys(ref[np.float64, "keys"], tkeys, name)
     check_step(got, ref[np.float64])
+
+
+@pytest.mark.parametrize("name", [n for n in sorted(ZOO) if n not in SPLIT])
+def test_zoo_train_step_matches_jax(name):
+    check_f32_step(name)
+
+
+@pytest.mark.parametrize("name", [n for n in BN_FAMILIES if n not in SPLIT])
+def test_zoo_train_step_f64_matches_jax(name):
+    check_f64_step(name)

@@ -205,7 +205,9 @@ def test_kernel_sites_reach_the_kernel_entry(ref, monkeypatch):
     real = TK.matmul_bias_act
 
     def spy(x2, w, bias, relu=True, impl="auto"):
-        calls.append((tuple(x2.shape), tuple(w.shape), relu))
+        # x2 is the site's NHWC view: its [M, K] rows
+        calls.append(((x2.numel() // x2.shape[-1], x2.shape[-1]),
+                      tuple(w.shape), relu))
         return real(x2, w, bias, relu=relu, impl=impl)
 
     monkeypatch.setattr(TK, "matmul_bias_act", spy)
@@ -216,7 +218,7 @@ def test_kernel_sites_reach_the_kernel_entry(ref, monkeypatch):
         if isinstance(m, ConvBnAct) and m.route == "routed":
             assert m.weight.shape[2:] == (1, 1)
             assert m.weight.shape[0] % 8 or m.weight.shape[1] % 8
-    copies = ConvBnAct.input_copies
+    copies = real.input_copies
     launches = real.launches
     x = torch.from_numpy(ref["x"]).contiguous(
         memory_format=torch.channels_last)
@@ -225,7 +227,7 @@ def test_kernel_sites_reach_the_kernel_entry(ref, monkeypatch):
     assert len(calls) == routes.get("kernel", 0)
     assert all(k % 8 == 0 and n % 8 == 0 for (_, k), (_, n), _ in calls)
     assert sum(r for _, _, r in calls) == RELU_SITES.get(ref["name"], 0)
-    assert ConvBnAct.input_copies - copies == COPIES.get(ref["name"], 0)
+    assert real.input_copies - copies == COPIES.get(ref["name"], 0)
     assert real.launches == launches
 
 
