@@ -2,9 +2,10 @@
 """Drive the PyTorch port's serving paths (Llama-3-8B with sampling and
 speculative decoding, Qwen2-MoE), training paths (Llama-3-8B, Qwen2-MoE
 dropless training), ResNet-50 and the rest of the vision zoo (inference
-and the train step) and the deployment front end (``jit.save`` →
-``create_predictor``, ``DynamicBatcher``, ``to_static``) on one NVIDIA
-H100 and check them.
+and the train step), the deployment front end (``jit.save`` →
+``create_predictor``, ``DynamicBatcher``, ``to_static``) and the
+capture of the Llama and Qwen2-MoE paths on one NVIDIA H100 and check
+them.
 
 Run from the repository root with no arguments:
 
@@ -324,11 +325,36 @@ Phases (any failed check raises; nothing is caught):
    module's under O1; (e) a program saved on the CPU served on the card, and one
    saved on the card served under ``Config.disable_gpu()``, each = its
    eager LeNet bitwise.
+21. capture: (a) every kernel entry's PyTorch operator
+   (``torch.ops.paddle_tpu.*``) on CUDA tensors at the main path's
+   shapes (phases 3, 5, 7, 9 and 14: the ragged and paged operators at
+   G 4 and G 1) equals the direct call bitwise, and its
+   fake outputs' shape, dtype and strides equal the real ones; (b)
+   ``jit.to_static(llama.loss_fn)`` at ``llama3_8b`` width, 2 layers,
+   bf16, B 1, T 2048, remat: with ``aot_eager`` the loss and every
+   gradient equal the eager call's bitwise (else the first differing
+   tensor and its bf16-ulp difference are printed and the phase
+   fails) and each kernel's launches a call equal eager's; with
+   inductor the loss within ``TRAIN_LOSS_REL`` and the gradients by
+   cosine and norm ratio (``CAPTURE_GRAD_*``); (c) (after phase 20 (c),
+   on phase 4's params) one mixed tick at phase 4's geometry through 32
+   layers captured (``aot_eager``): tokens, logits and both page pools
+   equal eager's bitwise, 32 ragged launches; inductor on the first 2
+   layers' tick within ``LOGITS_REL_TOL``; (d) (there too)
+   ``generate_paged``'s decode step on phase 8's int8 weights (their
+   first 2 layers) at the bench mix, captured once (``n_tail`` a 0-d
+   tensor) for 4 steps: logits bitwise, tokens equal, paged and int8
+   launches a step equal; (e) (b)'s ``aot_eager`` capture for Qwen2-MoE
+   at ``Qwen2MoeConfig()`` widths, 2 layers, dropless (gmm 9 x 2 and
+   tgmm 3 x 2 launches a call); (f) ``static.nn.cond`` and
+   ``while_loop`` in one function captured with inductor: one graph, no
+   break, values equal eager's. Printed: compile seconds, eager against
+   compiled ms with busy ms, idle share and peak memory.
 
-Phases run in the order 1, 2, 3, 5, 7, 4, 8, 20 (c), 13, 15, 16, 17,
-14, 6, 9, 10, 11, 12, 18, 19, 20: phase 14 starts after the 8B serving
-state is freed, phase 6 after phase 14's, phases 9 and 10 after phase
-6's.
+Phases run in the order 1, 2, 3, 5, 7, 4, 8, 20 (c), 21 (c), 21 (d),
+13, 15, 16, 17, 14, 6, 9, 10, 11, 12, 18, 19, 20, 21: phase 14 starts
+after the 8B serving state is freed, phase 6 after phase 14's, phases 9
+and 10 after phase 6's.
 
 The last two lines of standard output are the card's name and power
 limit, then ``{"ok": true, "device": {...}}``; the line before them is
@@ -2003,11 +2029,12 @@ def paged_decode_run(name, params, cfg, prompt, lens, ref_params=None,
     torch.cuda.synchronize()
     prefill_s = time.perf_counter() - t0
     tok = logits0.argmax(-1)
+    n0 = cache["n_tail"]
     lk = llama._decode_paged_step(params, tok, cache, cfg, "kernel")
-    cache["n_tail"] = 0
+    cache["n_tail"] = n0
     lr = llama._decode_paged_step(ref_params or params, tok, cache, cfg,
                                   ref_attn)
-    cache["n_tail"] = 0
+    cache["n_tail"] = n0
     cmp = compare_logits(name, lk, lr)
     times = []
     for _ in range(BENCH_NEW - 1):
@@ -6360,6 +6387,525 @@ def deployment_phase() -> dict:
     return dict(predictor=pr, batcher=bt, to_static=st, launches=launches)
 
 
+# ---------------------------------------------------------------------------
+# phase 21: the kernel entries as PyTorch operators, whole-function capture
+# of the Llama and Qwen2-MoE paths, static.nn inside a captured program
+# ---------------------------------------------------------------------------
+
+CAPTURE_LAYERS = 2       # layers of (b), (d), (e) and of (c)'s inductor tick
+# (b): inductor's gradients against the eager step's, by the norm
+# ratio and the cosine of each gradient tensor. Inductor fuses the eager
+# ops between the kernels into kernels that keep f32 where eager rounds
+# every op's output to bf16, so each fused op's output differs by up to a
+# bf16 ulp (2^-8 relative) in elements that do not line up across a
+# tensor; a wrong gradient (a dropped term, a transposed operand) is off
+# by its own order. Bounds stated before the first run: cosine >= 0.999,
+# |norm ratio - 1| <= 0.01.
+CAPTURE_GRAD_COS = 0.999
+CAPTURE_GRAD_NORM = 0.01
+
+
+def _bits(t):
+    """A float tensor's bits as integers (NaN compares as its bits)."""
+    ints = {torch.float32: torch.int32, torch.bfloat16: torch.int16,
+            torch.float16: torch.int16, torch.float64: torch.int64}
+    return t.view(ints[t.dtype]) if t.dtype in ints else t
+
+
+def _as_tuple(x):
+    return tuple(x) if isinstance(x, (tuple, list)) else (x,)
+
+
+def _same_bits(a, b) -> bool:
+    return all(x.shape == y.shape and x.dtype == y.dtype
+               and torch.equal(_bits(x), _bits(y))
+               for x, y in zip(_as_tuple(a), _as_tuple(b)))
+
+
+def _bf16_ulp_diff(got, want) -> float:
+    """Largest difference in bf16 ulps at each element's own size."""
+    g, w = got.float(), want.float()
+    ulp = torch.clamp(w.abs(), min=torch.finfo(torch.float32).tiny) \
+        * 2.0 ** -7
+    return float(((g - w).abs() / ulp).max())
+
+
+def operator_cases() -> list:
+    """(a)'s cases: ``(name, operator, args, direct call)`` at the main
+    path's shapes (phases 3, 5, 7, 9 and 14's, the ragged and paged
+    operators at G 4 and at Qwen2-MoE's G 1), bf16 on the card."""
+    from paddle_tpu_torch.ops.kernels import flash_attention as fa
+    from paddle_tpu_torch.ops.kernels import fused_norm_rope as nr
+    from paddle_tpu_torch.ops.kernels import grouped_matmul as gm
+    from paddle_tpu_torch.ops.kernels import int8_matmul as im
+    from paddle_tpu_torch.ops.kernels import paged_attention as pa
+    from paddle_tpu_torch.ops.fused.int8_matmul import (
+        quantize_weight_per_channel)
+    from paddle_tpu_torch.ops.kernels._op import register_all
+    register_all()
+    ops = torch.ops.paddle_tpu
+    bf = torch.bfloat16
+    gen = torch.Generator(device="cuda").manual_seed(210)
+    g = TRAIN_GEOM
+    D, H, Hkv, Dh, T = g["D"], g["H"], g["Hkv"], g["Dh"], 2048
+    x2 = _randn((T, D), gen).to(bf)
+    w = (1 + 0.1 * _randn((D,), gen)).to(bf)
+    y, rstd = nr.rms_norm_fwd(x2, w, 1e-5)
+    gy = _randn((T, D), gen).to(bf)
+    q = _randn((1, T, H, Dh), gen).to(bf)
+    k = _randn((1, T, Hkv, Dh), gen).to(bf)
+    v = _randn((1, T, Hkv, Dh), gen).to(bf)
+    pos = torch.arange(T, dtype=torch.int32, device="cuda")[None]
+    scale = 1.0 / math.sqrt(Dh)
+    qs = fa.prescale_q(q, scale)
+    o, lse = fa.flash_attention_fwd(qs, k, v, True)
+    do = _randn(o.shape, gen).to(bf)
+    _, delta = fa.flash_attention_bwd_dq(qs, k, v, o, do, lse, True, scale)
+    rc = cast(make_case(**CASE_D, **GEOM), bf)
+    pc = cast(make_paged_case(PAGED_BENCH["lens"], PAGED_BENCH["ps"],
+                              **PAGED_GEOM), bf)
+    wq, ws = quantize_weight_per_channel(_randn((D, 14336), gen, 0.02))
+    xi = _randn((32, D), gen).to(bf)
+    lay = gmm_layout("skewed", 61)
+    lhs, wg, gg = (t.to(bf) for t in _gmm_operands(
+        lay, GMM_GEOM["D"], GMM_GEOM["F"], gen))
+    te, E, tm = lay["te"], lay["E"], GMM_GEOM["tile_m"]
+    # phase 14's G = 1 shapes (Qwen2-MoE's decode kernels)
+    rq = cast(make_case(**CASE_D, **QWEN_GEOM, ps=16, seed=211), bf)
+    pq = cast(make_paged_case(**PAGED_ENGINE, **QWEN_GEOM, seed=212), bf)
+
+    def ragged(c, tag):
+        args = (c["q"], c["k_pages"], c["v_pages"], c["tok_slot"],
+                c["tok_qoff"], c["q_len"], c["kv_len"], c["tables"],
+                1.0 / math.sqrt(Dh), "auto")
+        return [("ragged_paged_attention_packed" + tag,
+                 ops.ragged_paged_attention_packed, args,
+                 lambda: run_rpa(c, "auto"))]
+
+    def paged(c, tag):
+        args = (c["q"], c["k_pages"], c["v_pages"], c["lengths"],
+                c["page_indices"])
+        return [("paged_attention" + tag, ops.paged_attention,
+                 args + (1.0 / math.sqrt(Dh), "auto"),
+                 lambda: pa.paged_attention(*args)),
+                ("paged_attention_stats" + tag, ops.paged_attention_stats,
+                 args + (1.0 / math.sqrt(Dh), "auto"),
+                 lambda: pa.paged_attention_stats(*args))]
+
+    return ragged(rc, "") + ragged(rq, "_qwen_g1") + paged(pc, "") \
+        + paged(pq, "_qwen_g1") + [
+        ("rms_norm_fwd", ops.rms_norm_fwd, (x2, w, 1e-5, "auto"),
+         lambda: nr.rms_norm_fwd(x2, w, 1e-5)),
+        ("rms_norm_bwd", ops.rms_norm_bwd, (x2, w, rstd, gy, "auto"),
+         lambda: nr.rms_norm_bwd(x2, w, rstd, gy)),
+        ("rope", ops.rope, (q, k, pos, g["theta"], "auto"),
+         lambda: nr.rope_rotate(q, k, pos, g["theta"])),
+        ("flash_attention_fwd", ops.flash_attention_fwd,
+         (q, qs, k, v, True, scale, "auto"),
+         lambda: fa.flash_attention_fwd(qs, k, v, True)),
+        ("flash_attention_bwd_dq", ops.flash_attention_bwd_dq,
+         (qs, k, v, o, do, lse, True, scale, "auto"),
+         lambda: fa.flash_attention_bwd_dq(qs, k, v, o, do, lse, True,
+                                           scale)),
+        ("flash_attention_bwd_dkv", ops.flash_attention_bwd_dkv,
+         (qs, k, v, do, lse, delta, True, "auto"),
+         lambda: fa.flash_attention_bwd_dkv(qs, k, v, do, lse, delta,
+                                            True)),
+        ("int8_matmul", ops.int8_matmul, (xi, wq, ws, "auto"),
+         lambda: im.int8_matmul(xi, wq, ws)),
+        ("gmm", ops.gmm, (lhs, wg, te, tm, False, "auto"),
+         lambda: gm.gmm(lhs, wg, te, tm)),
+        ("gmm_dlhs", ops.gmm, (gg, wg, te, tm, True, "auto"),
+         lambda: gm.gmm(gg, wg, te, tm, trans=True)),
+        ("tgmm", ops.tgmm, (lhs, gg, te, E, tm, "auto"),
+         lambda: gm.tgmm(lhs, gg, te, E, tm)),
+    ]
+
+
+def operator_run() -> dict:
+    """21 (a): each operator on CUDA tensors equals the direct call
+    bitwise; its fake outputs' shape, dtype and strides equal the real
+    outputs'."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    rec = {}
+    for name, op, args, direct in operator_cases():
+        got, want = op.default(*args), direct()
+        assert _same_bits(got, want), f"{name}: operator != direct call"
+        with FakeTensorMode() as mode:
+            fake = _as_tuple(op.default(*(
+                mode.from_tensor(a) if isinstance(a, torch.Tensor) else a
+                for a in args)))
+        real = _as_tuple(got)
+        meta = [(tuple(t.shape), t.dtype, t.stride()) for t in real]
+        assert meta == [(tuple(t.shape), t.dtype, t.stride())
+                        for t in fake], (name, meta)
+        rec[name] = meta
+    log(f"21 (a) operators: {', '.join(rec)} on CUDA tensors equal their "
+        f"direct calls bitwise; fake outputs match the real outputs' "
+        f"shape, dtype and strides")
+    return rec
+
+
+def _profile_busy(fn) -> float:
+    """Device ms of ``fn()`` (kernels and copies) under the profiler."""
+    times, _ = profile_kernels(fn)
+    return sum(t for t, _ in times.values()) / 1e3
+
+
+def _wall_ms(fn, reps: int = 3) -> float:
+    out = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        out.append((time.perf_counter() - t0) * 1e3)
+    return float(np.median(out))
+
+
+def _timing(tag: str, fn) -> dict:
+    wall = _wall_ms(fn)
+    busy = _profile_busy(fn)
+    return {f"{tag}_ms": wall, f"{tag}_busy_ms": busy,
+            f"{tag}_idle": max(0.0, 1.0 - busy / wall)}
+
+
+def _grad_agree(name: str, got: list, want: list) -> dict:
+    """Norm ratio and cosine of each gradient against the eager step's,
+    held to ``CAPTURE_GRAD_COS`` and ``CAPTURE_GRAD_NORM``."""
+    bounds = (CAPTURE_GRAD_COS, CAPTURE_GRAD_NORM)
+    worst_cos, worst_norm = 1.0, 0.0
+    for g, w in zip(got, want):
+        g, w = g.double().reshape(-1), w.double().reshape(-1)
+        nw = float(w.norm())
+        if nw == 0.0:
+            assert float(g.norm()) == 0.0, name
+            continue
+        worst_cos = min(worst_cos, float(g @ w) / (float(g.norm()) * nw))
+        worst_norm = max(worst_norm, abs(float(g.norm()) / nw - 1.0))
+    assert worst_cos >= bounds[0] and worst_norm <= bounds[1], \
+        (name, worst_cos, worst_norm, bounds)
+    return dict(min_cos=worst_cos, max_norm_dev=worst_norm)
+
+
+def _train_capture(tag: str, model, cfg, counters: dict, per_call: dict,
+                   backends=("aot_eager", "inductor")) -> dict:
+    """One loss and backward of ``model.loss_fn`` eager, captured with
+    ``aot_eager`` (loss and every gradient bitwise, launches equal), and,
+    when ``backends`` names it, with inductor (loss within
+    ``TRAIN_LOSS_REL``, gradients by ``_grad_agree``); compile seconds,
+    ms, busy ms, idle share and peak memory printed."""
+    from paddle_tpu_torch import jit
+    from paddle_tpu_torch.models.llama import _tree_leaves
+    smi = nvidia_smi_line()
+    step, init = model.make_train_step(cfg)
+    state = init(torch.Generator(device="cuda").manual_seed(0))
+    batch = model.make_batch(cfg, 1, 2048)
+    params = state["params"]
+    leaves = _tree_leaves(params)
+
+    def fwd_bwd(fn):
+        for p in leaves:
+            p.grad = None
+        for c in counters.values():
+            c.launches = 0
+        loss = fn(params, batch, cfg)
+        loss.backward()
+        return (loss.detach(), [p.grad for p in leaves],
+                {n: c.launches for n, c in counters.items()})
+
+    def timed(backend, fn):
+        # peaks with the same tensors alive: the eager gradients kept
+        # for the comparisons, and those of the call measured
+        torch.cuda.reset_peak_memory_stats()
+        rec.update(_timing(backend, lambda: fwd_bwd(fn)))
+        rec[f"{backend}_peak_gib"] = \
+            torch.cuda.max_memory_allocated() / 2 ** 30
+
+    rec = {}
+    want_loss, want_grads, want_n = fwd_bwd(model.loss_fn)
+    assert want_n == per_call, (tag, want_n, per_call)
+    timed("eager", model.loss_fn)
+    for backend in backends:
+        fn = jit.to_static(model.loss_fn,
+                           backend=None if backend == "inductor"
+                           else backend)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss, grads, n = fwd_bwd(fn)
+        torch.cuda.synchronize()
+        compile_s = time.perf_counter() - t0
+        st = fn.graph_break_stats
+        assert st["segments"] == 1 and st["graph_breaks"] == 0, (tag, st)
+        assert n == want_n, (tag, backend, n, want_n)
+        if backend == "aot_eager":
+            names = ["loss"] + [f"grad {i}" for i in range(len(grads))]
+            for nm, a, b in zip(names, [loss] + grads,
+                                [want_loss] + want_grads):
+                if not _same_bits(a, b):
+                    raise AssertionError(
+                        f"{tag} aot_eager: {nm} {tuple(b.shape)} differs "
+                        f"from eager's, largest difference "
+                        f"{_bf16_ulp_diff(a, b):.4g} bf16 ulps")
+            agree = "loss and every gradient equal eager's bitwise"
+        else:
+            rel = abs(float(loss) - float(want_loss)) / abs(float(want_loss))
+            assert rel <= TRAIN_LOSS_REL, (tag, rel)
+            ga = _grad_agree(tag, grads, want_grads)
+            rec["inductor_loss_rel"] = rel
+            rec["inductor_grads"] = ga
+            agree = (f"loss within {rel:.3g} (bound {TRAIN_LOSS_REL}), "
+                     f"gradients' cosine >= {ga['min_cos']:.6f} (bound "
+                     f"{CAPTURE_GRAD_COS}), norm ratio within "
+                     f"{ga['max_norm_dev']:.3g} of 1 (bound "
+                     f"{CAPTURE_GRAD_NORM})")
+        del loss, grads
+        timed(backend, fn)
+        rec[f"{backend}_compile_s"] = compile_s
+        log(f"21 {tag} to_static ({backend}): one graph, no break; "
+            f"{agree}; launches a call {n}; compile + first call "
+            f"{compile_s:.1f} s; forward + backward {rec[backend + '_ms']:.2f}"
+            f" ms (busy {rec[backend + '_busy_ms']:.2f} ms, idle "
+            f"{rec[backend + '_idle']:.3f}, peak "
+            f"{rec[backend + '_peak_gib']:.2f} GiB) against eager "
+            f"{rec['eager_ms']:.2f} ms (busy {rec['eager_busy_ms']:.2f} ms, "
+            f"idle {rec['eager_idle']:.3f}, peak "
+            f"{rec['eager_peak_gib']:.2f} GiB); [{smi}]")
+        del fn
+    del state, params, leaves, want_grads, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rec
+
+
+def capture_llama_train_run() -> dict:
+    """21 (b): ``loss_fn`` at ``llama3_8b`` width, 2 layers, remat."""
+    from paddle_tpu_torch.models import llama
+    cfg = dataclasses.replace(llama.LlamaConfig.llama3_8b(),
+                              num_hidden_layers=CAPTURE_LAYERS, remat=True)
+    L = CAPTURE_LAYERS
+    per = per_step_launches(L)
+    return _train_capture("(b) llama3_8b loss, 2 layers", llama, cfg,
+                          train_launches(), per)
+
+
+def capture_qwen_train_run() -> dict:
+    """21 (e): Qwen2-MoE's dropless loss at ``Qwen2MoeConfig()``
+    widths, 2 layers, captured with ``aot_eager``."""
+    from paddle_tpu_torch.models import qwen2_moe
+    cfg = qwen2_moe.Qwen2MoeConfig(moe_impl="dropless",
+                                   num_hidden_layers=CAPTURE_LAYERS)
+    return _train_capture("(e) qwen2_moe dropless loss, 2 layers",
+                          qwen2_moe, cfg, qwen_launches(),
+                          qwen_per_step_launches(CAPTURE_LAYERS),
+                          backends=("aot_eager",))
+
+
+def capture_tick_run(params, cfg) -> dict:
+    """21 (c): phase 4's mixed tick on its 32-layer params, eager and
+    captured (``aot_eager``): logits and both pools bitwise, 32 ragged
+    launches each; then inductor on the first 2 layers' tick."""
+    from paddle_tpu_torch import jit
+    from paddle_tpu_torch.models import llama
+    smi = nvidia_smi_line()
+    L = cfg.num_hidden_layers
+    pools, tok, meta = tick_state(cfg, TICK_DECODE, TICK_SPANS)
+
+    def run(fn, p, c, kp, vp):
+        _zero_counts()
+        out = fn(p, tok, meta, kp, vp, c)
+        torch.cuda.synchronize()
+        return out, _counts()["ragged_paged_attention"]
+
+    ekp, evp = (t.clone() for t in pools.values())
+    (etoks, elog, _, _), en = run(llama.serving_tick, params, cfg, ekp, evp)
+    tick = jit.to_static(llama.serving_tick, backend="aot_eager")
+    ckp, cvp = (t.clone() for t in pools.values())
+    t0 = time.perf_counter()
+    (ctoks, clog, ckp2, _), cn = run(tick, params, cfg, ckp, cvp)
+    compile_s = time.perf_counter() - t0
+    st = tick.graph_break_stats
+    assert st["segments"] == 1 and st["graph_breaks"] == 0, st
+    assert ckp2 is ckp, "the captured tick returned new pools"
+    assert en == cn == L, (en, cn)
+    for nm, a, b in (("tokens", ctoks, etoks), ("logits", clog, elog),
+                     ("k_pages", ckp, ekp), ("v_pages", cvp, evp)):
+        assert _same_bits(a, b), (nm, _bf16_ulp_diff(a, b)
+                                  if a.is_floating_point() else "tokens")
+    rec = dict(compile_s=compile_s, launches=cn)
+    rec.update(_timing("eager", lambda: llama.serving_tick(
+        params, tok, meta, ekp, evp, cfg)))
+    rec.update(_timing("aot_eager", lambda: tick(params, tok, meta, ckp,
+                                                 cvp, cfg)))
+    del ekp, evp, ckp, cvp, ckp2, tick
+
+    # inductor on the first 2 layers' tick
+    p2 = dict(params, layers={k: v[:CAPTURE_LAYERS]
+                              for k, v in params["layers"].items()})
+    c2 = dataclasses.replace(cfg, num_hidden_layers=CAPTURE_LAYERS)
+    kp2, vp2 = (t[:CAPTURE_LAYERS].clone() for t in pools.values())
+    (_, want, _, _), _ = run(llama.serving_tick, p2, c2, kp2.clone(),
+                             vp2.clone())
+    ind = jit.to_static(llama.serving_tick)
+    t0 = time.perf_counter()
+    (_, got, _, _), n2 = run(ind, p2, c2, kp2, vp2)
+    rec["inductor_compile_s"] = time.perf_counter() - t0
+    st = ind.graph_break_stats
+    assert st["segments"] == 1 and st["graph_breaks"] == 0, st
+    assert n2 == CAPTURE_LAYERS, n2
+    live = meta["q_len"] > 0
+    diff = float((got - want)[live].abs().max())
+    scale = float(want[live].abs().max())
+    assert diff <= LOGITS_REL_TOL * scale, (diff, scale)
+    rec.update(inductor_rel=diff / scale)
+    rec.update(_timing("eager_2l", lambda: llama.serving_tick(
+        p2, tok, meta, kp2, vp2, c2)))
+    rec.update(_timing("inductor_2l", lambda: ind(p2, tok, meta, kp2, vp2,
+                                                  c2)))
+    del pools, kp2, vp2, ind
+    torch.cuda.empty_cache()
+    log(f"21 (c) serving tick, {L} layers, to_static (aot_eager): one "
+        f"graph; tokens, logits and both pools equal eager's bitwise; "
+        f"ragged launches {cn} (eager {en}); compile + first tick "
+        f"{compile_s:.1f} s; tick {rec['aot_eager_ms']:.2f} ms (busy "
+        f"{rec['aot_eager_busy_ms']:.2f}, idle {rec['aot_eager_idle']:.3f})"
+        f" against eager {rec['eager_ms']:.2f} ms (busy "
+        f"{rec['eager_busy_ms']:.2f}, idle {rec['eager_idle']:.3f}); "
+        f"inductor on {CAPTURE_LAYERS} layers: logits within "
+        f"{diff / scale:.3g} of their scale of eager's (bound "
+        f"{LOGITS_REL_TOL}), compile {rec['inductor_compile_s']:.1f} s, "
+        f"{rec['inductor_2l_ms']:.2f} ms (busy "
+        f"{rec['inductor_2l_busy_ms']:.2f}, idle "
+        f"{rec['inductor_2l_idle']:.3f}) against eager "
+        f"{rec['eager_2l_ms']:.2f} ms (busy {rec['eager_2l_busy_ms']:.2f}, "
+        f"idle {rec['eager_2l_idle']:.3f}); [{smi}]")
+    return rec
+
+
+CAPTURE_DECODE_STEPS = 4
+
+
+def capture_decode_run(params, cfg) -> dict:
+    """21 (d): ``generate_paged``'s decode step on phase 8's int8 weights
+    (their first ``CAPTURE_LAYERS`` layers) at the bench mix, eager and
+    captured (``aot_eager``, ``n_tail`` a 0-d tensor: one program for the
+    4 steps): logits bitwise, tokens equal, the paged and int8 launches a
+    step equal."""
+    from paddle_tpu_torch import jit
+    from paddle_tpu_torch.models import llama
+    from paddle_tpu_torch.quantization import quantize_for_decode
+    smi = nvidia_smi_line()
+    L = CAPTURE_LAYERS
+    cfg = dataclasses.replace(cfg, num_hidden_layers=L)
+    prompt, lens = bench_mix(cfg.vocab_size)
+    qparams = quantize_for_decode(
+        dict(params, layers={k: v[:L] for k, v in params["layers"].items()}),
+        cfg)
+    logits0, cache = llama.prefill_paged(qparams, prompt, lens, cfg,
+                                         BENCH_NEW, PAGED_BENCH["ps"])
+    ecache = dict(cache, k_tail=cache["k_tail"].clone(),
+                  v_tail=cache["v_tail"].clone())
+    ccache = dict(cache, k_tail=cache["k_tail"].clone(),
+                  v_tail=cache["v_tail"].clone())
+    step = jit.to_static(llama._decode_paged_step, backend="aot_eager")
+    want_n = dict(paged_attention=0, paged_attention_stats=L,
+                  int8_matmul=7 * L + 1, ragged_paged_attention=0)
+    te = tc = logits0.argmax(-1)
+    first_s = None
+    for i in range(CAPTURE_DECODE_STEPS):
+        _zero_counts()
+        le = llama._decode_paged_step(qparams, te, ecache, cfg)
+        en = _counts()
+        _zero_counts()
+        t0 = time.perf_counter()
+        lc = step(qparams, tc, ccache, cfg)
+        torch.cuda.synchronize()
+        if first_s is None:
+            first_s = time.perf_counter() - t0
+        cn = _counts()
+        assert en == cn == want_n, (i, en, cn)
+        assert _same_bits(lc, le), (i, _bf16_ulp_diff(lc, le))
+        te, tc = le.argmax(-1), lc.argmax(-1)
+        assert torch.equal(te, tc), i
+    st = step.graph_break_stats
+    assert st["segments"] == 1 and st["graph_breaks"] == 0, st
+    assert (int(ccache["n_tail"]) == int(ecache["n_tail"])
+            == CAPTURE_DECODE_STEPS)
+    rec = dict(compile_s=first_s, launches=cn)
+    n1 = torch.ones((), dtype=torch.int32, device="cuda")
+    rec.update(_timing("eager", lambda: llama._decode_paged_step(
+        qparams, te, dict(ecache, n_tail=n1), cfg)))
+    rec.update(_timing("aot_eager", lambda: step(
+        qparams, tc, dict(ccache, n_tail=n1), cfg)))
+    log(f"21 (d) int8 paged decode step, {L} layers, bench mix "
+        f"({lens.numel()} rows), to_static (aot_eager): one program for {CAPTURE_DECODE_STEPS} "
+        f"steps, no break; logits equal eager's bitwise and tokens equal "
+        f"at every step; launches a step {cn}; compile + first step "
+        f"{first_s:.1f} s; step {rec['aot_eager_ms']:.2f} ms (busy "
+        f"{rec['aot_eager_busy_ms']:.2f}, idle {rec['aot_eager_idle']:.3f})"
+        f" against eager {rec['eager_ms']:.2f} ms (busy "
+        f"{rec['eager_busy_ms']:.2f}, idle {rec['eager_idle']:.3f}); "
+        f"[{smi}]")
+    del qparams, cache, ecache, ccache, step
+    torch.cuda.empty_cache()
+    return rec
+
+
+def static_nn_run() -> dict:
+    """21 (f): ``static.nn.cond`` and ``while_loop`` inside one function
+    captured by ``to_static`` (inductor): one graph, no break, the
+    higher-order nodes in ``lower()``'s graph, values = eager's; the
+    ``static`` helpers' tensors on the card unless guarded."""
+    from paddle_tpu_torch import jit
+    from paddle_tpu_torch.static import nn as snn
+
+    def f(x, n):
+        y = snn.cond(x.sum() > 0, lambda: x * 2, lambda: x - 1)
+        i = torch.zeros((), dtype=torch.int64, device=x.device)
+        _, acc = snn.while_loop(lambda i, a: i < n,
+                                lambda i, a: [i + 1, a + y],
+                                [i, torch.zeros_like(x)])
+        return acc
+
+    gen = torch.Generator(device="cuda").manual_seed(215)
+    x = _randn((4096,), gen)
+    static = jit.to_static(f)
+    for xi, n in ((x, 5), (-x.abs(), 3), (x.abs(), 0)):
+        nt = torch.tensor(n, device="cuda")
+        got, want = static(xi, nt), f(xi, nt)
+        assert _same_bits(got, want), (n, float((got - want).abs().max()))
+    st = static.graph_break_stats
+    assert st["segments"] == 1 and st["graph_breaks"] == 0, st
+    text = static.lower(x, torch.tensor(5, device="cuda"))
+    assert "torch.ops.higher_order.cond" in text
+    assert "torch.ops.higher_order.while_loop" in text
+    from paddle_tpu_torch import static as st_mod
+    gv = st_mod.create_global_var([2], 1.0, "float32")
+    wp = st_mod.create_parameter([4, 8], "bfloat16")
+    with st_mod.device_guard("cpu"):
+        guarded = st_mod.create_global_var([2], 1.0, "float32")
+    assert gv.is_cuda and wp.is_cuda and not guarded.is_cuda, \
+        (gv.device, wp.device, guarded.device)
+    log(f"21 (f) static.nn cond + while_loop under to_static (inductor) on "
+        f"the card: one graph, no break ({st}); both signs of the "
+        f"predicate and trip counts 5, 3, 0 equal eager bitwise; "
+        f"static.create_global_var / create_parameter on {gv.device}, "
+        f"under device_guard('cpu') on the CPU")
+    return dict(stats=st)
+
+
+def capture_phase() -> dict:
+    """Phase 21 (a), (b), (e), (f); (c) and (d) run on the 8B weights
+    (``capture_tick_run``, ``capture_decode_run``)."""
+    ops = operator_run()
+    gc.collect()
+    torch.cuda.empty_cache()
+    train = capture_llama_train_run()
+    qwen = capture_qwen_train_run()
+    snn_rec = static_nn_run()
+    return dict(operators=ops, train=train, qwen=qwen, static_nn=snn_rec)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -6408,6 +6954,13 @@ def main() -> int:
     paths = paged_paths_phase(params, cfg)
     # phase 20 (c): the ragged batcher while the 8B weights are alive
     ragged = ragged_batcher_run(params, cfg)
+    # phase 21 (c), (d): the tick and the int8 decode step captured, on
+    # the 8B weights
+    t21 = time.perf_counter()
+    capture_serving = dict(tick=capture_tick_run(params, cfg),
+                           decode=capture_decode_run(params, cfg))
+    t21 = time.perf_counter() - t21
+    log(f"phase 21 (c), (d) in {t21:.1f} s")
     sampling_phase(params, cfg)
     adopted_rec = adopted_kernel_case()
     migration = migration_phase(params, cfg)
@@ -6442,6 +6995,18 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     deploy = deployment_phase()
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    capture = capture_phase()
+    t0 = time.perf_counter() - t0
+    log(f"phase 21 (a), (b), (e), (f) in {t0:.1f} s; phase 21 in "
+        f"{t21 + t0:.1f} s")
+    log(f"21 capture: tick {capture_serving['tick']['launches']} ragged "
+        f"launches, decode step {capture_serving['decode']['launches']}, "
+        f"train (b) compile {capture['train']['aot_eager_compile_s']:.1f} s "
+        f"(aot_eager) / {capture['train']['inductor_compile_s']:.1f} s "
+        f"(inductor)")
 
     a = rec["a_serving_mix"]
     kernels = [{

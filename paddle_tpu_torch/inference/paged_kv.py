@@ -147,14 +147,14 @@ class PagePool:
 # ---------------------------------------------------------------------------
 
 def paged_attention_with_tail(q, k_pages, v_pages, prompt_lens,
-                              page_indices, k_tail, v_tail, n_valid: int,
+                              page_indices, k_tail, v_tail, n_valid,
                               sm_scale: Optional[float] = None,
                               impl: str = "auto"):
     """Decode attention over the paged PROMPT KV merged with a dense TAIL
     of generated tokens.
 
     q ``[B, H, Dh]``; k_tail/v_tail ``[B, Nt, Hkv, Dh]`` with the first
-    ``n_valid`` slots live (slot j holds the j-th GENERATED token of each
+    ``n_valid`` (an int or a 0-d tensor) slots live (slot j holds the j-th GENERATED token of each
     sequence, at position ``prompt_lens[b] + j``). The pages go through
     the stats kernel (o normalized, m, l); the tail, at most
     ``max_new_tokens`` wide, is plain torch; the two merge by

@@ -25,9 +25,17 @@ breaks. ``graph_break_stats`` counts the graphs captured
 breaks (``graph_breaks``) and the calls that captured nothing new
 (``cache_hits``). ``lower(*args)`` returns the text of the function's
 ``torch.export`` graph, where the JAX package returns StableHLO text.
-Hand-written kernels stay one node each in a captured graph when they
-are PyTorch operators (the conv epilogue's ``paddle_tpu::matmul_bias_act``),
-so a compiled forward still launches them.
+Every hand-written kernel entry is a PyTorch operator
+(``torch.ops.paddle_tpu.*``, ``ops/kernels/_op.py``): the conv
+epilogue's ``matmul_bias_act``, ``rms_norm_fwd`` / ``rms_norm_bwd``,
+``rope``, ``flash_attention_fwd`` / ``_bwd_dq`` / ``_bwd_dkv``,
+``ragged_paged_attention_packed``, ``paged_attention`` /
+``paged_attention_stats``, ``int8_matmul``, ``gmm`` and ``tgmm``. A
+captured or exported graph keeps each call one node, the differentiable
+ones with their backward operators in the captured backward, so a
+compiled Llama or Qwen2-MoE loss, serving tick or decode step still
+launches the kernels; ``static.nn``'s control flow stays one
+higher-order node of the graph.
 
 Saved programs. ``save(module, path, input_spec)`` exports the module
 with ``torch.export.export`` and writes one ``<path>.pdmodel`` file: the
@@ -340,9 +348,10 @@ class TranslatedLayer:
 def load(path: str, device=None, **configs) -> TranslatedLayer:
     """Read ``<path>.pdmodel`` (module docstring); ``device``: where the
     program runs (None: where it was saved)."""
-    # the conv epilogue's operator must be registered before a program
-    # that calls it is read
-    from ..ops.kernels import conv_epilogue  # noqa: F401
+    # the kernels' operators must be registered before a program that
+    # calls one of them is read
+    from ..ops.kernels._op import register_all
+    register_all()
     extra = {_META: ""}
     with open(path + ".pdmodel", "rb") as f:
         program = torch.export.load(f, extra_files=extra)

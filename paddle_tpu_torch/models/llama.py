@@ -44,7 +44,9 @@ Port of ``paddle_tpu/models/llama.py``:
 
 PyTorch runs eagerly, so the layer scan is a Python loop and the pools,
 params and optimizer state are updated in place instead of being
-returned as new arrays.
+returned as new arrays. ``jit.to_static`` captures ``loss_fn``,
+``serving_tick`` (its page writes in place) and ``_decode_paged_step``
+whole: every kernel entry is a PyTorch operator (``ops/kernels/_op.py``).
 """
 from __future__ import annotations
 
@@ -873,7 +875,8 @@ def prefill_paged(params, tokens, lengths, cfg: LlamaConfig,
     sequence's last valid position ``[B, V]``, cache): the cache holds
     the layer-stacked pages ``[L, Hkv, P, ps, Dh]``, the shared tables
     ``[B, pps]``, ``prompt_lens``, an empty dense tail
-    ``[L, B, max_new_tokens, Hkv, Dh]`` per K and V, and ``n_tail``."""
+    ``[L, B, max_new_tokens, Hkv, Dh]`` per K and V, and ``n_tail``
+    (the live tail slots, a 0-d int32 tensor)."""
     dev = params["embed"].device
     tokens = _int32(tokens, dev)
     lengths = _int32(lengths, dev)
@@ -905,7 +908,7 @@ def prefill_paged(params, tokens, lengths, cfg: LlamaConfig,
              "tables": cell["tables"], "prompt_lens": lengths,
              "k_tail": torch.zeros(tail, dtype=cfg.dtype, device=dev),
              "v_tail": torch.zeros(tail, dtype=cfg.dtype, device=dev),
-             "n_tail": 0}
+             "n_tail": torch.zeros((), dtype=torch.int32, device=dev)}
     return logits, cache
 
 
@@ -915,25 +918,29 @@ def _decode_paged_step(params, tok, cache, cfg: LlamaConfig,
     """One paged decode step: ``tok [B]`` -> f32 logits ``[B, V]``. The
     token's KV is appended to the dense tail IN PLACE (no page write);
     attention merges the paged prompt (the stats kernel) with the live
-    tail (``paged_attention_with_tail``). Advances ``cache["n_tail"]``."""
+    tail (``paged_attention_with_tail``). Advances ``cache["n_tail"]``,
+    a 0-d int32 tensor on the params' device as in the JAX package's
+    cache, so a step captured by ``jit.to_static`` is one program for
+    every step."""
     lens0, n = cache["prompt_lens"], cache["n_tail"]
     h = params["embed"].to(cfg.dtype)[tok.long()][:, None]      # [B, 1, D]
     positions = (lens0 + n)[:, None]
+    at, n1 = n.reshape(1).long(), n + 1
     for i in range(cfg.num_hidden_layers):
         kt, vt = cache["k_tail"][i], cache["v_tail"][i]
 
         def attn_fn(q, k, v, i=i, kt=kt, vt=vt):
-            kt[:, n] = k[:, 0].to(kt.dtype)
-            vt[:, n] = v[:, 0].to(vt.dtype)
+            kt.index_copy_(1, at, k.to(kt.dtype))
+            vt.index_copy_(1, at, v.to(vt.dtype))
             o = paged_attention_with_tail(
                 q[:, 0].contiguous(), cache["k_pages"][i],
-                cache["v_pages"][i], lens0, cache["tables"], kt, vt, n + 1,
+                cache["v_pages"][i], lens0, cache["tables"], kt, vt, n1,
                 impl=attn_impl)
             return o[:, None].to(q.dtype)
 
         h = _block(_layer(params, i), h, positions, cfg, attn_fn)
     h = rms_norm(h[:, 0], params["final_norm"], cfg.rms_norm_eps)
-    cache["n_tail"] = n + 1
+    cache["n_tail"] = n1
     return _mm(h, params["lm_head"]).float()
 
 
@@ -1148,7 +1155,13 @@ def forward(params, tokens, cfg: LlamaConfig):
 
 def loss_fn(params, batch, cfg: LlamaConfig):
     """Mean next-token cross entropy through the fused op: the logits
-    stay in the model dtype, no f32 log-softmax is saved."""
+    stay in the model dtype, no f32 log-softmax is saved.
+
+    ``jit.to_static(loss_fn)`` captures the loss and its forward whole
+    (remat included), each kernel one operator node; ``.backward()`` on
+    its value runs the captured graph's backward. The train step's
+    ``AdamW.update_`` stays eager (the JAX step jits the optimizer too;
+    a captured optimizer is not built here)."""
     logits = forward(params, batch["tokens"], cfg)
     return fused_softmax_cross_entropy(logits, batch["labels"]).mean()
 

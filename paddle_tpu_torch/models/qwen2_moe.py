@@ -224,7 +224,10 @@ def forward(params, tokens, cfg: Qwen2MoeConfig, mesh=None):
 
 def loss_fn(params, batch, cfg: Qwen2MoeConfig):
     """Mean next-token NLL of the f32 log-softmax, plus
-    ``router_aux_loss_coef`` times the summed aux loss."""
+    ``router_aux_loss_coef`` times the summed aux loss. With
+    ``moe_impl="dropless"``, ``jit.to_static`` captures it whole (gmm
+    and tgmm one operator node each; ``m_pad`` is a Python int of the
+    shapes), as ``llama.loss_fn``."""
     logits, aux = forward(params, batch["tokens"], cfg)
     logp = torch.log_softmax(logits.float(), dim=-1)
     nll = -logp.gather(-1, batch["labels"].long()[..., None])[..., 0]

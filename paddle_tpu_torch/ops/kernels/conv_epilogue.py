@@ -54,13 +54,13 @@ import ctypes
 import torch
 
 from . import _build
+from ._op import check_impl, traced, use_kernel
 
 __all__ = ["matmul_bias_act", "matmul_bias_act_reference", "kernel_takes",
            "OP_NAME"]
 
 _KERNEL = "conv_epilogue"
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-_IMPLS = ("auto", "kernel", "reference")
 #: the operator's qualified name (``torch.ops.paddle_tpu.matmul_bias_act``)
 OP_NAME = "paddle_tpu::matmul_bias_act"
 
@@ -141,7 +141,7 @@ def _rows(x2):
 
 def _run(x2, w, bias, relu: bool, impl: str):
     x2 = _rows(x2)
-    if impl == "kernel" or (impl == "auto" and x2.is_cuda):
+    if use_kernel(impl, x2):
         return _launch(x2, w, bias, relu)
     return matmul_bias_act_reference(x2, w, bias, relu)
 
@@ -163,14 +163,13 @@ def _(x2, w, bias, relu, impl):
 def matmul_bias_act(x2, w, bias, relu: bool = True, impl: str = "auto"):
     """``relu?(x2 [M, K] @ w [K, N] + bias [N])`` in x2's dtype; x2 may be
     an NHWC view ``[B, H, W, K]`` (module docstring)."""
-    if impl not in _IMPLS:
-        raise ValueError(f"impl must be auto|kernel|reference, got {impl!r}")
+    check_impl(impl)
     if x2.dim() not in (2, 4) or w.dim() != 2 or \
             w.shape[0] != x2.shape[-1] or bias.shape != (w.shape[1],):
         raise ValueError(f"x2 [M, K], w [K, N] and bias [N] expected, got "
                          f"{tuple(x2.shape)}, {tuple(w.shape)} and "
                          f"{tuple(bias.shape)}")
-    if torch.compiler.is_compiling():
+    if traced():
         return _op(x2, w, bias, bool(relu), impl)
     return _run(x2, w, bias, relu, impl)
 

@@ -24,14 +24,25 @@ impl: ``"auto"`` — the kernel for CUDA tensors, the plain version for
 CPU tensors; ``"kernel"`` — the kernel, raising on anything it cannot
 take; ``"reference"`` — the plain version on any device. Each wrapper
 counts its kernel launches in ``.launches``.
+
+The entries are the PyTorch operators ``paddle_tpu::rms_norm_fwd``,
+``rms_norm_bwd`` and ``rope`` (``_op.py``), called while a graph is
+traced: ``fused_rms_norm`` and ``fused_rope`` then differentiate
+through ``register_autograd`` on the forward operators (RMSNorm's
+backward is the ``rms_norm_bwd`` operator, RoPE's the ``rope`` operator
+at −positions). An eager call runs the same bodies and the same formula
+directly (``_RMSNorm``, ``_RoPE``). The kernels' limits (D a multiple
+of 8, ``RMS_BWD_MAX_D``, 16-byte alignment) raise inside the bodies.
 """
 from __future__ import annotations
 
 import ctypes
+from typing import Tuple
 
 import torch
 
 from . import _build
+from ._op import acc_dtype, check_impl, direct_function, traced, use_kernel
 
 __all__ = ["fused_rms_norm", "fused_rope", "rms_norm_fwd", "rms_norm_bwd",
            "rope_rotate", "rms_bwd_workspace", "RMS_DW_CHUNK",
@@ -40,15 +51,6 @@ __all__ = ["fused_rms_norm", "fused_rope", "rms_norm_fwd", "rms_norm_bwd",
 RMS_DW_CHUNK = 16      # rows per dw partial (csrc/fused_rms_norm.cu kChunk)
 RMS_BWD_MAX_D = 8192   # widest row the backward kernel takes (kMaxD)
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-
-
-def _check_impl(impl: str) -> None:
-    if impl not in ("auto", "kernel", "reference"):
-        raise ValueError(f"impl must be auto|kernel|reference, got {impl!r}")
-
-
-def _use_kernel(impl: str, t: torch.Tensor) -> bool:
-    return impl == "kernel" or (impl == "auto" and t.is_cuda)
 
 
 def _check_cuda(name: str, dtype, *tensors) -> None:
@@ -174,51 +176,93 @@ def _rms_bwd_kernel(x2, w, rstd, g2):
     return dx, dw
 
 
+def _rms_fwd_run(x2, w, eps: float, impl: str):
+    if use_kernel(impl, x2):
+        return _rms_fwd_kernel(x2, w, eps)
+    return _rms_fwd_plain(x2, w, eps)
+
+
+def _rms_bwd_run(x2, w, rstd, g2, impl: str):
+    if use_kernel(impl, x2):
+        return _rms_bwd_kernel(x2, w, rstd, g2)
+    return _rms_bwd_plain(x2, w, rstd, g2)
+
+
+@torch.library.custom_op("paddle_tpu::rms_norm_fwd", mutates_args=())
+def _rms_fwd_op(x2: torch.Tensor, w: torch.Tensor, eps: float,
+                impl: str) -> Tuple[torch.Tensor, torch.Tensor]:
+    return _rms_fwd_run(x2, w, eps, impl)
+
+
+@_rms_fwd_op.register_fake
+def _(x2, w, eps, impl):
+    return (x2.new_empty(x2.shape),
+            x2.new_empty((x2.shape[0], 1), dtype=acc_dtype(x2.dtype)))
+
+
+@torch.library.custom_op("paddle_tpu::rms_norm_bwd", mutates_args=())
+def _rms_bwd_op(x2: torch.Tensor, w: torch.Tensor, rstd: torch.Tensor,
+                g2: torch.Tensor, impl: str
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    return _rms_bwd_run(x2, w, rstd, g2, impl)
+
+
+@_rms_bwd_op.register_fake
+def _(x2, w, rstd, g2, impl):
+    return (x2.new_empty(x2.shape),
+            x2.new_empty((x2.shape[1],), dtype=acc_dtype(x2.dtype)))
+
+
 def rms_norm_fwd(x2, w, eps: float, impl: str = "auto"):
     """``x2 [N, D]`` -> ``(y [N, D] in x's dtype, rstd [N, 1] f32)``;
     ``.launches`` counts kernel launches."""
-    _check_impl(impl)
-    if _use_kernel(impl, x2):
-        return _rms_fwd_kernel(x2, w, eps)
-    return _rms_fwd_plain(x2, w, eps)
+    check_impl(impl)
+    if traced():
+        return _rms_fwd_op(x2, w, float(eps), impl)
+    return _rms_fwd_run(x2, w, eps, impl)
 
 
 def rms_norm_bwd(x2, w, rstd, g2, impl: str = "auto"):
     """-> ``(dx [N, D] in x's dtype, dw [D] f32)``; ``.launches`` counts
     kernel calls (one per call: dx with the dw partials, and their sum)."""
-    _check_impl(impl)
-    if _use_kernel(impl, x2):
-        return _rms_bwd_kernel(x2, w, rstd, g2)
-    return _rms_bwd_plain(x2, w, rstd, g2)
+    check_impl(impl)
+    if traced():
+        return _rms_bwd_op(x2, w, rstd, g2, impl)
+    return _rms_bwd_run(x2, w, rstd, g2, impl)
 
 
 rms_norm_fwd.launches = 0
 rms_norm_bwd.launches = 0
 
 
-class _RMSNorm(torch.autograd.Function):
-    @staticmethod
-    def forward(ctx, x, weight, eps, impl):
-        shape = x.shape
-        x2 = x.reshape(-1, shape[-1]).contiguous()
-        y, rstd = rms_norm_fwd(x2, weight, eps, impl)
-        ctx.save_for_backward(x2, weight, rstd)
-        ctx.impl = impl
-        return y.reshape(shape)
+def _rms_setup(ctx, inputs, output):
+    x2, w, _, impl = inputs
+    ctx.save_for_backward(x2, w, output[1])
+    ctx.impl = impl
 
-    @staticmethod
-    def backward(ctx, g):
-        x2, weight, rstd = ctx.saved_tensors
-        g2 = g.reshape(x2.shape).contiguous()
-        dx, dw = rms_norm_bwd(x2, weight, rstd, g2, ctx.impl)
-        return dx.reshape(g.shape), dw.to(weight.dtype), None, None
+
+def _rms_backward(bwd, ctx, gy, _grstd):
+    x2, w, rstd = ctx.saved_tensors
+    dx, dw = bwd(x2, w, rstd, gy.contiguous(), ctx.impl)
+    return dx, dw.to(w.dtype), None, None
+
+
+_rms_fwd_op.register_autograd(
+    lambda ctx, gy, grstd: _rms_backward(_rms_bwd_op, ctx, gy, grstd),
+    setup_context=_rms_setup)
+_RMSNorm = direct_function(
+    "_RMSNorm", _rms_fwd_run, _rms_setup,
+    lambda ctx, gy, grstd: _rms_backward(_rms_bwd_run, ctx, gy, grstd))
 
 
 def fused_rms_norm(x, weight, eps: float = 1e-5, impl: str = "auto"):
     """RMSNorm over the last dim of ``x [..., D]``, forward and backward
     through the kernels (see the module docstring for ``impl``)."""
-    _check_impl(impl)
-    return _RMSNorm.apply(x, weight, float(eps), impl)
+    check_impl(impl)
+    x2 = x.reshape(-1, x.shape[-1]).contiguous()
+    fn = _rms_fwd_op if traced() else _RMSNorm.apply
+    y, _ = fn(x2, weight, float(eps), impl)
+    return y.reshape(x.shape)
 
 
 # ---------------------------------------------------------------------------
@@ -277,37 +321,62 @@ def _rope_kernel(q, k, positions, theta: float):
     return oq, ok
 
 
+def _rope_run(q, k, positions, theta: float, impl: str):
+    if use_kernel(impl, q):
+        return _rope_kernel(q.contiguous(), k.contiguous(),
+                            positions.to(torch.int32).contiguous(), theta)
+    oq, ok = _rope_plain(q, k, positions, theta)
+    return oq.contiguous(), ok.contiguous()
+
+
+@torch.library.custom_op("paddle_tpu::rope", mutates_args=())
+def _rope_op(q: torch.Tensor, k: torch.Tensor, positions: torch.Tensor,
+             theta: float, impl: str) -> Tuple[torch.Tensor, torch.Tensor]:
+    return _rope_run(q, k, positions, theta, impl)
+
+
+@_rope_op.register_fake
+def _(q, k, positions, theta, impl):
+    return q.new_empty(q.shape), k.new_empty(k.shape)
+
+
 def rope_rotate(q, k, positions, theta: float, impl: str = "auto"):
     """One rotation of q and k by ``positions`` (int ``[B, T]``); the
     backward calls it with −positions. ``.launches`` counts kernel
     launches."""
-    _check_impl(impl)
-    if _use_kernel(impl, q):
-        return _rope_kernel(q.contiguous(), k.contiguous(),
-                            positions.to(torch.int32).contiguous(), theta)
-    return _rope_plain(q, k, positions, theta)
+    check_impl(impl)
+    if traced():
+        return _rope_op(q, k, positions, float(theta), impl)
+    return _rope_run(q, k, positions, theta, impl)
 
 
 rope_rotate.launches = 0
 
 
-class _RoPE(torch.autograd.Function):
-    @staticmethod
-    def forward(ctx, q, k, positions, theta, impl):
-        ctx.save_for_backward(positions)
-        ctx.theta, ctx.impl = theta, impl
-        return rope_rotate(q, k, positions, theta, impl)
+def _rope_setup(ctx, inputs, output):
+    _, _, positions, theta, impl = inputs
+    ctx.save_for_backward(positions)
+    ctx.theta, ctx.impl = theta, impl
 
-    @staticmethod
-    def backward(ctx, gq, gk):
-        (positions,) = ctx.saved_tensors
-        # the rotation's transpose is the rotation by the negated angle
-        dq, dk = rope_rotate(gq, gk, -positions, ctx.theta, ctx.impl)
-        return dq, dk, None, None, None
+
+def _rope_backward(rotate, ctx, gq, gk):
+    (positions,) = ctx.saved_tensors
+    # the rotation's transpose is the rotation by the negated angle
+    dq, dk = rotate(gq, gk, -positions, ctx.theta, ctx.impl)
+    return dq, dk, None, None, None
+
+
+_rope_op.register_autograd(
+    lambda ctx, gq, gk: _rope_backward(_rope_op, ctx, gq, gk),
+    setup_context=_rope_setup)
+_RoPE = direct_function(
+    "_RoPE", _rope_run, _rope_setup,
+    lambda ctx, gq, gk: _rope_backward(_rope_run, ctx, gq, gk))
 
 
 def fused_rope(q, k, positions, theta: float = 10000.0, impl: str = "auto"):
     """Rotary embedding on q ``[B,T,H,Dh]`` and k ``[B,T,Hkv,Dh]`` in one
     fused pass; positions int ``[B, T]``. Returns ``(q_rot, k_rot)``."""
-    _check_impl(impl)
-    return _RoPE.apply(q, k, positions, float(theta), impl)
+    check_impl(impl)
+    fn = _rope_op if traced() else _RoPE.apply
+    return fn(q, k, positions, float(theta), impl)

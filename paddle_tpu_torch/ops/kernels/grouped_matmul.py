@@ -37,7 +37,15 @@ run.
 Like the JAX ``gmm``, ``gmm`` raises ``ValueError`` for a decreasing
 ``tile_expert`` (the TPU weight-gradient kernel's precondition), but only
 for CPU tensors: on the card the check would wait for the device. The
-port's kernels and plain versions themselves take any tile order. The
+check sits in the operator's CPU body, so a traced gmm holds no
+data-dependent branch. The port's kernels and plain versions themselves
+take any tile order.
+
+Both are PyTorch operators, ``paddle_tpu::gmm`` and ``paddle_tpu::tgmm``
+(``_op.py``), called while a graph is traced; gmm carries
+``register_autograd`` with ``_gmm_bwd``'s formula (dlhs the gmm operator
+with ``not trans``, drhs the tgmm operator), which an eager call runs
+directly (``_GMM``). The
 kernels take ``tile_m`` a multiple of 128 and K, N multiples of 8, in
 float32 or bfloat16, and raise on anything else. The JAX package's
 ``tile_n`` and its VMEM fit (``_fit_tile_n``) and autotune lookup have no
@@ -58,6 +66,7 @@ import torch
 import torch.nn.functional as F
 
 from . import _build
+from ._op import acc_dtype, check_impl, direct_function, traced, use_kernel
 
 __all__ = ["gmm", "tgmm", "gmm_reference", "tgmm_reference",
            "sort_and_pad_by_expert", "moe_mlp_dropless"]
@@ -65,12 +74,6 @@ __all__ = ["gmm", "tgmm", "gmm_reference", "tgmm_reference",
 _KERNEL = "grouped_matmul"
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 KERNEL_TILE_M = 128          # the kernels' row tile: tile_m % 128 == 0
-_IMPLS = ("auto", "kernel", "reference")
-
-
-def _acc(dtype) -> torch.dtype:
-    """f32, or f64 for f64 inputs (the card checks' exact evaluation)."""
-    return torch.promote_types(dtype, torch.float32)
 
 
 def gmm_reference(lhs, rhs, tile_expert, tile_m: int = 128,
@@ -78,7 +81,7 @@ def gmm_reference(lhs, rhs, tile_expert, tile_m: int = 128,
     """Plain ``gmm``: each row tile times its expert's weight (``rhs[e]``,
     or ``rhs[e]^T`` with ``trans``) in f32, one cast to lhs's dtype."""
     M, K = lhs.shape
-    acc = _acc(lhs.dtype)
+    acc = acc_dtype(lhs.dtype)
     w = rhs.transpose(1, 2) if trans else rhs
     n = M // tile_m
     out = torch.bmm(lhs.reshape(n, tile_m, K).to(acc),
@@ -93,7 +96,7 @@ def tgmm_reference(lhs, g, tile_expert, num_experts: int,
     (``index_add_``); experts with no tile stay 0."""
     M, K = lhs.shape
     N = g.shape[1]
-    acc = _acc(lhs.dtype)
+    acc = acc_dtype(lhs.dtype)
     n = M // tile_m
     per_tile = torch.bmm(lhs.reshape(n, tile_m, K).transpose(1, 2).to(acc),
                          g.reshape(n, tile_m, N).to(acc))
@@ -183,18 +186,6 @@ def _tgmm_launch(lhs, g, tile_expert, num_experts: int, tile_m: int):
     return out
 
 
-def _use_kernel(impl: str, t) -> bool:
-    if impl not in _IMPLS:
-        raise ValueError(f"impl must be auto|kernel|reference, got {impl!r}")
-    return impl == "kernel" or (impl == "auto" and t.is_cuda)
-
-
-def _gmm_any(lhs, rhs, tile_expert, tile_m, trans, impl):
-    if _use_kernel(impl, lhs):
-        return _gmm_launch(lhs, rhs, tile_expert, tile_m, trans)
-    return gmm_reference(lhs, rhs, tile_expert, tile_m, trans)
-
-
 def _check_tiles(M: int, tile_expert, tile_m: int) -> None:
     if tile_expert.dim() != 1 or M % tile_m or \
             tile_expert.shape[0] != M // tile_m:
@@ -213,33 +204,78 @@ def _check_sorted(tile_expert) -> None:
             "for correct weight gradients; use sort_and_pad_by_expert")
 
 
-class _GMM(torch.autograd.Function):
-    @staticmethod
-    def forward(ctx, lhs, rhs, tile_expert, tile_m, trans, impl):
-        ctx.save_for_backward(lhs, rhs, tile_expert)
-        ctx.tile_m, ctx.trans, ctx.impl = tile_m, trans, impl
-        return _gmm_any(lhs, rhs, tile_expert, tile_m, trans, impl)
+def _gmm_run(lhs, rhs, tile_expert, tile_m: int, trans: bool, impl: str):
+    if use_kernel(impl, lhs):
+        return _gmm_launch(lhs, rhs, tile_expert, tile_m, trans)
+    _check_sorted(tile_expert)
+    return gmm_reference(lhs, rhs, tile_expert, tile_m, trans)
 
-    @staticmethod
-    def backward(ctx, g):
-        lhs, rhs, te = ctx.saved_tensors
-        tm, trans, impl = ctx.tile_m, ctx.trans, ctx.impl
-        g = g.to(lhs.dtype).contiguous()
-        dlhs = drhs = None
-        if ctx.needs_input_grad[0]:
-            # g @ W_e^T: the same kernel reading the weight the other way
-            dlhs = _gmm_any(g, rhs, te, tm, not trans, impl)
-        if ctx.needs_input_grad[1]:
-            E = rhs.shape[0]
-            a, b = (g, lhs) if trans else (lhs, g)
-            drhs = tgmm(a, b, te, E, tm, impl).to(rhs.dtype)
-        return dlhs, drhs, None, None, None, None
+
+def _tgmm_run(lhs, g, tile_expert, num_experts: int, tile_m: int,
+              impl: str):
+    if use_kernel(impl, lhs):
+        return _tgmm_launch(lhs, g, tile_expert, num_experts, tile_m)
+    return tgmm_reference(lhs, g, tile_expert, num_experts,
+                          tile_m).to(lhs.dtype)
+
+
+@torch.library.custom_op("paddle_tpu::gmm", mutates_args=())
+def _gmm_op(lhs: torch.Tensor, rhs: torch.Tensor, tile_expert: torch.Tensor,
+            tile_m: int, trans: bool, impl: str) -> torch.Tensor:
+    return _gmm_run(lhs, rhs, tile_expert, tile_m, trans, impl)
+
+
+@_gmm_op.register_fake
+def _(lhs, rhs, tile_expert, tile_m, trans, impl):
+    return lhs.new_empty((lhs.shape[0], rhs.shape[1 if trans else 2]))
+
+
+@torch.library.custom_op("paddle_tpu::tgmm", mutates_args=())
+def _tgmm_op(lhs: torch.Tensor, g: torch.Tensor, tile_expert: torch.Tensor,
+             num_experts: int, tile_m: int, impl: str) -> torch.Tensor:
+    return _tgmm_run(lhs, g, tile_expert, num_experts, tile_m, impl)
+
+
+@_tgmm_op.register_fake
+def _(lhs, g, tile_expert, num_experts, tile_m, impl):
+    return lhs.new_empty((num_experts, lhs.shape[1], g.shape[1]))
+
+
+def _setup(ctx, inputs, output):
+    lhs, rhs, tile_expert, tile_m, trans, impl = inputs
+    ctx.save_for_backward(lhs, rhs, tile_expert)
+    ctx.tile_m, ctx.trans, ctx.impl = tile_m, trans, impl
+
+
+def _backward(gmm_fn, tgmm_fn, ctx, g):
+    """``_gmm_bwd``'s: the cotangent cast to lhs's dtype, dlhs = gmm on
+    the transposed weight, drhs = tgmm cast to rhs's dtype."""
+    lhs, rhs, te = ctx.saved_tensors
+    tm, trans, impl = ctx.tile_m, ctx.trans, ctx.impl
+    g = g.to(lhs.dtype).contiguous()
+    dlhs = drhs = None
+    if ctx.needs_input_grad[0]:
+        # g @ W_e^T: the same kernel reading the weight the other way
+        dlhs = gmm_fn(g, rhs, te, tm, not trans, impl)
+    if ctx.needs_input_grad[1]:
+        a, b = (g, lhs) if trans else (lhs, g)
+        drhs = tgmm_fn(a, b, te, rhs.shape[0], tm, impl).to(rhs.dtype)
+    return dlhs, drhs, None, None, None, None
+
+
+_gmm_op.register_autograd(
+    lambda ctx, g: _backward(_gmm_op, _tgmm_op, ctx, g),
+    setup_context=_setup)
+_GMM = direct_function(
+    "_GMM", _gmm_run, _setup,
+    lambda ctx, g: _backward(_gmm_run, _tgmm_run, ctx, g))
 
 
 def gmm(lhs, rhs, tile_expert, tile_m: int = 128, *, trans: bool = False,
         impl: str = "auto"):
     """Grouped matmul ``[M, K] x [E, K, N] -> [M, N]`` (module
     docstring); differentiable in lhs and rhs."""
+    check_impl(impl)
     if lhs.dim() != 2 or rhs.dim() != 3:
         raise ValueError(f"lhs [M, K] and rhs [E, K, N] expected, got "
                          f"{tuple(lhs.shape)} and {tuple(rhs.shape)}")
@@ -248,8 +284,8 @@ def gmm(lhs, rhs, tile_expert, tile_m: int = 128, *, trans: bool = False,
         raise ValueError(f"lhs K={lhs.shape[1]} does not match rhs "
                          f"{tuple(rhs.shape)} (trans={trans})")
     _check_tiles(lhs.shape[0], tile_expert, tile_m)
-    _check_sorted(tile_expert)
-    return _GMM.apply(lhs, rhs, tile_expert, tile_m, bool(trans), impl)
+    fn = _gmm_op if traced() else _GMM.apply
+    return fn(lhs, rhs, tile_expert, int(tile_m), bool(trans), impl)
 
 
 gmm.launches = 0
@@ -259,14 +295,13 @@ def tgmm(lhs, g, tile_expert, num_experts: int, tile_m: int = 128,
          impl: str = "auto"):
     """Per-expert ``lhs^T @ g`` over each expert's row tiles ->
     ``[E, K, N]`` in lhs's dtype (module docstring)."""
+    check_impl(impl)
     if lhs.dim() != 2 or g.dim() != 2 or lhs.shape[0] != g.shape[0]:
         raise ValueError(f"lhs [M, K] and g [M, N] expected, got "
                          f"{tuple(lhs.shape)} and {tuple(g.shape)}")
     _check_tiles(lhs.shape[0], tile_expert, tile_m)
-    if _use_kernel(impl, lhs):
-        return _tgmm_launch(lhs, g, tile_expert, num_experts, tile_m)
-    return tgmm_reference(lhs, g, tile_expert, num_experts,
-                          tile_m).to(lhs.dtype)
+    fn = _tgmm_op if traced() else _tgmm_run
+    return fn(lhs, g, tile_expert, int(num_experts), int(tile_m), impl)
 
 
 tgmm.launches = 0

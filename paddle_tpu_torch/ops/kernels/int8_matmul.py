@@ -27,6 +27,11 @@ impl: ``"auto"`` — the kernel for CUDA tensors, the plain version for
 CPU tensors; ``"kernel"`` — the kernel, raising on anything it cannot
 take; ``"reference"`` — the plain version on any device.
 ``int8_matmul.launches`` counts kernel launches.
+
+The product is the PyTorch operator ``paddle_tpu::int8_matmul`` over
+``x2 [M, K]`` (``_op.py``), called while a graph is traced; the reshape
+of x stays outside it, and the split workspace and counters are made in
+its body.
 """
 from __future__ import annotations
 
@@ -35,6 +40,7 @@ import ctypes
 import torch
 
 from . import _build
+from ._op import check_impl, traced, use_kernel
 
 __all__ = ["int8_matmul", "int8_matmul_reference"]
 
@@ -108,11 +114,27 @@ def _launch(x2, q, scale):
     return out
 
 
+def _run(x2, q, scale, impl: str):
+    if use_kernel(impl, x2):
+        return _launch(x2, q, scale)
+    return int8_matmul_reference(x2, q, scale)
+
+
+@torch.library.custom_op("paddle_tpu::int8_matmul", mutates_args=())
+def _op(x2: torch.Tensor, q: torch.Tensor, scale: torch.Tensor,
+        impl: str) -> torch.Tensor:
+    return _run(x2, q, scale, impl)
+
+
+@_op.register_fake
+def _(x2, q, scale, impl):
+    return x2.new_empty((x2.shape[0], q.shape[1]))
+
+
 def int8_matmul(x, q, scale, impl: str = "auto"):
     """``x [..., K] @ dequant(q [K, N], scale [N]) -> [..., N]`` in x's
     dtype (module docstring)."""
-    if impl not in ("auto", "kernel", "reference"):
-        raise ValueError(f"impl must be auto|kernel|reference, got {impl!r}")
+    check_impl(impl)
     K, N = q.shape
     if x.shape[-1] != K or scale.shape != (N,):
         raise ValueError(f"x [..., {K}] and scale [{N}] expected for q "
@@ -120,10 +142,7 @@ def int8_matmul(x, q, scale, impl: str = "auto"):
                          f"{tuple(scale.shape)}")
     lead = x.shape[:-1]
     x2 = x.reshape(-1, K)
-    if impl == "kernel" or (impl == "auto" and x.is_cuda):
-        out = _launch(x2, q, scale)
-    else:
-        out = int8_matmul_reference(x2, q, scale)
+    out = (_op if traced() else _run)(x2, q, scale, impl)
     return out.reshape(*lead, N)
 
 

@@ -32,15 +32,22 @@ positions and adds their partials in order (``split_plan`` sizes its
 f32 workspace); the last block of a row finds itself through counters
 kept per (device, stream), so launches that share a stream must run in
 stream order, as launches on one stream do.
+
+Both entries are PyTorch operators, ``paddle_tpu::paged_attention`` and
+``paddle_tpu::paged_attention_stats`` (``_op.py``), called while a graph
+is traced; the workspace and counters are made in their bodies, and for
+B == 0 their fakes give empty outputs of the right shapes.
 """
 from __future__ import annotations
 
 import ctypes
 import math
+from typing import Tuple
 
 import torch
 
 from . import _build
+from ._op import acc_dtype, check_impl, traced, use_kernel
 
 __all__ = ["paged_attention", "paged_attention_stats",
            "paged_attention_reference", "HEAD_DIMS", "GROUPS", "KEY_CHUNK",
@@ -204,38 +211,80 @@ def _launch(q, k_pages, v_pages, lengths, page_indices, sm_scale,
     return o, m, l
 
 
-def _run(q, k_pages, v_pages, lengths, page_indices, sm_scale, impl,
-         stats: bool):
-    if impl not in ("auto", "kernel", "reference"):
-        raise ValueError(f"impl must be auto|kernel|reference, got {impl!r}")
+def _run(q, k_pages, v_pages, lengths, page_indices, sm_scale: float,
+         impl: str, stats: bool):
+    if use_kernel(impl, q):
+        out = _launch(q, k_pages, v_pages, lengths, page_indices, sm_scale,
+                      stats)
+        fn = paged_attention_stats if stats else paged_attention
+        fn.launches += 1
+        return out if stats else out[0]
+    o, m, l = paged_attention_reference(q, k_pages, v_pages, lengths,
+                                        page_indices, sm_scale)
+    o = o.contiguous()
+    return (o, m.contiguous(), l.contiguous()) if stats else o
+
+
+@torch.library.custom_op("paddle_tpu::paged_attention", mutates_args=())
+def _op(q: torch.Tensor, k_pages: torch.Tensor, v_pages: torch.Tensor,
+        lengths: torch.Tensor, page_indices: torch.Tensor, sm_scale: float,
+        impl: str) -> torch.Tensor:
+    return _run(q, k_pages, v_pages, lengths, page_indices, sm_scale, impl,
+                stats=False)
+
+
+@_op.register_fake
+def _(q, k_pages, v_pages, lengths, page_indices, sm_scale, impl):
+    return q.new_empty(q.shape, dtype=v_pages.dtype)
+
+
+@torch.library.custom_op("paddle_tpu::paged_attention_stats",
+                         mutates_args=())
+def _stats_op(q: torch.Tensor, k_pages: torch.Tensor, v_pages: torch.Tensor,
+              lengths: torch.Tensor, page_indices: torch.Tensor,
+              sm_scale: float, impl: str
+              ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    return _run(q, k_pages, v_pages, lengths, page_indices, sm_scale, impl,
+                stats=True)
+
+
+@_stats_op.register_fake
+def _(q, k_pages, v_pages, lengths, page_indices, sm_scale, impl):
+    # B == 0 gives empty outputs of these shapes
+    B, H, _ = q.shape
+    ml = acc_dtype(q.dtype)
+    return (q.new_empty(q.shape, dtype=v_pages.dtype),
+            q.new_empty((B, H), dtype=ml), q.new_empty((B, H), dtype=ml))
+
+
+def _call(q, k_pages, v_pages, lengths, page_indices, sm_scale, impl,
+          stats: bool):
+    check_impl(impl)
     if q.shape[1] % k_pages.shape[0]:
         raise ValueError(f"H={q.shape[1]} not a multiple of "
                          f"Hkv={k_pages.shape[0]}")
     if sm_scale is None:
         sm_scale = 1.0 / math.sqrt(q.shape[-1])
-    if impl == "kernel" or (impl == "auto" and q.is_cuda):
-        out = _launch(q, k_pages, v_pages, lengths, page_indices, sm_scale,
-                      stats)
-        fn = paged_attention_stats if stats else paged_attention
-        fn.launches += 1
-        return out
-    return paged_attention_reference(q, k_pages, v_pages, lengths,
-                                     page_indices, sm_scale)
+    args = (q, k_pages, v_pages, lengths, page_indices, float(sm_scale),
+            impl)
+    if traced():
+        return (_stats_op if stats else _op)(*args)
+    return _run(*args, stats=stats)
 
 
 def paged_attention(q, k_pages, v_pages, lengths, page_indices,
                     sm_scale=None, impl: str = "auto"):
     """o ``[B, H, Dh]`` in the pools' dtype (module docstring)."""
-    return _run(q, k_pages, v_pages, lengths, page_indices, sm_scale, impl,
-                stats=False)[0]
+    return _call(q, k_pages, v_pages, lengths, page_indices, sm_scale, impl,
+                 stats=False)
 
 
 def paged_attention_stats(q, k_pages, v_pages, lengths, page_indices,
                           sm_scale=None, impl: str = "auto"):
     """``(o [B, H, Dh], m [B, H] f32, l [B, H] f32)`` (module
     docstring)."""
-    return _run(q, k_pages, v_pages, lengths, page_indices, sm_scale, impl,
-                stats=True)
+    return _call(q, k_pages, v_pages, lengths, page_indices, sm_scale, impl,
+                 stats=True)
 
 
 paged_attention.launches = 0

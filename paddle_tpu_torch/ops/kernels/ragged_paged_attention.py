@@ -34,6 +34,12 @@ the paged-attention kernel it splits each row's keys into chunks of
 ``KEY_CHUNK`` at fixed positions (``split_plan``, shared with
 ``paged_attention``) and keeps per-(device, stream) counters, so launches
 that share a stream must run in stream order.
+
+The entry is the PyTorch operator
+``paddle_tpu::ragged_paged_attention_packed`` (``_op.py``), called while
+a graph is traced (a captured serving tick keeps it one node a layer);
+its body makes the kernel's f32 workspace and takes the stream's
+counters, and counts the launch under ``_count_lock``.
 """
 from __future__ import annotations
 
@@ -45,6 +51,7 @@ import numpy as np
 import torch
 
 from . import _build
+from ._op import check_impl, traced, use_kernel
 from .paged_attention import (KEY_CHUNK, check_key_chunk, split_plan,
                               workspace)
 
@@ -362,6 +369,31 @@ def _launch(q, k_pages, v_pages, tok_slot, tok_qoff, q_len, kv_len, tables,
     return out
 
 
+def _run(q, k_pages, v_pages, tok_slot, tok_qoff, q_len, kv_len, tables,
+         sm_scale: float, impl: str):
+    if use_kernel(impl, q):
+        return _launch(q, k_pages, v_pages, tok_slot, tok_qoff, q_len,
+                       kv_len, tables, sm_scale)
+    return _packed_impl(q, k_pages, v_pages, tok_slot, tok_qoff, q_len,
+                        kv_len, tables, sm_scale).contiguous()
+
+
+@torch.library.custom_op("paddle_tpu::ragged_paged_attention_packed",
+                         mutates_args=())
+def _op(q: torch.Tensor, k_pages: torch.Tensor, v_pages: torch.Tensor,
+        tok_slot: torch.Tensor, tok_qoff: torch.Tensor, q_len: torch.Tensor,
+        kv_len: torch.Tensor, tables: torch.Tensor, sm_scale: float,
+        impl: str) -> torch.Tensor:
+    return _run(q, k_pages, v_pages, tok_slot, tok_qoff, q_len, kv_len,
+                tables, sm_scale, impl)
+
+
+@_op.register_fake
+def _(q, k_pages, v_pages, tok_slot, tok_qoff, q_len, kv_len, tables,
+      sm_scale, impl):
+    return q.new_empty(q.shape)
+
+
 def ragged_paged_attention_packed(q, k_pages, v_pages, tok_slot, tok_qoff,
                                   q_len, kv_len, tables, sm_scale=None,
                                   impl: str = "auto"):
@@ -378,19 +410,15 @@ def ragged_paged_attention_packed(q, k_pages, v_pages, tok_slot, tok_qoff,
 
     ``ragged_paged_attention_packed.launches`` counts kernel launches.
     """
-    if impl not in ("auto", "kernel", "reference"):
-        raise ValueError(
-            f"impl must be auto|kernel|reference, got {impl!r}")
+    check_impl(impl)
     H, Dh = q.shape[1], q.shape[2]
     if H % k_pages.shape[0]:
         raise ValueError(f"H={H} not a multiple of Hkv={k_pages.shape[0]}")
     if sm_scale is None:
         sm_scale = 1.0 / math.sqrt(Dh)
-    if impl == "kernel" or (impl == "auto" and q.is_cuda):
-        return _launch(q, k_pages, v_pages, tok_slot, tok_qoff, q_len,
-                       kv_len, tables, sm_scale)
-    return _packed_impl(q, k_pages, v_pages, tok_slot, tok_qoff, q_len,
-                        kv_len, tables, sm_scale)
+    fn = _op if traced() else _run
+    return fn(q, k_pages, v_pages, tok_slot, tok_qoff, q_len, kv_len,
+              tables, float(sm_scale), impl)
 
 
 ragged_paged_attention_packed.launches = 0

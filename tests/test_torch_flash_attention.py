@@ -72,8 +72,8 @@ def test_prescale_matches_jax_bitwise(Dh):
 
 
 def test_kernel_path_hands_the_kernels_the_prescaled_q(monkeypatch):
-    """The autograd Function pre-scales q once and gives that tensor to
-    the forward, dq and dkv kernels; dq's launch gets sm_scale for the
+    """The kernel path pre-scales q once and gives that tensor to the
+    forward, dq and dkv kernels; dq's launch gets sm_scale for the
     unscaled q's gradient. The kernels are stood in for here (they run
     only on the card)."""
     seen = {}
@@ -100,7 +100,8 @@ def test_kernel_path_hands_the_kernels_the_prescaled_q(monkeypatch):
     k = _t(rng.randn(1, 8, 2, 64).astype(np.float32)).bfloat16()
     leaves = [t.requires_grad_() for t in (q, k, k.detach().clone())]
     scale = 1.0 / np.sqrt(64)
-    TFA._FlashAttention.apply(*leaves, True, float(scale)).sum().backward()
+    TFA.flash_attention(*leaves, causal=True, sm_scale=float(scale),
+                        impl="kernel").sum().backward()
     assert torch.equal(seen["fwd"], TFA.prescale_q(q.detach(), scale))
     assert seen["dq"][0] is seen["fwd"] and seen["dkv"] is seen["fwd"]
     assert seen["dq"][1] == float(scale)

@@ -60,6 +60,10 @@ from paddle_tpu_torch.inference import (
     fold_batch_norms, fuse_linear_chains, get_version, passes,
     remove_dropouts, serving)
 from paddle_tpu_torch.core import graph_trace
+from paddle_tpu_torch import static
+from paddle_tpu_torch.static import nn as static_nn
+from paddle_tpu_torch.ops.kernels import _op
+_op.register_all()
 bad = sorted(m for m in sys.modules
              if m.split('.')[0] in ('jax', 'jaxlib', 'paddle_tpu'))
 print(','.join(bad))

@@ -97,9 +97,10 @@ def _paged_decode(params, cfg):
                                         chip_smoke.BENCH_NEW,
                                         chip_smoke.PAGED_BENCH["ps"])
     tok = logits.argmax(-1)
+    n0 = cache["n_tail"]
 
     def step():
-        cache["n_tail"] = 0
+        cache["n_tail"] = n0
         llama._decode_paged_step(params, tok, cache, cfg)
     return step, 1
 
