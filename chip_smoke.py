@@ -3,9 +3,10 @@
 speculative decoding, Qwen2-MoE), training paths (Llama-3-8B, Qwen2-MoE
 dropless training), ResNet-50 and the rest of the vision zoo (inference
 and the train step), the deployment front end (``jit.save`` →
-``create_predictor``, ``DynamicBatcher``, ``to_static``) and the
-capture of the Llama and Qwen2-MoE paths on one NVIDIA H100 and check
-them.
+``create_predictor``, ``DynamicBatcher``, ``to_static``), the
+capture of the Llama and Qwen2-MoE paths and the high-level trainer
+(``hapi.Model`` on ResNet-50 fed by ``io.DataLoader``) on one NVIDIA
+H100 and check them.
 
 Run from the repository root with no arguments:
 
@@ -351,8 +352,37 @@ Phases (any failed check raises; nothing is caught):
    break, values equal eager's. Printed: compile seconds, eager against
    compiled ms with busy ms, idle share and peak memory.
 
+22. the high-level trainer on ResNet-50 (224 x 224, 1000 classes, f32,
+   seeded), its data 640 seeded uint8 288 x 288 x 3 images with int64
+   labels: (a) ``io.DataLoader`` (B 64) through the eval transforms
+   (``Resize(256) → CenterCrop(224) → ToTensor → Normalize``) with 0
+   workers, 8 threads and 8 processes: the three batch streams bitwise
+   equal in order, on the card; images/s of each; (b) ``Model.fit``
+   through the train transforms (``RandomResizedCrop(224) →
+   RandomHorizontalFlip → ToTensor → Normalize``), 8 worker processes,
+   10 steps, ``optimizer.Momentum`` on ``lr.PiecewiseDecay([5], [0.1,
+   0.01])`` stepped each batch by the ``LRScheduler`` callback,
+   ``CrossEntropyLoss``, ``Accuracy(topk=(1, 5))``: the lr each step
+   used is 0.1 x 5 then 0.01 x 5, every loss finite; first, two
+   ``train_batch`` calls equal a hand loop (forward, loss, backward,
+   ``step()``, ``clear_grad()``) bitwise in losses, parameters, buffers
+   and velocities under ``torch.use_deterministic_algorithms(True)``;
+   printed: fit images/s and ms a step host-timed with the data, the
+   seconds spent in ``next(loader)``, busy ms and idle share over 3
+   profiled steps; (c) ``Model.evaluate`` over 4 eval batches: its
+   ``loss`` within ``HAPI_LOSS_REL`` and its ``acc_top1`` / ``acc_top5``
+   equal to the host's from ``predict``'s stacked outputs; (d)
+   ``Model.predict`` on the trained model in bf16, eval, channels-last,
+   folded by ``fold_conv_bn`` (bf16 channels-last collation in the
+   workers): row 12 launched 33 x 4 times, the logits within
+   ``RESNET_BF16_LOGITS_REL`` of the unfolded bf16 network's and of the
+   folded model on the plain versions; top-1 agreement printed, and the
+   kernel's times at that predict's shapes; (e) ``Model.save`` → a fresh
+   ``Model.load`` → ``predict`` bitwise, the velocities, the scheduler
+   and the step count equal.
+
 Phases run in the order 1, 2, 3, 5, 7, 4, 8, 20 (c), 21 (c), 21 (d),
-13, 15, 16, 17, 14, 6, 9, 10, 11, 12, 18, 19, 20, 21: phase 14 starts
+13, 15, 16, 17, 14, 6, 9, 10, 11, 12, 18, 19, 20, 21, 22: phase 14 starts
 after the 8B serving state is freed, phase 6 after phase 14's, phases 9
 and 10 after phase 6's.
 
@@ -368,6 +398,7 @@ import gc
 import json
 import math
 import os
+import random
 import subprocess
 import sys
 import tempfile
@@ -5659,6 +5690,7 @@ def train_step_profile(model, step, x, y, loss_fn, reps: int = 3) -> dict:
     windows["forward"], loss = profile_kernels(forward)
     windows["backward"], _ = profile_kernels(loss.backward)
     windows["optimizer"], _ = profile_kernels(step.optimizer.step)
+    step.optimizer.clear_grad()   # as the step does after its update
     top = {}
     for w, kw in windows.items():
         for name, (t, c) in kw.items():
@@ -5676,7 +5708,7 @@ def train_step_profile(model, step, x, y, loss_fn, reps: int = 3) -> dict:
 def spy_grads(step, model) -> dict:
     """A dict that ``step``'s next optimizer call fills with the gradients
     by parameter name (f32 copies, where they are), read before the
-    optimizer frees them; later calls are not read."""
+    step clears them; later calls are not read."""
     opt = step.optimizer
     real = opt.step
     names = {id(p): n for n, p in model.named_parameters()}
@@ -5684,7 +5716,7 @@ def spy_grads(step, model) -> dict:
 
     def spy():
         rec.update({names[id(p)]: p.grad.detach().float().clone()
-                    for p in opt.parameters})
+                    for p in opt._param_list})
         opt.step = real
         real()
 
@@ -6906,6 +6938,371 @@ def capture_phase() -> dict:
     return dict(operators=ops, train=train, qwen=qwen, static_nn=snn_rec)
 
 
+# ---------------------------------------------------------------------------
+# Phase 22: the high-level trainer (hapi.Model) on ResNet-50, fed by the
+# io.DataLoader through the numpy vision transforms
+# ---------------------------------------------------------------------------
+
+HAPI_N = 640             # images: 10 batches of 64
+HAPI_SRC = 288           # decoded side of a uint8 HWC image (159 MB in all)
+HAPI_B = 64
+HAPI_WORKERS = 8
+HAPI_EVAL_BATCHES = 4
+HAPI_CLASSES = 1000
+HAPI_PROFILED = (7, 8, 9)  # fit's steps under the profiler
+HAPI_LOSS_REL = 1e-5     # (c) evaluate's loss vs the host's, relative
+IMAGENET_MEAN = [0.485, 0.456, 0.406]
+IMAGENET_STD = [0.229, 0.224, 0.225]
+
+
+def hapi_dataset(images, labels, transform):
+    """An ``io.Dataset`` of (``transform(image)``, label) pairs."""
+    from paddle_tpu_torch import io
+
+    class Images(io.Dataset):
+        def __len__(self):
+            return len(labels)
+
+        def __getitem__(self, i):
+            return transform(images[i]), labels[i]
+
+    return Images()
+
+
+def hapi_transforms():
+    """(eval, train) transforms: ``Resize(256) → CenterCrop(224)`` and
+    ``RandomResizedCrop(224) → RandomHorizontalFlip``, each then
+    ``ToTensor → Normalize`` (ImageNet's mean and std)."""
+    from paddle_tpu_torch.vision import transforms as T
+    tail = [T.ToTensor(), T.Normalize(IMAGENET_MEAN, IMAGENET_STD)]
+    return (T.Compose([T.Resize(256), T.CenterCrop(224)] + tail),
+            T.Compose([T.RandomResizedCrop(224), T.RandomHorizontalFlip()]
+                      + tail))
+
+
+def bf16_channels_last_collate(batch):
+    """The default collation, the images then cast to bf16 channels-last
+    (in the loader's workers, on the host) for the bf16 folded model."""
+    from paddle_tpu_torch.io import default_collate_fn
+    x, y = default_collate_fn(batch)
+    return x.to(torch.bfloat16).contiguous(
+        memory_format=torch.channels_last), y
+
+
+def loader_modes_run(ds, smi: str) -> dict:
+    """(a) The eval pipeline's 10 batches with 0 workers, 8 threads and 8
+    processes: bitwise equal in order, on the card; images/s of each
+    (the loader alone, ending in a synchronize)."""
+    from paddle_tpu_torch.io import DataLoader
+    modes = {"single": dict(num_workers=0),
+             "threads": dict(num_workers=HAPI_WORKERS,
+                             use_shared_memory=False),
+             "processes": dict(num_workers=HAPI_WORKERS)}
+    out, rates = {}, {}
+    for name, kw in modes.items():
+        loader = DataLoader(ds, batch_size=HAPI_B, **kw)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out[name] = list(loader)
+        torch.cuda.synchronize()
+        rates[name] = HAPI_N / (time.perf_counter() - t0)
+        assert len(out[name]) == HAPI_N // HAPI_B, name
+        for x, y in out[name]:
+            assert x.is_cuda and y.is_cuda, name
+            assert x.shape == (HAPI_B, 3, 224, 224) and \
+                x.dtype == torch.float32, (name, x.shape, x.dtype)
+            assert y.shape == (HAPI_B, 1) and y.dtype == torch.int64
+    for name in ("threads", "processes"):
+        for (x, y), (x0, y0) in zip(out[name], out["single"]):
+            assert torch.equal(x, x0) and torch.equal(y, y0), name
+    log("22 (a) loader, eval transforms (Resize 256, CenterCrop 224, "
+        f"ToTensor, Normalize), {HAPI_N} images of {HAPI_SRC}x{HAPI_SRC}"
+        f"x3 uint8, B {HAPI_B}: images/s " + ", ".join(
+            f"{k} {v:.1f}" for k, v in rates.items())
+        + f"; the three streams bitwise equal, on the card [{smi}]")
+    return dict(images_per_s=rates, first=out["single"][:2])
+
+
+def hapi_pin_check(model, batches) -> dict:
+    """(b) two ``train_batch`` calls against a hand loop (forward,
+    ``CrossEntropyLoss``, backward, ``Momentum.step()``, ``clear_grad()``)
+    from copies of the same weights on the same batches, under
+    ``torch.use_deterministic_algorithms(True)`` (set for the check and
+    restored; ``CUBLAS_WORKSPACE_CONFIG=:4096:8`` beside it, which torch's
+    check reads): losses, every parameter, buffer and velocity bitwise."""
+    import copy
+    from paddle_tpu_torch import hapi, metric, nn, optimizer
+    net_a, net_b = copy.deepcopy(model), copy.deepcopy(model)
+    was = torch.are_deterministic_algorithms_enabled()
+    env = os.environ.get("CUBLAS_WORKSPACE_CONFIG")
+    os.environ["CUBLAS_WORKSPACE_CONFIG"] = ":4096:8"
+    torch.use_deterministic_algorithms(True)
+    try:
+        opt_a = optimizer.Momentum(learning_rate=0.1, momentum=0.9,
+                                   parameters=net_a.parameters())
+        m = hapi.Model(net_a).prepare(opt_a, nn.CrossEntropyLoss(),
+                                      metric.Accuracy(topk=(1, 5)))
+        got = [m.train_batch([x], [y])[0][0] for x, y in batches]
+        opt_b = optimizer.Momentum(learning_rate=0.1, momentum=0.9,
+                                   parameters=net_b.parameters())
+        loss_fn = nn.CrossEntropyLoss()
+        want = []
+        net_b.train()
+        for x, y in batches:
+            loss = loss_fn(net_b(x), y)
+            loss.backward()
+            opt_b.step()
+            opt_b.clear_grad()
+            want.append(loss.item())
+    finally:
+        torch.use_deterministic_algorithms(was)
+        if env is None:
+            os.environ.pop("CUBLAS_WORKSPACE_CONFIG")
+        else:
+            os.environ["CUBLAS_WORKSPACE_CONFIG"] = env
+    assert got == want, (got, want)
+    sa, sb = net_a.state_dict(), net_b.state_dict()
+    for k in sa:
+        assert torch.equal(sa[k], sb[k]), k
+    va, vb = opt_a._accumulators["velocity"], opt_b._accumulators["velocity"]
+    assert len(va) == len(vb) == len(opt_a._param_list)
+    for pa, pb in zip(opt_a._param_list, opt_b._param_list):
+        assert torch.equal(va[id(pa)], vb[id(pb)])
+    return dict(losses=got)
+
+
+def hapi_fit_run(model, ds, smi: str) -> dict:
+    """(b) ``Model.fit`` one epoch: 8 worker processes, B 64, 10 steps,
+    Momentum on ``PiecewiseDecay([5], [0.1, 0.01])`` stepped each batch by
+    the ``LRScheduler`` callback, ``CrossEntropyLoss``, ``Accuracy(topk=(1,
+    5))``. A callback records each step's loss and learning rate, the
+    seconds the loop waited in ``next(loader)`` (from the previous
+    batch's end to this batch's begin; the first includes the workers'
+    start) and the profiler's window over the steps ``HAPI_PROFILED``."""
+    from torch.profiler import ProfilerActivity
+    from paddle_tpu_torch import hapi, metric, nn, optimizer
+    from paddle_tpu_torch.optimizer import lr
+
+    class Recorder(hapi.Callback):
+        def __init__(self):
+            super().__init__()
+            self.losses, self.lrs, self.waits, self.ends = [], [], [], []
+            self.prof = None
+
+        def on_epoch_begin(self, epoch, logs=None):
+            self.t = time.perf_counter()
+
+        def on_train_batch_begin(self, step, logs=None):
+            now = time.perf_counter()
+            self.waits.append(now - self.t)
+            if step == HAPI_PROFILED[0]:
+                self.prof = torch.profiler.profile(
+                    activities=[ProfilerActivity.CUDA])
+                self.prof.__enter__()
+                self.t_prof = now
+
+        def on_train_batch_end(self, step, logs=None):
+            self.t = time.perf_counter()   # loss.item() waited for the card
+            self.ends.append(self.t)
+            self.losses.append(logs["loss"])
+            self.lrs.append(float(self.model._optimizer._lr))
+            if step == HAPI_PROFILED[-1]:
+                self.prof.__exit__(None, None, None)
+                self.span_ms = (self.t - self.t_prof) * 1e3
+
+    sched = lr.PiecewiseDecay([5], [0.1, 0.01])
+    opt = optimizer.Momentum(learning_rate=sched, momentum=0.9,
+                             parameters=model.parameters())
+    m = hapi.Model(model).prepare(opt, nn.CrossEntropyLoss(),
+                                  metric.Accuracy(topk=(1, 5)))
+    rec = Recorder()
+    t0 = time.perf_counter()
+    m.fit(ds, batch_size=HAPI_B, epochs=1, num_workers=HAPI_WORKERS,
+          verbose=0, callbacks=[rec, hapi.LRScheduler(by_step=True,
+                                                      by_epoch=False)])
+    wall = time.perf_counter() - t0
+    steps = HAPI_N // HAPI_B
+    assert len(rec.losses) == steps, len(rec.losses)
+    assert all(math.isfinite(v) for v in rec.losses), rec.losses
+    want = [float(np.float32(0.1))] * 5 + [float(np.float32(0.01))] * 5
+    assert rec.lrs == want, rec.lrs
+    assert opt._step_count == steps and sched.last_epoch == steps
+    busy = sum(t for t, _ in kernel_times(rec.prof).values()) / 1e3
+    assert busy > 0, "the profiler saw no device time"
+    n_prof = len(HAPI_PROFILED)
+    first = HAPI_PROFILED[0]
+    step_ms = (rec.ends[first - 1] - rec.ends[0]) / (first - 1) * 1e3
+    res = dict(
+        losses=rec.losses, lrs=rec.lrs, fit_s=wall,
+        images_per_s=HAPI_N / wall, step_ms=step_ms,
+        steady_images_per_s=HAPI_B / step_ms * 1e3,
+        first_wait_s=rec.waits[0], wait_s=sum(rec.waits[1:]),
+        busy_ms=busy / n_prof, span_ms=rec.span_ms / n_prof,
+        idle_share=max(0.0, 1.0 - busy / rec.span_ms), model=m)
+    log(f"22 (b) fit resnet50 f32 (TF32 off), {HAPI_WORKERS} worker "
+        f"processes, train transforms, B {HAPI_B}, {steps} steps: "
+        f"{wall:.2f} s ({res['images_per_s']:.1f} images/s with the "
+        f"workers' start), {step_ms:.1f} ms a step over steps 1-"
+        f"{first - 1} ({res['steady_images_per_s']:.1f} images/s); the "
+        f"loop waited {res['first_wait_s']:.2f} s for the first batch and "
+        f"{res['wait_s']:.3f} s in next(loader) over steps 1-{steps - 1}; "
+        f"profiled steps {HAPI_PROFILED}: busy {res['busy_ms']:.1f} ms a "
+        f"step of {res['span_ms']:.1f} ms, idle share "
+        f"{res['idle_share']:.3f}; losses {[round(v, 4) for v in rec.losses]}"
+        f", lr 0.1 x 5 then 0.01 x 5 [{smi}]")
+    return res
+
+
+def _host_eval(logits: np.ndarray, labels: np.ndarray) -> tuple:
+    """evaluate's logs from logits on the host: the mean over batches of
+    each batch's mean cross entropy (f64), top-1 and top-5 accuracy; and
+    the rows whose top-1 or 5th/6th logits tie."""
+    losses = []
+    for b in range(0, len(labels), HAPI_B):
+        z = logits[b:b + HAPI_B].astype(np.float64)
+        y = labels[b:b + HAPI_B]
+        mx = z.max(1, keepdims=True)
+        lse = np.log(np.exp(z - mx).sum(1)) + mx[:, 0]
+        losses.append(float(np.mean(lse - z[np.arange(len(y)), y])))
+    order = np.argsort(-logits, axis=1, kind="stable")
+    top = np.take_along_axis(logits, order[:, :6], 1)
+    ties = int(((top[:, 0] == top[:, 1]) | (top[:, 4] == top[:, 5])).sum())
+    return (float(np.mean(losses)), float((order[:, 0] == labels).mean()),
+            float((order[:, :5] == labels[:, None]).any(1).mean()), ties)
+
+
+def hapi_phase() -> dict:
+    """Phase 22: (a) the input pipeline, (b) ``Model.fit`` of ResNet-50
+    with the pin against a hand loop, (c) ``evaluate`` against the host's
+    logs, (d) ``predict`` on the bf16 model folded onto the conv-epilogue
+    kernel, (e) ``save`` → ``load`` → ``predict``."""
+    import copy
+    import shutil
+    from paddle_tpu_torch import hapi, io, nn, optimizer
+    from paddle_tpu_torch.analysis import fold_conv_bn
+    from paddle_tpu_torch.models.resnet import resnet50
+    from paddle_tpu_torch.optimizer import lr
+    from paddle_tpu_torch.ops.kernels import conv_epilogue as ce
+    t_phase = time.perf_counter()
+    smi = nvidia_smi_line()
+    rs = np.random.RandomState(220)
+    images = rs.randint(0, 256, (HAPI_N, HAPI_SRC, HAPI_SRC, 3),
+                        dtype=np.uint8)
+    labels = rs.randint(0, HAPI_CLASSES, (HAPI_N, 1)).astype(np.int64)
+    eval_tf, train_tf = hapi_transforms()
+    eval_ds = hapi_dataset(images, labels, eval_tf)
+    train_ds = hapi_dataset(images, labels, train_tf)
+    random.seed(221)
+    np.random.seed(221)
+
+    loaders = loader_modes_run(eval_ds, smi)
+
+    model = resnet50(num_classes=HAPI_CLASSES,
+                     generator=torch.Generator().manual_seed(222))
+    pin = hapi_pin_check(model, loaders.pop("first"))
+    fit = hapi_fit_run(model, train_ds, smi)
+    m = fit.pop("model")
+
+    # (c) evaluate over 4 eval batches against the host's computation
+    # from predict's stacked outputs
+    sub = io.Subset(eval_ds, range(HAPI_EVAL_BATCHES * HAPI_B))
+    sub_labels = labels[:HAPI_EVAL_BATCHES * HAPI_B, 0]
+    logs = m.evaluate(sub, batch_size=HAPI_B, num_workers=HAPI_WORKERS,
+                      verbose=0)
+    assert sorted(logs) == ["acc_top1", "acc_top5", "loss"], logs
+    preds = m.predict(sub, batch_size=HAPI_B, num_workers=HAPI_WORKERS,
+                      stack_outputs=True)[0]
+    assert preds.shape == (len(sub), HAPI_CLASSES) and \
+        np.isfinite(preds).all()
+    loss, top1, top5, ties = _host_eval(preds, sub_labels)
+    assert abs(logs["loss"] - loss) <= HAPI_LOSS_REL * abs(loss), \
+        (logs["loss"], loss)
+    assert logs["acc_top1"] == top1 and logs["acc_top5"] == top5, \
+        (logs, top1, top5, ties)
+    log(f"22 (c) evaluate over {HAPI_EVAL_BATCHES} batches: loss "
+        f"{logs['loss']:.6f} (host {loss:.6f}), acc_top1 "
+        f"{logs['acc_top1']:.4f}, acc_top5 {logs['acc_top5']:.4f}, equal "
+        f"to the host's from predict's outputs; rows with a top-1 or "
+        f"5th/6th tie: {ties}")
+
+    # (d) predict on the trained model in bf16, folded as phase 20 serves
+    # it: row 12 launched 33 times a batch
+    m16 = copy.deepcopy(model).eval().to(
+        dtype=torch.bfloat16, memory_format=torch.channels_last)
+    folded, fired = fold_conv_bn(m16)
+    assert fired == {"conv-bn-fold": 53}, fired
+    plain, _ = fold_conv_bn(m16, impl="reference")
+
+    def predict16(net):
+        loader = io.DataLoader(sub, batch_size=HAPI_B,
+                               num_workers=HAPI_WORKERS,
+                               collate_fn=bf16_channels_last_collate)
+        return hapi.Model(net).predict(loader, stack_outputs=True)[0]
+
+    ce.matmul_bias_act.launches = 0
+    got = predict16(folded)
+    launches = ce.matmul_bias_act.launches
+    assert launches == 33 * HAPI_EVAL_BATCHES, launches
+    ref = predict16(m16)
+    ref_plain = predict16(plain)
+    assert got.shape == ref.shape and np.isfinite(got).all()
+    scale = float(np.abs(ref).max())
+    rel = float(np.abs(got - ref).max()) / scale
+    err = float(np.abs(got - ref_plain).max())
+    rel_plain = err / float(np.abs(ref_plain).max())
+    assert rel <= RESNET_BF16_LOGITS_REL and \
+        rel_plain <= RESNET_BF16_LOGITS_REL, (rel, rel_plain)
+    agree = int((got.argmax(1) == ref.argmax(1)).sum())
+    agree32 = int((got.argmax(1) == preds.argmax(1)).sum())
+    del folded, plain, m16
+    times = conv_epilogue_times(batch=HAPI_B)["per_forward"]
+    log(f"22 (d) predict, resnet50 bf16 folded (53 sites, 33 on the "
+        f"kernel), {HAPI_EVAL_BATCHES} batches of {HAPI_B} from the "
+        f"workers (bf16 channels-last collation): row 12 launched "
+        f"{launches} = 33 x {HAPI_EVAL_BATCHES}; logits vs the unfolded "
+        f"bf16 network's {rel:.4g}, vs the folded model on the plain "
+        f"versions {rel_plain:.4g} (max abs {err:.4g}) of {scale:.4g} "
+        f"(bound {RESNET_BF16_LOGITS_REL}); top-1 = unfolded bf16's on "
+        f"{agree}/{len(got)}, = f32's on {agree32}/{len(got)}; the kernel "
+        f"at B {HAPI_B} summed over a forward's 33 sites: "
+        f"{times['ms']:.3f} ms (plain {times['plain_ms']:.3f}, library "
+        f"{times['library_ms']:.3f}, bound {times['bound_ms']:.3f} by "
+        f"{times['bound_by']}) [{smi}]")
+
+    # (e) save -> a fresh Model's load -> predict, bitwise
+    tmp = tempfile.mkdtemp(prefix="hapi_")
+    try:
+        path = os.path.join(tmp, "resnet50")
+        m.save(path)
+        net2 = resnet50(num_classes=HAPI_CLASSES,
+                        generator=torch.Generator().manual_seed(223))
+        sched2 = lr.PiecewiseDecay([5], [0.1, 0.01])
+        m2 = hapi.Model(net2).prepare(
+            optimizer.Momentum(learning_rate=sched2, momentum=0.9,
+                               parameters=net2.parameters()),
+            nn.CrossEntropyLoss())
+        m2.load(path)
+    finally:
+        shutil.rmtree(tmp)
+    a = m.predict(sub, batch_size=HAPI_B, stack_outputs=True)[0]
+    b = m2.predict(sub, batch_size=HAPI_B, stack_outputs=True)[0]
+    assert a.tobytes() == b.tobytes(), "predict after load differs"
+    o1, o2 = m._optimizer, m2._optimizer
+    v1, v2 = o1._accumulators["velocity"], o2._accumulators["velocity"]
+    for p1, p2 in zip(o1._param_list, o2._param_list):
+        assert torch.equal(v1[id(p1)], v2[id(p2)])
+    assert sched2.last_epoch == o1._lr_sched.last_epoch and \
+        sched2() == o1._lr_sched() and o2._step_count == o1._step_count
+    log(f"22 (e) save -> load: predict bitwise, {len(v1)} velocities, the "
+        f"scheduler (epoch {sched2.last_epoch}, lr {sched2()}) and the "
+        f"step count round-trip")
+    del m, m2, model, net2
+    dt = time.perf_counter() - t_phase
+    log(f"phase 22 in {dt:.1f} s")
+    return dict(launches=launches, max_abs_err=err, times=times,
+                loaders=loaders, fit=fit, pin=pin, seconds=dt)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -7007,6 +7404,9 @@ def main() -> int:
         f"train (b) compile {capture['train']['aot_eager_compile_s']:.1f} s "
         f"(aot_eager) / {capture['train']['inductor_compile_s']:.1f} s "
         f"(inductor)")
+    gc.collect()
+    torch.cuda.empty_cache()
+    hapi = hapi_phase()
 
     a = rec["a_serving_mix"]
     kernels = [{
@@ -7157,6 +7557,16 @@ def main() -> int:
         ms=ce_rec["ms"], plain_ms=ce_rec["plain_ms"],
         bound_ms=ce_rec["bound_ms"], bound_by=ce_rec["bound_by"],
         library_ms=ce_rec["library_ms"]))
+    # phase 22: row 12 under Model.predict on the trained ResNet-50, bf16,
+    # folded (the times: the kernel at that predict's shapes, B 64)
+    ht = hapi["times"]
+    kernels.append(dict(
+        name="conv_epilogue_hapi", route="cuda",
+        source="paddle_tpu_torch/csrc/conv_epilogue.cu",
+        replaces="paddle_tpu/ops/pallas/conv_epilogue.py:46",
+        launches=hapi["launches"], max_abs_err=hapi["max_abs_err"],
+        ms=ht["ms"], plain_ms=ht["plain_ms"], bound_ms=ht["bound_ms"],
+        bound_by=ht["bound_by"], library_ms=ht["library_ms"]))
     bm = paged_rec["bench_mix"]
     kernels.append(dict(
         name="paged_attention_stats_batcher", route="cuda",

@@ -40,11 +40,26 @@ passes ``fold_batch_norms`` / ``remove_dropouts`` /
 ``fuse_linear_chains`` in ``inference.passes``) and the dataflow trace
 ``core.graph_trace``; the conv epilogue is the PyTorch operator
 ``paddle_tpu::matmul_bias_act``, so a saved or compiled folded model
-still launches its kernel.
+still launches its kernel; the high-level trainer ``hapi.Model``
+(``fit`` / ``evaluate`` / ``predict`` / ``save`` / ``load``, also
+``paddle_tpu_torch.Model``) with its data pipeline ``io`` (``DataLoader``
+onto the card), ``vision.transforms`` / ``vision.datasets``, ``metric``,
+the Paddle optimizers and LR schedulers (``optimizer``,
+``optimizer.lr``), the clips and loss layers (``nn``) and ``save`` /
+``load`` (``framework.io``).
 """
 from .device import resolve_device
+from .framework.io import load, save
 
 # the JAX package's version, copied
 __version__ = "0.3.0"
 
-__all__ = ["resolve_device", "__version__"]
+__all__ = ["Model", "load", "resolve_device", "save", "__version__"]
+
+
+def __getattr__(name):
+    # the JAX package's top level resolves Model lazily, as here
+    if name == "Model":
+        from .hapi import Model
+        return Model
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

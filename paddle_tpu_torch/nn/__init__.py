@@ -1,5 +1,11 @@
-"""``nn`` of the PyTorch port: the Paddle-semantics functionals the
-vision train step calls (``nn.functional``)."""
+"""``nn`` of the PyTorch port: the Paddle-semantics functionals
+(``nn.functional``), the loss layers ``CrossEntropyLoss`` / ``MSELoss``
+(``modules_loss``) and the gradient clips (``clip``)."""
 from . import functional
+from .clip import (ClipGradBase, ClipGradByGlobalNorm, ClipGradByNorm,
+                   ClipGradByValue)
+from .modules_loss import CrossEntropyLoss, MSELoss
 
-__all__ = ["functional"]
+__all__ = ["functional", "ClipGradBase", "ClipGradByGlobalNorm",
+           "ClipGradByNorm", "ClipGradByValue", "CrossEntropyLoss",
+           "MSELoss"]

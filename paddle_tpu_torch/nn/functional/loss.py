@@ -1,5 +1,5 @@
 """``cross_entropy`` over class logits: ``paddle_tpu/nn/functional/loss.py``
-(:20-55) for hard integer labels.
+(:20-55) for hard integer labels; and ``mse_loss`` (:105).
 
 It is the JAX package's fused path: the per-row NLL ``logsumexp(logits)
 − logits[label]`` of ``ops.fused``'s ``fused_softmax_cross_entropy``
@@ -18,7 +18,7 @@ import torch
 from ...amp import amp_cast
 from ...ops.fused import fused_softmax_cross_entropy
 
-__all__ = ["cross_entropy"]
+__all__ = ["cross_entropy", "mse_loss"]
 
 
 def cross_entropy(input, label, weight=None, ignore_index: int = -100,
@@ -49,6 +49,17 @@ def cross_entropy(input, label, weight=None, ignore_index: int = -100,
     if reduction == "mean":
         denom = valid.float().sum().clamp_min(1.0)
         return (loss.float().sum() / denom).to(logits.dtype)
+    if reduction == "sum":
+        return loss.sum()
+    return loss
+
+
+def mse_loss(input, label, reduction: str = "mean"):
+    """``(input − label)²``, its mean, sum or itself (``reduction``):
+    ``paddle_tpu/nn/functional/loss.py`` ``mse_loss`` (:105)."""
+    loss = torch.square(input - label)
+    if reduction == "mean":
+        return loss.mean()
     if reduction == "sum":
         return loss.sum()
     return loss

@@ -8,8 +8,9 @@ statistics in place; every ``Dropout`` drawing one key a call from the
 step's ``core.Generator``), the loss ``cross_entropy(logits.float(),
 y)`` (its mean over the batch) or ``loss_fn(outputs, y)``, its backward,
 then ``Momentum`` (``lr``, ``momentum``: ``optax.sgd(0.1, momentum=0.9)``
-by default) on every parameter in place. The loss of the parameters before the update
-comes back as a 0-d f32 tensor; nothing in a step waits for the device.
+by default) on every parameter in place, and ``clear_grad()``. The loss
+of the parameters before the update comes back as a 0-d f32 tensor;
+nothing in a step waits for the device.
 
 GoogLeNet's loss with its auxiliary heads (``out + 0.3 · aux1 + 0.3 ·
 aux2``, as ``tests/test_vision_zoo.py`` writes it) is such a
@@ -70,6 +71,7 @@ def make_train_step(model: nn.Module, *, lr: float = 0.1,
             loss = loss_of(model(x), y)
         loss.backward()
         opt.step()
+        opt.clear_grad()
         return loss.detach()
 
     step.optimizer = opt

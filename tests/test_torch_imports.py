@@ -1,6 +1,7 @@
 """The PyTorch port stands alone: importing it (and chip_smoke.py) loads
 neither JAX nor the JAX package, and its entry points refuse to fall
 back to the CPU when no device was asked for and CUDA is absent."""
+import os
 import subprocess
 import sys
 
@@ -48,7 +49,22 @@ from paddle_tpu_torch import amp, core, nn, optimizer
 from paddle_tpu_torch.amp import auto_cast
 from paddle_tpu_torch.core import generator
 from paddle_tpu_torch.nn.functional import common, loss
-from paddle_tpu_torch.optimizer import momentum
+from paddle_tpu_torch.optimizer import lr, optimizer as _optimizer
+from paddle_tpu_torch import framework, hapi, io, metric
+from paddle_tpu_torch import Model, load, save
+from paddle_tpu_torch.framework import io as _framework_io
+from paddle_tpu_torch.hapi import (Callback, CallbackList, EarlyStopping,
+                                   LRScheduler, ModelCheckpoint,
+                                   ProgBarLogger, callbacks, model, summary)
+from paddle_tpu_torch.io import (DataLoader, DistributedBatchSampler,
+                                 TensorDataset, dataloader, dataset, sampler)
+from paddle_tpu_torch.metric import Accuracy, Auc, Precision, Recall
+from paddle_tpu_torch.nn import (ClipGradByGlobalNorm, CrossEntropyLoss,
+                                 MSELoss, clip, modules_loss)
+from paddle_tpu_torch.optimizer import (
+    ASGD, SGD, Adadelta, Adagrad, Adam, Adamax, AdamW, Lamb, Momentum, NAdam,
+    RAdam, RMSProp, Rprop)
+from paddle_tpu_torch.vision import datasets, transforms
 from paddle_tpu_torch.vision import train
 from paddle_tpu_torch.analysis import prepare_training
 from paddle_tpu_torch import jit
@@ -88,6 +104,8 @@ def test_entry_points_raise_without_cuda_or_device():
     from paddle_tpu_torch.vision import models as zoo
     from paddle_tpu_torch.vision.models import resnet50
     from paddle_tpu_torch.vision.train import make_train_step
+    from paddle_tpu_torch import Model, load
+    from paddle_tpu_torch.io import DataLoader, TensorDataset
     cfg = llama.LlamaConfig.tiny()
     qcfg = qwen2_moe.Qwen2MoeConfig.tiny(moe_impl="dropless")
     prompt = [[1, 2, 3]]
@@ -133,6 +151,9 @@ def test_entry_points_raise_without_cuda_or_device():
         lambda: make_train_step(
             zoo.resnet18(num_classes=10, device="cpu")),
         lambda: create_predictor(Config("model")),
+        lambda: DataLoader(TensorDataset([torch.zeros(4)])),
+        lambda: load(os.devnull),
+        lambda: Model(torch.nn.ReLU()).predict([torch.zeros(2)]),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="CUDA"):

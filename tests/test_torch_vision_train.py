@@ -204,7 +204,7 @@ def port_of(jmodel, factory, kwargs):
 def port_run(model, x, y, n, amp=False, loss_fn=None, generator=None,
              dtype=torch.float32):
     """The port's step, ``n`` times: the same record as ``JaxStep.run``,
-    the gradients read before ``Momentum`` frees them."""
+    the gradients read before the step clears them."""
     model.to(dtype)
     step = TT.make_train_step(model, lr=LR, momentum=MOM, amp=amp,
                               loss_fn=loss_fn, generator=generator,
@@ -217,7 +217,7 @@ def port_run(model, x, y, n, amp=False, loss_fn=None, generator=None,
     def spy():
         if "grads" not in rec:
             rec["grads"] = {names[id(p)]: p.grad.double().numpy().copy()
-                            for p in opt.parameters}
+                            for p in opt._param_list}
         real()
 
     opt.step = spy
@@ -736,6 +736,8 @@ def test_momentum_matches_optax_and_jax_momentum_bitwise():
         for tp, a in zip(tparams, g):
             tp.grad = torch.from_numpy(a.copy())
         topt.step()
+        assert all(tp.grad is not None for tp in tparams)
+        topt.clear_grad()
         assert all(tp.grad is None for tp in tparams)
     for tp, e, j, jp in zip(tparams, eager, jitted, jparams):
         got = tp.detach().numpy()
@@ -939,7 +941,9 @@ def test_resnet_train_step_keeps_state_in_place(resnet_ref):
     assert all(v.shape == () and v.dtype == torch.float32 for v in losses)
     assert all(torch.isfinite(v) for v in losses)
     assert {n: p.data_ptr() for n, p in port.state_dict().items()} == ptrs
-    assert step.optimizer.velocity[0].data_ptr() != ptrs["conv1.weight"]
+    opt = step.optimizer
+    vel = opt._accumulators["velocity"][id(opt._param_list[0])]
+    assert vel.data_ptr() != ptrs["conv1.weight"]
 
 
 # --------------------------------------------------------------------------
