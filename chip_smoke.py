@@ -381,8 +381,46 @@ Phases (any failed check raises; nothing is caught):
    ``Model.load`` → ``predict`` bitwise, the velocities, the scheduler
    and the step count equal.
 
-Phases run in the order 1, 2, 3, 5, 7, 4, 8, 20 (c), 21 (c), 21 (d),
-13, 15, 16, 17, 14, 6, 9, 10, 11, 12, 18, 19, 20, 21, 22: phase 14 starts
+23. ONNX export, the rest of ``amp`` and the profiler: (a) (after phase
+   4, on its params) ``profiler.Profiler`` with ``make_scheduler(closed=1,
+   ready=1, record=2, repeat=1)`` and ``export_chrome_tracing`` over five
+   requests each run alone on a phase-4 engine, one profiler step a
+   request, the ticks' ``RecordEvent`` spans bridged into a
+   ``SpanTracer``: the Chrome trace parses; its tick ranges
+   (``serving.tick`` and ``serving.decode_step``, from the engine's
+   thread) = the ticks the engine ran in the window = the bridged spans;
+   its ragged-kernel device events = 32 x the window's model steps =
+   the launches counted in it; ``host_statistics()``' tick calls = all
+   ticks run; tokens = the same requests without the profiler on a fresh
+   engine; printed: the tick's host ms with and without it; (b)
+   ``onnx.export`` of ResNet-50 (224, 1000 classes, f32, channels-last,
+   from the card): the JAX exporter's 175 nodes by type (53 Conv, 53
+   BatchNormalization, 49 Relu, 16 Add, MaxPool, GlobalAveragePool,
+   Reshape, Gemm) and 268 initializers, each float one a tensor of the
+   card model bitwise; the graph run on the card by ``onnx_eval`` (torch
+   ops) at B 8 within ``ONNX_LOGITS_REL`` of the port's forward; the
+   folded bf16 model's export warns and writes a ``.pdmodel`` that
+   ``inference.create_predictor`` runs at B 8 with 33 row-12 launches,
+   equal to the eager folded forward bitwise; (c) phase 19's step (B
+   128) from the f32 witness's state: O2 (``decorate``, bf16,
+   ``Momentum(multi_precision=True)``, ``auto_cast(level="O2")``), 3
+   steps: parameters bf16 but BN's, f32 masters, losses finite, the
+   first-step gradients within phase 19's witness bounds (norm ratio, fc
+   cosine and ratio); f16 O1 with ``GradScaler(init_loss_scaling=1024,
+   incr_every_n_steps=2)``, 5 steps, one gradient element set to inf
+   after step 2's backward: step 2 leaves parameters and velocities
+   bitwise, the scale and the counters follow the JAX rule at every
+   step, the scale doubles after two good steps, one ``unscale_`` makes
+   one host sync (``torch.cuda.set_sync_debug_mode``); printed: O2's,
+   f16's and f32's ms a step; (d) under ``debug_guard`` a bf16 1/0
+   raises ``FloatingPointError`` naming the op; a B-8 bf16 ResNet-50
+   forward under the checker = without it bitwise (ms of both printed);
+   ``check_numerics`` counts a seeded tensor's NaN, Inf and zeros
+   exactly.
+
+Phases run in the order 1, 2, 3, 5, 7, 4, 23 (a), 8, 20 (c), 21 (c),
+21 (d), 13, 15, 16, 17, 14, 6, 9, 10, 11, 12, 18, 19, 20, 21, 22, 23:
+phase 14 starts
 after the 8B serving state is freed, phase 6 after phase 14's, phases 9
 and 10 after phase 6's.
 
@@ -399,6 +437,7 @@ import json
 import math
 import os
 import random
+import struct
 import subprocess
 import sys
 import tempfile
@@ -7303,6 +7342,578 @@ def hapi_phase() -> dict:
                 loaders=loaders, fit=fit, pin=pin, seconds=dt)
 
 
+# ---------------------------------------------------------------------------
+# phase 23: the profiler on the 8B engine, ONNX export, amp, debugging
+# ---------------------------------------------------------------------------
+
+def _onnx_attrs(node: bytes) -> dict:
+    """A NodeProto's attributes: ints, int lists and floats."""
+    from paddle_tpu_torch.onnx import _proto as P
+    out = {}
+    for a in P.fields(node, 5):
+        name = P.fields(a, 1)[0].decode()
+        ints = P.fields(a, 8)
+        if ints:
+            out[name] = [v - (1 << 64) if v >= 1 << 63 else v for v in ints]
+        elif P.fields(a, 3):
+            v = P.fields(a, 3)[0]
+            out[name] = v - (1 << 64) if v >= 1 << 63 else v
+        else:
+            f = [v for n, w, v in P.parse(a) if n == 2 and w == 5]
+            if f:
+                out[name] = struct.unpack("<f", f[0])[0]
+    return out
+
+
+def onnx_initializers(blob: bytes) -> dict:
+    """name -> numpy array of every initializer of a ModelProto."""
+    from paddle_tpu_torch.onnx import _proto as P
+    dts = {1: np.float32, 6: np.int32, 7: np.int64}
+    out = {}
+    for t in P.fields(P.fields(blob, 7)[0], 5):
+        dims = [v for n, w, v in P.parse(t) if n == 1 and w == 0]
+        out[P.fields(t, 8)[0].decode()] = np.frombuffer(
+            P.fields(t, 9)[0], dts[P.fields(t, 2)[0]]).reshape(dims)
+    return out
+
+
+def onnx_eval(blob: bytes, x: torch.Tensor) -> torch.Tensor:
+    """Run an exported ModelProto on ``x``'s device with torch ops, in
+    f32: the op types the exporter writes for the vision models (Conv,
+    BatchNormalization, Relu, the elementwise four, MaxPool,
+    AveragePool, GlobalAveragePool, Flatten, Reshape, Gemm, Identity),
+    with ONNX's semantics as ``tests/test_onnx_export.py``'s interpreter
+    reads them (Gemm's B untransposed, Reshape's 0 copying the input's
+    dim, pads as (h0, w0, h1, w1)). Raises on any other op type."""
+    import torch.nn.functional as F
+    from paddle_tpu_torch.onnx import _proto as P
+    graph = P.fields(blob, 7)[0]
+    env = {k: torch.from_numpy(v.copy()).to(x.device)
+           for k, v in onnx_initializers(blob).items()}
+    env[P.fields(P.fields(graph, 11)[0], 1)[0].decode()] = x.float()
+    # a channels-last input takes channels-last conv weights, as the
+    # vision models keep them on the card (cuDNN then picks the same
+    # algorithms as the model's own forward)
+    fmt = (torch.channels_last if x.dim() == 4 and x.is_contiguous(
+        memory_format=torch.channels_last) else torch.contiguous_format)
+
+    def sym(pads):
+        assert pads[:2] == pads[2:], pads
+        return tuple(pads[:2])
+
+    for node in P.fields(graph, 1):
+        ins = [env[i.decode()] for i in P.fields(node, 1)]
+        (out,) = [o.decode() for o in P.fields(node, 2)]
+        op = P.fields(node, 4)[0].decode()
+        at = _onnx_attrs(node)
+        if op == "Conv":
+            r = F.conv2d(ins[0], ins[1].contiguous(memory_format=fmt),
+                         ins[2] if len(ins) > 2 else None,
+                         at["strides"], sym(at["pads"]), at["dilations"],
+                         at["group"])
+        elif op == "BatchNormalization":
+            x_, sc, b, m, v = ins
+            r = F.batch_norm(x_, m, v, sc, b, False, 0.0, at["epsilon"])
+        elif op == "Relu":
+            r = torch.relu(ins[0])
+        elif op in ("Add", "Sub", "Mul", "Div"):
+            r = {"Add": torch.add, "Sub": torch.sub, "Mul": torch.mul,
+                 "Div": torch.div}[op](ins[0], ins[1])
+        elif op == "MaxPool":
+            r = F.max_pool2d(ins[0], at["kernel_shape"], at["strides"],
+                             sym(at["pads"]))
+        elif op == "AveragePool":
+            r = F.avg_pool2d(ins[0], at["kernel_shape"], at["strides"],
+                             sym(at["pads"]), count_include_pad=False)
+        elif op == "GlobalAveragePool":
+            r = ins[0].mean((2, 3), keepdim=True)
+        elif op == "Flatten":
+            r = ins[0].flatten(at["axis"])
+        elif op == "Reshape":
+            r = ins[0].reshape([ins[0].shape[i] if d == 0 else d
+                                for i, d in enumerate(ins[1].tolist())])
+        elif op == "Gemm":
+            r = ins[0] @ ins[1]
+            if len(ins) > 2:
+                r = r + ins[2]
+        elif op == "Identity":
+            r = ins[0]
+        else:
+            raise AssertionError(f"onnx_eval has no op {op}")
+        env[out] = r
+    return env[P.fields(P.fields(graph, 12)[0], 1)[0].decode()]
+
+
+# (a) phase 4's engine geometry, five requests each run alone, one a
+# profiler step: steps 0 closed, 1 ready, 2 and 3 recorded, 4 closed
+PROF_GEOM = dict(max_batch=8, page_size=16, max_prompt_len=512,
+                 max_new_tokens_cap=32, prefill_chunk=256,
+                 decode_block_size=4)
+PROF_REQUESTS = 5
+PROF_WINDOW = (2, 3)
+PROF_SETTLE_S = 0.2
+# the ranges of an engine tick: a tick with prefill spans, and a fused
+# pure-decode block (the JAX engine's two RecordEvent sites of a tick)
+TICK_RANGES = ("serving.tick", "serving.decode_step")
+
+
+def _engine_marks(eng) -> tuple:
+    """(monotonic s, ticks, model steps, ragged launches) so far;
+    ``stats()`` takes the tick lock, so a tick whose handle already
+    resolved has closed its spans and counters."""
+    from paddle_tpu_torch.ops.kernels import ragged_paged_attention as rpa
+    c = eng.stats()["counters"]
+    return (time.monotonic(), c["ticks"], c["model_steps"],
+            rpa.ragged_paged_attention_packed.launches)
+
+
+def profiled_requests(params, cfg, prompts, new, profiler=None) -> dict:
+    """The requests each run alone on a fresh phase-4 engine, the ticks'
+    ``RecordEvent`` spans bridged into a ``SpanTracer``; with
+    ``profiler``, one profiler step a request. Marks before and after
+    each request (``_engine_marks``)."""
+    from paddle_tpu_torch import profiler as prof
+    from paddle_tpu_torch.observability import (SpanTracer,
+                                                bridge_record_events)
+    from paddle_tpu_torch.ops.kernels import ragged_paged_attention as rpa
+    from paddle_tpu_torch.serving import ServingEngine
+    eng = ServingEngine(params, cfg, **PROF_GEOM)
+    tracer = SpanTracer()
+    detach = bridge_record_events(tracer, track="profiler")
+    prof.reset_host_statistics()
+    rpa.ragged_paged_attention_packed.launches = 0
+    marks = [_engine_marks(eng)]
+    outs = []
+    if profiler is not None:
+        profiler.start()
+    try:
+        for p, n in zip(prompts, new):
+            outs.append(eng.submit(p, n).result(timeout=600))
+            # the handle resolves inside a tick; let the engine go idle
+            # (it ticks only with live slots or prompt spans) before the
+            # counters and the clock are read
+            time.sleep(PROF_SETTLE_S)
+            marks.append(_engine_marks(eng))
+            if profiler is not None:
+                profiler.step()
+    finally:
+        if profiler is not None:
+            profiler.stop()
+        detach()
+        eng.close()
+    stats = prof.host_statistics()
+    w0, w1 = marks[PROF_WINDOW[0]], marks[PROF_WINDOW[-1] + 1]
+    # spans keep monotonic ns
+    win = [sp for sp in tracer.spans() if sp.name in TICK_RANGES
+           and w0[0] * 1e9 <= sp.t0 and sp.t1 <= w1[0] * 1e9]
+    return dict(outs=outs, marks=marks, ticks=marks[-1][1] - marks[0][1],
+                steps=marks[-1][2] - marks[0][2],
+                launches=marks[-1][3] - marks[0][3],
+                calls=sum(stats.get(k, {"calls": 0})["calls"]
+                          for k in TICK_RANGES),
+                window_ticks=w1[1] - w0[1], window_steps=w1[2] - w0[2],
+                window_launches=w1[3] - w0[3], window_spans=len(win),
+                window_tick_ms=float(np.mean([sp.dur_s for sp in win])
+                                     * 1e3))
+
+
+def profiler_engine_run(params, cfg) -> dict:
+    """Phase 23 (a): ``Profiler`` windows over the 8B engine's ticks (the
+    main path: its counts are the ragged kernel's launches of this
+    phase); the same requests without the profiler, on a fresh engine,
+    give the tokens and the tick's host ms unprofiled."""
+    from paddle_tpu_torch import profiler as prof
+    smi = nvidia_smi_line()
+    L = cfg.num_hidden_layers
+    prompts, new = _requests(cfg.vocab_size, seed=23)
+    prompts, new = prompts[:PROF_REQUESTS], new[:PROF_REQUESTS]
+    bare = profiled_requests(params, cfg, prompts, new)
+    p = prof.Profiler(
+        scheduler=prof.make_scheduler(closed=1, ready=1, record=2,
+                                      repeat=1),
+        on_trace_ready=prof.export_chrome_tracing(
+            tempfile.mkdtemp(prefix="chip_smoke_prof_")))
+    run = profiled_requests(params, cfg, prompts, new, p)
+    for r in (bare, run):
+        assert r["launches"] == L * r["steps"], (r["launches"], r["steps"])
+    for i, (a, b) in enumerate(zip(bare["outs"], run["outs"])):
+        if not np.array_equal(a, b):
+            raise AssertionError(f"request {i}: tokens with the profiler "
+                                 f"differ from the run without it")
+    assert run["calls"] == run["ticks"], (run["calls"], run["ticks"])
+    assert len(p.trace_paths) == 1, p.trace_paths
+    with open(p.trace_paths[0]) as f:
+        events = json.load(f)["traceEvents"]        # the trace parses
+    ranges = [e for e in events if e.get("cat") == "user_annotation"
+              and e.get("name") in TICK_RANGES]
+    kernels = [e for e in events if e.get("cat") == "kernel"
+               and "decode_attention_kernel" in e.get("name", "")]
+    n = run["window_ticks"]
+    assert n > 0 and len(ranges) == n == run["window_spans"], \
+        (len(ranges), n, run["window_spans"], run["marks"])
+    assert len(kernels) == L * run["window_steps"] == \
+        run["window_launches"], (len(kernels), L, run["window_steps"],
+                                 run["window_launches"])
+    mib = os.path.getsize(p.trace_paths[0]) / 2 ** 20
+    log(f"23 (a) profiler on the 8B engine ({PROF_REQUESTS} requests alone, "
+        f"steps {PROF_WINDOW} recorded): tokens = the unprofiled run's; "
+        f"window: {n} tick ranges in the Chrome trace ({mib:.1f} MiB) = "
+        f"{n} engine ticks = {run['window_spans']} bridged spans; "
+        f"{len(kernels)} ragged-kernel device events = {L} x "
+        f"{run['window_steps']} model steps; host_statistics tick calls "
+        f"{run['calls']} = {run['ticks']} ticks run; tick host ms in the "
+        f"window {run['window_tick_ms']:.3f} profiled, "
+        f"{bare['window_tick_ms']:.3f} unprofiled (same requests); "
+        f"{run['launches']} ragged launches (= {L} x {run['steps']}); "
+        f"[{smi}]")
+    return dict(launches=run["launches"], ticks=run["ticks"],
+                window_ticks=n, window_steps=run["window_steps"],
+                window_kernel_events=len(kernels), trace_mib=mib,
+                tick_ms_profiled=run["window_tick_ms"],
+                tick_ms_bare=bare["window_tick_ms"])
+
+
+# (b) the ResNet-50 export's graph, as the JAX exporter writes it for the
+# same architecture (175 nodes, 268 initializers; counted from the JAX
+# package's export of resnet50(num_classes=1000) on the CPU)
+RESNET50_ONNX_OPS = {"Conv": 53, "BatchNormalization": 53, "Relu": 49,
+                     "Add": 16, "MaxPool": 1, "GlobalAveragePool": 1,
+                     "Reshape": 1, "Gemm": 1}
+RESNET50_ONNX_INITS = 268
+# the graph run by onnx_eval (torch ops, channels-last, f32 with TF32 off)
+# vs the port's forward: the same layers in the same order, the pooling's
+# mean and the head's product summed in other orders
+ONNX_LOGITS_REL = 1e-5
+ONNX_B = 8
+
+
+def onnx_run() -> dict:
+    """Phase 23 (b): ``onnx.export`` of ResNet-50 (f32, published widths)
+    from the card, its graph run on the card; the folded bf16 model's
+    export falls back to a ``.pdmodel`` that ``create_predictor`` serves
+    on row 12."""
+    import warnings
+    from collections import Counter
+    from paddle_tpu_torch import inference, jit, onnx
+    from paddle_tpu_torch.analysis import fold_conv_bn
+    from paddle_tpu_torch.onnx import _proto as P
+    from paddle_tpu_torch.ops.kernels import conv_epilogue as ce
+    smi = nvidia_smi_line()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_onnx_")
+    model = make_resnet50(torch.float32, seed=230)
+    spec = [jit.InputSpec([None, 3, RESNET_IMAGE, RESNET_IMAGE], "float32")]
+    t0 = time.perf_counter()
+    with warnings.catch_warnings():
+        warnings.simplefilter("error")      # no fallback here
+        path = onnx.export(model, os.path.join(tmp, "resnet50"),
+                           input_spec=spec)
+    export_s = time.perf_counter() - t0
+    assert path.endswith(".onnx"), path
+    blob = open(path, "rb").read()
+    graph = P.fields(blob, 7)[0]
+    ops = [P.fields(n, 4)[0].decode() for n in P.fields(graph, 1)]
+    assert Counter(ops) == RESNET50_ONNX_OPS, Counter(ops)
+    assert ops[-3:] == ["GlobalAveragePool", "Reshape", "Gemm"], ops[-3:]
+    inits = onnx_initializers(blob)
+    assert len(inits) == RESNET50_ONNX_INITS, len(inits)
+    # every float initializer is a tensor of the card model, bitwise
+    want = Counter((tuple(t.shape), t.detach().cpu().contiguous().numpy()
+                    .tobytes()) for t in list(model.parameters())
+                   + [b for n, b in model.named_buffers()
+                      if n.endswith(("_mean", "_variance"))])
+    got = Counter((v.shape, v.tobytes()) for v in inits.values()
+                  if v.dtype == np.float32)
+    assert got == want, (sum(got.values()), sum(want.values()))
+    x = resnet_input(ONNX_B, torch.float32, seed=231).contiguous(
+        memory_format=torch.channels_last)
+    with torch.no_grad():
+        ref = model(x)
+        out = onnx_eval(blob, x)
+    assert out.shape == ref.shape == (ONNX_B, 1000)
+    rel = float((out - ref).abs().max() / ref.abs().max())
+    assert rel <= ONNX_LOGITS_REL, rel
+    rec = dict(export_s=export_s, onnx_mib=len(blob) / 2 ** 20,
+               nodes=len(ops), logits_rel=rel)
+    log(f"23 (b) onnx.export resnet50 f32 ({RESNET_IMAGE}, 1000 classes) "
+        f"from the card in {export_s:.2f} s, {len(blob) / 2 ** 20:.1f} MiB: {len(ops)} "
+        f"nodes {dict(Counter(ops))}, {len(inits)} initializers = the card "
+        f"model's tensors bitwise; the graph on the card (B {ONNX_B}) vs "
+        f"the port's forward: {rel:.3g} of the logit scale (bound "
+        f"{ONNX_LOGITS_REL}); [{smi}]")
+    del model
+    # the folded bf16 model: no emitter for ConvBnAct, so jit.save's program
+    folded, fired = fold_conv_bn(make_resnet50(torch.bfloat16, seed=232))
+    assert fired == {"conv-bn-fold": 53}, fired
+    t0 = time.perf_counter()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        path = onnx.export(folded, os.path.join(tmp, "resnet50_folded"),
+                           input_spec=[jit.InputSpec(
+                               [None, 3, RESNET_IMAGE, RESNET_IMAGE],
+                               "bfloat16")])
+    fallback_s = time.perf_counter() - t0
+    assert path.endswith(".pdmodel"), path
+    assert any(issubclass(w.category, UserWarning)
+               and "onnx.export" in str(w.message) for w in caught), caught
+    pred = inference.create_predictor(inference.Config(path[:-8]))
+    xn = resnet_input(ONNX_B, torch.float32, seed=233).cpu().numpy()
+    with torch.no_grad():
+        want = folded(torch.from_numpy(xn).to("cuda", torch.bfloat16)) \
+            .float().cpu().numpy()
+    ce.matmul_bias_act.launches = 0
+    got = pred.run([xn])[0]
+    launches = ce.matmul_bias_act.launches
+    assert launches == 33, launches
+    assert np.array_equal(got, want), np.abs(got - want).max()
+    rec.update(fallback_s=fallback_s, launches=launches,
+               pdmodel_mib=os.path.getsize(path) / 2 ** 20)
+    log(f"23 (b) folded bf16 resnet50: onnx.export warned and wrote "
+        f"{os.path.basename(path)} ({rec['pdmodel_mib']:.1f} MiB) in "
+        f"{fallback_s:.2f} s; create_predictor's run at B {ONNX_B}: "
+        f"{launches} row-12 launches, output = the eager folded forward "
+        f"bitwise; [{smi}]")
+    return rec
+
+
+# (c) the f16 O1 scaler's run: a small first scale so only the seeded inf
+# overflows (a random-init ResNet-50's f16 gradients at 2^16 may not)
+AMP_F16_STEPS, AMP_INF_STEP, AMP_INIT_SCALE = 5, 2, 1024.0
+AMP_O2_STEPS = 3
+
+
+def _o2_step(model, opt, dtype: str, scaler=None):
+    """A ``make_train_step``-style step under ``auto_cast(dtype=...)``
+    (O2 for bf16 on a decorated model, O1 for f16 with ``scaler``)."""
+    from paddle_tpu_torch.amp import auto_cast
+    from paddle_tpu_torch.vision.train import classification_loss
+    level = "O2" if scaler is None else "O1"
+
+    def step(x, y):
+        with auto_cast(True, level=level, dtype=dtype):
+            loss = classification_loss(model(x), y)
+        if scaler is None:
+            loss.backward()
+            opt.step()
+        else:
+            scaler.scale(loss).backward()
+            scaler.step(opt)
+            scaler.update()
+        opt.clear_grad()
+        return loss.detach()
+
+    step.optimizer = opt
+    return step
+
+
+def _snapshot(model, opt) -> list:
+    return [t.detach().clone() for t in list(model.parameters()) + [
+        v for slot in ("velocity", "master_weight")
+        for v in opt._accumulators.get(slot, {}).values()]]
+
+
+def amp_train_run(seed: int = 235) -> dict:
+    """Phase 23 (c): O2 ``decorate`` (bf16, f32 masters) and f16 O1 with a
+    ``GradScaler`` on phase 19's ResNet-50 step (B 128), against the f32
+    witness from the same state."""
+    import warnings
+    from paddle_tpu_torch import amp
+    from paddle_tpu_torch.models._layers import BatchNorm2D
+    from paddle_tpu_torch.optimizer import Momentum
+    from paddle_tpu_torch.vision.train import (classification_loss,
+                                               make_train_step)
+    smi = nvidia_smi_line()
+    x, y = train_batch(TRAIN_B, 3, TRAIN_IMAGE, TRAIN_CLASSES, seed + 1)
+    losses32, grads32 = resnet50_f32_witness(seed, x, y, AMP_O2_STEPS)
+    flags = (torch.backends.cudnn.allow_tf32,
+             torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        model, _ = make_train_resnet50(seed, prepare=True)
+        f32_ms = chained_step_ms(make_train_step(
+            model, lr=TRAIN_LR, momentum=TRAIN_MOMENTUM, amp=False), x, y,
+            n1=6)
+    finally:
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32) = flags
+    del model
+    # O2: bf16 parameters but BN's, f32 masters in the optimizer
+    model, _ = make_train_resnet50(seed, prepare=True)
+    model.train()
+    opt = Momentum(TRAIN_LR, TRAIN_MOMENTUM, list(model.parameters()),
+                   multi_precision=True)
+    amp.decorate(model, opt, level="O2", dtype="bfloat16")
+    bn = {id(p) for m in model.modules() if isinstance(m, BatchNorm2D)
+          for p in m.parameters()}
+    for p in model.parameters():
+        assert p.dtype == (torch.float32 if id(p) in bn
+                           else torch.bfloat16), p.dtype
+    step = _o2_step(model, opt, "bfloat16")
+    grads = spy_grads(step, model)
+    losses = [float(step(x, y)) for _ in range(AMP_O2_STEPS)]
+    assert all(math.isfinite(v) for v in losses), losses
+    masters = opt._accumulators["master_weight"]
+    assert len(masters) == sum(1 for p in model.parameters()
+                               if id(p) not in bn), len(masters)
+    assert all(m.dtype == torch.float32 for m in masters.values())
+    agree = grad_agreement(grads, grads32)
+    head_cos, head_ratio = agree["groups"]["fc"]
+    assert WITNESS_RATIO[0] <= agree["ratio"] <= WITNESS_RATIO[1], agree
+    assert head_cos >= WITNESS_HEAD_COS, agree
+    assert WITNESS_HEAD_RATIO[0] <= head_ratio <= WITNESS_HEAD_RATIO[1], \
+        agree
+    o2_ms = chained_step_ms(step, x, y, n1=6)
+    log(f"23 (c) O2 bf16 resnet50 B {TRAIN_B} (decorate: "
+        f"{len(masters)} bf16 parameters with f32 masters, {len(bn)} BN "
+        f"parameters f32): losses {[round(v, 4) for v in losses]}, f32 "
+        f"witness {[round(v, 4) for v in losses32]}; first-step gradients "
+        f"vs f32: norm ratio {agree['ratio']:.4f}, fc cosine "
+        f"{head_cos:.4f} / ratio {head_ratio:.4f} (bounds {WITNESS_RATIO}, "
+        f">= {WITNESS_HEAD_COS}, {WITNESS_HEAD_RATIO}); {o2_ms:.3f} ms a "
+        f"step against the f32 witness's {f32_ms:.3f} (TF32 off); [{smi}]")
+    del model, opt, step, grads
+    gc.collect()
+    torch.cuda.empty_cache()
+    # f16 O1 with the scaler; one gradient element set to inf at step 2
+    model, _ = make_train_resnet50(seed, prepare=True)
+    model.train()
+    opt = Momentum(TRAIN_LR, TRAIN_MOMENTUM, list(model.parameters()),
+                   multi_precision=True)
+    scaler = amp.GradScaler(init_loss_scaling=AMP_INIT_SCALE,
+                            incr_every_n_steps=2)
+    first = next(model.parameters())
+    want = dict(scale=AMP_INIT_SCALE, good=0, bad=0)
+    trail, f16_losses, syncs = [], [], None
+    for i in range(AMP_F16_STEPS):
+        with amp.auto_cast(True, dtype="float16"):
+            loss = classification_loss(model(x), y)
+        scaler.scale(loss).backward()
+        f16_losses.append(float(loss.detach()))
+        if i == AMP_INF_STEP:
+            with torch.no_grad():
+                first.grad.view(-1)[0] = float("inf")
+            before = _snapshot(model, opt)
+        if i == AMP_INF_STEP + 1:
+            # one unscale_ reads back one flag for the whole gradient set
+            torch.cuda.synchronize()
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                torch.cuda.set_sync_debug_mode("warn")
+                try:
+                    scaler.unscale_(opt)
+                finally:
+                    torch.cuda.set_sync_debug_mode(0)
+            # (the mode's first use also warns that it is a prototype)
+            syncs = [str(w.message)[:160] for w in caught
+                     if "called a synchronizing" in str(w.message)]
+        scaler.step(opt)
+        scaler.update()
+        opt.clear_grad()
+        if i == AMP_INF_STEP:
+            after = _snapshot(model, opt)
+            assert all(torch.equal(a, b) for a, b in zip(before, after))
+        # the JAX package's rule (grad_scaler.py update)
+        found = i == AMP_INF_STEP
+        assert scaler._found_inf == found, (i, scaler._found_inf)
+        if found:
+            want.update(bad=want["bad"] + 1, good=0)
+            if want["bad"] >= 1:
+                want.update(scale=max(want["scale"] * 0.5, 1.0), bad=0)
+        else:
+            want.update(good=want["good"] + 1, bad=0)
+            if want["good"] >= 2:
+                want.update(scale=want["scale"] * 2.0, good=0)
+        got = dict(scale=scaler.get_loss_scaling(),
+                   good=scaler._good_steps, bad=scaler._bad_steps)
+        assert got == want, (i, got, want)
+        trail.append(got["scale"])
+    assert trail[1] == 2 * AMP_INIT_SCALE, trail    # two good steps
+    assert len(syncs) == 1, syncs
+    syncs = len(syncs)
+    assert all(math.isfinite(v) for v in f16_losses), f16_losses
+    f16_ms = chained_step_ms(_o2_step(model, opt, "float16", scaler), x, y,
+                             n1=6)
+    log(f"23 (c) f16 O1 + GradScaler(init {AMP_INIT_SCALE}, incr every 2): "
+        f"losses {[round(v, 4) for v in f16_losses]}; scale after each "
+        f"step {trail} (inf seeded at step {AMP_INF_STEP}: parameters and "
+        f"velocities bitwise unchanged, no masters for f32 parameters); "
+        f"one unscale_ made {syncs} host sync; {f16_ms:.3f} ms a step; "
+        f"[{smi}]")
+    return dict(losses_o2=losses, losses_f32=losses32, o2_ms=o2_ms,
+                f32_ms=f32_ms, f16_ms=f16_ms, scales=trail,
+                grad_ratio=agree["ratio"], fc_cos=head_cos)
+
+
+# (d) check_numerics' seeded tensor: NaN, Inf and zero elements placed
+# at seeded positions among N(0, 1) values (which hold no exact zero)
+NUMERICS_N, NUMERICS_COUNTS = 1 << 20, (37, 11, 5)
+
+
+def debugging_run() -> dict:
+    """Phase 23 (d): the tensor checker on the card; ``check_numerics``."""
+    from paddle_tpu_torch.amp import debugging as dbg
+    smi = nvidia_smi_line()
+    cfg = dbg.TensorCheckerConfig(enable=True)
+    a = torch.ones(4, dtype=torch.bfloat16, device="cuda")
+    b = torch.zeros(4, dtype=torch.bfloat16, device="cuda")
+    with dbg.debug_guard(cfg):
+        try:
+            a / b
+        except FloatingPointError as e:
+            msg = str(e)
+        else:
+            raise AssertionError("1/0 in bf16 raised nothing under the "
+                                 "checker")
+    assert "div" in msg, msg
+    assert torch.isinf(a / b).all()     # off again
+    model = make_resnet50(torch.bfloat16, seed=236)
+    x = resnet_input(8, torch.bfloat16, seed=237)
+    with torch.no_grad():
+        plain = model(x)
+        plain_ms, _ = time_forwards(model, x, 5)
+        with dbg.debug_guard(cfg):
+            checked = model(x)
+            checked_ms, _ = time_forwards(model, x, 5)
+    assert torch.equal(plain, checked)
+    gen = torch.Generator().manual_seed(238)
+    t = torch.randn(NUMERICS_N, generator=gen)
+    pos = torch.randperm(NUMERICS_N, generator=gen)
+    n_nan, n_inf, n_zero = NUMERICS_COUNTS
+    t[pos[:n_nan]] = float("nan")
+    t[pos[n_nan:n_nan + n_inf]] = float("inf")
+    t[pos[n_nan + n_inf:n_nan + n_inf + n_zero]] = 0.0
+    t = t.to("cuda")
+    counts = tuple(int(c) for c in dbg.check_numerics(
+        t, debug_mode=dbg.DebugMode.CHECK_ALL))
+    assert counts == NUMERICS_COUNTS, counts
+    try:
+        dbg.check_numerics(t, op_type="probe", var_name="t")
+    except FloatingPointError:
+        pass
+    else:
+        raise AssertionError("check_numerics did not abort")
+    log(f"23 (d) debugging: bf16 1/0 under debug_guard raised "
+        f"FloatingPointError ({msg}); resnet50 bf16 B 8 logits under the "
+        f"checker = without it bitwise ({checked_ms:.3f} ms a forward "
+        f"checked, {plain_ms:.3f} unchecked); check_numerics counts "
+        f"{counts} = seeded {NUMERICS_COUNTS}; [{smi}]")
+    return dict(checked_ms=checked_ms, plain_ms=plain_ms)
+
+
+def phase23() -> dict:
+    """Phase 23 (b), (c), (d); (a) runs beside phase 4."""
+    t0 = time.perf_counter()
+    rec = dict(onnx=onnx_run())
+    gc.collect()
+    torch.cuda.empty_cache()
+    rec["amp"] = amp_train_run()
+    gc.collect()
+    torch.cuda.empty_cache()
+    rec["debug"] = debugging_run()
+    log(f"phase 23 (b)-(d) in {time.perf_counter() - t0:.1f} s")
+    return rec
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -7348,6 +7959,11 @@ def main() -> int:
     int8_rec = int8_kernel_phase()
     params, cfg = init_8b()
     serving = serving_phase(params, cfg)
+    # phase 23 (a): the profiler over the engine while the 8B weights live
+    t23 = time.perf_counter()
+    profiled = profiler_engine_run(params, cfg)
+    t23 = time.perf_counter() - t23
+    log(f"phase 23 (a) in {t23:.1f} s")
     paths = paged_paths_phase(params, cfg)
     # phase 20 (c): the ragged batcher while the 8B weights are alive
     ragged = ragged_batcher_run(params, cfg)
@@ -7407,6 +8023,9 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     hapi = hapi_phase()
+    gc.collect()
+    torch.cuda.empty_cache()
+    p23 = phase23()
 
     a = rec["a_serving_mix"]
     kernels = [{
@@ -7567,6 +8186,24 @@ def main() -> int:
         launches=hapi["launches"], max_abs_err=hapi["max_abs_err"],
         ms=ht["ms"], plain_ms=ht["plain_ms"], bound_ms=ht["bound_ms"],
         bound_by=ht["bound_by"], library_ms=ht["library_ms"]))
+    # phase 23 (a): the ragged kernel on every tick of the profiled engine
+    # (times: phase 3's serving mix); (b): row 12 under the predictor of
+    # the folded model's ONNX fallback (times: phase 11's 33 B-8 sites)
+    kernels.append(dict(
+        name="ragged_paged_attention_profiled", route="cuda",
+        source="paddle_tpu_torch/csrc/ragged_paged_attention.cu",
+        replaces="paddle_tpu/ops/pallas/ragged_paged_attention.py:301",
+        launches=profiled["launches"], max_abs_err=a["bf16_max_abs_err"],
+        ms=a["ms"], plain_ms=a["plain_ms"], bound_ms=a["bound_ms"],
+        bound_by=a["bound_by"], library_ms=a["library_ms"]))
+    kernels.append(dict(
+        name="conv_epilogue_onnx", route="cuda",
+        source="paddle_tpu_torch/csrc/conv_epilogue.cu",
+        replaces="paddle_tpu/ops/pallas/conv_epilogue.py:46",
+        launches=p23["onnx"]["launches"], max_abs_err=ce_rec["max_abs_err"],
+        ms=ce_rec["ms"], plain_ms=ce_rec["plain_ms"],
+        bound_ms=ce_rec["bound_ms"], bound_by=ce_rec["bound_by"],
+        library_ms=ce_rec["library_ms"]))
     bm = paged_rec["bench_mix"]
     kernels.append(dict(
         name="paged_attention_stats_batcher", route="cuda",

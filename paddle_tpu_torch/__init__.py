@@ -46,7 +46,10 @@ still launches its kernel; the high-level trainer ``hapi.Model``
 onto the card), ``vision.transforms`` / ``vision.datasets``, ``metric``,
 the Paddle optimizers and LR schedulers (``optimizer``,
 ``optimizer.lr``), the clips and loss layers (``nn``) and ``save`` /
-``load`` (``framework.io``).
+``load`` (``framework.io``); ONNX export (``onnx``), the rest of ``amp``
+(``GradScaler``, O2 ``decorate``, ``debugging``) over ``core.flags``,
+and ``profiler`` (``RecordEvent`` at the engine's ticks, bridged into
+the span tracer by ``observability.bridge_record_events``).
 """
 from .device import resolve_device
 from .framework.io import load, save

@@ -1,4 +1,5 @@
-"""``auto_cast``: O1 mixed precision, as ``paddle_tpu/amp/auto_cast.py``.
+"""``auto_cast`` (O1) and ``decorate`` (O2), as
+``paddle_tpu/amp/auto_cast.py``.
 
 Paddle's O1 decides per op by name: an op on ``white_list`` runs its
 floating inputs in the low-precision dtype (bf16 by default), an op on
@@ -15,7 +16,21 @@ affine promotes it to f32, relu, pooling and the residual add keep f32.
 differ between CUDA and the CPU.
 
 The state is a context variable (per thread and per asyncio task), set
-by ``auto_cast`` for the ``with`` block. ``decorate`` (O2) is not ported.
+by ``auto_cast`` for the ``with`` block.
+
+``decorate(models, optimizers, level="O2", dtype)`` casts every floating
+parameter to the AMP dtype except those of the norm layers (the port's
+``BatchNorm2D``, torch's BatchNorm and LayerNorm) and of
+``excluded_layers`` (types or instances), and sets each optimizer's
+``_multi_precision`` (True unless ``master_weight`` says otherwise), so
+it keeps f32 master weights. Buffers keep their dtype. What a decorated
+layer then computes in follows the JAX package's dtype rules, which are
+not the O1/O2 lists (its dispatch never applies them): ``Linear``
+promotes an f32 input against bf16 parameters to f32, and a conv given
+an input of another dtype than its weight raises, as ``lax.conv``
+does. Under ``auto_cast(level="O2")`` the port's call sites cast, so a
+decorated conv-BN network trains there (the JAX package's would raise at
+the conv after the first BN).
 """
 from __future__ import annotations
 
@@ -23,9 +38,11 @@ import contextvars
 from typing import NamedTuple, Optional, Set
 
 import torch
+from torch import nn
 
 __all__ = ["white_list", "black_list", "auto_cast", "amp_transform_args",
-           "amp_cast"]
+           "amp_cast", "decorate", "is_bfloat16_supported",
+           "is_float16_supported"]
 
 # ops that benefit from low precision (MXU-bound)
 white_list: Set[str] = {
@@ -125,3 +142,64 @@ def amp_cast(op_name: str, *tensors):
         return tensors
     return tuple(t.to(dt) if t is not None and t.is_floating_point()
                  else t for t in tensors)
+
+
+def _norm_layer(m: nn.Module) -> bool:
+    from ..models._layers import BatchNorm2D
+    return isinstance(m, (BatchNorm2D, nn.modules.batchnorm._BatchNorm,
+                          nn.LayerNorm))
+
+
+@torch.no_grad()
+def decorate(models, optimizers=None, level="O2", dtype="bfloat16",
+             master_weight=None, save_dtype=None, master_grad=False,
+             excluded_layers=None):
+    """O2 decoration (module docstring). Returns what the JAX package
+    returns: the model or the list, and the optimizers when given."""
+    single_model = isinstance(models, nn.Module)
+    model_list = [models] if single_model else list(models)
+    if level == "O2":
+        dt = _to_dtype(dtype)
+        excluded = set()
+        if excluded_layers:
+            ex = (excluded_layers
+                  if isinstance(excluded_layers, (list, tuple))
+                  else [excluded_layers])
+            types = tuple(e for e in ex if isinstance(e, type))
+            insts = [e for e in ex if isinstance(e, nn.Module)]
+            for m in model_list:
+                for layer in m.modules():
+                    if isinstance(layer, types) or any(layer is e
+                                                       for e in insts):
+                        excluded.update(id(p) for p in layer.parameters())
+        for m in model_list:
+            for layer in m.modules():
+                if _norm_layer(layer):
+                    excluded.update(id(p) for p in
+                                    layer.parameters(recurse=False))
+            for p in m.parameters():
+                if id(p) not in excluded and p.is_floating_point():
+                    p.data = p.data.to(dt)
+        for opt in ([optimizers] if optimizers is not None
+                    and not isinstance(optimizers, (list, tuple))
+                    else (optimizers or [])):
+            opt._multi_precision = (True if master_weight is None
+                                    else master_weight)
+    if optimizers is None:
+        return models if single_model else model_list
+    return (models if single_model else model_list), optimizers
+
+
+def is_bfloat16_supported(device=None) -> bool:
+    """bf16 on ``device`` (the card unless the CPU is asked for): the
+    CPU, or a card of compute capability 8.0 and up."""
+    from ..device import resolve_device
+    dev = resolve_device(device)
+    return dev.type == "cpu" or torch.cuda.get_device_capability(dev) >= (8, 0)
+
+
+def is_float16_supported(device=None) -> bool:
+    """f16 on ``device`` (the card unless the CPU is asked for)."""
+    from ..device import resolve_device
+    dev = resolve_device(device)
+    return dev.type == "cpu" or torch.cuda.get_device_capability(dev) >= (5, 3)

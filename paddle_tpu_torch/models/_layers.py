@@ -15,7 +15,8 @@ otherwise:
   so it does not update them here).
 * ``Linear``: ``weight`` is ``[in, out]`` (Paddle's layout), used as the
   transposed operand of ``F.linear`` (a view, no copy); an op named
-  ``linear`` for ``auto_cast``.
+  ``linear`` for ``auto_cast``; input and parameters of different dtypes
+  (an O2-decorated layer fed f32) promote, as ``jnp`` does.
 * ``conv`` builds a ``Conv2D``: ``nn.Conv2d`` with OIHW weights, ``bias``
   as Paddle's ``bias_attr`` (a bias unless False), an op named
   ``conv2d`` for ``auto_cast``; ``stem_s2d`` (set by
@@ -136,7 +137,11 @@ class Linear(nn.Module):
 
     def forward(self, x):
         x, w, b = amp_cast("linear", x, self.weight, self.bias)
-        return F.linear(x, w.t(), b)
+        # mixed dtypes (an O2 layer fed f32) promote, as jnp does; no
+        # branch on the dtypes, so torch.fx traces the layer (the fold)
+        dt = torch.promote_types(torch.promote_types(x.dtype, w.dtype),
+                                 b.dtype)
+        return F.linear(x.to(dt), w.t().to(dt), b.to(dt))
 
 
 class Conv2D(nn.Conv2d):

@@ -14,10 +14,10 @@
                        (sentinel.py)
 
 Wired through ``serving.ServingEngine`` (``trace=``, ``flight_ticks=``,
-``flight_dir=``, ``recompile_sentinel=``; on by default). The JAX
-package's ``bridge_record_events`` mirrors ``paddle_tpu.profiler``
-spans and waits for the port's profiler; the engine's device-trace
-annotations are ``torch.profiler.record_function`` ranges meanwhile.
+``flight_dir=``, ``recompile_sentinel=``; on by default).
+``bridge_record_events`` mirrors every closing ``profiler.RecordEvent``
+span (the engine's ``serving.tick``, ``serving.decode_step`` and
+``serving.admit`` among them) into a ``SpanTracer``.
 """
 from .flight import FlightRecorder, default_flight_dir  # noqa: F401
 from .sentinel import (COMPILE_EVENT, RECOMPILES_METRIC,  # noqa: F401
@@ -26,4 +26,21 @@ from .tracer import Span, SpanTracer, current_span  # noqa: F401
 
 __all__ = ["SpanTracer", "Span", "current_span", "FlightRecorder",
            "default_flight_dir", "RecompileSentinel", "RecompileWarning",
-           "COMPILE_EVENT", "RECOMPILES_METRIC"]
+           "COMPILE_EVENT", "RECOMPILES_METRIC", "bridge_record_events"]
+
+
+def bridge_record_events(tracer: SpanTracer, track: str = "profiler"):
+    """Mirror every closing ``profiler.RecordEvent`` span into
+    ``tracer`` on one ``track``: the device-trace annotations and the
+    serving engine's own spans then read in the same Perfetto export.
+    Returns a zero-arg detach callable."""
+    from .. import profiler
+
+    def _sink(name, t0_s, t1_s):
+        tracer.add(name, track, t0_s, t1_s)
+
+    profiler.add_span_sink(_sink)
+
+    def detach():
+        profiler.remove_span_sink(_sink)
+    return detach

@@ -48,10 +48,13 @@ Port of ``paddle_tpu/serving/engine.py``:
     postmortem (``postmortem_path``); the recompile sentinel turns a
     kernel library loaded after ``arm_sentinel()`` into a named WARN
     metric and a ``RecompileWarning``. ``warm_programs()`` loads every
-    library of the engine's inventory before it is armed. Device-trace
-    annotations are ``torch.profiler.record_function`` ranges (the JAX
-    engine's ``RecordEvent`` sites), and every serving lock goes through
-    ``locktrace.wrap_lock``;
+    library of the engine's inventory before it is armed. Ticks and
+    admissions are ``profiler.RecordEvent`` spans (``serving.tick``,
+    ``serving.decode_step``, ``serving.admit``, the JAX engine's sites:
+    ``torch.profiler`` ranges, ``host_statistics``, bridged into a
+    ``SpanTracer`` by ``observability.bridge_record_events``); the loop
+    takes up ``FLAGS_check_nan_inf`` once a turn (``amp.debugging``), and
+    every serving lock goes through ``locktrace.wrap_lock``;
   - the model module comes from ``model=`` or the config's type
     (``llama``, ``qwen2_moe``): its ``init_serving_pages``,
     ``serving_tick`` and ``serving_tick_block`` run the ticks, and
@@ -90,12 +93,12 @@ import torch
 
 from ..analysis.kv_invariants import (KVInvariantError, audit_defrag_plan,
                                       audit_serving_state)
-from torch.profiler import record_function
-
+from ..amp import debugging
 from ..device import resolve_device
 from ..inference.paged_kv import PagePool, apply_defrag
 from ..models import llama, qwen2_moe
 from ..observability import FlightRecorder, RecompileSentinel, SpanTracer
+from ..profiler import RecordEvent
 from ..quantization.decode import is_quantized_params, quantize_for_decode
 from .locktrace import get_tracer, host_sync, wrap_lock
 from .metrics import ServingMetrics
@@ -1384,7 +1387,7 @@ class ServingEngine:
                     + sum(1 + d.size for d in drafts.values()))
         t0 = time.perf_counter()
         m0 = time.monotonic()
-        with record_function("serving.tick"), \
+        with RecordEvent("serving.tick"), \
                 self.tracer.span("serving.tick", track="engine.decode",
                                  tick=self._tick_no, width=int(span_tok),
                                  live=len(live), span_tokens=int(span_tok),
@@ -1459,7 +1462,7 @@ class ServingEngine:
         lands on the trash page or past the length)."""
         k = self._decode_block
         t0 = time.perf_counter()
-        with record_function("serving.decode_step"), \
+        with RecordEvent("serving.decode_step"), \
                 self.tracer.span("serving.tick", track="engine.decode",
                                  tick=self._tick_no, kind="block",
                                  live=len(live), steps=k):
@@ -1544,6 +1547,8 @@ class ServingEngine:
 
     def _run(self) -> None:
         while True:
+            # FLAGS_check_nan_inf is process-wide, the checker per thread
+            debugging.sync_thread()
             with self._tick_lock:
                 now = time.monotonic()
                 self._sweep(now)
@@ -1568,7 +1573,7 @@ class ServingEngine:
                     if frontier:
                         self._rewarm_cold(frontier[:4])
                 t_adm = time.monotonic()
-                with record_function("serving.admit"):
+                with RecordEvent("serving.admit"):
                     admitted = self.scheduler.admit(only=frontier)
                 if admitted:
                     # only when work happened: an idle engine polls

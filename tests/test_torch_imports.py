@@ -78,6 +78,12 @@ from paddle_tpu_torch.inference import (
 from paddle_tpu_torch.core import graph_trace
 from paddle_tpu_torch import static
 from paddle_tpu_torch.static import nn as static_nn
+from paddle_tpu_torch import onnx, profiler
+from paddle_tpu_torch.onnx import _proto, export
+from paddle_tpu_torch.amp import (GradScaler, debugging, decorate,
+                                  grad_scaler)
+from paddle_tpu_torch.core import flags
+from paddle_tpu_torch.observability import bridge_record_events
 from paddle_tpu_torch.ops.kernels import _op
 _op.register_all()
 bad = sorted(m for m in sys.modules
@@ -104,7 +110,7 @@ def test_entry_points_raise_without_cuda_or_device():
     from paddle_tpu_torch.vision import models as zoo
     from paddle_tpu_torch.vision.models import resnet50
     from paddle_tpu_torch.vision.train import make_train_step
-    from paddle_tpu_torch import Model, load
+    from paddle_tpu_torch import Model, amp, load
     from paddle_tpu_torch.io import DataLoader, TensorDataset
     cfg = llama.LlamaConfig.tiny()
     qcfg = qwen2_moe.Qwen2MoeConfig.tiny(moe_impl="dropless")
@@ -154,6 +160,8 @@ def test_entry_points_raise_without_cuda_or_device():
         lambda: DataLoader(TensorDataset([torch.zeros(4)])),
         lambda: load(os.devnull),
         lambda: Model(torch.nn.ReLU()).predict([torch.zeros(2)]),
+        lambda: amp.is_bfloat16_supported(),
+        lambda: amp.is_float16_supported(),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="CUDA"):
