@@ -4,9 +4,11 @@ speculative decoding, Qwen2-MoE), training paths (Llama-3-8B, Qwen2-MoE
 dropless training), ResNet-50 and the rest of the vision zoo (inference
 and the train step), the deployment front end (``jit.save`` →
 ``create_predictor``, ``DynamicBatcher``, ``to_static``), the
-capture of the Llama and Qwen2-MoE paths and the high-level trainer
-(``hapi.Model`` on ResNet-50 fed by ``io.DataLoader``) on one NVIDIA
-H100 and check them.
+capture of the Llama and Qwen2-MoE paths, the high-level trainer
+(``hapi.Model`` on ResNet-50 fed by ``io.DataLoader``), ONNX, ``amp``
+and the profiler, and data- and tensor-parallel Llama training (ranks
+spawned on the card over ``torch.distributed``) on one NVIDIA H100 and
+check them.
 
 Run from the repository root with no arguments:
 
@@ -418,8 +420,32 @@ Phases (any failed check raises; nothing is caught):
    ``check_numerics`` counts a seeded tensor's NaN, Inf and zeros
    exactly.
 
+24. data- and tensor-parallel training over ``torch.distributed`` at
+   ``llama3_8b`` widths cut to ``PAR_LAYERS`` layers, T 2048: (a) rows
+   5-8 at tp 2's per-rank shapes (flash attention at H 16 / Hkv 4,
+   RMSNorm forward and backward over the 1024 rows of the
+   sequence-sharded stream, RoPE on 16 + 4 heads) against their plain
+   versions to phase 5's bounds, with ``time_ms``, bound, plain and
+   library times; then four ranks spawned by ``distributed.spawn`` on the
+   one card, over gloo (NCCL refuses two ranks of a communicator on one
+   device): (b) ``make_train_step(mesh=init_hybrid_mesh(tp=2))``, f32,
+   TF32 off, 2 steps from the same seeded state as a one-device witness
+   the parent runs first (its params written to a temporary directory,
+   the card freed before the spawn): losses within ``PAR_TP_LOSS_REL``
+   and every parameter leaf within ``PAR_TP_ATOL`` but for
+   ``PAR_TP_FRAC`` of it, all within ``PAR_TP_MAX``; (c) dp 2, bf16,
+   ZeRO 0, 1, 2 and 3, 2 steps each: losses equal and every parameter
+   bitwise ZeRO 0's, moments halved from stage 1 and parameters at stage
+   3, no whole-gradient all-reduce at stages 2-3, stage 3's all-gather
+   bytes within ``tests/test_zero_sharding.py``'s bound; (d) dp 2 x tp
+   2, bf16, ZeRO 1, 3 steps: finite losses equal on every rank; on every
+   rank of (b)-(d) each kernel's launches = phase 6's per-step formula
+   at the local depth x steps. Printed: per-rank peak memory and state
+   bytes, the collectives' calls and bytes by kind, step ms and the
+   share of it in the collectives (timed alone, card synchronized).
+
 Phases run in the order 1, 2, 3, 5, 7, 4, 23 (a), 8, 20 (c), 21 (c),
-21 (d), 13, 15, 16, 17, 14, 6, 9, 10, 11, 12, 18, 19, 20, 21, 22, 23:
+21 (d), 13, 15, 16, 17, 14, 6, 9, 10, 11, 12, 18, 19, 20, 21, 22, 23, 24:
 phase 14 starts
 after the 8B serving state is freed, phase 6 after phase 14's, phases 9
 and 10 after phase 6's.
@@ -1424,9 +1450,8 @@ def check_rms_norm(seed: int = 10) -> dict:
     return errs
 
 
-def check_rope(seed: int = 11) -> dict:
+def check_rope(seed: int = 11, gm=TRAIN_GEOM) -> dict:
     from paddle_tpu_torch.ops.kernels import fused_norm_rope as nr
-    gm = TRAIN_GEOM
     gen = torch.Generator(device="cuda").manual_seed(seed)
     q = _randn((1, 2048, gm["H"], gm["Dh"]), gen)
     k = _randn((1, 2048, gm["Hkv"], gm["Dh"]), gen)
@@ -1452,13 +1477,15 @@ def check_rope(seed: int = 11) -> dict:
     return errs
 
 
-def train_kernel_bounds() -> dict:
+def train_kernel_bounds(gm=TRAIN_GEOM, rows: int = 2048,
+                        widths=RMS_BWD_WIDTHS) -> dict:
     """Least time of each train-step kernel at the smoke's bf16 shapes
-    (T = S = 2048): bytes (each input read once, each output written once)
-    over 3.35 TB/s against operations over the bf16 peak. Each entry is
+    (T = S = 2048, ``gm``'s heads, RMSNorm over ``rows`` rows): bytes
+    (each input read once, each output written once) over 3.35 TB/s
+    against operations over the bf16 peak. Each entry is
     ``(ms, "bytes" or "operations", minimal operations)``."""
-    gm = TRAIN_GEOM
     T, H, Hkv, Dh, D = 2048, gm["H"], gm["Hkv"], gm["Dh"], gm["D"]
+    N = rows
     pairs = H * T * (T + 1) / 2           # visible (query, key) pairs
     qb, kb, st = T * H * Dh * 2, T * Hkv * Dh * 2, H * T * 4
 
@@ -1469,10 +1496,10 @@ def train_kernel_bounds() -> dict:
 
     # RMSNorm backward at width d: x, g and dx, w, rstd and dw once
     def rms_bwd(d):
-        return bound(3 * T * d * 2 + d * 2 + T * 4 + d * 4, 10 * T * d)
+        return bound(3 * N * d * 2 + d * 2 + N * 4 + d * 4, 10 * N * d)
 
     return {
-        **{f"fused_rms_norm_bwd_d{d}": rms_bwd(d) for d in RMS_BWD_WIDTHS},
+        **{f"fused_rms_norm_bwd_d{d}": rms_bwd(d) for d in widths},
         # QK and PV: 2 flops per multiply-add, Dh of each per pair
         "flash_attention_fwd": bound(2 * qb + 2 * kb + st, 4 * Dh * pairs),
         # recomputed scores, dP and dq
@@ -1481,8 +1508,8 @@ def train_kernel_bounds() -> dict:
         # recomputed scores, dP, dV and dK
         "flash_attention_bwd_dkv": bound(2 * qb + 4 * kb + 2 * st,
                                          8 * Dh * pairs),
-        "fused_rms_norm_fwd": bound(2 * T * D * 2 + D * 2 + T * 4,
-                                    4 * T * D),
+        "fused_rms_norm_fwd": bound(2 * N * D * 2 + D * 2 + N * 4,
+                                    4 * N * D),
         "fused_rms_norm_bwd": rms_bwd(D),
         "fused_rope": bound(2 * (qb + kb) + T * 4, 6 * T * (H + Hkv) * Dh),
     }
@@ -1509,15 +1536,16 @@ def rms_bwd_times(N: int, D: int, gen) -> tuple:
     return ms, plain, lib
 
 
-def train_kernel_times() -> dict:
-    """bf16 kernel, plain-version and library times (ms) at T = S = 2048.
+def train_kernel_times(gm=TRAIN_GEOM, rows: int = 2048,
+                       widths=RMS_BWD_WIDTHS) -> dict:
+    """bf16 kernel, plain-version and library times (ms) at T = S = 2048
+    with ``gm``'s heads, RMSNorm over ``rows`` rows.
     Library calls (yardsticks only; the port calls none of them):
     ``scaled_dot_product_attention`` causal with GQA, forward and its
     backward; ``F.rms_norm``, forward and its backward; RoPE has none."""
     import torch.nn.functional as F
     from paddle_tpu_torch.ops.kernels import flash_attention as fa
     from paddle_tpu_torch.ops.kernels import fused_norm_rope as nr
-    gm = TRAIN_GEOM
     H, Hkv, Dh, D = gm["H"], gm["Hkv"], gm["Dh"], gm["D"]
     T = 2048
     bf = torch.bfloat16
@@ -1557,16 +1585,16 @@ def train_kernel_times() -> dict:
                                                    True)),
         plain_bwd, lib_bwd)
     del po, so, leaves, sl
-    x = _randn((T, D), gen, 2.0).to(bf)
+    x = _randn((rows, D), gen, 2.0).to(bf)
     w = (1.0 + _randn((D,), gen, 0.1)).to(bf)
     with torch.no_grad():
         out["fused_rms_norm_fwd"] = (
             time_ms(lambda: nr.rms_norm_fwd(x, w, 1e-5, "kernel")),
             time_ms(lambda: nr.rms_norm_fwd(x, w, 1e-5, "reference")),
             time_ms(lambda: F.rms_norm(x, (D,), w, 1e-5)))
-    out["fused_rms_norm_bwd"] = rms_bwd_times(T, D, gen)
-    for d in RMS_BWD_WIDTHS:
-        out[f"fused_rms_norm_bwd_d{d}"] = rms_bwd_times(T, d, gen)
+    out["fused_rms_norm_bwd"] = rms_bwd_times(rows, D, gen)
+    for d in widths:
+        out[f"fused_rms_norm_bwd_d{d}"] = rms_bwd_times(rows, d, gen)
     pos = torch.arange(T, dtype=torch.int32, device="cuda")[None]
     th = gm["theta"]
     out["fused_rope"] = (
@@ -7914,6 +7942,421 @@ def phase23() -> dict:
     return rec
 
 
+# ---------------------------------------------------------------------------
+# phase 24: data- and tensor-parallel training on one card
+# ---------------------------------------------------------------------------
+
+# llama3_8b widths cut to 4 layers: phase (b)'s two f32 ranks (15.4 GB of
+# state each) and the one-device f32 witness before them (31 GB), then
+# (c)'s two bf16 ranks at ZeRO 0 (15.4 GB each) and (d)'s four fit the
+# card and the phase's time; phase 6 trains all 32 layers on one device
+PAR_LAYERS = 4
+PAR_T = 2048
+PAR_SEED = 24
+PAR_STEPS = {"tp": 2, "zero": 2, "hybrid": 3}
+# the per-rank kernel shapes at tp 2: half of the 8B heads, and the
+# sequence-sharded stream's T / tp rows
+TP_GEOM = dict(TRAIN_GEOM, H=16, Hkv=4)
+TP_ROWS = PAR_T // 2
+TP_KERNELS = tuple(k for k in TRAIN_KERNELS
+                   if not k[0].startswith("fused_rms_norm_bwd_d"))
+# (b) tp 2 against the one-device step, f32 with TF32 off, 2 steps from
+# one state: the same math in other reduction orders (row-parallel
+# partial sums, the vocab-parallel cross entropy), so each loss within
+# 1e-5 relative. AdamW's first updates are +-lr wherever |g| >> eps, so
+# an element whose gradient is within rounding of zero can move by up to
+# 2 lr a step either way: each leaf's elements within lr / 10 of the
+# witness but for at most PAR_TP_FRAC of them, and all within two
+# updates' largest gap (4 lr; the bias-corrected Adam ratio stays below
+# 1.0003 over two steps at b1 0.9, b2 0.95) plus weight decay.
+PAR_TP_LOSS_REL = 1e-5
+PAR_LR = 3e-4
+PAR_TP_ATOL = PAR_LR / 10
+PAR_TP_FRAC = 1e-3
+PAR_TP_MAX = 4.2 * PAR_LR
+
+
+def par_cfg(dtype):
+    import dataclasses
+    from paddle_tpu_torch.models import llama
+    return dataclasses.replace(
+        llama.LlamaConfig.llama3_8b(dtype=dtype),
+        num_hidden_layers=PAR_LAYERS, use_flash_attention="kernel",
+        use_fused_norm_rope="kernel")
+
+
+def _named_leaves(params) -> list:
+    """``[(name, tensor)]`` of a trainer's params (per-layer leaves)."""
+    out = [(k, params[k]) for k in ("embed", "final_norm", "lm_head")]
+    for i, lp in enumerate(params["layers"]):
+        out += [(f"layers.{i}.{k}", v) for k, v in sorted(lp.items())]
+    return out
+
+
+def _leaf_spec(name: str):
+    from paddle_tpu_torch.models import llama
+    from paddle_tpu_torch.models.llama import _layer_spec
+    specs = llama.param_specs(None)
+    if name.startswith("layers."):
+        return _layer_spec(specs["layers"][name.split(".")[2]])
+    return specs[name]
+
+
+def tp_kernel_phase() -> dict:
+    """Phase 24 (a): rows 5-8 at the per-rank shapes of tp 2 against
+    their plain versions, to phase 5's bounds, with their times."""
+    errs = check_flash(PAR_T, PAR_T, seed=240, gm=TP_GEOM)
+    log("flash tp2 (T=S=2048, H 16, Hkv 4): " + " ".join(
+        f"{a}/{b}={v:.4g}" for (a, b), v in errs.items()))
+    check_bounds("flash tp2", errs)
+    gen = torch.Generator(device="cuda").manual_seed(241)
+    x = _randn((TP_ROWS, TP_GEOM["D"]), gen, 2.0)
+    w = 1.0 + _randn((TP_GEOM["D"],), gen, 0.1)
+    g = _randn((TP_ROWS, TP_GEOM["D"]), gen)
+    re = _rms_errs(x, w, g)
+    log(f"rms_norm tp2 (N={TP_ROWS}, D=4096): " + " ".join(
+        f"{a}/{b}={v:.4g}" for (a, b), v in re.items()))
+    check_bounds("rms_norm tp2", re)
+    pe = check_rope(seed=242, gm=TP_GEOM)
+    log("rope tp2 (16 + 4 heads): " + " ".join(
+        f"{a}/{b}={v:.4g}" for (a, b), v in pe.items()))
+    check_bounds("rope tp2", pe)
+    times = train_kernel_times(TP_GEOM, TP_ROWS, ())
+    bounds = train_kernel_bounds(TP_GEOM, TP_ROWS, ())
+    max_err = {
+        "flash_attention_fwd": errs[("o", "max_abs_err")],
+        "flash_attention_bwd_dq": errs[("dq", "max_abs_err")],
+        "flash_attention_bwd_dkv": max(errs[("dk", "max_abs_err")],
+                                       errs[("dv", "max_abs_err")]),
+        "fused_rms_norm_fwd": re[("y", "max_abs_err")],
+        "fused_rms_norm_bwd": re[("dx", "max_abs_err")],
+        "fused_rope": pe[("rope", "max_abs_err")],
+    }
+    rec = {}
+    for name, _, _ in TP_KERNELS:
+        ms, plain_ms, lib_ms = times[name]
+        b, by, _ = bounds[name]
+        rec[name] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                         bound_ms=b, bound_by=by, max_abs_err=max_err[name])
+        log(f"kernel {name} tp2 bf16: time_ms {ms:.4f}, plain "
+            f"{plain_ms:.4f} ms, library "
+            f"{'-' if lib_ms is None else f'{lib_ms:.4f}'} ms, bound "
+            f"{b:.4f} ms ({by}), max |err| vs plain {max_err[name]:.4g}")
+    return rec
+
+
+def tp_witness(out_dir: str) -> dict:
+    """Phase 24 (b)'s witness: the one-device step (f32, TF32 off), 2
+    steps from the phase's seeded state; its final params are written to
+    ``out_dir`` one ``.npy`` a leaf, and the card is freed."""
+    from paddle_tpu_torch.models import llama
+    cfg = par_cfg(torch.float32)
+    t0 = time.perf_counter()
+    step, init = llama.make_train_step(cfg)
+    state = init(torch.Generator(device="cuda").manual_seed(PAR_SEED))
+    batch = llama.make_batch(
+        cfg, 1, PAR_T,
+        generator=torch.Generator(device="cuda").manual_seed(PAR_SEED + 1))
+    losses = []
+    for _ in range(PAR_STEPS["tp"]):
+        state, loss = step(state, batch)
+        losses.append(float(loss))
+    t1 = time.perf_counter()
+    for name, leaf in _named_leaves(state["params"]):
+        np.save(os.path.join(out_dir, name + ".npy"),
+                leaf.detach().cpu().numpy())
+    del state, batch, step, init
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"24 (b) witness: one-device f32 losses {losses}, "
+        f"{t1 - t0:.1f} s; params written in {time.perf_counter() - t1:.1f} s")
+    return {"losses": losses}
+
+
+def _zero_counters():
+    from paddle_tpu_torch import distributed as dist
+    for fn in train_launches().values():
+        fn.launches = 0
+    dist.reset_collective_stats()
+
+
+def _launches() -> dict:
+    return {n: fn.launches for n, fn in train_launches().items()}
+
+
+def _state_bytes(tree) -> int:
+    from paddle_tpu_torch.models.llama import _tree_leaves
+    return sum(t.numel() * t.element_size() for t in _tree_leaves(tree))
+
+
+def _par_tp(hm, witness_dir: str) -> dict:
+    """(b) on this rank: the tp 2 step, then its shards against the
+    witness's params."""
+    from paddle_tpu_torch import distributed as dist
+    from paddle_tpu_torch.models import llama
+    from paddle_tpu_torch.models.llama import _shard
+    cfg = par_cfg(torch.float32)
+    torch.cuda.reset_peak_memory_stats()
+    step, init = llama.make_train_step(cfg, mesh=hm)
+    state = init(torch.Generator(device="cuda").manual_seed(PAR_SEED))
+    batch = llama.make_batch(
+        cfg, 1, PAR_T, mesh=hm,
+        generator=torch.Generator(device="cuda").manual_seed(PAR_SEED + 1))
+    _zero_counters()
+    losses = []
+    for _ in range(PAR_STEPS["tp"]):
+        state, loss = step(state, batch)
+        losses.append(float(loss))
+    launches, stats = _launches(), dist.collective_stats()
+    want = {n: c * PAR_STEPS["tp"]
+            for n, c in per_step_launches(PAR_LAYERS).items()}
+    assert launches == want, (launches, want)
+    errs = {}
+    for name, leaf in _named_leaves(state["params"]):
+        w = np.load(os.path.join(witness_dir, name + ".npy"), mmap_mode="r")
+        part = _shard(torch.from_numpy(np.array(w)),
+                      _leaf_spec(name), hm)
+        d = (leaf.detach() - part.to(leaf.device)).abs()
+        errs[name] = (float(d.max()), float((d > PAR_TP_ATOL).float().mean()))
+        del d, part, w
+    return {"losses": losses, "errs": errs, "launches": launches,
+            "stats": stats, "peak_gib": torch.cuda.max_memory_allocated()
+            / 2 ** 30}
+
+
+def _par_zero(hm) -> dict:
+    """(c) on this rank: dp 2, bf16, ZeRO 0-3, 2 steps each from one
+    seeded state; each stage's params against stage 0's, bitwise."""
+    from paddle_tpu_torch import distributed as dist
+    from paddle_tpu_torch.distributed.communication import all_gather_cat
+    from paddle_tpu_torch.models import llama
+    from paddle_tpu_torch.models.llama import _tree_leaves
+    cfg = par_cfg(torch.bfloat16)
+    ref, out = None, {}
+    for stage in range(4):
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        step, init = llama.make_train_step(cfg, mesh=hm, zero_stage=stage)
+        state = init(torch.Generator(device="cuda").manual_seed(PAR_SEED))
+        batch = llama.make_batch(
+            cfg, 2, PAR_T, mesh=hm, generator=torch.Generator(
+                device="cuda").manual_seed(PAR_SEED + 2))
+        rec = {"param_bytes": _state_bytes(state["params"]),
+               "moment_bytes": _state_bytes([state["opt"]["mu"],
+                                             state["opt"]["nu"]])}
+        _zero_counters()
+        losses, times = [], []
+        for _ in range(PAR_STEPS["zero"]):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, loss = step(state, batch)
+            losses.append(float(loss))
+            times.append(time.perf_counter() - t0)
+        rec.update(losses=losses, step_ms=[t * 1e3 for t in times],
+                   stats=dist.collective_stats(), launches=_launches(),
+                   peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
+        want = {n: c * PAR_STEPS["zero"]
+                for n, c in per_step_launches(PAR_LAYERS).items()}
+        assert rec["launches"] == want, (stage, rec["launches"], want)
+        leaves = _tree_leaves(state["params"])
+        dims = _tree_leaves(state["zero"]["dims"])
+        if stage == 0:
+            ref = [p.detach().cpu() for p in leaves]
+        else:
+            differ = 0
+            for p, d, r in zip(leaves, dims, ref):
+                full = p.detach()
+                if stage == 3 and d is not None:
+                    full = all_gather_cat(full, d, hm.group("dp"))
+                differ += not torch.equal(full.cpu(), r)
+            rec["leaves_differing"] = differ
+        out[stage] = rec
+        del state, batch, step, init, leaves
+    return out
+
+
+def _par_hybrid(hm) -> dict:
+    """(d) on this rank: dp 2 x tp 2, bf16, ZeRO 1, 3 steps; the
+    collectives timed alone from step 2 on."""
+    from paddle_tpu_torch import distributed as dist
+    from paddle_tpu_torch.models import llama
+    cfg = par_cfg(torch.bfloat16)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    step, init = llama.make_train_step(cfg, mesh=hm, zero_stage=1)
+    state = init(torch.Generator(device="cuda").manual_seed(PAR_SEED))
+    batch = llama.make_batch(
+        cfg, 2, PAR_T, mesh=hm,
+        generator=torch.Generator(device="cuda").manual_seed(PAR_SEED + 3))
+    _zero_counters()
+    losses, times, coll = [], [], 0.0
+    for i in range(PAR_STEPS["hybrid"]):
+        if i == 1:
+            stats = dist.collective_stats()
+            dist.reset_collective_stats()
+            dist.set_collective_timing(True)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, loss = step(state, batch)
+        losses.append(float(loss))
+        times.append(time.perf_counter() - t0)
+    dist.set_collective_timing(False)
+    timed = dist.collective_stats()
+    coll = sum(v["seconds"] for v in timed.values())
+    for k, v in timed.items():
+        stats.setdefault(k, {"calls": 0, "bytes": 0, "seconds": 0.0})
+        for f in ("calls", "bytes"):
+            stats[k][f] += v[f]
+    launches = _launches()
+    want = {n: c * PAR_STEPS["hybrid"]
+            for n, c in per_step_launches(PAR_LAYERS).items()}
+    assert launches == want, (launches, want)
+    return {"losses": losses, "step_ms": [t * 1e3 for t in times],
+            "coll_share": coll / sum(times[1:]),
+            "coll_ms_a_step": coll / (len(times) - 1) * 1e3,
+            "timed_stats": timed, "stats": stats, "launches": launches,
+            "param_bytes": _state_bytes(state["params"]),
+            "moment_bytes": _state_bytes([state["opt"]["mu"],
+                                          state["opt"]["nu"]]),
+            "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
+
+
+def par_rank(witness_dir: str) -> dict:
+    """One rank of phase 24 (b)-(d), spawned by
+    ``paddle_tpu_torch.distributed.spawn``; every rank computes on the
+    one card."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from paddle_tpu_torch import distributed as dist
+    from paddle_tpu_torch.parallel import init_hybrid_mesh
+    dist.init_parallel_env()
+    out = {"rank": dist.get_rank(), "backend": dist.get_backend(),
+           "device": str(torch.device("cuda", torch.cuda.current_device()))}
+    # warm this process's CUDA libraries while ranks 0-1 run (b) and (c)
+    a = torch.randn(256, 256, device="cuda", dtype=torch.bfloat16)
+    (a @ a).float().sum().item()
+    seconds = {}
+    for part, shape, fn in (("tp", dict(tp=2), lambda hm: _par_tp(
+            hm, witness_dir)), ("zero", dict(dp=2), _par_zero),
+            ("hybrid", dict(dp=2, tp=2), _par_hybrid)):
+        t0 = time.perf_counter()
+        hm = init_hybrid_mesh(**shape, set_global=False)
+        if hm.is_member:
+            out[part] = fn(hm)
+        seconds[part] = time.perf_counter() - t0
+    out["seconds"] = seconds
+    dist.destroy_process_group()
+    return out
+
+
+def _fmt_stats(stats: dict) -> str:
+    return ", ".join(f"{k} {v['calls']} x / {v['bytes'] / 2 ** 20:.1f} MiB"
+                     for k, v in sorted(stats.items()))
+
+
+def parallel_phase() -> dict:
+    """Phase 24: (a) the kernels at tp 2's per-rank shapes, then four
+    ranks on the card (``distributed.spawn``, gloo): (b) tp 2 against
+    the one-device step, (c) dp 2 at ZeRO 0-3, (d) dp 2 x tp 2 at ZeRO
+    1 (see the module docstring)."""
+    from paddle_tpu_torch.distributed import spawn
+    from paddle_tpu_torch.models.llama import _tree_leaves
+    t_phase = time.perf_counter()
+    log(f"24: llama3_8b widths cut to {PAR_LAYERS} of 32 layers, T {PAR_T}")
+    kern = tp_kernel_phase()
+    gc.collect()
+    torch.cuda.empty_cache()
+    wdir = tempfile.mkdtemp(prefix="chip_smoke_witness_")
+    try:
+        witness = tp_witness(wdir)
+        t0 = time.perf_counter()
+        world = spawn(par_rank, (wdir,), nprocs=4)
+        t_world = time.perf_counter() - t0
+    finally:
+        import shutil
+        shutil.rmtree(wdir, ignore_errors=True)
+    for w in world:
+        assert w["backend"] == "gloo" and w["device"] == "cuda:0", w
+    log(f"24: 4 ranks on {world[0]['device']} over {world[0]['backend']} "
+        f"in {t_world:.1f} s (spawn to join; rank 0: " + ", ".join(
+            f"({k}) {v:.1f} s" for k, v in zip(
+                "bcd", world[0]["seconds"].values())) + ")")
+    # (b)
+    tp = [world[r]["tp"] for r in (0, 1)]
+    assert tp[0]["losses"] == tp[1]["losses"], tp
+    for got, want in zip(tp[0]["losses"], witness["losses"]):
+        rel = abs(got - want) / abs(want)
+        assert rel <= PAR_TP_LOSS_REL, (tp[0]["losses"], witness["losses"])
+    worst = {}
+    for r in (0, 1):
+        for name, (mx, frac) in tp[r]["errs"].items():
+            assert frac <= PAR_TP_FRAC and mx <= PAR_TP_MAX, (r, name, mx,
+                                                              frac)
+            w = worst.get(name, (0.0, 0.0))
+            worst[name] = (max(w[0], mx), max(w[1], frac))
+    top = sorted(worst.items(), key=lambda kv: -kv[1][0])[:4]
+    log(f"24 (b) tp 2 f32 vs one device: losses {tp[0]['losses']} vs "
+        f"{witness['losses']} (bound {PAR_TP_LOSS_REL} relative); params: "
+        f"{len(worst)} leaves, largest |diff| " + ", ".join(
+            f"{n} {mx:.3g} ({frac:.2e} over {PAR_TP_ATOL:g})"
+            for n, (mx, frac) in top)
+        + f"; peak {max(t['peak_gib'] for t in tp):.2f} GiB a rank; "
+        f"collectives a rank: {_fmt_stats(tp[0]['stats'])}")
+    # (c)
+    zs = [world[r]["zero"] for r in (0, 1)]
+    for stage in range(4):
+        a, b = zs[0][stage], zs[1][stage]
+        assert a["losses"] == b["losses"] == zs[0][0]["losses"], (stage, a,
+                                                                  b)
+        for z in (a, b):
+            assert all(math.isfinite(x) for x in z["losses"])
+            if stage:
+                assert z["leaves_differing"] == 0, (stage, z)
+                assert z["moment_bytes"] * 2 == zs[0][0]["moment_bytes"]
+            p0 = zs[0][0]["param_bytes"]
+            assert z["param_bytes"] * (2 if stage == 3 else 1) == p0, stage
+            s = z["stats"]
+            ar = s["all_reduce"]["bytes"]
+            if stage >= 2:
+                # no whole-gradient all-reduce: the loss scalars only
+                assert ar == 4 * PAR_STEPS["zero"], (stage, s)
+                assert s["reduce_scatter"]["bytes"] == \
+                    PAR_STEPS["zero"] * p0, (stage, s)
+            else:
+                assert ar == PAR_STEPS["zero"] * (p0 + 4), (stage, s)
+            if stage == 3:
+                b0 = zs[0][0]["stats"].get("all_gather", {"bytes": 0})
+                assert b0["bytes"] < s["all_gather"]["bytes"] <= \
+                    PAR_STEPS["zero"] * 4 * p0 + b0["bytes"], s
+        log(f"24 (c) ZeRO {stage}: losses {a['losses']}; peak "
+            f"{a['peak_gib']:.2f} / {b['peak_gib']:.2f} GiB (ranks 0 / 1), "
+            f"at rest params {a['param_bytes'] / 2 ** 30:.3f} GiB, moments "
+            f"{a['moment_bytes'] / 2 ** 30:.3f} GiB a rank; step ms "
+            + ", ".join(f"{t:.1f}" for t in a["step_ms"])
+            + f"; collectives a rank: {_fmt_stats(a['stats'])}"
+            + ("" if stage == 0 else "; params = ZeRO 0's bitwise"))
+    # (d)
+    hy = [w["hybrid"] for w in world]
+    for h in hy:
+        assert all(math.isfinite(x) for x in h["losses"]), h
+        assert h["losses"] == hy[0]["losses"], [x["losses"] for x in hy]
+    for r, h in enumerate(hy):
+        log(f"24 (d) dp 2 x tp 2 ZeRO 1 rank {r}: losses {h['losses']}; "
+            f"step ms " + ", ".join(f"{t:.1f}" for t in h["step_ms"])
+            + f"; collectives {h['coll_ms_a_step']:.1f} ms a step "
+            f"({h['coll_share']:.3f} of steps 2-3, synchronized); peak "
+            f"{h['peak_gib']:.2f} GiB; at rest params "
+            f"{h['param_bytes'] / 2 ** 30:.3f} GiB, moments "
+            f"{h['moment_bytes'] / 2 ** 30:.3f} GiB; launches a step "
+            + ", ".join(f"{n}={c // PAR_STEPS['hybrid']}"
+                        for n, c in h["launches"].items())
+            + f"; collectives: {_fmt_stats(h['stats'])}")
+    log(f"phase 24 in {time.perf_counter() - t_phase:.1f} s")
+    return {"kernels": kern, "launches": hy[0]["launches"]}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -8026,6 +8469,9 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     p23 = phase23()
+    gc.collect()
+    torch.cuda.empty_cache()
+    par = parallel_phase()
 
     a = rec["a_serving_mix"]
     kernels = [{
@@ -8213,6 +8659,16 @@ def main() -> int:
         ms=bm["stats"]["ms"], plain_ms=bm["plain_ms"],
         bound_ms=bm["stats"]["bound_ms"], bound_by=bm["stats"]["bound_by"],
         library_ms=bm["library_ms"]))
+    # phase 24: rows 5-8 at tp 2's per-rank shapes, launched by every
+    # rank of (d)'s dp 2 x tp 2 step (rank 0's counts)
+    for name, source, replaces in TP_KERNELS:
+        r = par["kernels"][name]
+        kernels.append(dict(
+            name=name + "_tp2", route="cuda", source=source,
+            replaces=replaces, launches=par["launches"][name],
+            max_abs_err=r["max_abs_err"], ms=r["ms"],
+            plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
+            bound_by=r["bound_by"], library_ms=r["library_ms"]))
     for k in kernels:     # every kernel of the line ran on its path
         assert k["launches"] > 0, k
     log(f"chip_smoke: all phases passed in "

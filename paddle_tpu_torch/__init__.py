@@ -49,7 +49,12 @@ the Paddle optimizers and LR schedulers (``optimizer``,
 ``load`` (``framework.io``); ONNX export (``onnx``), the rest of ``amp``
 (``GradScaler``, O2 ``decorate``, ``debugging``) over ``core.flags``,
 and ``profiler`` (``RecordEvent`` at the engine's ticks, bridged into
-the span tracer by ``observability.bridge_record_events``).
+the span tracer by ``observability.bridge_record_events``); data- and
+tensor-parallel training over ``torch.distributed``, one process a rank
+(``parallel`` — the hybrid mesh, Megatron's autograd pairs;
+``distributed`` — the Paddle collective API, ``spawn``, ZeRO,
+``mpu``, ``DataParallel``, ``fleet``; ``models.llama.make_train_step(
+cfg, mesh=..., zero_stage=...)``).
 """
 from .device import resolve_device
 from .framework.io import load, save

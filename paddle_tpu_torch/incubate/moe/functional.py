@@ -133,8 +133,9 @@ def moe_expert_compute(xs, dispatch, combine, w_gate, w_up, w_down, *,
     """Dispatch -> SwiGLU experts -> combine on tokens ``[S, D]`` with
     gating tensors ``[S, E, C]``."""
     if ep_axis is not None:
-        raise NotImplementedError("expert parallelism is not ported: the "
-                                  "port's MoE runs on one device")
+        raise NotImplementedError("expert parallelism comes in a later "
+                                  "slice of the port: its MoE runs on one "
+                                  "device")
     dispatch = dispatch.to(xs.dtype)
     combine = combine.to(xs.dtype)
     expert_in = torch.einsum("sec,sd->ecd", dispatch, xs)      # [E, C, D]

@@ -36,7 +36,8 @@ Port of ``paddle_tpu/models/llama.py``:
   int8 matmul kernel (``ops/kernels/int8_matmul``).
 
 * the training path ``forward`` -> ``loss_fn`` -> ``make_train_step``
-  (one device, no mesh): per-layer remat through
+  (one device, or a dp x tp mesh over ``torch.distributed``: see
+  ``param_specs`` and ``_mesh_trainer``): per-layer remat through
   ``torch.utils.checkpoint``, the fused RMSNorm / RoPE kernels
   (``ops/kernels/fused_norm_rope``) and the flash-attention kernels
   (``ops/kernels/flash_attention``) as ``LlamaConfig`` asks, the fused
@@ -79,9 +80,10 @@ __all__ = ["LlamaConfig", "init_params", "params_from_jax", "rms_norm",
            "serving_tick_block", "prefill_paged", "generate_paged",
            "serving_prefill", "serving_prefill_chunk",
            "serving_decode_step", "serving_decode_block", "decoder_layer",
-           "forward", "loss_fn", "AdamW", "default_train_optimizer", "make_train_step",
-           "make_batch", "params_to_numpy", "normal_init",
-           "one_device_trainer", "SERVING_KERNELS"]
+           "forward", "loss_fn", "AdamW", "default_train_optimizer",
+           "make_train_step", "make_batch", "params_to_numpy", "normal_init",
+           "one_device_trainer", "param_specs", "shard_params",
+           "gather_params", "train_state_specs", "SERVING_KERNELS"]
 
 # the kernel libraries serving_tick and serving_tick_block load on a CUDA
 # device (ops/kernels/_build.py names); int8 weights add int8_matmul
@@ -1144,16 +1146,21 @@ def _scan_layers(params, h, cfg: LlamaConfig, remat: bool = False,
     return h
 
 
-def forward(params, tokens, cfg: LlamaConfig):
+def forward(params, tokens, cfg: LlamaConfig, mesh=None):
     """tokens ``[B, T]`` -> logits ``[B, T, V]`` in ``cfg.dtype`` (one
-    device, one pipeline stage)."""
+    device, one pipeline stage). With ``mesh`` (a dp x tp
+    ``HybridMesh``), ``params`` are this rank's shards, ``tokens`` its
+    dp rows, and the logits ``[B/dp, T, V/tp]`` its vocab shard's."""
+    if mesh is not None:
+        _check_mesh(cfg, mesh)
+        return _mesh_logits(params, tokens, cfg, mesh)
     h = params["embed"].to(cfg.dtype)[tokens.long()]
     h = _scan_layers(params, h, cfg, remat=cfg.remat)
     h = _norm_fn(cfg, _fused_nr_on(cfg))(h, params["final_norm"])
     return h @ params["lm_head"]
 
 
-def loss_fn(params, batch, cfg: LlamaConfig):
+def loss_fn(params, batch, cfg: LlamaConfig, mesh=None):
     """Mean next-token cross entropy through the fused op: the logits
     stay in the model dtype, no f32 log-softmax is saved.
 
@@ -1161,7 +1168,14 @@ def loss_fn(params, batch, cfg: LlamaConfig):
     (remat included), each kernel one operator node; ``.backward()`` on
     its value runs the captured graph's backward. The train step's
     ``AdamW.update_`` stays eager (the JAX step jits the optimizer too;
-    a captured optimizer is not built here)."""
+    a captured optimizer is not built here).
+
+    With ``mesh``: the mean over this rank's dp rows of ``batch`` (the
+    same on every tp rank), through the vocab-parallel cross entropy at
+    tp > 1; the mesh step averages it over dp."""
+    if mesh is not None:
+        _check_mesh(cfg, mesh)
+        return _mesh_loss(params, batch, cfg, mesh)
     logits = forward(params, batch["tokens"], cfg)
     return fused_softmax_cross_entropy(logits, batch["labels"]).mean()
 
@@ -1204,36 +1218,52 @@ class AdamW:
         return {"count": 0, "mu": _tree_map(zeros, params),
                 "nu": _tree_map(zeros, params)}
 
-    @torch.no_grad()
-    def update_(self, params, state) -> None:
+    def advance(self, state) -> tuple:
+        """``(count, bc1, bc2)`` of the next update: optax's
+        ``1 - decay**count`` in f32."""
         count = state["count"] + 1
         one = torch.tensor(1.0, dtype=torch.float32)
-        # optax's 1 - decay**count, in f32
         bc1 = float(one - torch.tensor(self.b1) ** count)
         bc2 = float(one - torch.tensor(self.b2) ** count)
+        return count, bc1, bc2
+
+    @torch.no_grad()
+    def update_(self, params, state) -> None:
+        count, bc1, bc2 = self.advance(state)
         for p, mu, nu in zip(_tree_leaves(params),
                              _tree_leaves(state["mu"]),
                              _tree_leaves(state["nu"])):
-            g = p.grad
-            if g is None:
+            if p.grad is None:
                 raise RuntimeError("AdamW.update_: a parameter has no grad")
-
-            def c(x, dt=p.dtype):
-                return float(torch.tensor(x, dtype=dt))
-
-            # mu = (1 - b1) g + b1 mu ; nu = (1 - b2) g^2 + b2 nu
-            mu.mul_(c(self.b1)).add_(g * c(1 - self.b1))
-            nu.mul_(c(self.b2)).add_(g.square().mul_(c(1 - self.b2)))
-            p.grad = None
-            del g
-            # mu_hat / (sqrt(nu_hat) + eps) + wd p, scaled by -lr
-            u = mu / c(bc1)
-            denom = (nu / c(bc2)).sqrt_().add_(c(self.eps))
-            u.div_(denom)
-            del denom
-            u.add_(p * c(self.weight_decay)).mul_(c(-self.lr))
-            p.add_(u)
+            self.update_leaf_(p, _pop_grad(p), mu, nu, bc1, bc2)
         state["count"] = count
+
+    def update_leaf_(self, p, g, mu, nu, bc1: float, bc2: float) -> None:
+        """One tensor's update in place, under ``torch.no_grad()``: ``p``
+        (a parameter or a view of one, such as a ZeRO slice), its
+        gradient ``g`` and moments, all of one shape; elementwise, so a
+        slice updates to the same bits as the whole. Pass ``g`` with no
+        other reference to it: it is freed before the update's
+        temporaries are made (so no decorator holds it)."""
+        def c(x, dt=p.dtype):
+            return float(torch.tensor(x, dtype=dt))
+
+        # mu = (1 - b1) g + b1 mu ; nu = (1 - b2) g^2 + b2 nu
+        mu.mul_(c(self.b1)).add_(g * c(1 - self.b1))
+        nu.mul_(c(self.b2)).add_(g.square().mul_(c(1 - self.b2)))
+        del g
+        # mu_hat / (sqrt(nu_hat) + eps) + wd p, scaled by -lr
+        u = mu / c(bc1)
+        denom = (nu / c(bc2)).sqrt_().add_(c(self.eps))
+        u.div_(denom)
+        del denom
+        u.add_(p * c(self.weight_decay)).mul_(c(-self.lr))
+        p.add_(u)
+
+
+def _pop_grad(p):
+    g, p.grad = p.grad, None
+    return g
 
 
 def default_train_optimizer() -> AdamW:
@@ -1285,9 +1315,9 @@ def params_to_numpy(params) -> Dict:
             "lm_head": conv(params["lm_head"])}
 
 
-def make_train_step(cfg: LlamaConfig, *, device=None, optimizer=None,
-                    mesh=None, zero_stage: int = 0):
-    """The train step (forward, backward, AdamW) on one device.
+def make_train_step(cfg: LlamaConfig, *, mesh=None, zero_stage: int = 0,
+                    device=None, optimizer=None):
+    """The train step (forward, backward, AdamW).
 
     Returns ``(step_fn, init_fn)``. ``init_fn(source)`` builds the state
     ``{"params", "opt", "step"}`` from a ``torch.Generator`` (random init,
@@ -1297,14 +1327,22 @@ def make_train_step(cfg: LlamaConfig, *, device=None, optimizer=None,
     resident) and returns ``(state, loss)``, the loss of the params
     before the update as a 0-d f32 tensor.
 
-    A mesh, ZeRO stages and pipeline stages belong to the parallel
-    training slice and raise ``NotImplementedError``.
+    With no mesh the step runs on one device. With ``mesh``
+    (``parallel.init_hybrid_mesh(dp=..., tp=...)``) it runs on this
+    rank's part of a dp x tp layout over ``torch.distributed``, one
+    process a rank: see ``_mesh_trainer``. ``zero_stage`` (0-3) needs a
+    mesh; a mesh with pipeline, context or expert axes raises
+    ``NotImplementedError``.
     """
-    if mesh is not None or zero_stage:
-        raise NotImplementedError(
-            "the port's train step runs on one device: mesh, ZeRO and "
-            "pipeline stages are not ported yet")
-    return one_device_trainer(cfg, init_params, loss_fn, device, optimizer)
+    if zero_stage not in (0, 1, 2, 3):
+        raise ValueError(f"zero_stage must be 0..3, got {zero_stage}")
+    if mesh is None:
+        if zero_stage:
+            raise ValueError("ZeRO stages shard over a mesh's dp axis: "
+                             "pass mesh=parallel.init_hybrid_mesh(...)")
+        return one_device_trainer(cfg, init_params, loss_fn, device,
+                                  optimizer)
+    return _mesh_trainer(cfg, mesh, zero_stage, device, optimizer)
 
 
 def one_device_trainer(cfg, init, loss, device=None, optimizer=None):
@@ -1331,10 +1369,19 @@ def one_device_trainer(cfg, init, loss, device=None, optimizer=None):
 
 
 def make_batch(cfg: LlamaConfig, batch_size: int, seq_len: int,
-               device=None, generator: Optional[torch.Generator] = None):
+               device=None, generator: Optional[torch.Generator] = None,
+               mesh=None):
     """Synthetic next-token batch: int32 tokens ``[B, T]`` and their
     labels (the tokens shifted by one), drawn from ``generator`` (seed 0
-    on the device when none is given)."""
+    on the device when none is given). With ``mesh`` the batch is still
+    the global one (every rank draws the same), as a mesh step takes it;
+    B must divide over dp and T over tp."""
+    if mesh is not None:
+        if batch_size % mesh.dp_degree or seq_len % mesh.tp_degree:
+            raise ValueError(
+                f"batch [{batch_size}, {seq_len}] does not split over "
+                f"dp={mesh.dp_degree} rows and tp={mesh.tp_degree} "
+                f"sequence parts")
     dev = resolve_device(device)
     if generator is None:
         generator = torch.Generator(device=dev).manual_seed(0)
@@ -1343,3 +1390,446 @@ def make_batch(cfg: LlamaConfig, batch_size: int, seq_len: int,
                          dtype=torch.int32)
     return {"tokens": toks[:, :-1].contiguous(),
             "labels": toks[:, 1:].contiguous()}
+
+
+# ---------------------------------------------------------------------------
+# parallel training: a dp x tp mesh over torch.distributed, Megatron tensor
+# parallelism with sequence parallelism, vocab-parallel cross entropy and
+# ZeRO stages 0-3 (one process a rank)
+# ---------------------------------------------------------------------------
+
+def param_specs(cfg: LlamaConfig) -> Dict[str, Any]:
+    """The params' partition specs over the mesh, as the JAX
+    ``param_specs`` (pp = 1): column-parallel over tp ``wq`` / ``wk`` /
+    ``wv`` / ``w_gate`` / ``w_up``, row-parallel ``wo`` / ``w_down``,
+    the embedding vocab-parallel ``P("tp", None)`` and ``lm_head``
+    ``P(None, "tp")``; a stacked layer leaf's leading axis is the
+    layer's."""
+    from ..parallel.mesh import P
+    layers = {
+        "wq": P(None, None, "tp"),
+        "wk": P(None, None, "tp"),
+        "wv": P(None, None, "tp"),
+        "wo": P(None, "tp", None),
+        "w_gate": P(None, None, "tp"),
+        "w_up": P(None, None, "tp"),
+        "w_down": P(None, "tp", None),
+        "attn_norm": P(None, None),
+        "mlp_norm": P(None, None),
+    }
+    return {"embed": P("tp", None), "layers": layers,
+            "final_norm": P(None), "lm_head": P(None, "tp")}
+
+
+def _layer_spec(spec):
+    """A stacked leaf's spec for one layer's leaf (the layer axis off)."""
+    from ..parallel.mesh import P
+    return P(*tuple(spec)[1:])
+
+
+def _check_mesh(cfg: LlamaConfig, mesh) -> None:
+    if mesh.pp_degree > 1 or mesh.cp_degree > 1 or mesh.ep_degree > 1:
+        raise NotImplementedError(
+            "pipeline (pp), context (cp) and expert (ep) parallelism come "
+            "in a later slice of the port; this step trains over dp x tp")
+    tp = mesh.tp_degree
+    bad = {k: n for k, n in dict(
+        heads=cfg.num_attention_heads, kv_heads=cfg.num_key_value_heads,
+        ffn=cfg.intermediate_size, vocab=cfg.vocab_size).items() if n % tp}
+    if bad:
+        raise ValueError(
+            f"tp={tp} does not divide {bad} — heads/ffn/vocab shard over "
+            f"tp inside the block")
+
+
+def _shard(x: torch.Tensor, spec, mesh) -> torch.Tensor:
+    """This rank's part of the global ``x`` laid out by ``spec``."""
+    for dim, ax in enumerate(spec):
+        n = mesh.degree(ax) if ax is not None else 1
+        if n > 1:
+            size = x.shape[dim] // n
+            x = x.narrow(dim, mesh.axis_index(ax) * size, size)
+    return x
+
+
+def shard_params(params, cfg: LlamaConfig, mesh, device=None) -> Dict:
+    """The rank's local shards, by ``param_specs``, of the global params
+    (stacked layers: ``init_params`` or ``params_from_jax`` output), as
+    new contiguous tensors on ``device`` (default: where they are)."""
+    specs = param_specs(cfg)
+
+    def conv(x, sp):
+        out = _shard(x.detach(), sp, mesh).clone()
+        return out if device is None else out.to(device)
+
+    return {"embed": conv(params["embed"], specs["embed"]),
+            "layers": {k: conv(v, specs["layers"][k])
+                       for k, v in params["layers"].items()},
+            "final_norm": conv(params["final_norm"], specs["final_norm"]),
+            "lm_head": conv(params["lm_head"], specs["lm_head"])}
+
+
+def _global_shapes(cfg: LlamaConfig) -> Dict:
+    """One layer's global leaf shapes, and the rest."""
+    D, Fi, V = cfg.hidden_size, cfg.intermediate_size, cfg.vocab_size
+    qd = cfg.num_attention_heads * cfg.head_dim
+    kd = cfg.num_key_value_heads * cfg.head_dim
+    layer = {"wq": (D, qd), "wk": (D, kd), "wv": (D, kd), "wo": (qd, D),
+             "w_gate": (D, Fi), "w_up": (D, Fi), "w_down": (Fi, D),
+             "attn_norm": (D,), "mlp_norm": (D,)}
+    return {"embed": (V, D), "layer": layer, "final_norm": (D,),
+            "lm_head": (D, V)}
+
+
+def train_state_specs(cfg: LlamaConfig, mesh, optimizer=None,
+                      zero_stage: int = 0) -> Dict:
+    """Partition specs of the mesh step's state ``{"params", "opt",
+    "step"}``, computed without allocating anything; the trainer places
+    by them. Leaves are per layer (the trainer's layout), so ``zero_spec``
+    sees one layer's shape where the JAX specs see the stacked one.
+    Moments inherit their param's (tp) spec; ``zero_stage >= 1`` adds dp
+    on the first free dp-divisible dim of each moment, ``>= 3`` of each
+    param too (``distributed.sharding.zero_spec``). ``optimizer`` is
+    taken as in the JAX signature: the state is AdamW's (count, mu,
+    nu) for any."""
+    from ..distributed.sharding import zero_spec
+    from ..parallel.mesh import P
+    dp = mesh.dp_degree
+    specs, shapes = param_specs(cfg), _global_shapes(cfg)
+    base = {"embed": (specs["embed"], shapes["embed"]),
+            "layers": [{k: (_layer_spec(sp), shapes["layer"][k])
+                        for k, sp in specs["layers"].items()}
+                       for _ in range(cfg.num_hidden_layers)],
+            "final_norm": (specs["final_norm"], shapes["final_norm"]),
+            "lm_head": (specs["lm_head"], shapes["lm_head"])}
+
+    def place(on: bool):
+        def leaf(pair):
+            sp, shape = pair
+            zs = zero_spec(sp, shape, dp) if on and dp > 1 else None
+            return sp if zs is None else zs
+        return _map_trees(leaf, base)
+
+    moments = place(zero_stage >= 1)
+    return {"params": place(zero_stage >= 3),
+            "opt": {"count": P(), "mu": moments, "nu": moments},
+            "step": P()}
+
+
+def _map_trees(fn, *trees):
+    """``fn`` over the leaves of trees of one structure (dicts and lists;
+    a tuple, such as a partition spec, is a leaf)."""
+    a = trees[0]
+    if isinstance(a, dict):
+        return {k: _map_trees(fn, *(t[k] for t in trees)) for k in a}
+    if isinstance(a, list):
+        return [_map_trees(fn, *xs) for xs in zip(*trees)]
+    return fn(*trees)
+
+
+class _GatherParam(torch.autograd.Function):
+    """ZeRO-3: this rank's slice -> the whole (tp-local) parameter,
+    all-gathered over dp; the backward reduce-scatters its gradient into
+    the slice (the sum over dp)."""
+
+    @staticmethod
+    def forward(ctx, piece, dim, g):
+        from ..distributed.communication import all_gather_cat
+        ctx.dim, ctx.g = dim, g
+        return all_gather_cat(piece, dim, g)
+
+    @staticmethod
+    def backward(ctx, ct):
+        from ..distributed.communication import reduce_scatter_dim
+        return reduce_scatter_dim(ct, ctx.dim, ctx.g), None, None
+
+
+class _ZeroShard:
+    """A ZeRO-3 parameter in a forward's params tree: ``full()`` gathers
+    it at its use (again in the remat recompute), and nothing keeps the
+    whole tensor after its last use."""
+
+    __slots__ = ("piece", "dim", "group")
+
+    def __init__(self, piece, dim, group):
+        self.piece, self.dim, self.group = piece, dim, group
+
+    def full(self):
+        return _GatherParam.apply(self.piece, self.dim, self.group)
+
+
+def _full(x):
+    return x.full() if isinstance(x, _ZeroShard) else x
+
+
+def _sp_norm(cfg: LlamaConfig, nr_impl, x, w, mesh):
+    """RMSNorm on this rank's rows of the sequence-sharded stream; the
+    weight's gradient is all-reduced over tp (the sharded kernel entry,
+    or the "f" op on the weight for the unfused norm)."""
+    from ..ops.kernels.fused_norm_rope import fused_rms_norm_sharded
+    from ..parallel.mesh import P
+    from ..parallel.mp_ops import identity_fwd_psum_bwd
+    if nr_impl is None:
+        return rms_norm(x, identity_fwd_psum_bwd(w, mesh.group("tp")),
+                        cfg.rms_norm_eps)
+    return fused_rms_norm_sharded(x, w, P(None, "tp", None),
+                                  cfg.rms_norm_eps, nr_impl, mesh=mesh)
+
+
+def _sp_layer(lp, h, cfg: LlamaConfig, mesh, positions):
+    """One block on tp-local weights over the sequence-sharded stream
+    ``[B, T/tp, D]``: norm (local rows) -> all-gather the sequence ->
+    q/k/v on the local heads -> rope -> flash attention -> ``wo`` ->
+    reduce-scatter the sequence; the same for the MLP."""
+    from ..distributed.sequence_parallel import (all_gather_sequence,
+                                                 reduce_scatter_sequence)
+    from ..ops.kernels.fused_norm_rope import fused_rope_sharded
+    from ..parallel.mesh import P
+    lp = {k: _full(v) for k, v in lp.items()}
+    g = mesh.group("tp")
+    B, T = positions.shape
+    Dh = cfg.head_dim
+    Hl, Hkvl = lp["wq"].shape[-1] // Dh, lp["wk"].shape[-1] // Dh
+    nr = _fused_nr_on(cfg)
+    x = all_gather_sequence(_sp_norm(cfg, nr, h, lp["attn_norm"], mesh), g)
+    q = (x @ lp["wq"]).reshape(B, T, Hl, Dh)
+    k = (x @ lp["wk"]).reshape(B, T, Hkvl, Dh)
+    v = (x @ lp["wv"]).reshape(B, T, Hkvl, Dh)
+    if nr is None:
+        q, k = rope(q, k, positions, cfg.rope_theta, Dh)
+    else:
+        spec = P(None, None, "tp", None)
+        q, k = fused_rope_sharded(q, k, positions, spec, spec,
+                                  cfg.rope_theta, nr)
+    o = _train_attn_fn(cfg)(q, k, v)
+    h = h + reduce_scatter_sequence(o.reshape(B, T, Hl * Dh) @ lp["wo"], g)
+    x = all_gather_sequence(_sp_norm(cfg, nr, h, lp["mlp_norm"], mesh), g)
+    return h + reduce_scatter_sequence(
+        (F.silu(x @ lp["w_gate"]) * (x @ lp["w_up"])) @ lp["w_down"], g)
+
+
+def _dp_layer(lp, h, cfg: LlamaConfig):
+    """One block of the tp = 1 mesh step: the one-device block on this
+    rank's rows (ZeRO-3 slices gathered at use)."""
+    return decoder_layer({k: _full(v) for k, v in lp.items()}, h, cfg)
+
+
+def _mesh_logits(params, tokens, cfg: LlamaConfig, mesh):
+    """This rank's rows ``[B/dp, T]`` -> logits ``[B/dp, T, V/tp]``, the
+    classes of this rank's vocab shard."""
+    tp = mesh.tp_degree
+    B, T = tokens.shape
+    if T % tp:
+        raise ValueError(f"sequence length {T} does not divide over "
+                         f"tp={tp} (the stream is sequence-sharded)")
+    embed = _full(params["embed"]).to(cfg.dtype)
+    remat = cfg.remat
+    if tp == 1:
+        h = embed[tokens.long()]
+        del embed
+        for i in range(cfg.num_hidden_layers):
+            lp = _layer(params, i)
+            h = (checkpoint(_dp_layer, lp, h, cfg, use_reentrant=False)
+                 if remat else _dp_layer(lp, h, cfg))
+        h = _norm_fn(cfg, _fused_nr_on(cfg))(h, _full(params["final_norm"]))
+        return h @ _full(params["lm_head"])
+    from ..distributed.sequence_parallel import (all_gather_sequence,
+                                                 reduce_scatter_sequence)
+    g = mesh.group("tp")
+    # the vocab-parallel lookup: rows outside this rank's shard are zeros,
+    # and the reduce-scatter sums the ranks' rows into sequence parts
+    vl = embed.shape[0]
+    ids = tokens.long() - g.rank * vl
+    inside = (ids >= 0) & (ids < vl)
+    e = torch.where(inside[..., None], embed[ids.clamp(0, vl - 1)], 0)
+    del embed
+    h = reduce_scatter_sequence(e, g)
+    del e
+    positions = torch.arange(T, device=h.device).expand(B, T)
+    for i in range(cfg.num_hidden_layers):
+        lp = _layer(params, i)
+        h = (checkpoint(_sp_layer, lp, h, cfg, mesh, positions,
+                        use_reentrant=False)
+             if remat else _sp_layer(lp, h, cfg, mesh, positions))
+    h = _sp_norm(cfg, _fused_nr_on(cfg), h, _full(params["final_norm"]),
+                 mesh)
+    return all_gather_sequence(h, g) @ _full(params["lm_head"])
+
+
+def _mesh_loss(params, batch, cfg: LlamaConfig, mesh):
+    """Mean NLL over this rank's rows (every tp rank of a dp row gets the
+    same value): the fused cross entropy at tp = 1, the vocab-parallel
+    one (three ``[B/dp, T]`` all-reduces over tp) above."""
+    from ..ops.fused.cross_entropy import vocab_parallel_cross_entropy
+    logits = _mesh_logits(params, batch["tokens"], cfg, mesh)
+    if mesh.tp_degree == 1:
+        return fused_softmax_cross_entropy(logits, batch["labels"]).mean()
+    return vocab_parallel_cross_entropy(logits, batch["labels"],
+                                        mesh.group("tp")).mean()
+
+
+def _zero_dims(specs) -> Any:
+    """Each leaf's dp-sharded dim in a spec tree (None: whole)."""
+    return _map_trees(lambda sp: list(sp).index("dp") if "dp" in sp
+                      else None, specs)
+
+
+def _mesh_trainer(cfg: LlamaConfig, mesh, zero_stage: int, device,
+                  optimizer):
+    """``(step_fn, init_fn)`` of the dp x tp step on this rank.
+
+    ``init_fn(source)`` shards the global params (a ``torch.Generator``
+    draws them as ``init_params`` does, on every rank alike) by
+    ``param_specs`` into this rank's tp shards (per-layer leaves) and
+    places the state by ``train_state_specs``. ``step_fn(state, batch)``
+    takes the GLOBAL batch, reads this rank's dp rows, and returns the
+    global mean loss, the same on every rank. Gradients of the local
+    mean are reduced over dp and scaled by 1/dp:
+
+    * stage 0: all-reduced, each rank updates the whole tp shard;
+    * stage 1: all-reduced; the moments are this rank's ``zero_spec``
+      slice, each rank updates its slice of every parameter
+      (``AdamW.update_leaf_``, elementwise, so bitwise the whole
+      update's), then all-gathers the parameter over dp;
+    * stage 2: as 1, but each gradient is reduce-scattered into the
+      slice as it lands in backward (a post-accumulate hook frees the
+      whole one), never all-reduced;
+    * stage 3: the parameters are their slices between steps; a layer's
+      are all-gathered at use, in forward and again in the remat
+      recompute (``_ZeroShard``), and freed after; the gather's backward
+      reduce-scatters the gradient into the slice.
+
+    ``state["zero"]`` holds the stage and each leaf's sharded dim.
+    """
+    from ..distributed import communication as C
+    _check_mesh(cfg, mesh)
+    dev = resolve_device(device)
+    opt = default_train_optimizer() if optimizer is None else optimizer
+    dp, dp_g = mesh.dp_degree, mesh.group("dp")
+    specs = train_state_specs(cfg, mesh, zero_stage=zero_stage)
+    dims = _zero_dims(specs["opt"]["mu"])
+
+    def stage2_hook(d):
+        def hook(p):
+            p.zero_grad_piece = C.reduce_scatter_dim(_pop_grad(p), d, dp_g)
+        return hook
+
+    def init_fn(source):
+        if isinstance(source, torch.Generator):
+            source = init_params(cfg, source, dev)
+        params = _train_params(shard_params(source, cfg, mesh), dev)
+        del source
+        # the dims in the params' own key order, so leaves zip
+        pdims = _map_trees(lambda p, d: d, params, dims)
+        if zero_stage >= 3:
+            params = _map_trees(
+                lambda p, d: p if d is None else
+                C.rank_part(p.detach(), d, dp_g).clone().requires_grad_(True),
+                params, dims)
+
+        def moment(p, d):
+            if d is not None and zero_stage in (1, 2):
+                p = C.rank_part(p.detach(), d, dp_g)
+            return torch.zeros_like(p, requires_grad=False)
+
+        if zero_stage == 2:
+            for p, d in zip(_tree_leaves(params), _tree_leaves(pdims)):
+                if d is not None:
+                    p.register_post_accumulate_grad_hook(stage2_hook(d))
+        return {"params": params,
+                "opt": {"count": 0,
+                        "mu": _map_trees(moment, params, pdims),
+                        "nu": _map_trees(moment, params, pdims)},
+                "step": 0, "zero": {"stage": zero_stage, "dims": pdims}}
+
+    def rows(batch):
+        r, n = mesh.axis_index("dp"), batch["tokens"].shape[0] // dp
+        return {k: v[r * n:(r + 1) * n].to(dev) for k, v in batch.items()}
+
+    @torch.no_grad()
+    def update(state):
+        params, st = state["params"], state["opt"]
+        count, bc1, bc2 = opt.advance(st)
+        for p, mu, nu, d in zip(_tree_leaves(params), _tree_leaves(st["mu"]),
+                                _tree_leaves(st["nu"]),
+                                _tree_leaves(state["zero"]["dims"])):
+            scale = float(torch.tensor(1.0 / dp, dtype=p.dtype))
+            if zero_stage == 2 and d is not None:
+                g = p.__dict__.pop("zero_grad_piece")
+            else:
+                g = _pop_grad(p)
+                if g is None:
+                    raise RuntimeError("a parameter has no grad")
+                if dp > 1 and (d is None or zero_stage < 3):
+                    C.all_reduce(g, C.ReduceOp.SUM, dp_g)
+            if dp > 1:
+                g.mul_(scale)
+            target = p.data
+            if d is not None and zero_stage in (1, 2):
+                target = C.rank_part(p.data, d, dp_g)
+                if zero_stage == 1:
+                    g = C.rank_part(g, d, dp_g)
+            opt.update_leaf_(target, g, mu, nu, bc1, bc2)
+            if d is not None and zero_stage in (1, 2):
+                parts = C.all_gather(None, target.contiguous(), dp_g)
+                n = target.shape[d]
+                for i, part in enumerate(parts):
+                    p.data.narrow(d, i * n, n).copy_(part)
+        st["count"] = count
+
+    def step_fn(state, batch):
+        params = state["params"]
+        if zero_stage >= 3:
+            params = _map_trees(
+                lambda p, d: p if d is None else _ZeroShard(p, d, dp_g),
+                params, dims)
+        value = _mesh_loss(params, rows(batch), cfg, mesh)
+        value.backward()
+        update(state)
+        loss = value.detach().clone()
+        if dp > 1:
+            C.all_reduce(loss, C.ReduceOp.AVG, dp_g)
+        state["step"] += 1
+        return state, loss
+
+    return step_fn, init_fn
+
+
+def gather_params(state_or_params, cfg: LlamaConfig, mesh) -> Dict:
+    """The global params, as numpy in the JAX pytree layout
+    (``params_to_numpy``), from a mesh step's state (ZeRO-3 slices
+    gathered over dp) or from tp-local params (``shard_params`` output,
+    stacked or per layer). A collective: every rank of the mesh calls
+    it, and every rank gets the whole."""
+    from ..distributed.communication import all_gather_cat
+    src = state_or_params
+    dims = None
+    if "params" in src and "zero" in src:
+        params = src["params"]
+        if src["zero"]["stage"] >= 3:
+            dims = src["zero"]["dims"]
+    else:
+        params = src
+    specs = param_specs(cfg)
+    stacked = isinstance(params["layers"], dict)
+    lspecs = specs["layers"] if stacked else [
+        {k: _layer_spec(sp) for k, sp in specs["layers"].items()}
+        for _ in params["layers"]]
+    spec_tree = {"embed": specs["embed"], "layers": lspecs,
+                 "final_norm": specs["final_norm"],
+                 "lm_head": specs["lm_head"]}
+    if dims is None:
+        dims = _map_trees(lambda _: None, spec_tree)
+
+    def whole(x, sp, d):
+        x = x.detach()
+        if d is not None:
+            x = all_gather_cat(x.contiguous(), d, mesh.group("dp"))
+        for dim, ax in enumerate(sp):
+            if ax is not None and mesh.degree(ax) > 1:
+                x = all_gather_cat(x.contiguous(), dim, mesh.group(ax))
+        return x
+
+    keys = ("embed", "layers", "final_norm", "lm_head")
+    return params_to_numpy(_map_trees(
+        whole, {k: params[k] for k in keys}, spec_tree, dims))

@@ -201,8 +201,9 @@ def forward(params, tokens, cfg: Qwen2MoeConfig, mesh=None):
         raise ValueError(f"moe_impl must be 'einsum' or 'dropless', "
                          f"got {cfg.moe_impl!r}")
     if mesh is not None:
-        raise NotImplementedError("the port's Qwen2-MoE runs on one device: "
-                                  "mesh layouts are not ported yet")
+        raise NotImplementedError(
+            "the port's Qwen2-MoE runs on one device: its mesh layouts "
+            "(expert parallelism) come in a later slice of the port")
     use_dropless = cfg.moe_impl == "dropless"
     B, T = tokens.shape
     h = params["embed"].to(cfg.dtype)[tokens.long()]
@@ -243,8 +244,9 @@ def make_train_step(cfg: Qwen2MoeConfig, device=None, optimizer=None,
     raises ``NotImplementedError``."""
     if mesh is not None:
         raise NotImplementedError(
-            "the port's train step runs on one device: mesh layouts "
-            "(expert, tensor and data parallel) are not ported yet")
+            "the port's Qwen2-MoE train step runs on one device: its mesh "
+            "layouts (expert parallelism) come in a later slice of the "
+            "port")
     return llama.one_device_trainer(cfg, init_params, loss_fn, device,
                                     optimizer)
 

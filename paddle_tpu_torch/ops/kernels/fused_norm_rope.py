@@ -1,8 +1,11 @@
 """Fused RMSNorm and rotary embedding for the train step: the hand-written
 Hopper kernels' wrappers and their plain PyTorch versions.
 
-Port of ``paddle_tpu/ops/pallas/fused_norm_rope.py`` (one device; the
-sharded entries wait for the parallel-training slice).
+Port of ``paddle_tpu/ops/pallas/fused_norm_rope.py``, with its sharded
+entries: ``fused_rms_norm_sharded`` and ``fused_rope_sharded`` run the
+same kernels on this rank's rows and heads of a sharded stream (the JAX
+ones are ``shard_map``s of the kernels); the norm's dw is all-reduced
+over the mesh axes that shard the rows.
 
 * ``fused_rms_norm(x, weight, eps, impl)``: y = x·rsqrt(mean(x²)+eps)·w
   in f32, rstd ``[N, 1]`` f32 saved for the backward. The backward gives
@@ -45,6 +48,7 @@ from . import _build
 from ._op import acc_dtype, check_impl, direct_function, traced, use_kernel
 
 __all__ = ["fused_rms_norm", "fused_rope", "rms_norm_fwd", "rms_norm_bwd",
+           "fused_rms_norm_sharded", "fused_rope_sharded",
            "rope_rotate", "rms_bwd_workspace", "RMS_DW_CHUNK",
            "RMS_BWD_MAX_D"]
 
@@ -380,3 +384,72 @@ def fused_rope(q, k, positions, theta: float = 10000.0, impl: str = "auto"):
     check_impl(impl)
     fn = _rope_op if traced() else _RoPE.apply
     return fn(q, k, positions, float(theta), impl)
+
+
+# ---------------------------------------------------------------------------
+# the sharded entries: this rank's part of a sharded stream
+# ---------------------------------------------------------------------------
+
+def _spec_axes(spec) -> tuple:
+    axes = []
+    for e in spec:
+        if isinstance(e, (tuple, list)):
+            axes.extend(e)
+        elif e is not None:
+            axes.append(e)
+    return tuple(axes)
+
+
+class _RMSNormSharded(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x2, w, eps, impl, groups):
+        y, rstd = rms_norm_fwd(x2, w, eps, impl)
+        ctx.save_for_backward(x2, w, rstd)
+        ctx.impl, ctx.groups = impl, groups
+        return y
+
+    @staticmethod
+    def backward(ctx, gy):
+        from ...distributed import communication as C
+        x2, w, rstd = ctx.saved_tensors
+        dx, dw = rms_norm_bwd(x2, w, rstd, gy.contiguous(), ctx.impl)
+        for g in ctx.groups:
+            C.all_reduce(dw, C.ReduceOp.SUM, g)
+        return dx, dw.to(w.dtype), None, None, None
+
+
+def fused_rms_norm_sharded(x, weight, spec, eps: float = 1e-5,
+                           impl: str = "auto", mesh=None):
+    """``fused_rms_norm`` on this rank's part ``x [..., D]`` of a stream
+    laid out by ``spec`` (a ``parallel.P`` over the global hybrid mesh's
+    axes; the last dim must be unsharded). ``weight`` is whole on every
+    rank; its gradient is all-reduced over the axes ``spec`` names. Name
+    only axes whose ranks hold rows of the same loss term: the train
+    step's dp rows are reduced with every other gradient, so it passes
+    ``P(None, "tp", None)``. The axes are ``mesh``'s (the global
+    hybrid mesh when None)."""
+    if len(spec) == x.dim() and spec[-1] is not None:
+        raise ValueError(
+            f"rms_norm reduces over the last dim but spec {spec} shards it")
+    if mesh is None:
+        from ...parallel.mesh import get_hybrid_mesh
+        mesh = get_hybrid_mesh()
+    groups = tuple(g for g in (mesh.group(a) for a in _spec_axes(spec))
+                   if g is not None and g.nranks > 1)
+    check_impl(impl)
+    x2 = x.reshape(-1, x.shape[-1]).contiguous()
+    y = _RMSNormSharded.apply(x2, weight, float(eps), impl, groups)
+    return y.reshape(x.shape)
+
+
+def fused_rope_sharded(q, k, positions, q_spec, k_spec, theta: float = 1e4,
+                       impl: str = "auto"):
+    """``fused_rope`` on this rank's part of q ``[B, T, H, Dh]`` / k
+    ``[B, T, Hkv, Dh]`` with the positions of its rows: rope is token-
+    and head-local, so no collective runs. The Dh dim of
+    ``q_spec`` / ``k_spec`` must be unsharded."""
+    if any(len(s) == 4 and s[-1] is not None for s in (q_spec, k_spec)):
+        raise ValueError("rope rotates within Dh; the last dim of "
+                         f"q_spec/k_spec must be unsharded (got {q_spec}, "
+                         f"{k_spec})")
+    return fused_rope(q, k, positions, theta, impl)

@@ -85,6 +85,15 @@ from paddle_tpu_torch.amp import (GradScaler, debugging, decorate,
 from paddle_tpu_torch.core import flags
 from paddle_tpu_torch.observability import bridge_record_events
 from paddle_tpu_torch.ops.kernels import _op
+from paddle_tpu_torch import distributed, parallel
+from paddle_tpu_torch.distributed import (
+    DataParallel, communication, env, fleet, functional, group_sharded_parallel,
+    mpu, sequence_parallel, sharding, spawn)
+from paddle_tpu_torch.distributed import parallel as _dist_parallel
+from paddle_tpu_torch.parallel import mesh, mp_ops
+from paddle_tpu_torch.ops.fused import vocab_parallel_cross_entropy
+from paddle_tpu_torch.ops.kernels.fused_norm_rope import (
+    fused_rms_norm_sharded, fused_rope_sharded)
 _op.register_all()
 bad = sorted(m for m in sys.modules
              if m.split('.')[0] in ('jax', 'jaxlib', 'paddle_tpu'))
@@ -99,6 +108,11 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     assert out.stdout.strip() == "", out.stdout
 
 
+def _one_rank_mesh():
+    from paddle_tpu_torch.parallel import HybridMesh
+    return HybridMesh({"dp": 1, "pp": 1, "tp": 1}, [0], {}, 0)
+
+
 def test_entry_points_raise_without_cuda_or_device():
     if torch.cuda.is_available():
         pytest.skip("CUDA is present here: the default device is the card")
@@ -110,7 +124,7 @@ def test_entry_points_raise_without_cuda_or_device():
     from paddle_tpu_torch.vision import models as zoo
     from paddle_tpu_torch.vision.models import resnet50
     from paddle_tpu_torch.vision.train import make_train_step
-    from paddle_tpu_torch import Model, amp, load
+    from paddle_tpu_torch import Model, amp, distributed, load
     from paddle_tpu_torch.io import DataLoader, TensorDataset
     cfg = llama.LlamaConfig.tiny()
     qcfg = qwen2_moe.Qwen2MoeConfig.tiny(moe_impl="dropless")
@@ -162,6 +176,12 @@ def test_entry_points_raise_without_cuda_or_device():
         lambda: Model(torch.nn.ReLU()).predict([torch.zeros(2)]),
         lambda: amp.is_bfloat16_supported(),
         lambda: amp.is_float16_supported(),
+        lambda: distributed.init_parallel_env(),
+        lambda: distributed.fleet.init(),
+        lambda: distributed.mpu.ColumnParallelLinear(4, 4),
+        lambda: distributed.mpu.RowParallelLinear(4, 4),
+        lambda: distributed.mpu.VocabParallelEmbedding(8, 4),
+        lambda: llama.make_train_step(cfg, mesh=_one_rank_mesh()),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="CUDA"):

@@ -157,7 +157,14 @@ def test_make_batch_and_step_refusals():
     full = torch.cat([b["tokens"], b["labels"][:, -1:]], 1)
     assert torch.equal(full[:, 1:], b["labels"])
     assert int(b["tokens"].max()) < TCFG.vocab_size
-    with pytest.raises(NotImplementedError):
+    # ZeRO shards over a mesh's dp axis; the one-device step has none
+    with pytest.raises(ValueError):
         TL.make_train_step(TCFG, device="cpu", zero_stage=1)
+    with pytest.raises(ValueError):
+        TL.make_train_step(TCFG, device="cpu", zero_stage=4)
+    # a pipeline axis belongs to a later slice (no process group needed
+    # to see it)
+    from paddle_tpu_torch.parallel import HybridMesh
+    pp2 = HybridMesh({"dp": 1, "pp": 2, "tp": 1}, [0, 1], {}, 0)
     with pytest.raises(NotImplementedError):
-        TL.make_train_step(TCFG, device="cpu", mesh=object())
+        TL.make_train_step(TCFG, device="cpu", mesh=pp2)
