@@ -6,9 +6,9 @@ and the train step), the deployment front end (``jit.save`` →
 ``create_predictor``, ``DynamicBatcher``, ``to_static``), the
 capture of the Llama and Qwen2-MoE paths, the high-level trainer
 (``hapi.Model`` on ResNet-50 fed by ``io.DataLoader``), ONNX, ``amp``
-and the profiler, and data- and tensor-parallel Llama training (ranks
-spawned on the card over ``torch.distributed``) on one NVIDIA H100 and
-check them.
+and the profiler, and data-, tensor- and pipeline-parallel Llama
+training (ranks spawned on the card over ``torch.distributed``) on one
+NVIDIA H100 and check them.
 
 Run from the repository root with no arguments:
 
@@ -428,7 +428,8 @@ Phases (any failed check raises; nothing is caught):
    versions to phase 5's bounds, with ``time_ms``, bound, plain and
    library times; then four ranks spawned by ``distributed.spawn`` on the
    one card, over gloo (NCCL refuses two ranks of a communicator on one
-   device): (b) ``make_train_step(mesh=init_hybrid_mesh(tp=2))``, f32,
+   device), (b) on ranks 0-1 while (c) runs on ranks 2-3: (b)
+   ``make_train_step(mesh=init_hybrid_mesh(tp=2))``, f32,
    TF32 off, 2 steps from the same seeded state as a one-device witness
    the parent runs first (its params written to a temporary directory,
    the card freed before the spawn): losses within ``PAR_TP_LOSS_REL``
@@ -443,9 +444,31 @@ Phases (any failed check raises; nothing is caught):
    at the local depth x steps. Printed: per-rank peak memory and state
    bytes, the collectives' calls and bytes by kind, step ms and the
    share of it in the collectives (timed alone, card synchronized).
+25. pipeline-parallel training at ``llama3_8b`` widths cut to
+   ``PIPE_LAYERS`` layers, T 2048, on the same four
+   spawned ranks after phase 24's parts (a one-device f32 witness first,
+   in the parent): (a) ``make_train_step(mesh=init_hybrid_mesh(pp=4))``,
+   one layer a stage, f32, B 4, M 4, 2 steps under each of
+   ``1f1b_async``, ``1f1b``, ``zb`` and ``gpipe`` from the witness's
+   seeded state: losses within ``PAR_TP_LOSS_REL`` of the witness's and
+   every leaf within ``PAR_TP_ATOL`` but for ``PAR_TP_FRAC``, all within
+   ``PAR_TP_MAX``; ``1f1b`` bitwise ``1f1b_async``; ``zb``'s bits
+   against ``1f1b_async`` recorded, and where they differ its gradients
+   held to ``PIPE_ZB_*``; (b) pp 2 x tp 2, bf16, ``zb``, B 4, M 4, 2
+   steps: finite losses equal on every rank; (c) pp 2 x dp 2, bf16,
+   ``1f1b_async`` with two one-layer chunks a rank, B 8, M 4, ZeRO 0, 1
+   and 2, 2 steps each: losses and parameters bitwise ZeRO 0's, moments
+   halved, no whole-gradient all-reduce at stage 2 (the loss's two
+   scalars a step), each leaf's f32 sum all-reduced once a step at 0-1.
+   On every rank of every case each kernel's launches =
+   ``pipe_step_launches`` x steps and its p2p calls and bytes = the
+   schedule's exchanges (``pipe_exchanges``). Printed: step ms, peak
+   memory, idle ticks and p2p bytes of each rank; four ranks share the
+   card's SMs, so these are not a card-a-stage pipeline's.
 
 Phases run in the order 1, 2, 3, 5, 7, 4, 23 (a), 8, 20 (c), 21 (c),
-21 (d), 13, 15, 16, 17, 14, 6, 9, 10, 11, 12, 18, 19, 20, 21, 22, 23, 24:
+21 (d), 13, 15, 16, 17, 14, 6, 9, 10, 11, 12, 18, 19, 20, 21, 22, 23, 24,
+25:
 phase 14 starts
 after the 8B serving state is freed, phase 6 after phase 14's, phases 9
 and 10 after phase 6's.
@@ -7946,11 +7969,12 @@ def phase23() -> dict:
 # phase 24: data- and tensor-parallel training on one card
 # ---------------------------------------------------------------------------
 
-# llama3_8b widths cut to 4 layers: phase (b)'s two f32 ranks (15.4 GB of
-# state each) and the one-device f32 witness before them (31 GB), then
-# (c)'s two bf16 ranks at ZeRO 0 (15.4 GB each) and (d)'s four fit the
-# card and the phase's time; phase 6 trains all 32 layers on one device
-PAR_LAYERS = 4
+# llama3_8b widths cut to 2 layers: phase (b)'s two f32 ranks and the
+# one-device f32 witness before them, then (c)'s two bf16 ranks at ZeRO 0
+# and (d)'s four fit the card, and the phase fits the smoke's time beside
+# phase 25 (at 4 layers it took 162 s); phase 6 trains all 32 layers on
+# one device
+PAR_LAYERS = 2
 PAR_T = 2048
 PAR_SEED = 24
 PAR_STEPS = {"tp": 2, "zero": 2, "hybrid": 3}
@@ -8223,10 +8247,368 @@ def _par_hybrid(hm) -> dict:
             "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
 
 
-def par_rank(witness_dir: str) -> dict:
-    """One rank of phase 24 (b)-(d), spawned by
-    ``paddle_tpu_torch.distributed.spawn``; every rank computes on the
-    one card."""
+# ---------------------------------------------------------------------------
+# phase 25: pipeline-parallel training on one card
+# ---------------------------------------------------------------------------
+
+# llama3_8b widths at PIPE_LAYERS of 32 layers (one layer a stage at pp
+# 4), T PAR_T, in phase 24's spawned world: (a) pp 4, f32, every schedule
+# against a one-device witness (1f1b_async first: the others are held to
+# its bits); (b) pp 2 x tp 2, bf16, zb; (c) pp 2 x dp 2, bf16, 1f1b_async
+# with two one-layer chunks a rank (VPP 2), ZeRO 0, 1 and 2
+PIPE_LAYERS = 4
+PIPE_SCHEDULES = ("1f1b_async", "1f1b", "zb", "gpipe")
+PIPE_M = 4
+PIPE_B = {"a": 4, "b": 4, "c": 8}
+PIPE_STEPS = 2
+PIPE_SEED = 25
+# the forward and backward passes a layer makes for one microbatch:
+# GPipe's forward and its per-layer remat recompute, one backward; the
+# fused schedules' F (no autograd), B's forward from the saved input (the
+# JAX B's jax.vjp) and its recompute, one backward; zb's W recomputes
+# again for its own backward (the weights'; B's gives the input's)
+PIPE_PASSES = {"gpipe": (2, 1), "1f1b": (3, 1), "1f1b_async": (3, 1),
+               "zb": (4, 2)}
+# zb against 1f1b_async where their bits differ: the JAX pipeline tests'
+# bounds (tests/test_pipeline_async.py): loss rtol 1e-6, every gradient
+# rtol 2e-5 / atol 1e-6
+PIPE_ZB_LOSS_RTOL = 1e-6
+PIPE_ZB_GRAD_RTOL, PIPE_ZB_GRAD_ATOL = 2e-5, 1e-6
+
+
+def pipe_cfg(dtype, pp: int = 1, schedule: str = "gpipe", vpp: int = 1):
+    return dataclasses.replace(par_cfg(dtype), num_hidden_layers=PIPE_LAYERS,
+                               pp_stages=pp, num_microbatches=PIPE_M,
+                               pp_schedule=schedule, vpp_chunks=vpp)
+
+
+def pipe_step_launches(schedule: str, layers: int, M: int,
+                       last: bool) -> dict:
+    """Each kernel's launches on one pipeline rank in one step: its
+    ``layers`` each make ``PIPE_PASSES`` forwards (two RMSNorms, one
+    RoPE, one flash forward each) and backwards (the same backwards) a
+    microbatch; the last rank's final norm runs once a step under GPipe
+    (on the whole batch), once a microbatch under the fused
+    schedules."""
+    f, b = PIPE_PASSES[schedule]
+    n = layers * M
+    head = (1 if schedule == "gpipe" else M) if last else 0
+    return {"flash_attention_fwd": f * n, "flash_attention_bwd_dq": b * n,
+            "flash_attention_bwd_dkv": b * n,
+            "fused_rms_norm_fwd": 2 * f * n + head,
+            "fused_rms_norm_bwd": 2 * b * n + head,
+            "fused_rope": (f + b) * n}
+
+
+def pipe_exchanges(cfg, mesh, nbytes: int) -> tuple:
+    """``(idle ticks, p2p)`` of this rank in one step, from the schedule:
+    ``send`` one call and ``nbytes`` a message it sends, ``recv`` one
+    call an exchange (a tick with any message) and ``nbytes`` a message
+    that arrives. GPipe has no ticks (None): each message is an exchange
+    of its own."""
+    from paddle_tpu_torch.models.llama import _pipe_chunks
+    from paddle_tpu_torch.parallel.pipeline_async import build_schedule
+    S, M, V = mesh.pp_degree, cfg.num_microbatches, _pipe_chunks(cfg)
+    r = mesh.axis_index("pp")
+    if cfg.pp_schedule == "gpipe":
+        sends = M * ((r != S - 1) + (r != 0))
+        return None, {"send": (sends, sends * nbytes),
+                      "recv": (2 * sends, sends * nbytes)}
+    if cfg.pp_schedule == "1f1b":
+        K = S * V
+        sends = arrivals = calls = idle = 0
+        for t in range(M + 2 * K - 1):
+            out = got = busy = 0
+            for v in range(V):
+                k = v * S + r
+                if 0 <= t - k < M:
+                    busy, out = 1, out + (k < K - 1)
+                if 0 <= t - (2 * K - 1) + k < M:
+                    busy, out = 1, out + (k > 0)
+                got += (k > 0 and 0 <= t + 1 - k < M) + (
+                    k < K - 1 and 0 <= t + 1 - (2 * K - 1) + k < M)
+            sends, arrivals = sends + out, arrivals + got
+            calls += (out + got) > 0
+            idle += not busy
+        return idle, {"send": (sends, sends * nbytes),
+                      "recv": (calls, arrivals * nbytes)}
+    sc = build_schedule(S, M, V, "zb" if cfg.pp_schedule == "zb" else "1f1b")
+    kind = sc.kind[:, r]
+    out = (kind == 1) | ((kind == 2) & (sc.emit[:, r] == 0))
+    got = (sc.store_up[:, r] >= 0).astype(int) + (sc.store_dn[:, r] >= 0)
+    return int((kind == 0).sum()), {
+        "send": (int(out.sum()), int(out.sum()) * nbytes),
+        "recv": (int((out | (got > 0)).sum()), int(got.sum()) * nbytes)}
+
+
+def _pipe_named_leaves(params, cfg, mesh) -> list:
+    """``[(name, tensor)]`` of a pipeline rank's params, layers under
+    their global index."""
+    from paddle_tpu_torch.models.llama import _stage_layers
+    out = [(k, params[k]) for k in ("embed", "final_norm", "lm_head")
+           if k in params]
+    for i, lp in zip(_stage_layers(cfg, mesh.axis_index("pp")),
+                     params["layers"]):
+        out += [(f"layers.{i}.{k}", v) for k, v in sorted(lp.items())]
+    return out
+
+
+def pipe_witness(out_dir: str) -> dict:
+    """Phase 25 (a)'s witness: the one-device step (f32, TF32 off) at B
+    ``PIPE_B["a"]``, 2 steps from the phase's seeded state, its params
+    written to ``out_dir``, the card freed."""
+    from paddle_tpu_torch.models import llama
+    cfg = pipe_cfg(torch.float32)
+    step, init = llama.make_train_step(cfg)
+    state = init(torch.Generator(device="cuda").manual_seed(PIPE_SEED))
+    batch = llama.make_batch(
+        cfg, PIPE_B["a"], PAR_T,
+        generator=torch.Generator(device="cuda").manual_seed(PIPE_SEED + 1))
+    losses = []
+    for _ in range(PIPE_STEPS):
+        state, loss = step(state, batch)
+        losses.append(float(loss))
+    os.makedirs(out_dir, exist_ok=True)
+    for name, leaf in _named_leaves(state["params"]):
+        np.save(os.path.join(out_dir, name + ".npy"),
+                leaf.detach().cpu().numpy())
+    del state, batch, step, init
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"losses": losses}
+
+
+def _pipe_run(hm, cfg, batch_size: int, zero_stage: int = 0) -> tuple:
+    """``PIPE_STEPS`` steps of ``make_train_step(cfg, mesh=hm)`` from the
+    phase's seeded state; each kernel's launches and this rank's p2p
+    held to ``pipe_step_launches`` and ``pipe_exchanges``. Returns the
+    record and the state."""
+    from paddle_tpu_torch import distributed as dist
+    from paddle_tpu_torch.models import llama
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    step, init = llama.make_train_step(cfg, mesh=hm, zero_stage=zero_stage)
+    state = init(torch.Generator(device="cuda").manual_seed(PIPE_SEED))
+    batch = llama.make_batch(
+        cfg, batch_size, PAR_T, mesh=hm,
+        generator=torch.Generator(device="cuda").manual_seed(PIPE_SEED + 1))
+    _zero_counters()
+    losses, times = [], []
+    for _ in range(PIPE_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, loss = step(state, batch)
+        losses.append(float(loss))
+        times.append(time.perf_counter() - t0)
+    launches, stats = _launches(), dist.collective_stats()
+    last = hm.axis_index("pp") == hm.pp_degree - 1
+    want = {n: c * PIPE_STEPS for n, c in pipe_step_launches(
+        cfg.pp_schedule, len(state["params"]["layers"]),
+        cfg.num_microbatches, last).items()}
+    assert launches == want, (cfg.pp_schedule, launches, want)
+    rows = batch_size // (cfg.num_microbatches * hm.dp_degree)
+    nbytes = rows * (PAR_T // hm.tp_degree) * cfg.hidden_size * (
+        torch.finfo(cfg.dtype).bits // 8)
+    idle, per_step = pipe_exchanges(cfg, hm, nbytes)
+    p2p = {k: (stats.get(k, {}).get("calls", 0),
+               stats.get(k, {}).get("bytes", 0)) for k in ("send", "recv")}
+    want = {k: (c * PIPE_STEPS, b * PIPE_STEPS)
+            for k, (c, b) in per_step.items()}
+    assert p2p == want, (cfg.pp_schedule, p2p, want)
+    rec = {"losses": losses, "step_ms": [t * 1e3 for t in times],
+           "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+           "idle_ticks": idle, "p2p": p2p, "launches": launches,
+           "all_reduce_bytes": stats.get("all_reduce", {}).get("bytes", 0),
+           "param_bytes": _state_bytes(state["params"]),
+           "moment_bytes": _state_bytes([state["opt"]["mu"],
+                                         state["opt"]["nu"]])}
+    return rec, state
+
+
+def _zb_vs_async_grads(hm) -> dict:
+    """zb's gradients against 1f1b_async's from one state and batch, to
+    ``PIPE_ZB_*`` (run where the two steps' bits differ)."""
+    from paddle_tpu_torch.models import llama
+    from paddle_tpu_torch.models.llama import _tree_leaves
+    cfg_a = pipe_cfg(torch.float32, 4, "1f1b_async")
+    cfg_z = pipe_cfg(torch.float32, 4, "zb")
+    _, init = llama.make_train_step(cfg_a, mesh=hm)
+    state = init(torch.Generator(device="cuda").manual_seed(PIPE_SEED))
+    batch = llama.make_batch(
+        cfg_a, PIPE_B["a"], PAR_T, mesh=hm,
+        generator=torch.Generator(device="cuda").manual_seed(PIPE_SEED + 1))
+    la, ga = llama.grads_1f1b(state["params"], batch, cfg_a, hm)
+    lz, gz = llama.grads_1f1b(state["params"], batch, cfg_z, hm)
+    rel = abs(float(lz) - float(la)) / abs(float(la))
+    assert rel <= PIPE_ZB_LOSS_RTOL, (float(lz), float(la))
+    worst = 0.0
+    for a, z in zip(_tree_leaves(ga), _tree_leaves(gz)):
+        d = (z - a).abs()
+        assert bool((d <= PIPE_ZB_GRAD_ATOL
+                     + PIPE_ZB_GRAD_RTOL * a.abs()).all())
+        worst = max(worst, float(d.max()))
+    return {"loss_rel": rel, "grad_max_abs": worst}
+
+
+def _pipe_a(hm, wdir: str) -> dict:
+    """(a) on this rank: pp 4, f32, each schedule 2 steps; its leaves
+    against the witness's; 1f1b and zb against 1f1b_async bitwise."""
+    out, ref = {}, None
+    for sched in PIPE_SCHEDULES:
+        cfg = pipe_cfg(torch.float32, 4, sched)
+        rec, state = _pipe_run(hm, cfg, PIPE_B["a"])
+        # on the host: the card holds four ranks' states at once
+        leaves = [(n, leaf.detach().cpu())
+                  for n, leaf in _pipe_named_leaves(state["params"], cfg, hm)]
+        del state
+        if ref is not None:
+            rec["bitwise_async"] = rec["losses"] == ref[0] and all(
+                torch.equal(leaf, r) for (_, leaf), r in zip(leaves, ref[1]))
+        if rec.get("bitwise_async"):
+            # the same bits as 1f1b_async's: the same distance to the witness
+            rec["errs"] = out[PIPE_SCHEDULES[0]]["errs"]
+        else:
+            rec["errs"] = {}
+            for name, leaf in leaves:
+                d = np.abs(leaf.numpy() - np.load(os.path.join(
+                    wdir, name + ".npy")))
+                rec["errs"][name] = (float(d.max()),
+                                     float((d > PAR_TP_ATOL).mean()))
+                del d
+        if ref is None:
+            ref = (rec["losses"], [leaf for _, leaf in leaves])
+        out[sched] = rec
+        del leaves
+    del ref
+    if not out["zb"]["bitwise_async"]:
+        out["zb_grads"] = _zb_vs_async_grads(hm)
+    return out
+
+
+def _pipe_b(hm) -> dict:
+    """(b) on this rank: pp 2 x tp 2, bf16, zb, 2 steps."""
+    rec, state = _pipe_run(hm, pipe_cfg(torch.bfloat16, 2, "zb"),
+                           PIPE_B["b"])
+    del state
+    return rec
+
+
+def _pipe_c(hm) -> dict:
+    """(c) on this rank: pp 2 x dp 2, bf16, 1f1b_async with VPP 2, ZeRO
+    0, 1 and 2, 2 steps each; stages 1-2 against stage 0 bitwise."""
+    from paddle_tpu_torch.models.llama import _tree_leaves
+    cfg = pipe_cfg(torch.bfloat16, 2, "1f1b_async", vpp=2)
+    out, ref = {}, None
+    for stage in (0, 1, 2):
+        rec, state = _pipe_run(hm, cfg, PIPE_B["c"], zero_stage=stage)
+        leaves = [p.detach().cpu() for p in _tree_leaves(state["params"])]
+        if ref is None:
+            ref = leaves
+            rec["numel"] = sum(p.numel() for p in leaves)
+        else:
+            rec["leaves_differing"] = sum(not torch.equal(p, r)
+                                          for p, r in zip(leaves, ref))
+        out[stage] = rec
+        del state, leaves
+    return out
+
+
+def _fmt_ms(xs) -> str:
+    return "/".join(f"{x:.0f}" for x in xs)
+
+
+def pipe_report(world: list, witness: dict) -> dict:
+    """Phase 25's checks on the ranks' records, and its log lines."""
+    a = [w["pipe_a"] for w in world]
+    for sched in PIPE_SCHEDULES:
+        recs = [x[sched] for x in a]
+        for r in recs:
+            assert r["losses"] == recs[0]["losses"], (sched, recs)
+        for got, want in zip(recs[0]["losses"], witness["losses"]):
+            assert abs(got - want) / abs(want) <= PAR_TP_LOSS_REL, (
+                sched, recs[0]["losses"], witness["losses"])
+        worst = {}
+        for r, rec in enumerate(recs):
+            for name, (mx, frac) in rec["errs"].items():
+                assert frac <= PAR_TP_FRAC and mx <= PAR_TP_MAX, (
+                    sched, r, name, mx, frac)
+                w = worst.get(name, (0.0, 0.0))
+                worst[name] = (max(w[0], mx), max(w[1], frac))
+        if sched == "1f1b":
+            assert all(r["bitwise_async"] for r in recs), sched
+        top = sorted(worst.items(), key=lambda kv: -kv[1][0])[:3]
+        log(f"25 (a) pp 4 f32 {sched}: losses {recs[0]['losses']} vs the "
+            f"witness's {witness['losses']}; largest |diff| " + ", ".join(
+                f"{n} {mx:.3g} ({frac:.2e} over {PAR_TP_ATOL:g})"
+                for n, (mx, frac) in top)
+            + (f"; bitwise 1f1b_async: "
+               f"{all(r['bitwise_async'] for r in recs)}"
+               if sched != "1f1b_async" else "")
+            + "; step ms a rank " + ", ".join(
+                _fmt_ms(r["step_ms"]) for r in recs)
+            + "; peak GiB " + ", ".join(f"{r['peak_gib']:.2f}" for r in recs)
+            + "; idle ticks " + ", ".join(str(r["idle_ticks"]) for r in recs)
+            + "; p2p MiB sent / received a rank " + ", ".join(
+                f"{r['p2p']['send'][1] / 2 ** 20:.0f}/"
+                f"{r['p2p']['recv'][1] / 2 ** 20:.0f}" for r in recs))
+    if "zb_grads" in a[0]:
+        log(f"25 (a) zb vs 1f1b_async not bitwise; gradients: "
+            + ", ".join(f"rank {r}: {x['zb_grads']}" for r, x in enumerate(a)))
+    b = [w["pipe_b"] for w in world]
+    for r in b:
+        assert all(math.isfinite(x) for x in r["losses"]), b
+        assert r["losses"] == b[0]["losses"], [x["losses"] for x in b]
+    log(f"25 (b) pp 2 x tp 2 bf16 zb: losses {b[0]['losses']}; step ms a "
+        f"rank " + ", ".join(_fmt_ms(r["step_ms"]) for r in b)
+        + "; peak GiB " + ", ".join(f"{r['peak_gib']:.2f}" for r in b)
+        + "; idle ticks " + ", ".join(str(r["idle_ticks"]) for r in b)
+        + "; p2p MiB sent a rank " + ", ".join(
+            f"{r['p2p']['send'][1] / 2 ** 20:.0f}" for r in b)
+        + "; launches a step (rank 0) " + ", ".join(
+            f"{n}={c // PIPE_STEPS}" for n, c in b[0]["launches"].items()))
+    c = [w["pipe_c"] for w in world]
+    for stage in (0, 1, 2):
+        for x in c:
+            r = x[stage]
+            assert r["losses"] == c[0][0]["losses"], (stage, r["losses"])
+            assert all(math.isfinite(v) for v in r["losses"])
+            ar = r["all_reduce_bytes"]
+            if stage:
+                assert r["leaves_differing"] == 0, (stage, r)
+                assert r["moment_bytes"] * 2 == x[0]["moment_bytes"], stage
+            if stage == 2:
+                # no whole-gradient all-reduce: the loss over pp and dp
+                assert ar == PIPE_STEPS * 2 * 4, (stage, ar)
+            else:
+                assert ar == PIPE_STEPS * (2 * 4 + 4 * x[0]["numel"]), (
+                    stage, ar)
+        log(f"25 (c) pp 2 x dp 2 bf16 1f1b_async VPP 2 ZeRO {stage}: "
+            f"losses {c[0][stage]['losses']}"
+            + ("" if stage == 0 else "; params = ZeRO 0's bitwise")
+            + "; step ms a rank " + ", ".join(
+                _fmt_ms(x[stage]["step_ms"]) for x in c)
+            + "; peak GiB " + ", ".join(f"{x[stage]['peak_gib']:.2f}"
+                                       for x in c)
+            + "; idle ticks " + ", ".join(str(x[stage]["idle_ticks"])
+                                          for x in c)
+            + f"; all-reduce MiB a rank "
+            f"{c[0][stage]['all_reduce_bytes'] / 2 ** 20:.1f}; p2p MiB "
+            f"sent a rank " + ", ".join(
+                f"{x[stage]['p2p']['send'][1] / 2 ** 20:.0f}" for x in c))
+    return {"a": {s: a[0][s]["launches"] for s in PIPE_SCHEDULES},
+            "zb_bitwise": all(x["zb"]["bitwise_async"] for x in a)}
+
+
+PHASE24_PARTS = ("tp", "zero", "hybrid")
+PHASE25_PARTS = ("pipe_a", "pipe_b", "pipe_c")
+
+
+def par_rank(witness_dir: str, parts=PHASE24_PARTS + PHASE25_PARTS) -> dict:
+    """One rank of phases 24 (b)-(d) and 25 (a)-(c) (``parts``), spawned
+    by ``paddle_tpu_torch.distributed.spawn``; every rank computes on
+    the one card. The witnesses' params are under ``witness_dir``'s
+    ``tp`` and ``pipe``."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     from paddle_tpu_torch import distributed as dist
@@ -8234,18 +8616,29 @@ def par_rank(witness_dir: str) -> dict:
     dist.init_parallel_env()
     out = {"rank": dist.get_rank(), "backend": dist.get_backend(),
            "device": str(torch.device("cuda", torch.cuda.current_device()))}
-    # warm this process's CUDA libraries while ranks 0-1 run (b) and (c)
+    # warm this process's CUDA libraries before its first part
     a = torch.randn(256, 256, device="cuda", dtype=torch.bfloat16)
     (a @ a).float().sum().item()
+    tp_dir = os.path.join(witness_dir, "tp")
+    pipe_dir = os.path.join(witness_dir, "pipe")
+    # every mesh first (each rank makes every group in one order), so (b)
+    # on ranks 0-1 and (c) on ranks 2-3 run at once
+    meshes = [(part, init_hybrid_mesh(**shape, set_global=False), fn)
+              for part, shape, fn in (
+                  ("tp", dict(tp=2, ranks=(0, 1)),
+                   lambda hm: _par_tp(hm, tp_dir)),
+                  ("zero", dict(dp=2, ranks=(2, 3)), _par_zero),
+                  ("hybrid", dict(dp=2, tp=2), _par_hybrid),
+                  ("pipe_a", dict(pp=4), lambda hm: _pipe_a(hm, pipe_dir)),
+                  ("pipe_b", dict(pp=2, tp=2), _pipe_b),
+                  ("pipe_c", dict(dp=2, pp=2), _pipe_c))
+              if part in parts]
     seconds = {}
-    for part, shape, fn in (("tp", dict(tp=2), lambda hm: _par_tp(
-            hm, witness_dir)), ("zero", dict(dp=2), _par_zero),
-            ("hybrid", dict(dp=2, tp=2), _par_hybrid)):
-        t0 = time.perf_counter()
-        hm = init_hybrid_mesh(**shape, set_global=False)
+    for part, hm, fn in meshes:
         if hm.is_member:
+            t0 = time.perf_counter()
             out[part] = fn(hm)
-        seconds[part] = time.perf_counter() - t0
+            seconds[part] = time.perf_counter() - t0
     out["seconds"] = seconds
     dist.destroy_process_group()
     return out
@@ -8256,33 +8649,78 @@ def _fmt_stats(stats: dict) -> str:
                      for k, v in sorted(stats.items()))
 
 
-def parallel_phase() -> dict:
-    """Phase 24: (a) the kernels at tp 2's per-rank shapes, then four
-    ranks on the card (``distributed.spawn``, gloo): (b) tp 2 against
-    the one-device step, (c) dp 2 at ZeRO 0-3, (d) dp 2 x tp 2 at ZeRO
-    1 (see the module docstring)."""
+def parallel_phase(phase24: bool = True, phase25: bool = True) -> dict:
+    """Phases 24 and 25 in one spawned world. 24: (a) the kernels at tp
+    2's per-rank shapes, then four ranks on the card
+    (``distributed.spawn``, gloo): (b) tp 2 against the one-device step,
+    (c) dp 2 at ZeRO 0-3, (d) dp 2 x tp 2 at ZeRO 1. 25: the pipeline
+    (a)-(c) on the same ranks (see the module docstring)."""
     from paddle_tpu_torch.distributed import spawn
-    from paddle_tpu_torch.models.llama import _tree_leaves
     t_phase = time.perf_counter()
-    log(f"24: llama3_8b widths cut to {PAR_LAYERS} of 32 layers, T {PAR_T}")
-    kern = tp_kernel_phase()
-    gc.collect()
-    torch.cuda.empty_cache()
+    kern = None
+    if phase24:
+        log(f"24: llama3_8b widths cut to {PAR_LAYERS} of 32 layers, "
+            f"T {PAR_T}")
+        kern = tp_kernel_phase()
+        gc.collect()
+        torch.cuda.empty_cache()
     wdir = tempfile.mkdtemp(prefix="chip_smoke_witness_")
     try:
-        witness = tp_witness(wdir)
+        witness = pwit = None
+        if phase24:
+            os.makedirs(os.path.join(wdir, "tp"))
+            witness = tp_witness(os.path.join(wdir, "tp"))
+        t24 = time.perf_counter() - t_phase
         t0 = time.perf_counter()
-        world = spawn(par_rank, (wdir,), nprocs=4)
+        if phase25:
+            pwit = pipe_witness(os.path.join(wdir, "pipe"))
+            log(f"25 (a) witness: one-device f32 B {PIPE_B['a']} losses "
+                f"{pwit['losses']} in {time.perf_counter() - t0:.1f} s")
+        t25 = time.perf_counter() - t0
+        gc.collect()
+        torch.cuda.empty_cache()
+        log(f"24-25: the parent holds "
+            f"{torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB on the card "
+            f"({torch.cuda.memory_reserved() / 2 ** 30:.2f} reserved) as "
+            f"the ranks start")
+        parts = (PHASE24_PARTS if phase24 else ()) + (
+            PHASE25_PARTS if phase25 else ())
+        t0 = time.perf_counter()
+        world = spawn(par_rank, (wdir, parts), nprocs=4)
         t_world = time.perf_counter() - t0
     finally:
         import shutil
         shutil.rmtree(wdir, ignore_errors=True)
     for w in world:
         assert w["backend"] == "gloo" and w["device"] == "cuda:0", w
-    log(f"24: 4 ranks on {world[0]['device']} over {world[0]['backend']} "
-        f"in {t_world:.1f} s (spawn to join; rank 0: " + ", ".join(
-            f"({k}) {v:.1f} s" for k, v in zip(
-                "bcd", world[0]["seconds"].values())) + ")")
+    log(f"24-25: 4 ranks on {world[0]['device']} over {world[0]['backend']} "
+        f"in {t_world:.1f} s (spawn to join; " + "; ".join(
+            f"rank {w['rank']}: " + ", ".join(
+                f"{k} {v:.1f} s" for k, v in w["seconds"].items())
+            for w in world) + ")")
+
+    def took(names):
+        # the slowest rank's time in the phase's parts
+        return max(sum(v for k, v in w["seconds"].items() if k in names)
+                   for w in world)
+
+    out = {"kernels": kern}
+    if phase24:
+        out["launches"] = phase24_report(world, witness)
+        log(f"phase 24 in {t24 + took(PHASE24_PARTS):.1f} s (ranks' parts, "
+            f"spawn aside)")
+    if phase25:
+        out["pipe"] = pipe_report(world, pwit)
+        log(f"phase 25 in {t25 + took(PHASE25_PARTS):.1f} s (witness and "
+            f"ranks' parts, spawn aside; four ranks share the card's SMs, so "
+            f"their times and idle ticks are not those of a card a stage)")
+    log(f"phases 24-25 in {time.perf_counter() - t_phase:.1f} s")
+    return out
+
+
+def phase24_report(world: list, witness: dict) -> dict:
+    """Phase 24 (b)-(d)'s checks on the ranks' records, and its log
+    lines; returns (d)'s launches on rank 0."""
     # (b)
     tp = [world[r]["tp"] for r in (0, 1)]
     assert tp[0]["losses"] == tp[1]["losses"], tp
@@ -8304,8 +8742,8 @@ def parallel_phase() -> dict:
             for n, (mx, frac) in top)
         + f"; peak {max(t['peak_gib'] for t in tp):.2f} GiB a rank; "
         f"collectives a rank: {_fmt_stats(tp[0]['stats'])}")
-    # (c)
-    zs = [world[r]["zero"] for r in (0, 1)]
+    # (c), on ranks 2-3
+    zs = [world[r]["zero"] for r in (2, 3)]
     for stage in range(4):
         a, b = zs[0][stage], zs[1][stage]
         assert a["losses"] == b["losses"] == zs[0][0]["losses"], (stage, a,
@@ -8331,7 +8769,7 @@ def parallel_phase() -> dict:
                 assert b0["bytes"] < s["all_gather"]["bytes"] <= \
                     PAR_STEPS["zero"] * 4 * p0 + b0["bytes"], s
         log(f"24 (c) ZeRO {stage}: losses {a['losses']}; peak "
-            f"{a['peak_gib']:.2f} / {b['peak_gib']:.2f} GiB (ranks 0 / 1), "
+            f"{a['peak_gib']:.2f} / {b['peak_gib']:.2f} GiB (ranks 2 / 3), "
             f"at rest params {a['param_bytes'] / 2 ** 30:.3f} GiB, moments "
             f"{a['moment_bytes'] / 2 ** 30:.3f} GiB a rank; step ms "
             + ", ".join(f"{t:.1f}" for t in a["step_ms"])
@@ -8353,8 +8791,15 @@ def parallel_phase() -> dict:
             + ", ".join(f"{n}={c // PAR_STEPS['hybrid']}"
                         for n, c in h["launches"].items())
             + f"; collectives: {_fmt_stats(h['stats'])}")
-    log(f"phase 24 in {time.perf_counter() - t_phase:.1f} s")
-    return {"kernels": kern, "launches": hy[0]["launches"]}
+    return hy[0]["launches"]
+
+
+def timed(tag: str, fn, *args):
+    """``fn(*args)``, logging its wall time as ``<tag> in N s``."""
+    t0 = time.perf_counter()
+    out = fn(*args)
+    log(f"{tag} in {time.perf_counter() - t0:.1f} s")
+    return out
 
 
 def main() -> int:
@@ -8396,20 +8841,20 @@ def main() -> int:
         "instantiation (no HMMA): " + ", ".join(
             f"{k} {v}" for k, v in check_gemm_sass(libs).items()))
 
-    rec = kernel_phase()
-    train_rec = train_kernel_phase()
-    paged_rec = paged_kernel_phase()
-    int8_rec = int8_kernel_phase()
+    rec = timed("phase 3", kernel_phase)
+    train_rec = timed("phase 5", train_kernel_phase)
+    paged_rec = timed("phase 7 (paged)", paged_kernel_phase)
+    int8_rec = timed("phase 7 (int8)", int8_kernel_phase)
     params, cfg = init_8b()
-    serving = serving_phase(params, cfg)
+    serving = timed("phase 4", serving_phase, params, cfg)
     # phase 23 (a): the profiler over the engine while the 8B weights live
     t23 = time.perf_counter()
     profiled = profiler_engine_run(params, cfg)
     t23 = time.perf_counter() - t23
     log(f"phase 23 (a) in {t23:.1f} s")
-    paths = paged_paths_phase(params, cfg)
+    paths = timed("phase 8", paged_paths_phase, params, cfg)
     # phase 20 (c): the ragged batcher while the 8B weights are alive
-    ragged = ragged_batcher_run(params, cfg)
+    ragged = timed("phase 20 (c)", ragged_batcher_run, params, cfg)
     # phase 21 (c), (d): the tick and the int8 decode step captured, on
     # the 8B weights
     t21 = time.perf_counter()
@@ -8417,40 +8862,40 @@ def main() -> int:
                            decode=capture_decode_run(params, cfg))
     t21 = time.perf_counter() - t21
     log(f"phase 21 (c), (d) in {t21:.1f} s")
-    sampling_phase(params, cfg)
+    timed("phase 13", sampling_phase, params, cfg)
     adopted_rec = adopted_kernel_case()
-    migration = migration_phase(params, cfg)
+    migration = timed("phase 15", migration_phase, params, cfg)
     fleet_case = fleet_kernel_case()
-    fleet = fleet_phase(params, cfg)
+    fleet = timed("phase 16", fleet_phase, params, cfg)
     # phase 17: the same kernel check at the decode worker's shapes, then
     # the worker-process fleet (phase 16's engines closed, the parent's
     # cached blocks returned before the workers spawn)
     proc_case = fleet_kernel_case()
-    proc = proc_fleet_phase(params, cfg)
+    proc = timed("phase 17", proc_fleet_phase, params, cfg)
     # free the 8B serving state before Qwen2-MoE's 43 GB of weights and
     # the train step's 61 GiB peak
     del params
     gc.collect()
     torch.cuda.empty_cache()
-    qwen_serve = qwen_serving_phase()
+    qwen_serve = timed("phase 14", qwen_serving_phase)
     gc.collect()
     torch.cuda.empty_cache()
-    train = train_phase()
+    train = timed("phase 6", train_phase)
     gc.collect()
     torch.cuda.empty_cache()
-    gmm_rec = gmm_kernel_phase()
-    qwen = qwen_train_phase()
+    gmm_rec = timed("phase 9", gmm_kernel_phase)
+    qwen = timed("phase 10", qwen_train_phase)
     gc.collect()
     torch.cuda.empty_cache()
-    ce_rec = conv_epilogue_phase()
-    resnet = resnet_phase()
-    zoo = zoo_phase()
+    ce_rec = timed("phase 11", conv_epilogue_phase)
+    resnet = timed("phase 12", resnet_phase)
+    zoo = timed("phase 18", zoo_phase)
     gc.collect()
     torch.cuda.empty_cache()
     vision_train_phase()
     gc.collect()
     torch.cuda.empty_cache()
-    deploy = deployment_phase()
+    deploy = timed("phase 20", deployment_phase)
     gc.collect()
     torch.cuda.empty_cache()
     t0 = time.perf_counter()

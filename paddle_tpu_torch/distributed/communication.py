@@ -398,21 +398,25 @@ def recv(tensor: torch.Tensor, src: int = 0, group: Optional[Group] = None,
 
 
 def exchange(sends: list, recvs: list, group: Optional[Group] = None):
-    """Post every ``(tensor, dst)`` of ``sends`` and ``(tensor, src)`` of
-    ``recvs`` (global ranks) at once and wait for all, so a ring of
-    sends cannot deadlock; received tensors are written in place."""
+    """Post every ``(tensor, dst[, tag])`` of ``sends`` and ``(tensor,
+    src[, tag])`` of ``recvs`` (global ranks) at once and wait for all,
+    so a ring of sends cannot deadlock; received tensors are written in
+    place. A message matches the receive of its pair of ranks and tag
+    (0 when not given)."""
     g = _group(group)
     ops, back = [], []
-    for t, peer in sends:
+    for t, peer, *tag in sends:
         with _Count("send", _nbytes(t), t.is_cuda):
             buf = t.cpu() if _host(t, g) else t.contiguous()
-        ops.append(dist.P2POp(dist.isend, buf, peer, group=g.pg))
-    for t, peer in recvs:
+        ops.append(dist.P2POp(dist.isend, buf, peer, group=g.pg,
+                              tag=tag[0] if tag else 0))
+    for t, peer, *tag in recvs:
         buf = torch.empty_like(t, device="cpu") if _host(t, g) else t
         back.append((t, buf))
-        ops.append(dist.P2POp(dist.irecv, buf, peer, group=g.pg))
-    with _Count("recv", sum(_nbytes(t) for t, _ in recvs),
-                any(t.is_cuda for t, _ in recvs)):
+        ops.append(dist.P2POp(dist.irecv, buf, peer, group=g.pg,
+                              tag=tag[0] if tag else 0))
+    with _Count("recv", sum(_nbytes(r[0]) for r in recvs),
+                any(r[0].is_cuda for r in recvs)):
         for w in dist.batch_isend_irecv(ops) if ops else []:
             w.wait()
         for t, buf in back:

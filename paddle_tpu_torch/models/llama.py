@@ -36,8 +36,10 @@ Port of ``paddle_tpu/models/llama.py``:
   int8 matmul kernel (``ops/kernels/int8_matmul``).
 
 * the training path ``forward`` -> ``loss_fn`` -> ``make_train_step``
-  (one device, or a dp x tp mesh over ``torch.distributed``: see
-  ``param_specs`` and ``_mesh_trainer``): per-layer remat through
+  (one device, or a dp x pp x tp mesh over ``torch.distributed``: see
+  ``param_specs`` and ``_mesh_trainer``; pipelines under GPipe,
+  lockstep 1F1B, rank-asymmetric 1F1B with interleaved VPP, or zero
+  bubble, ``grads_1f1b``): per-layer remat through
   ``torch.utils.checkpoint``, the fused RMSNorm / RoPE kernels
   (``ops/kernels/fused_norm_rope``) and the flash-attention kernels
   (``ops/kernels/flash_attention``) as ``LlamaConfig`` asks, the fused
@@ -72,6 +74,7 @@ from ..ops.kernels.flash_attention import flash_attention
 from ..ops.kernels.fused_norm_rope import fused_rms_norm, fused_rope
 from ..ops.kernels.ragged_paged_attention import (
     ragged_paged_attention_packed)
+from ..parallel.pipeline_async import PP_SCHEDULES, schedule_legality
 
 __all__ = ["LlamaConfig", "init_params", "params_from_jax", "rms_norm",
            "rope", "init_kv_cache", "forward_with_cache", "sample_logits",
@@ -83,7 +86,8 @@ __all__ = ["LlamaConfig", "init_params", "params_from_jax", "rms_norm",
            "forward", "loss_fn", "AdamW", "default_train_optimizer",
            "make_train_step", "make_batch", "params_to_numpy", "normal_init",
            "one_device_trainer", "param_specs", "shard_params",
-           "gather_params", "train_state_specs", "SERVING_KERNELS"]
+           "gather_params", "train_state_specs", "forward_pipelined",
+           "grads_1f1b", "PIPE_SCHEDULES", "SERVING_KERNELS"]
 
 # the kernel libraries serving_tick and serving_tick_block load on a CUDA
 # device (ops/kernels/_build.py names); int8 weights add int8_matmul
@@ -102,6 +106,17 @@ class LlamaConfig:
     rms_norm_eps: float = 1e-5
     rope_theta: float = 10000.0
     dtype: torch.dtype = torch.bfloat16
+    # pipeline parallelism over a mesh's pp axis (the JAX fields):
+    # "gpipe" — all forwards, then the backward through them (O(M) live
+    # microbatch activations, parallel/pipeline_spmd); "1f1b" — the
+    # lockstep fused forward+backward schedule (parallel/pipeline_1f1b);
+    # "1f1b_async" — rank-asymmetric 1F1B and "zb" — its zero-bubble
+    # W-deferral (parallel/pipeline_async). vpp_chunks: interleaved
+    # chunks per rank under the 1f1b schedules.
+    pp_stages: int = 1
+    num_microbatches: int = 1
+    pp_schedule: str = "gpipe"
+    vpp_chunks: int = 1
     # per-layer activation recompute in the training path
     remat: bool = True
     # the training path's kernels: True / "auto" — the Hopper kernel for
@@ -136,24 +151,36 @@ class LlamaConfig:
 # ---------------------------------------------------------------------------
 
 def normal_init(shape, fan_in: int, dtype, generator: torch.Generator,
-                dev) -> torch.Tensor:
+                dev, rows=None) -> torch.Tensor:
     """A ``dtype`` tensor of normal · 1/sqrt(fan_in) draws from
     ``generator``, made one trailing matrix at a time, so the f32 draw
-    never holds more than one matrix beside the result."""
-    out = torch.empty(shape, dtype=dtype, device=dev)
+    never holds more than one matrix beside the result. ``rows`` keeps
+    only those indices of a stacked ``[L, a, b]`` shape's leading axis;
+    every matrix is still drawn, in order, so the kept ones are the
+    whole draw's."""
+    keep = range(shape[0]) if rows is None else list(rows)
+    out = torch.empty((len(keep),) + tuple(shape[1:]) if rows is not None
+                      else shape, dtype=dtype, device=dev)
     flat = out.view(-1, *shape[-2:])
     std = 1.0 / math.sqrt(fan_in)
-    for i in range(flat.shape[0]):
-        flat[i] = (torch.randn(shape[-2:], generator=generator, device=dev,
-                               dtype=torch.float32) * std).to(dtype)
+    slot = {r: i for i, r in enumerate(keep)} if rows is not None else None
+    for i in range(shape[0] if rows is not None else flat.shape[0]):
+        m = (torch.randn(shape[-2:], generator=generator, device=dev,
+                         dtype=torch.float32) * std).to(dtype)
+        if slot is None:
+            flat[i] = m
+        elif i in slot:
+            flat[slot[i]] = m
     return out
 
 
 def init_params(cfg: LlamaConfig, generator: torch.Generator,
-                device=None) -> Dict:
+                device=None, layers=None) -> Dict:
     """Random params, normal · 1/sqrt(fan_in) (norms at one), drawn
     from ``generator`` (which must live on ``device``) one matrix at a
-    time (``normal_init``)."""
+    time (``normal_init``). ``layers`` (global indices, ascending) keeps
+    only those layers' rows of the stacked leaves, with the values the
+    whole draw gives them (a pipeline rank's)."""
     dev = resolve_device(device)
     D, Fi, V = cfg.hidden_size, cfg.intermediate_size, cfg.vocab_size
     H, Hkv, Dh = cfg.num_attention_heads, cfg.num_key_value_heads, \
@@ -161,7 +188,10 @@ def init_params(cfg: LlamaConfig, generator: torch.Generator,
     L = cfg.num_hidden_layers
 
     def init(shape, fan_in):
-        return normal_init(shape, fan_in, cfg.dtype, generator, dev)
+        rows = layers if len(shape) == 3 else None
+        return normal_init(shape, fan_in, cfg.dtype, generator, dev, rows)
+
+    Lk = L if layers is None else len(layers)
 
     layers = {
         "wq": init((L, D, H * Dh), D),
@@ -171,8 +201,8 @@ def init_params(cfg: LlamaConfig, generator: torch.Generator,
         "w_gate": init((L, D, Fi), D),
         "w_up": init((L, D, Fi), D),
         "w_down": init((L, Fi, D), Fi),
-        "attn_norm": torch.ones((L, D), dtype=cfg.dtype, device=dev),
-        "mlp_norm": torch.ones((L, D), dtype=cfg.dtype, device=dev),
+        "attn_norm": torch.ones((Lk, D), dtype=cfg.dtype, device=dev),
+        "mlp_norm": torch.ones((Lk, D), dtype=cfg.dtype, device=dev),
     }
     return {
         "embed": init((V, D), D),
@@ -1148,11 +1178,14 @@ def _scan_layers(params, h, cfg: LlamaConfig, remat: bool = False,
 
 def forward(params, tokens, cfg: LlamaConfig, mesh=None):
     """tokens ``[B, T]`` -> logits ``[B, T, V]`` in ``cfg.dtype`` (one
-    device, one pipeline stage). With ``mesh`` (a dp x tp
+    device, one pipeline stage). With ``mesh`` (a dp x pp x tp
     ``HybridMesh``), ``params`` are this rank's shards, ``tokens`` its
-    dp rows, and the logits ``[B/dp, T, V/tp]`` its vocab shard's."""
+    dp rows, and the logits ``[B/dp, T, V/tp]`` its vocab shard's; under
+    a pipeline see ``forward_pipelined``."""
     if mesh is not None:
         _check_mesh(cfg, mesh)
+        if mesh.pp_degree > 1:
+            return forward_pipelined(params, tokens, cfg, mesh)
         return _mesh_logits(params, tokens, cfg, mesh)
     h = params["embed"].to(cfg.dtype)[tokens.long()]
     h = _scan_layers(params, h, cfg, remat=cfg.remat)
@@ -1172,7 +1205,10 @@ def loss_fn(params, batch, cfg: LlamaConfig, mesh=None):
 
     With ``mesh``: the mean over this rank's dp rows of ``batch`` (the
     same on every tp rank), through the vocab-parallel cross entropy at
-    tp > 1; the mesh step averages it over dp."""
+    tp > 1; the mesh step averages it over dp. Under a pipeline, GPipe
+    (whatever ``pp_schedule``, as in the JAX package) over the rows of
+    ``_pipe_rows``: the value on the last pp rank, a 0-d zero that
+    carries the backward on the others."""
     if mesh is not None:
         _check_mesh(cfg, mesh)
         return _mesh_loss(params, batch, cfg, mesh)
@@ -1285,10 +1321,9 @@ def _train_params(params, dev) -> Dict:
     if isinstance(layers, dict):
         n = _tree_leaves(layers)[0].shape[0]
         layers = [_select(layers, i) for i in range(n)]
-    return {"embed": leaf(params["embed"]),
-            "layers": [_tree_map(leaf, lp) for lp in layers],
-            "final_norm": leaf(params["final_norm"]),
-            "lm_head": leaf(params["lm_head"])}
+    return _ordered({k: leaf(v) for k, v in params.items()
+                     if k != "layers"},
+                    [_tree_map(leaf, lp) for lp in layers])
 
 
 def _stack(layers):
@@ -1328,14 +1363,21 @@ def make_train_step(cfg: LlamaConfig, *, mesh=None, zero_stage: int = 0,
     before the update as a 0-d f32 tensor.
 
     With no mesh the step runs on one device. With ``mesh``
-    (``parallel.init_hybrid_mesh(dp=..., tp=...)``) it runs on this
-    rank's part of a dp x tp layout over ``torch.distributed``, one
-    process a rank: see ``_mesh_trainer``. ``zero_stage`` (0-3) needs a
-    mesh; a mesh with pipeline, context or expert axes raises
-    ``NotImplementedError``.
+    (``parallel.init_hybrid_mesh(dp=..., pp=..., tp=...)``) it runs on
+    this rank's part of a dp x pp x tp layout over ``torch.distributed``,
+    one process a rank: see ``_mesh_trainer``; a pp axis must equal
+    ``cfg.pp_stages`` and runs ``cfg.pp_schedule`` over
+    ``cfg.num_microbatches``. ``zero_stage`` (0-3) needs a mesh; a mesh
+    with context or expert axes raises ``NotImplementedError``.
     """
     if zero_stage not in (0, 1, 2, 3):
         raise ValueError(f"zero_stage must be 0..3, got {zero_stage}")
+    if cfg.pp_schedule not in PIPE_SCHEDULES:
+        raise ValueError(f"pp_schedule must be one of {PIPE_SCHEDULES}, "
+                         f"got {cfg.pp_schedule!r}")
+    if mesh is None and cfg.pp_stages > 1:
+        raise ValueError("pp_stages > 1 pipelines over a mesh's pp axis: "
+                         "pass mesh=parallel.init_hybrid_mesh(pp=...)")
     if mesh is None:
         if zero_stage:
             raise ValueError("ZeRO stages shard over a mesh's dp axis: "
@@ -1375,12 +1417,16 @@ def make_batch(cfg: LlamaConfig, batch_size: int, seq_len: int,
     labels (the tokens shifted by one), drawn from ``generator`` (seed 0
     on the device when none is given). With ``mesh`` the batch is still
     the global one (every rank draws the same), as a mesh step takes it;
-    B must divide over dp and T over tp."""
+    B must divide over dp (over dp · ``num_microbatches`` under a
+    pipeline) and T over tp."""
     if mesh is not None:
-        if batch_size % mesh.dp_degree or seq_len % mesh.tp_degree:
+        rows = mesh.dp_degree * (cfg.num_microbatches
+                                 if mesh.pp_degree > 1 else 1)
+        if batch_size % rows or seq_len % mesh.tp_degree:
             raise ValueError(
                 f"batch [{batch_size}, {seq_len}] does not split over "
-                f"dp={mesh.dp_degree} rows and tp={mesh.tp_degree} "
+                f"{rows} rows (dp={mesh.dp_degree}, "
+                f"M={cfg.num_microbatches}) and tp={mesh.tp_degree} "
                 f"sequence parts")
     dev = resolve_device(device)
     if generator is None:
@@ -1400,22 +1446,25 @@ def make_batch(cfg: LlamaConfig, batch_size: int, seq_len: int,
 
 def param_specs(cfg: LlamaConfig) -> Dict[str, Any]:
     """The params' partition specs over the mesh, as the JAX
-    ``param_specs`` (pp = 1): column-parallel over tp ``wq`` / ``wk`` /
-    ``wv`` / ``w_gate`` / ``w_up``, row-parallel ``wo`` / ``w_down``,
-    the embedding vocab-parallel ``P("tp", None)`` and ``lm_head``
+    ``param_specs``: column-parallel over tp ``wq`` / ``wk`` / ``wv`` /
+    ``w_gate`` / ``w_up``, row-parallel ``wo`` / ``w_down``, the
+    embedding vocab-parallel ``P("tp", None)`` and ``lm_head``
     ``P(None, "tp")``; a stacked layer leaf's leading axis is the
-    layer's."""
+    layer's, on ``pp`` when ``cfg.pp_stages > 1`` (each pipeline rank
+    holds its stage's layers, ``_stage_layers``; the embedding lives on
+    the first rank and the head on the last)."""
     from ..parallel.mesh import P
+    pp = "pp" if getattr(cfg, "pp_stages", 1) > 1 else None
     layers = {
-        "wq": P(None, None, "tp"),
-        "wk": P(None, None, "tp"),
-        "wv": P(None, None, "tp"),
-        "wo": P(None, "tp", None),
-        "w_gate": P(None, None, "tp"),
-        "w_up": P(None, None, "tp"),
-        "w_down": P(None, "tp", None),
-        "attn_norm": P(None, None),
-        "mlp_norm": P(None, None),
+        "wq": P(pp, None, "tp"),
+        "wk": P(pp, None, "tp"),
+        "wv": P(pp, None, "tp"),
+        "wo": P(pp, "tp", None),
+        "w_gate": P(pp, None, "tp"),
+        "w_up": P(pp, None, "tp"),
+        "w_down": P(pp, "tp", None),
+        "attn_norm": P(pp, None),
+        "mlp_norm": P(pp, None),
     }
     return {"embed": P("tp", None), "layers": layers,
             "final_norm": P(None), "lm_head": P(None, "tp")}
@@ -1427,11 +1476,80 @@ def _layer_spec(spec):
     return P(*tuple(spec)[1:])
 
 
-def _check_mesh(cfg: LlamaConfig, mesh) -> None:
-    if mesh.pp_degree > 1 or mesh.cp_degree > 1 or mesh.ep_degree > 1:
+#: ``LlamaConfig.pp_schedule``'s values, the JAX ``make_train_step``'s
+PIPE_SCHEDULES = ("gpipe",) + tuple(PP_SCHEDULES)
+
+
+def _pipe_chunks(cfg: LlamaConfig) -> int:
+    """Chunks a pipeline rank holds: ``vpp_chunks`` under the 1f1b
+    schedules, one under GPipe (which, as in the JAX package, does not
+    interleave)."""
+    return 1 if cfg.pp_schedule == "gpipe" else int(cfg.vpp_chunks)
+
+
+def _split_stages(layer_params, cfg: LlamaConfig):
+    """Layers (stacked ``[L, ...]`` tensors or a list of L) -> ``S``
+    stages of ``L/S`` consecutive layers: GPipe's partition."""
+    from ..parallel.pipeline_1f1b import split_chunks_round_robin
+    S, L = cfg.pp_stages, cfg.num_hidden_layers
+    if L % S:
+        raise ValueError(f"layers {L} not divisible by pp_stages {S}")
+    return split_chunks_round_robin(layer_params, L, S, 1)
+
+
+def _stage_layers(cfg: LlamaConfig, s: int) -> list:
+    """The global layers pipeline rank ``s`` holds, ascending: its stage
+    under GPipe (``_split_stages``), chunks ``v·S + s`` of the ``[V·S]``
+    chunk-major split under the 1f1b schedules
+    (``split_chunks_round_robin``)."""
+    from ..parallel.pipeline_1f1b import split_chunks_round_robin
+    S, V, L = cfg.pp_stages, _pipe_chunks(cfg), cfg.num_hidden_layers
+    if V == 1:
+        return _split_stages(list(range(L)), cfg)[s]
+    chunks = split_chunks_round_robin(list(range(L)), L, S, V)
+    return [i for v in range(V) for i in chunks[v * S + s]]
+
+
+def _check_pipeline(cfg: LlamaConfig, mesh) -> None:
+    S = mesh.pp_degree
+    if cfg.pp_schedule not in PIPE_SCHEDULES:
+        raise ValueError(f"pp_schedule must be one of {PIPE_SCHEDULES}, "
+                         f"got {cfg.pp_schedule!r}")
+    if S == 1 and cfg.pp_stages == 1:
+        return
+    if cfg.pp_stages == 1:
         raise NotImplementedError(
-            "pipeline (pp), context (cp) and expert (ep) parallelism come "
-            "in a later slice of the port; this step trains over dp x tp")
+            f"pipeline axis pp={S} with LlamaConfig.pp_stages=1: the JAX "
+            f"step replicates the model over pp, the port does not; set "
+            f"pp_stages={S}")
+    if cfg.pp_stages != S:
+        raise ValueError(f"LlamaConfig.pp_stages={cfg.pp_stages} but the "
+                         f"mesh's pp axis is {S}")
+    if mesh.cp_degree > 1:
+        raise NotImplementedError(
+            "context_parallel with pp_stages > 1 is not supported yet: the "
+            "pipeline stage loop would need the cp exchange nested inside "
+            "it; use cp with pp=1 (ring attention already gives the "
+            "long-sequence memory scaling pipelining would)")
+    V = _pipe_chunks(cfg)
+    if cfg.num_hidden_layers % (S * V):
+        raise ValueError(f"layers {cfg.num_hidden_layers} not divisible by "
+                         f"stages*chunks {S * V}")
+    if cfg.pp_schedule in PP_SCHEDULES:
+        reason = schedule_legality(
+            cfg.pp_schedule, num_stages=S,
+            num_microbatches=cfg.num_microbatches, virtual_chunks=V,
+            dp=mesh.dp_degree, tp=mesh.tp_degree)
+        if reason is not None:
+            raise ValueError(reason)
+
+
+def _check_mesh(cfg: LlamaConfig, mesh) -> None:
+    _check_pipeline(cfg, mesh)
+    if mesh.cp_degree > 1 or mesh.ep_degree > 1:
+        raise NotImplementedError(
+            "context (cp) and expert (ep) parallelism come in a later "
+            "slice of the port; this step trains over dp x pp x tp")
     tp = mesh.tp_degree
     bad = {k: n for k, n in dict(
         heads=cfg.num_attention_heads, kv_heads=cfg.num_key_value_heads,
@@ -1452,21 +1570,53 @@ def _shard(x: torch.Tensor, spec, mesh) -> torch.Tensor:
     return x
 
 
+def _held(cfg: LlamaConfig, mesh) -> tuple:
+    """``(keys, layers)`` this rank holds: every top-level leaf and
+    layer without a pipeline; on pipeline rank ``s``, its stage's layers
+    (``_stage_layers``), the embedding on the first and ``final_norm``
+    / ``lm_head`` on the last."""
+    S = mesh.pp_degree if mesh is not None else 1
+    if S == 1:
+        return (("embed", "final_norm", "lm_head"),
+                list(range(cfg.num_hidden_layers)))
+    s = mesh.axis_index("pp")
+    keys = (("embed",) if s == 0 else ()) + (
+        ("final_norm", "lm_head") if s == S - 1 else ())
+    return keys, _stage_layers(cfg, s)
+
+
+def _ordered(keys, layers) -> Dict:
+    """A params dict in the trainer's key order from what it holds."""
+    out = {k: keys[k] for k in ("embed",) if k in keys}
+    out["layers"] = layers
+    out.update({k: keys[k] for k in ("final_norm", "lm_head") if k in keys})
+    return out
+
+
 def shard_params(params, cfg: LlamaConfig, mesh, device=None) -> Dict:
     """The rank's local shards, by ``param_specs``, of the global params
     (stacked layers: ``init_params`` or ``params_from_jax`` output), as
-    new contiguous tensors on ``device`` (default: where they are)."""
+    new contiguous tensors on ``device`` (default: where they are).
+    Under a pipeline: only what this rank holds (``_held``), its layers
+    stacked in ascending order (given all L layers, or only those, as
+    ``init_params(layers=)`` draws them)."""
     specs = param_specs(cfg)
+    keys, own = _held(cfg, mesh)
+    every = own == list(range(cfg.num_hidden_layers))
 
-    def conv(x, sp):
-        out = _shard(x.detach(), sp, mesh).clone()
+    def conv(x, sp, layered=False):
+        x = x.detach()
+        if layered and not every:
+            if x.shape[0] == cfg.num_hidden_layers:
+                x = x[torch.as_tensor(own, device=x.device)]
+            sp = _layer_spec(sp)
+            sp = type(sp)(None, *sp)
+        out = _shard(x, sp, mesh).clone()
         return out if device is None else out.to(device)
 
-    return {"embed": conv(params["embed"], specs["embed"]),
-            "layers": {k: conv(v, specs["layers"][k])
-                       for k, v in params["layers"].items()},
-            "final_norm": conv(params["final_norm"], specs["final_norm"]),
-            "lm_head": conv(params["lm_head"], specs["lm_head"])}
+    return _ordered({k: conv(params[k], specs[k]) for k in keys},
+                    {k: conv(v, specs["layers"][k], True)
+                     for k, v in params["layers"].items()})
 
 
 def _global_shapes(cfg: LlamaConfig) -> Dict:
@@ -1489,19 +1639,18 @@ def train_state_specs(cfg: LlamaConfig, mesh, optimizer=None,
     sees one layer's shape where the JAX specs see the stacked one.
     Moments inherit their param's (tp) spec; ``zero_stage >= 1`` adds dp
     on the first free dp-divisible dim of each moment, ``>= 3`` of each
-    param too (``distributed.sharding.zero_spec``). ``optimizer`` is
-    taken as in the JAX signature: the state is AdamW's (count, mu,
+    param too (``distributed.sharding.zero_spec``), inside each pipeline
+    stage: under pp the tree is this rank's (``_held``). ``optimizer``
+    is taken as in the JAX signature: the state is AdamW's (count, mu,
     nu) for any."""
     from ..distributed.sharding import zero_spec
     from ..parallel.mesh import P
     dp = mesh.dp_degree
     specs, shapes = param_specs(cfg), _global_shapes(cfg)
-    base = {"embed": (specs["embed"], shapes["embed"]),
-            "layers": [{k: (_layer_spec(sp), shapes["layer"][k])
-                        for k, sp in specs["layers"].items()}
-                       for _ in range(cfg.num_hidden_layers)],
-            "final_norm": (specs["final_norm"], shapes["final_norm"]),
-            "lm_head": (specs["lm_head"], shapes["lm_head"])}
+    keys, own = _held(cfg, mesh)
+    base = _ordered({k: (specs[k], shapes[k]) for k in keys},
+                    [{k: (_layer_spec(sp), shapes["layer"][k])
+                      for k, sp in specs["layers"].items()} for _ in own])
 
     def place(on: bool):
         def leaf(pair):
@@ -1614,58 +1763,260 @@ def _dp_layer(lp, h, cfg: LlamaConfig):
     return decoder_layer({k: _full(v) for k, v in lp.items()}, h, cfg)
 
 
-def _mesh_logits(params, tokens, cfg: LlamaConfig, mesh):
-    """This rank's rows ``[B/dp, T]`` -> logits ``[B/dp, T, V/tp]``, the
-    classes of this rank's vocab shard."""
+def _mesh_embed(embed, tokens, cfg: LlamaConfig, mesh):
+    """This rank's rows ``[B', T]`` -> the stream ``[B', T/tp, D]``: the
+    lookup at tp = 1; above, the vocab-parallel lookup (rows outside this
+    rank's shard are zeros) reduce-scattered into sequence parts, which
+    sums the ranks' rows."""
     tp = mesh.tp_degree
-    B, T = tokens.shape
+    T = tokens.shape[1]
     if T % tp:
         raise ValueError(f"sequence length {T} does not divide over "
                          f"tp={tp} (the stream is sequence-sharded)")
-    embed = _full(params["embed"]).to(cfg.dtype)
-    remat = cfg.remat
+    embed = _full(embed).to(cfg.dtype)
     if tp == 1:
-        h = embed[tokens.long()]
-        del embed
-        for i in range(cfg.num_hidden_layers):
-            lp = _layer(params, i)
-            h = (checkpoint(_dp_layer, lp, h, cfg, use_reentrant=False)
-                 if remat else _dp_layer(lp, h, cfg))
-        h = _norm_fn(cfg, _fused_nr_on(cfg))(h, _full(params["final_norm"]))
-        return h @ _full(params["lm_head"])
-    from ..distributed.sequence_parallel import (all_gather_sequence,
-                                                 reduce_scatter_sequence)
+        return embed[tokens.long()]
+    from ..distributed.sequence_parallel import reduce_scatter_sequence
     g = mesh.group("tp")
-    # the vocab-parallel lookup: rows outside this rank's shard are zeros,
-    # and the reduce-scatter sums the ranks' rows into sequence parts
     vl = embed.shape[0]
     ids = tokens.long() - g.rank * vl
     inside = (ids >= 0) & (ids < vl)
     e = torch.where(inside[..., None], embed[ids.clamp(0, vl - 1)], 0)
     del embed
-    h = reduce_scatter_sequence(e, g)
-    del e
+    return reduce_scatter_sequence(e, g)
+
+
+def _mesh_block(lp, h, cfg: LlamaConfig, mesh, positions):
+    """One block on this rank's stream: ``_dp_layer`` at tp = 1,
+    ``_sp_layer`` above; checkpointed (per-layer remat) under
+    ``cfg.remat`` while autograd records."""
+    if mesh.tp_degree == 1:
+        fn, args = _dp_layer, (lp, h, cfg)
+    else:
+        fn, args = _sp_layer, (lp, h, cfg, mesh, positions)
+    if cfg.remat and torch.is_grad_enabled():
+        return checkpoint(fn, *args, use_reentrant=False)
+    return fn(*args)
+
+
+def _mesh_head_logits(final_norm, lm_head, h, cfg: LlamaConfig, mesh):
+    """The stream -> logits ``[B', T, V/tp]`` of this rank's vocab
+    shard: the final norm (on this rank's rows of the sequence at tp >
+    1, then all-gathered) and ``lm_head``."""
+    nr = _fused_nr_on(cfg)
+    if mesh.tp_degree == 1:
+        return _norm_fn(cfg, nr)(h, _full(final_norm)) @ _full(lm_head)
+    from ..distributed.sequence_parallel import all_gather_sequence
+    h = _sp_norm(cfg, nr, h, _full(final_norm), mesh)
+    return all_gather_sequence(h, mesh.group("tp")) @ _full(lm_head)
+
+
+def _mesh_nll(logits, labels, mesh):
+    """Mean NLL of this rank's rows: the fused cross entropy at tp = 1,
+    the vocab-parallel one (three ``[B', T]`` all-reduces over tp)
+    above."""
+    from ..ops.fused.cross_entropy import vocab_parallel_cross_entropy
+    if mesh.tp_degree == 1:
+        return fused_softmax_cross_entropy(logits, labels).mean()
+    return vocab_parallel_cross_entropy(logits, labels,
+                                        mesh.group("tp")).mean()
+
+
+def _mesh_logits(params, tokens, cfg: LlamaConfig, mesh):
+    """This rank's rows ``[B/dp, T]`` -> logits ``[B/dp, T, V/tp]``, the
+    classes of this rank's vocab shard."""
+    h = _mesh_embed(params["embed"], tokens, cfg, mesh)
+    B, T = tokens.shape
     positions = torch.arange(T, device=h.device).expand(B, T)
     for i in range(cfg.num_hidden_layers):
-        lp = _layer(params, i)
-        h = (checkpoint(_sp_layer, lp, h, cfg, mesh, positions,
-                        use_reentrant=False)
-             if remat else _sp_layer(lp, h, cfg, mesh, positions))
-    h = _sp_norm(cfg, _fused_nr_on(cfg), h, _full(params["final_norm"]),
-                 mesh)
-    return all_gather_sequence(h, g) @ _full(params["lm_head"])
+        h = _mesh_block(_layer(params, i), h, cfg, mesh, positions)
+    return _mesh_head_logits(params["final_norm"], params["lm_head"], h,
+                             cfg, mesh)
 
 
 def _mesh_loss(params, batch, cfg: LlamaConfig, mesh):
     """Mean NLL over this rank's rows (every tp rank of a dp row gets the
-    same value): the fused cross entropy at tp = 1, the vocab-parallel
-    one (three ``[B/dp, T]`` all-reduces over tp) above."""
-    from ..ops.fused.cross_entropy import vocab_parallel_cross_entropy
+    same value). Under a pipeline: GPipe (``_gpipe``), the value on the
+    last pp rank and a 0-d zero carrying the backward on the others."""
+    if mesh.pp_degree > 1:
+        return _gpipe(params, batch, cfg, mesh)
     logits = _mesh_logits(params, batch["tokens"], cfg, mesh)
-    if mesh.tp_degree == 1:
-        return fused_softmax_cross_entropy(logits, batch["labels"]).mean()
-    return vocab_parallel_cross_entropy(logits, batch["labels"],
-                                        mesh.group("tp")).mean()
+    return _mesh_nll(logits, batch["labels"], mesh)
+
+
+# ---------------------------------------------------------------------------
+# pipeline parallelism: each pp rank holds its stage's layers (the
+# embedding on the first, the head on the last); the schedules of
+# parallel/pipeline_spmd (GPipe), pipeline_1f1b (lockstep) and
+# pipeline_async (rank-asymmetric 1F1B, zero bubble)
+# ---------------------------------------------------------------------------
+
+def _async_stage_head_fns(cfg: LlamaConfig, mesh):
+    """``(stage_fn, head_fn)`` of the pipeline executors. The stage runs
+    its chunk's layers with ``_mesh_block`` (the one-device block at tp
+    = 1, ``_sp_layer`` on the sequence-sharded stream above: the fused
+    kernels, not the JAX stage's jnp norm and rope); the head is the
+    final norm, ``lm_head`` and the cross entropy (vocab-parallel at tp
+    > 1) of one microbatch, its mean NLL."""
+    tp = mesh.tp_degree
+
+    def stage_fn(chunk, h):
+        T = h.shape[1] * tp
+        positions = torch.arange(T, device=h.device).expand(h.shape[0], T)
+        for lp in chunk:
+            h = _mesh_block(lp, h, cfg, mesh, positions)
+        return h
+
+    def head_fn(hp, y, labels):
+        return _mesh_nll(_mesh_head_logits(hp["final_norm"], hp["lm_head"],
+                                           y, cfg, mesh), labels, mesh)
+    return stage_fn, head_fn
+
+
+def _async_shard_specs(cfg: LlamaConfig, mesh):
+    """``(stage_specs, head_specs, x_spec, aux_specs)`` as the JAX
+    function lays them out, with the stream sequence-sharded over tp
+    (the port's stage is sequence-parallel): each layer leaf's spec
+    without its layer axis, the head's, the microbatched stream's
+    ``[M, mb, T, D]`` and the labels' ``[M, mb, T]`` (rows over dp)."""
+    from ..parallel.mesh import P
+    dp_ax = "dp" if mesh.dp_degree > 1 else None
+    tp_on = mesh.tp_degree > 1
+    stage_specs = {k: _layer_spec(sp)
+                   for k, sp in param_specs(cfg)["layers"].items()}
+    head_specs = {"final_norm": P(None),
+                  "lm_head": P(None, "tp") if tp_on else P(None, None)}
+    x_spec = P(None, dp_ax, "tp" if tp_on else None, None)
+    aux_specs = P(None, dp_ax, None)
+    return stage_specs, head_specs, x_spec, aux_specs
+
+
+def _pipe_rows(batch, cfg: LlamaConfig, mesh) -> Dict:
+    """This rank's rows of the global batch under a pipeline, flat and
+    microbatch-major ``[M · B/(M·dp), T]``: the batch split into M
+    microbatches, each microbatch's rows over dp (``aux_specs``)."""
+    from ..parallel.pipeline_spmd import microbatch
+    spec = _async_shard_specs(cfg, mesh)[3]
+    M = cfg.num_microbatches
+    out = {}
+    for k, v in batch.items():
+        if v.shape[0] % (M * mesh.dp_degree):
+            raise ValueError(f"batch of {v.shape[0]} rows does not split "
+                             f"into {M} microbatches over "
+                             f"dp={mesh.dp_degree}")
+        part = _shard(microbatch(v, M), spec, mesh)
+        out[k] = part.reshape((-1,) + tuple(v.shape[1:]))
+    return out
+
+
+def _pipe_input(params, tokens, cfg: LlamaConfig, mesh, embed=None):
+    """The stage-0 input ``[M, mb, T/tp, D]`` and the embedding output
+    it views (the first pp rank); elsewhere a ``meta`` tensor of its
+    shape and dtype, and None."""
+    M = cfg.num_microbatches
+    mb, T = tokens.shape[0] // M, tokens.shape[1]
+    shape = (M, mb, T // mesh.tp_degree, cfg.hidden_size)
+    if mesh.axis_index("pp") != 0:
+        return torch.empty(shape, dtype=cfg.dtype, device="meta"), None
+    e = _mesh_embed(params["embed"] if embed is None else embed, tokens,
+                    cfg, mesh)
+    return e.reshape(shape), e
+
+
+def forward_pipelined(params, tokens, cfg: LlamaConfig, mesh):
+    """GPipe's forward over this rank's rows (``_pipe_rows``): the logits
+    ``[B', T, V/tp]`` on the last pp rank, a 0-d zero carrying the
+    backward on the others."""
+    from ..parallel.pipeline_spmd import pipeline_spmd
+    _check_mesh(cfg, mesh)
+    S = mesh.pp_degree
+    x, _ = _pipe_input(params, tokens, cfg, mesh)
+    stage_fn, _ = _async_stage_head_fns(cfg, mesh)
+    out = pipeline_spmd(stage_fn, params["layers"], x, num_stages=S,
+                        mesh=mesh, remat=False)
+    if mesh.axis_index("pp") != S - 1:
+        return out
+    h = out.reshape((-1,) + tuple(out.shape[2:]))
+    return _mesh_head_logits(params["final_norm"], params["lm_head"], h,
+                             cfg, mesh)
+
+
+def _gpipe(params, batch, cfg: LlamaConfig, mesh):
+    """GPipe over this rank's rows (``_pipe_rows``): the loss on the last
+    pp rank; on the others a 0-d zero; ``.backward()`` on either runs
+    this rank's part of the reverse pipeline."""
+    out = forward_pipelined(params, batch["tokens"], cfg, mesh)
+    if mesh.axis_index("pp") != mesh.pp_degree - 1:
+        return out
+    return _mesh_nll(out, batch["labels"], mesh)
+
+
+def _pipe_grads(params, rows, cfg: LlamaConfig, mesh):
+    """``(loss, sums)`` of a fused-schedule step (``cfg.pp_schedule``
+    "1f1b", "1f1b_async" or "zb") over this rank's rows (``_pipe_rows``):
+    the loss the global mean (on every rank), ``sums`` aligned with
+    ``_tree_leaves(params)``, each the f32 sum over this rank's
+    microbatches, not yet reduced over dp nor scaled. The embedding's
+    comes from its lookup in f32 with the unscaled ``dx``."""
+    from ..parallel.pipeline_1f1b import pipeline_train_1f1b
+    from ..parallel.pipeline_async import pipeline_train_async
+    _check_mesh(cfg, mesh)
+    S, V = mesh.pp_degree, _pipe_chunks(cfg)
+    r = mesh.axis_index("pp")
+    first, last = r == 0, r == S - 1
+    emb = params["embed"].detach().float().requires_grad_(True) \
+        if first else None
+    x, e = _pipe_input(params, rows["tokens"], cfg, mesh, embed=emb)
+    if first:
+        x = x.detach()
+    n = len(params["layers"]) // V
+    chunks = [params["layers"][v * n:(v + 1) * n] for v in range(V)]
+    head = {k: params[k] for k in ("final_norm", "lm_head")} if last \
+        else None
+    labels = rows["labels"].reshape((cfg.num_microbatches, -1)
+                                    + tuple(rows["labels"].shape[1:]))
+    stage_fn, head_fn = _async_stage_head_fns(cfg, mesh)
+    kw = dict(num_stages=S, virtual_chunks=V, mesh=mesh)
+    variant = PP_SCHEDULES[cfg.pp_schedule][1]
+    if variant is None:
+        loss, gch, gh, dx = pipeline_train_1f1b(
+            stage_fn, head_fn, chunks, head, x, labels, **kw)
+    else:
+        loss, gch, gh, dx = pipeline_train_async(
+            stage_fn, head_fn, chunks, head, x, labels, variant=variant,
+            **kw)
+    sums = _tree_leaves(gch)
+    if first:
+        (ge,) = torch.autograd.grad(e, emb, dx.reshape(e.shape))
+        sums = [ge] + sums
+    if last:
+        sums += _tree_leaves(gh)
+    return loss, sums
+
+
+def grads_1f1b(params, batch, cfg: LlamaConfig, mesh):
+    """``(loss, grads)`` through an explicit fused forward + backward
+    schedule, as the JAX ``grads_1f1b``: ``params`` this rank's
+    (``shard_params`` output or a trainer's), ``batch`` the global one.
+    The loss is the global mean; ``grads`` the tree of this rank's
+    params (layers per layer) with each gradient reduced over dp,
+    scaled by ``1/(M·dp)`` and cast to its leaf's dtype."""
+    from ..distributed import communication as C
+    _check_mesh(cfg, mesh)
+    if cfg.pp_schedule == "gpipe":
+        raise ValueError("grads_1f1b runs the fused schedules; GPipe is "
+                         "loss_fn's backward")
+    leaves = _train_params(params, _tree_leaves(params["layers"])[0].device)
+    rows = _pipe_rows(batch, cfg, mesh)
+    loss, sums = _pipe_grads(leaves, rows, cfg, mesh)
+    inv = 1.0 / (cfg.num_microbatches * mesh.dp_degree)
+    done = []
+    for p, g in zip(_tree_leaves(leaves), sums):
+        if mesh.dp_degree > 1:
+            C.all_reduce(g, C.ReduceOp.SUM, mesh.group("dp"))
+        done.append(g.mul_(inv).to(p.dtype))
+    it = iter(done)
+    return loss, _tree_map(lambda _: next(it), leaves)
 
 
 def _zero_dims(specs) -> Any:
@@ -1676,15 +2027,16 @@ def _zero_dims(specs) -> Any:
 
 def _mesh_trainer(cfg: LlamaConfig, mesh, zero_stage: int, device,
                   optimizer):
-    """``(step_fn, init_fn)`` of the dp x tp step on this rank.
+    """``(step_fn, init_fn)`` of the dp x pp x tp step on this rank.
 
     ``init_fn(source)`` shards the global params (a ``torch.Generator``
     draws them as ``init_params`` does, on every rank alike) by
-    ``param_specs`` into this rank's tp shards (per-layer leaves) and
-    places the state by ``train_state_specs``. ``step_fn(state, batch)``
-    takes the GLOBAL batch, reads this rank's dp rows, and returns the
-    global mean loss, the same on every rank. Gradients of the local
-    mean are reduced over dp and scaled by 1/dp:
+    ``param_specs`` into this rank's tp shards (per-layer leaves; under
+    a pipeline only its stage's, ``_held``) and places the state by
+    ``train_state_specs``. ``step_fn(state, batch)`` takes the GLOBAL
+    batch, reads this rank's dp rows, and returns the global mean loss,
+    the same on every rank. Gradients of the local mean are reduced over
+    dp and scaled by 1/dp:
 
     * stage 0: all-reduced, each rank updates the whole tp shard;
     * stage 1: all-reduced; the moments are this rank's ``zero_spec``
@@ -1699,6 +2051,15 @@ def _mesh_trainer(cfg: LlamaConfig, mesh, zero_stage: int, device,
       recompute (``_ZeroShard``), and freed after; the gather's backward
       reduce-scatters the gradient into the slice.
 
+    Under a pipeline (``mesh.pp_degree > 1``) the step runs
+    ``cfg.pp_schedule``: GPipe's gradients land in ``.grad`` as above;
+    the fused schedules' are f32 sums over the microbatches, reduced
+    over dp once after the schedule (all-reduced, or reduce-scattered
+    into the slice at stages 2-3), scaled by ``1/(M·dp)`` and cast, as
+    the JAX executors do. Stage 3 gathers the stage's parameters at the
+    step's start (the JAX step's layout) and reduce-scatters the
+    gradients after.
+
     ``state["zero"]`` holds the stage and each leaf's sharded dim.
     """
     from ..distributed import communication as C
@@ -1706,6 +2067,7 @@ def _mesh_trainer(cfg: LlamaConfig, mesh, zero_stage: int, device,
     dev = resolve_device(device)
     opt = default_train_optimizer() if optimizer is None else optimizer
     dp, dp_g = mesh.dp_degree, mesh.group("dp")
+    pipe = mesh.pp_degree > 1
     specs = train_state_specs(cfg, mesh, zero_stage=zero_stage)
     dims = _zero_dims(specs["opt"]["mu"])
 
@@ -1716,7 +2078,9 @@ def _mesh_trainer(cfg: LlamaConfig, mesh, zero_stage: int, device,
 
     def init_fn(source):
         if isinstance(source, torch.Generator):
-            source = init_params(cfg, source, dev)
+            # a pipeline rank keeps its stage's layers only
+            source = init_params(cfg, source, dev, layers=(
+                _held(cfg, mesh)[1] if pipe else None))
         params = _train_params(shard_params(source, cfg, mesh), dev)
         del source
         # the dims in the params' own key order, so leaves zip
@@ -1732,7 +2096,7 @@ def _mesh_trainer(cfg: LlamaConfig, mesh, zero_stage: int, device,
                 p = C.rank_part(p.detach(), d, dp_g)
             return torch.zeros_like(p, requires_grad=False)
 
-        if zero_stage == 2:
+        if zero_stage == 2 and not pipe:
             for p, d in zip(_tree_leaves(params), _tree_leaves(pdims)):
                 if d is not None:
                     p.register_post_accumulate_grad_hook(stage2_hook(d))
@@ -1743,27 +2107,21 @@ def _mesh_trainer(cfg: LlamaConfig, mesh, zero_stage: int, device,
                 "step": 0, "zero": {"stage": zero_stage, "dims": pdims}}
 
     def rows(batch):
+        if pipe:
+            return {k: v.to(dev) for k, v in
+                    _pipe_rows(batch, cfg, mesh).items()}
         r, n = mesh.axis_index("dp"), batch["tokens"].shape[0] // dp
         return {k: v[r * n:(r + 1) * n].to(dev) for k, v in batch.items()}
 
     @torch.no_grad()
-    def update(state):
+    def update(state, grad_of):
         params, st = state["params"], state["opt"]
         count, bc1, bc2 = opt.advance(st)
-        for p, mu, nu, d in zip(_tree_leaves(params), _tree_leaves(st["mu"]),
-                                _tree_leaves(st["nu"]),
-                                _tree_leaves(state["zero"]["dims"])):
-            scale = float(torch.tensor(1.0 / dp, dtype=p.dtype))
-            if zero_stage == 2 and d is not None:
-                g = p.__dict__.pop("zero_grad_piece")
-            else:
-                g = _pop_grad(p)
-                if g is None:
-                    raise RuntimeError("a parameter has no grad")
-                if dp > 1 and (d is None or zero_stage < 3):
-                    C.all_reduce(g, C.ReduceOp.SUM, dp_g)
-            if dp > 1:
-                g.mul_(scale)
+        for i, (p, mu, nu, d) in enumerate(zip(
+                _tree_leaves(params), _tree_leaves(st["mu"]),
+                _tree_leaves(st["nu"]),
+                _tree_leaves(state["zero"]["dims"]))):
+            g = grad_of(i, p, d)
             target = p.data
             if d is not None and zero_stage in (1, 2):
                 target = C.rank_part(p.data, d, dp_g)
@@ -1773,11 +2131,65 @@ def _mesh_trainer(cfg: LlamaConfig, mesh, zero_stage: int, device,
             if d is not None and zero_stage in (1, 2):
                 parts = C.all_gather(None, target.contiguous(), dp_g)
                 n = target.shape[d]
-                for i, part in enumerate(parts):
-                    p.data.narrow(d, i * n, n).copy_(part)
+                for j, part in enumerate(parts):
+                    p.data.narrow(d, j * n, n).copy_(part)
         st["count"] = count
 
+    def mesh_grad(i, p, d):
+        scale = float(torch.tensor(1.0 / dp, dtype=p.dtype))
+        if zero_stage == 2 and d is not None:
+            g = p.__dict__.pop("zero_grad_piece")
+        else:
+            g = _pop_grad(p)
+            if g is None:
+                raise RuntimeError("a parameter has no grad")
+            if dp > 1 and (d is None or zero_stage < 3):
+                C.all_reduce(g, C.ReduceOp.SUM, dp_g)
+        if dp > 1:
+            g.mul_(scale)
+        return g
+
+    def pipe_step(state, batch):
+        params = state["params"]
+        if zero_stage >= 3:
+            params = _map_trees(
+                lambda p, d: p if d is None else C.all_gather_cat(
+                    p.detach(), d, dp_g).requires_grad_(True),
+                params, state["zero"]["dims"])
+        gpipe = cfg.pp_schedule == "gpipe"
+        if gpipe:
+            value = _gpipe(params, rows(batch), cfg, mesh)
+            value.backward()
+            grads = [_pop_grad(p) for p in _tree_leaves(params)]
+            loss = value.detach().float().clone()
+            C.all_reduce(loss, C.ReduceOp.SUM, mesh.group("pp"))
+            if dp > 1:
+                C.all_reduce(loss, C.ReduceOp.AVG, dp_g)
+        else:
+            loss, grads = _pipe_grads(params, rows(batch), cfg, mesh)
+        del params
+        inv = 1.0 / (cfg.num_microbatches * dp)
+
+        def pipe_grad(i, p, d):
+            g, grads[i] = grads[i], None
+            if dp > 1:
+                if d is not None and zero_stage >= 2:
+                    g = C.reduce_scatter_dim(g, d, dp_g)
+                else:
+                    C.all_reduce(g, C.ReduceOp.SUM, dp_g)
+            if not gpipe:
+                return g.mul_(inv).to(p.dtype)
+            if dp > 1:
+                g.mul_(float(torch.tensor(1.0 / dp, dtype=p.dtype)))
+            return g
+
+        update(state, pipe_grad)
+        state["step"] += 1
+        return state, loss
+
     def step_fn(state, batch):
+        if pipe:
+            return pipe_step(state, batch)
         params = state["params"]
         if zero_stage >= 3:
             params = _map_trees(
@@ -1785,7 +2197,7 @@ def _mesh_trainer(cfg: LlamaConfig, mesh, zero_stage: int, device,
                 params, dims)
         value = _mesh_loss(params, rows(batch), cfg, mesh)
         value.backward()
-        update(state)
+        update(state, mesh_grad)
         loss = value.detach().clone()
         if dp > 1:
             C.all_reduce(loss, C.ReduceOp.AVG, dp_g)
@@ -1795,12 +2207,42 @@ def _mesh_trainer(cfg: LlamaConfig, mesh, zero_stage: int, device,
     return step_fn, init_fn
 
 
+def _pipe_assemble(mine, cfg: LlamaConfig, mesh) -> Dict:
+    """Every rank's whole (tp- and dp-gathered) leaves -> the global
+    params on every rank: each leaf broadcast over pp from the rank that
+    holds it (``_held``)."""
+    from ..distributed.communication import broadcast
+    S, g = mesh.pp_degree, mesh.group("pp")
+    me = mesh.axis_index("pp")
+    shapes = _global_shapes(cfg)
+    ref = _tree_leaves(mine)[0]
+
+    def get(owner, have, shape):
+        t = have.contiguous() if owner == me else torch.empty(
+            shape, dtype=ref.dtype, device=ref.device)
+        broadcast(t, src=g.ranks[owner], group=g)
+        return t
+
+    owner = {i: s for s in range(S) for i in _stage_layers(cfg, s)}
+    owned = dict(zip(_stage_layers(cfg, me), mine["layers"]))
+    layers = [{k: get(owner[i], owned.get(i, {}).get(k), shape)
+               for k, shape in shapes["layer"].items()}
+              for i in range(cfg.num_hidden_layers)]
+    return {"embed": get(0, mine.get("embed"), shapes["embed"]),
+            "layers": layers,
+            "final_norm": get(S - 1, mine.get("final_norm"),
+                              shapes["final_norm"]),
+            "lm_head": get(S - 1, mine.get("lm_head"), shapes["lm_head"])}
+
+
 def gather_params(state_or_params, cfg: LlamaConfig, mesh) -> Dict:
     """The global params, as numpy in the JAX pytree layout
     (``params_to_numpy``), from a mesh step's state (ZeRO-3 slices
     gathered over dp) or from tp-local params (``shard_params`` output,
-    stacked or per layer). A collective: every rank of the mesh calls
-    it, and every rank gets the whole."""
+    stacked or per layer, or a gradient tree of the same layout). A
+    collective: every rank of the mesh calls it, and every rank gets
+    the whole (under a pipeline, each leaf broadcast from the pp rank
+    that holds it)."""
     from ..distributed.communication import all_gather_cat
     src = state_or_params
     dims = None
@@ -1811,13 +2253,17 @@ def gather_params(state_or_params, cfg: LlamaConfig, mesh) -> Dict:
     else:
         params = src
     specs = param_specs(cfg)
+    keys, _ = _held(cfg, mesh)
+    pipe = mesh.pp_degree > 1
+    if pipe and isinstance(params["layers"], dict):
+        n = _tree_leaves(params["layers"])[0].shape[0]
+        params = dict(params, layers=[_select(params["layers"], i)
+                                      for i in range(n)])
     stacked = isinstance(params["layers"], dict)
     lspecs = specs["layers"] if stacked else [
         {k: _layer_spec(sp) for k, sp in specs["layers"].items()}
         for _ in params["layers"]]
-    spec_tree = {"embed": specs["embed"], "layers": lspecs,
-                 "final_norm": specs["final_norm"],
-                 "lm_head": specs["lm_head"]}
+    spec_tree = _ordered({k: specs[k] for k in keys}, lspecs)
     if dims is None:
         dims = _map_trees(lambda _: None, spec_tree)
 
@@ -1830,6 +2276,7 @@ def gather_params(state_or_params, cfg: LlamaConfig, mesh) -> Dict:
                 x = all_gather_cat(x.contiguous(), dim, mesh.group(ax))
         return x
 
-    keys = ("embed", "layers", "final_norm", "lm_head")
-    return params_to_numpy(_map_trees(
-        whole, {k: params[k] for k in keys}, spec_tree, dims))
+    mine = _map_trees(whole, _ordered({k: params[k] for k in keys},
+                                      params["layers"]), spec_tree, dims)
+    return params_to_numpy(_pipe_assemble(mine, cfg, mesh) if pipe
+                           else mine)

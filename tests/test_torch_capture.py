@@ -29,6 +29,8 @@ import sys
 import numpy as np
 import pytest
 import torch
+
+import _torch_threads  # noqa: F401  (a worker's share of the cores)
 from torch import nn
 
 import jax

@@ -13,6 +13,8 @@ import numpy as np
 import pytest
 import torch
 
+import _torch_threads  # noqa: F401  (a worker's share of the cores)
+
 import jax.numpy as jnp
 
 from paddle_tpu.ops.fused import conv_epilogue as JF

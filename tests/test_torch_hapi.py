@@ -28,6 +28,8 @@ import numpy as np
 import pytest
 import torch
 
+import _torch_threads  # noqa: F401  (a worker's share of the cores)
+
 import paddle_tpu as pt
 from paddle_tpu import hapi as JH
 from paddle_tpu.metric import Accuracy as JAccuracy

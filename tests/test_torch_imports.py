@@ -91,6 +91,13 @@ from paddle_tpu_torch.distributed import (
     mpu, sequence_parallel, sharding, spawn)
 from paddle_tpu_torch.distributed import parallel as _dist_parallel
 from paddle_tpu_torch.parallel import mesh, mp_ops
+from paddle_tpu_torch.parallel import (Schedule, build_schedule,
+                                       pipeline_spmd, pipeline_train_1f1b,
+                                       pipeline_train_async)
+import paddle_tpu_torch.parallel.pipeline_1f1b
+import paddle_tpu_torch.parallel.pipeline_async
+import paddle_tpu_torch.parallel.pipeline_spmd
+from paddle_tpu_torch.models.llama import forward_pipelined, grads_1f1b
 from paddle_tpu_torch.ops.fused import vocab_parallel_cross_entropy
 from paddle_tpu_torch.ops.kernels.fused_norm_rope import (
     fused_rms_norm_sharded, fused_rope_sharded)
@@ -108,9 +115,9 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     assert out.stdout.strip() == "", out.stdout
 
 
-def _one_rank_mesh():
+def _one_rank_mesh(pp: int = 1):
     from paddle_tpu_torch.parallel import HybridMesh
-    return HybridMesh({"dp": 1, "pp": 1, "tp": 1}, [0], {}, 0)
+    return HybridMesh({"dp": 1, "pp": pp, "tp": 1}, list(range(pp)), {}, 0)
 
 
 def test_entry_points_raise_without_cuda_or_device():
@@ -182,6 +189,10 @@ def test_entry_points_raise_without_cuda_or_device():
         lambda: distributed.mpu.RowParallelLinear(4, 4),
         lambda: distributed.mpu.VocabParallelEmbedding(8, 4),
         lambda: llama.make_train_step(cfg, mesh=_one_rank_mesh()),
+        lambda: llama.make_train_step(
+            llama.LlamaConfig.tiny(pp_stages=2, pp_schedule="zb",
+                                   num_microbatches=2),
+            mesh=_one_rank_mesh(pp=2)),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="CUDA"):

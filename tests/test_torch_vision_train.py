@@ -62,6 +62,8 @@ import optax
 import pytest
 import torch
 
+import _torch_threads  # noqa: F401  (a worker's share of the cores)
+
 import jax
 import jax.numpy as jnp
 

@@ -33,6 +33,8 @@ import numpy as np
 import pytest
 import torch
 
+import _torch_threads  # noqa: F401  (a worker's share of the cores)
+
 import jax
 
 import paddle_tpu as pt
