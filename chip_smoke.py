@@ -6,7 +6,7 @@ and the train step), the deployment front end (``jit.save`` →
 ``create_predictor``, ``DynamicBatcher``, ``to_static``), the
 capture of the Llama and Qwen2-MoE paths, the high-level trainer
 (``hapi.Model`` on ResNet-50 fed by ``io.DataLoader``), ONNX, ``amp``
-and the profiler, and data-, tensor- and pipeline-parallel Llama
+and the profiler, and data-, tensor-, pipeline- and context-parallel Llama
 training (ranks spawned on the card over ``torch.distributed``) on one
 NVIDIA H100 and check them.
 
@@ -133,7 +133,9 @@ Phases (any failed check raises; nothing is caught):
    forwards; ms per forward, images/s and peak memory at B 8 and B 128,
    folded and unfolded (conv -> BN -> relu on cuDNN).
 
-13. sampling and speculation on ``llama3_8b`` (phase 4's params): (a)
+13. sampling and speculation on ``llama3_8b``'s widths at
+   ``SERVE_LAYERS`` of its 32 layers (from seed 0, as phase 17's workers
+   draw theirs; cut from 32 for the smoke's time): (a)
    the serving tick's sampler on the card against the same function on
    the CPU, on ``[8, 128256]`` and ``[40, 128256]`` f32 logits whose
    rows are greedy, sampled (temperature 0.8, top-k 50, top-p 0.95),
@@ -156,12 +158,14 @@ Phases (any failed check raises; nothing is caught):
    sampler; tok/s and tokens per model step on the mixed requests (one
    run) and, as median and range over ``SPEC_WAVE_REPS`` reps with the
    engines' order alternating, on 16 periodic and 16 random prompts; the
-   streams' agreement between the engines (reported); (d) sampled ``generate_paged`` at the bench mix, its
+   streams' agreement between the engines (reported); (d) sampled
+   ``generate_paged`` at the bench mix, its
    paged-kernel launches as in phase 8, the per-step sampler's host and
    device ms.
 
 14. Qwen2-MoE serving on the default ``Qwen2MoeConfig()`` (the widths
-   of Qwen1.5-MoE-A2.7B, 24 layers, bf16, seeded random weights): (a)
+   of Qwen1.5-MoE-A2.7B, bf16, seeded random weights) at
+   ``QWEN_SERVE_LAYERS`` of its 24 layers (cut for the smoke's time): (a)
    the ragged kernel (phase 3's cases a, b, d and e) and the paged
    kernel (phase 7's engine and chunk-edge cases) at G = 1 (H = Hkv =
    16, Dh 128) against their plain versions to the same bounds, with row
@@ -169,7 +173,7 @@ Phases (any failed check raises; nothing is caught):
    16k decode rows (case b) and the paged 16k decode; (b) the int8 matmul at Qwen's four weight shapes (K 2048 ->
    N 2048, 5632, 151936; K 5632 -> N 2048) at M 8 and 256, to phase 7's
    bounds; (c) phase 4's engine, wave and checks on Qwen2-MoE (ragged
-   launches = 24 x model steps; the mixed tick kernel vs plain within
+   launches = L x model steps; the mixed tick kernel vs plain within
    ``LOGITS_REL_TOL`` with the MoE routing pinned to the plain tick's,
    the free tick's difference and routing flips reported
    (``compare_tick_logits``: an ulp can move a token to other experts);
@@ -204,11 +208,11 @@ Phases (any failed check raises; nothing is caught):
    cold_adopt_s, TTFT cold / warm / rewarmed, and the largest decode
    stall of a stream on A alone and during a whole-blob export.
 
-16. the in-process serving fleet on ``llama3_8b`` (phase 4's params;
-   every engine from one factory: 4 slots, page 16, prompts up to 1088
-   tokens, 80 new, 320 pages, the paged-KV audit after every tick; the
-   ragged kernel at the decode replica's turn-2 shapes against its plain
-   version first): (a) a prefill and a decode replica
+16. the in-process serving fleet on phase 13's ``SERVE_LAYERS``-layer
+   ``llama3_8b`` params (every engine from one factory: 4 slots, page
+   16, prompts up to 1088 tokens, 80 new, 320 pages, the paged-KV audit after
+   every tick; the ragged kernel at the decode replica's turn-2 shapes against
+   its plain version first): (a) a prefill and a decode replica
    (``prefill_len_ratio`` 16, warmed, sentinels armed): four 1040-token
    sessions (16 new) on the prefill replica, their four 65-page chains
    handed off to the decode replica in the background, turn 2 (1064
@@ -222,30 +226,31 @@ Phases (any failed check raises; nothing is caught):
    or fails naming the invariant; its postmortem parses and names the
    violation), ``r2``'s sentinel clean; (c) ``r2``'s exported trace:
    ``serving.tick`` spans = ticks, completed ``request`` spans =
-   completed; (d) ragged launches = 32 x every replica's model steps;
+   completed; (d) ragged launches = L x every replica's model steps;
    (e) fleet and one-engine tok/s, the router's ms a submit, the
    handoff's ms a chain, and the tracer's share of the tick wall on phase
    4's wave (reported, not gated).
 
-17. the worker-process serving fleet on ``llama3_8b`` (``serving/fleet/
-   proc``; phase 4's params as the parent's reference; every worker
-   spawned from one ``WorkerSpec``: llama3_8b bf16 from seed 0 on the
-   card, phase 16's engine kwargs, warmed; at most two workers at a time,
-   16 GB of weights each; the ragged kernel at the decode worker's turn-2
+17. the worker-process serving fleet on ``llama3_8b`` at
+   ``SERVE_LAYERS`` layers (``serving/fleet/proc``; phase 13's params as
+   the parent's reference; every worker spawned from one ``WorkerSpec``:
+   the same config bf16 from seed 0 on the card, phase 16's engine
+   kwargs, warmed; at most two workers at a time, 5.6 GB of weights
+   each; the ragged kernel at the decode worker's turn-2
    shapes against its plain version first): (a) two general workers,
    round robin: each ready frame names a CUDA device and its own pid, each
    sentinel's warm-up loads name the ragged kernel's library; phase 4's 16
    requests in pairs (each alone on its worker) equal the parent's engine
-   alone bitwise; ragged launches = 32 x each worker's model steps; the
+   alone bitwise; ragged launches = L x each worker's model steps; the
    merged scrape (one ``# TYPE`` a family, both workers, the fleet
-   generation); (c) on the same fleet, armed: 10 requests, each alone on
-   its worker (a bf16 stream depends on its batch), worker 0 SIGKILLed
-   once its request streamed 8 of 64 tokens, that request re-decoded
-   alone on worker 1 (exactly once: the delivered tokens dropped), every
-   handle completed and equal to the parent's engine alone, crashes 1, no
-   failed re-dispatch, the survivor's sentinel clean, 15 GiB of card
-   memory back within 30 s; (b) roles
-   [prefill, decode], auto_migrate, 8-page chunks: four 1040-token
+   generation); (c) on the same fleet, armed: ``PROC_KILL_N`` requests,
+   each alone on its worker (a bf16 stream depends on its batch), worker
+   0 SIGKILLed once its request streamed 8 of 64 tokens, that request
+   re-decoded alone on worker 1 (exactly once: the delivered tokens
+   dropped), every handle completed and equal to the parent's engine alone,
+   crashes 1, no failed re-dispatch, the survivor's sentinel clean,
+   ``PROC_FREED_FRAC`` of a worker's weight bytes back on the card within 30 s;
+   (b) roles [prefill, decode], auto_migrate, 8-page chunks: four 1040-token
    sessions on the prefill worker, their 65-page chains across the
    process boundary, turn 2 routed there (``routed_migrated`` 4, 4 x 1040
    adopted tokens), session 0's turns equal to the parent's engine
@@ -340,9 +345,10 @@ Phases (any failed check raises; nothing is caught):
    fails) and each kernel's launches a call equal eager's; with
    inductor the loss within ``TRAIN_LOSS_REL`` and the gradients by
    cosine and norm ratio (``CAPTURE_GRAD_*``); (c) (after phase 20 (c),
-   on phase 4's params) one mixed tick at phase 4's geometry through 32
-   layers captured (``aot_eager``): tokens, logits and both page pools
-   equal eager's bitwise, 32 ragged launches; inductor on the first 2
+   on phase 4's params) one mixed tick at phase 4's geometry through
+   their first ``CAPTURE_TICK_LAYERS`` layers captured (``aot_eager``):
+   tokens, logits and both page pools equal eager's bitwise, a ragged
+   launch a layer; inductor on the first 2
    layers' tick within ``LOGITS_REL_TOL``; (d) (there too)
    ``generate_paged``'s decode step on phase 8's int8 weights (their
    first 2 layers) at the bench mix, captured once (``n_tail`` a 0-d
@@ -383,15 +389,17 @@ Phases (any failed check raises; nothing is caught):
    ``Model.load`` → ``predict`` bitwise, the velocities, the scheduler
    and the step count equal.
 
-23. ONNX export, the rest of ``amp`` and the profiler: (a) (after phase
-   4, on its params) ``profiler.Profiler`` with ``make_scheduler(closed=1,
-   ready=1, record=2, repeat=1)`` and ``export_chrome_tracing`` over five
-   requests each run alone on a phase-4 engine, one profiler step a
+23. ONNX export, the rest of ``amp`` and the profiler: (a) (before
+   phase 13, on its ``SERVE_LAYERS``-layer params; on phase 4's 32 layers
+   until cut for the smoke's time) ``profiler.Profiler`` with
+   ``make_scheduler(closed=1, ready=1, record=2, repeat=1)`` and
+   ``export_chrome_tracing`` over five requests each run alone on a
+   phase-4 engine, one profiler step a
    request, the ticks' ``RecordEvent`` spans bridged into a
    ``SpanTracer``: the Chrome trace parses; its tick ranges
    (``serving.tick`` and ``serving.decode_step``, from the engine's
    thread) = the ticks the engine ran in the window = the bridged spans;
-   its ragged-kernel device events = 32 x the window's model steps =
+   its ragged-kernel device events = L x the window's model steps =
    the launches counted in it; ``host_statistics()``' tick calls = all
    ticks run; tokens = the same requests without the profiler on a fresh
    engine; printed: the tick's host ms with and without it; (b)
@@ -428,47 +436,81 @@ Phases (any failed check raises; nothing is caught):
    versions to phase 5's bounds, with ``time_ms``, bound, plain and
    library times; then four ranks spawned by ``distributed.spawn`` on the
    one card, over gloo (NCCL refuses two ranks of a communicator on one
-   device), (b) on ranks 0-1 while (c) runs on ranks 2-3: (b)
+   device), (b) on ranks 0-1 while (c) runs on ranks 2-3, whose
+   stages ``PAR_ZERO_STAGES`` shares between the pairs: (b)
    ``make_train_step(mesh=init_hybrid_mesh(tp=2))``, f32,
-   TF32 off, 2 steps from the same seeded state as a one-device witness
-   the parent runs first (its params written to a temporary directory,
-   the card freed before the spawn): losses within ``PAR_TP_LOSS_REL``
-   and every parameter leaf within ``PAR_TP_ATOL`` but for
+   TF32 off, ``PAR_STEPS`` steps from the same seeded state as a
+   one-device witness the parent runs first (its params written to a
+   temporary directory, the card freed before the spawn): losses within
+   ``PAR_TP_LOSS_REL`` and every parameter leaf within ``PAR_TP_ATOL`` but for
    ``PAR_TP_FRAC`` of it, all within ``PAR_TP_MAX``; (c) dp 2, bf16,
-   ZeRO 0, 1, 2 and 3, 2 steps each: losses equal and every parameter
-   bitwise ZeRO 0's, moments halved from stage 1 and parameters at stage
-   3, no whole-gradient all-reduce at stages 2-3, stage 3's all-gather
-   bytes within ``tests/test_zero_sharding.py``'s bound; (d) dp 2 x tp
-   2, bf16, ZeRO 1, 3 steps: finite losses equal on every rank; on every
-   rank of (b)-(d) each kernel's launches = phase 6's per-step formula
-   at the local depth x steps. Printed: per-rank peak memory and state
-   bytes, the collectives' calls and bytes by kind, step ms and the
-   share of it in the collectives (timed alone, card synchronized).
+   ZeRO 0, 1, 2 and 3, ``PAR_STEPS`` steps each: losses equal and every
+   parameter bitwise ZeRO 0's (each pair's own ZeRO 0, the two ZeRO 0
+   runs' losses equal), moments halved from stage 1 and
+   parameters at stage 3, no whole-gradient all-reduce at stages 2-3,
+   stage 3's all-gather bytes within ``tests/test_zero_sharding.py``'s
+   bound; (d) dp 2 x tp 2, bf16, ZeRO 1, ``PAR_STEPS`` steps: finite
+   losses equal on every rank; on every rank of (b)-(d) each kernel's
+   launches = phase 6's per-step formula at the local depth x steps.
+   Printed: per-rank peak memory and state bytes, the collectives' calls and
+   bytes by kind, step ms and the share of it in the collectives (timed alone,
+   card synchronized).
 25. pipeline-parallel training at ``llama3_8b`` widths cut to
    ``PIPE_LAYERS`` layers, T 2048, on the same four
    spawned ranks after phase 24's parts (a one-device f32 witness first,
    in the parent): (a) ``make_train_step(mesh=init_hybrid_mesh(pp=4))``,
-   one layer a stage, f32, B 4, M 4, 2 steps under each of
+   one layer a stage, f32, B 4, M 4, ``PIPE_STEPS`` steps under each of
    ``1f1b_async``, ``1f1b``, ``zb`` and ``gpipe`` from the witness's
    seeded state: losses within ``PAR_TP_LOSS_REL`` of the witness's and
    every leaf within ``PAR_TP_ATOL`` but for ``PAR_TP_FRAC``, all within
    ``PAR_TP_MAX``; ``1f1b`` bitwise ``1f1b_async``; ``zb``'s bits
    against ``1f1b_async`` recorded, and where they differ its gradients
-   held to ``PIPE_ZB_*``; (b) pp 2 x tp 2, bf16, ``zb``, B 4, M 4, 2
-   steps: finite losses equal on every rank; (c) pp 2 x dp 2, bf16,
-   ``1f1b_async`` with two one-layer chunks a rank, B 8, M 4, ZeRO 0, 1
-   and 2, 2 steps each: losses and parameters bitwise ZeRO 0's, moments
-   halved, no whole-gradient all-reduce at stage 2 (the loss's two
-   scalars a step), each leaf's f32 sum all-reduced once a step at 0-1.
-   On every rank of every case each kernel's launches =
+   held to ``PIPE_ZB_*``; (b) pp 2 x tp 2, bf16, ``zb``, B 4, M 4,
+   ``PIPE_STEPS`` steps: finite losses equal on every rank; (c) pp 2 x
+   dp 2, bf16, ``1f1b_async`` with two one-layer chunks a rank, B 8, M 4, ZeRO
+   0, 1 and 2, ``PIPE_STEPS`` steps each: losses and parameters bitwise ZeRO
+   0's, moments halved, no whole-gradient all-reduce at stage 2 (the
+   loss's two scalars a step), each leaf's f32 sum all-reduced once a
+   step at 0-1. On every rank of every case each kernel's launches =
    ``pipe_step_launches`` x steps and its p2p calls and bytes = the
    schedule's exchanges (``pipe_exchanges``). Printed: step ms, peak
    memory, idle ticks and p2p bytes of each rank; four ranks share the
    card's SMs, so these are not a card-a-stage pipeline's.
+26. context-parallel training at ``llama3_8b`` widths cut to
+   ``PAR_LAYERS`` layers, every ring hop a rank part of ``CP_TL`` 2048
+   tokens: (a) in the parent, the flash kernels' non-causal mode (every
+   off-diagonal hop) at the three hop shapes (2048, 2048), (1024, 1024)
+   and (1024, 2048) against the plain version to phase 5's bounds (the
+   f32 forward's at (2048, 2048) and (1024, 2048) set from readings over
+   eight seeds, ``CP_NONCAUSAL_BOUNDS``), the
+   backward bitwise over two launches, with kernel, plain, bound and
+   SDPA (non-causal, a yardstick) times; the loopback ring of
+   ``CP_R`` virtual ranks (``context_parallel.ring_loopback``, the
+   distributed ring's schedule and order in one process), contiguous
+   and zigzag, against the one-device causal kernel on the whole
+   ``CP_T_ATTN``-token sequence, forward and gradients, f32 and bf16,
+   to ``CP_LOOP_BOUNDS`` (reckoned there) and bitwise run to run; and
+   Ulysses' head-group calls bitwise the one-device kernel; then on
+   phase 24's ranks after phase 25's parts: (b) cp 4 over the same
+   sequence, bf16, the kernels strict: ring and zigzag each equal (a)'s
+   loopback bitwise on every rank, Ulysses the one-device kernel, forward
+   and gradients; each rank's launches = ``hop_launches``, its p2p bytes
+   = ``cp_ring_bytes``; (c) cp 2 x tp 2, f32, T ``CP_T``, ring and
+   zigzag, 2 steps from the seeded state of a one-device witness the
+   parent runs first: losses within ``PAR_TP_LOSS_REL`` of the
+   witness's and of each other, every leaf within ``PAR_TP_*``; (d) the
+   same mesh in bf16 under zigzag and Ulysses, 2 steps: finite, falling
+   losses equal on every rank. On every rank of (c)-(d) each kernel's
+   launches = ``cp_step_launches`` x steps and the ring's p2p bytes =
+   its formula. Printed: step ms, peak memory and p2p bytes a step of
+   each rank. The kernels line's ``*_cp_{T}x{S}`` entries count the
+   launches at that non-causal (T, S) over (b)-(d) on every rank, each
+   rank's calls tallied by shape from ``hop_schedule``
+   (``cp_hop_calls``) and summing with its causal ones to its counts.
 
-Phases run in the order 1, 2, 3, 5, 7, 4, 23 (a), 8, 20 (c), 21 (c),
-21 (d), 13, 15, 16, 17, 14, 6, 9, 10, 11, 12, 18, 19, 20, 21, 22, 23, 24,
-25:
+Phases run in the order 1, 2, 3, 5, 7, 4, 8, 20 (c), 21 (c), 21 (d),
+23 (a), 13, 15, 16, 17, 14, 6, 9, 10, 11, 12, 18, 19, 20, 21, 22, 23, 24,
+25, 26:
 phase 14 starts
 after the 8B serving state is freed, phase 6 after phase 14's, phases 9
 and 10 after phase 6's.
@@ -984,15 +1026,24 @@ def _requests(vocab: int, seed: int = 0):
     return prompts, [int(n) for n in rng.randint(8, 33, size=16)]
 
 
-def init_8b():
-    """llama3_8b's params (bf16, 32 layers) from seed 0 on the card."""
+# phases 13, 16 and 17 run llama3_8b's widths at this many of its 32
+# layers (cut from 32 for the smoke's time: their engines are host-bound,
+# a tick's host time a layer's launches times the depth)
+SERVE_LAYERS = 8
+
+
+def init_8b(layers: int = 32):
+    """llama3_8b's params (bf16, ``layers`` of its 32 layers) from seed 0
+    on the card."""
     from paddle_tpu_torch.models import llama
-    cfg = llama.LlamaConfig.llama3_8b()
+    cfg = dataclasses.replace(llama.LlamaConfig.llama3_8b(),
+                              num_hidden_layers=layers)
     t0 = time.perf_counter()
     params = llama.init_params(cfg, torch.Generator(device="cuda")
                                .manual_seed(0))
     torch.cuda.synchronize()
-    log(f"llama3_8b params initialised in {time.perf_counter() - t0:.1f} s, "
+    log(f"llama3_8b params ({layers} layers) initialised in "
+        f"{time.perf_counter() - t0:.1f} s, "
         f"{torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB on the card")
     return params, cfg
 
@@ -2389,7 +2440,8 @@ VERIFY_SPAN = (7, 64, 256)
 # slot 3 both (full acceptance, sampled); slots 2 and 4 keep random drafts
 VERIFY_PLANT = {0: 4, 1: 2, 3: 2}
 # reps of phase 13 c's repetitive and random greedy waves on each engine
-SPEC_WAVE_REPS = 5
+# (cut from 5 for the smoke's time)
+SPEC_WAVE_REPS = 1
 # the sampled requests' parameters (phase 13 c and d)
 SAMPLED = dict(temperature=0.8, top_p=0.95, top_k=50)
 
@@ -3177,12 +3229,12 @@ def migration_phase(params, cfg) -> dict:
 # the in-process serving fleet (phase 16)
 # ---------------------------------------------------------------------------
 
-# every engine of phase 16, all built by one factory over phase 4's params:
-# 4 slots, page 16, prompts up to 1088 tokens, 80 new, the paged-KV audit
-# after every tick; 320 pages = 640 MiB of pool an engine at 2 MiB of KV a
-# page. The decode replica holds the four adopted 65-page chains (260
-# pages) plus 7 private pages for each turn 2 (1064 + 80 tokens is 72
-# pages): 288 pages.
+# every engine of phase 16, all built by one factory over phase 13's
+# SERVE_LAYERS-layer params: 4 slots, page 16, prompts up to 1088 tokens,
+# 80 new, the paged-KV audit after every tick; 320 pages = 160 MiB of pool
+# an engine at 0.5 MiB of KV a page (2 MiB at 32 layers). The decode
+# replica holds the four adopted 65-page chains (260 pages) plus 7 private
+# pages for each turn 2 (1064 + 80 tokens is 72 pages): 288 pages.
 FLEET_GEOM = dict(max_batch=4, page_size=16, max_prompt_len=1088,
                   max_new_tokens_cap=80, total_pages=320,
                   check_invariants=True)
@@ -3302,7 +3354,8 @@ def _tick_wall(params, cfg, dev, trace: bool) -> tuple:
 
 
 def fleet_phase(params, cfg) -> dict:
-    """Phase 16: the in-process fleet at llama3_8b's full width and depth.
+    """Phase 16: the in-process fleet at llama3_8b's widths (``cfg``'s
+    depth).
     (a) prefill -> decode handoff: four 1040-token sessions on the prefill
     replica, their chains migrated to the decode replica, turn 2 routed
     there by the migration record, session 0's turn 2 equal to the same
@@ -3310,7 +3363,7 @@ def fleet_phase(params, cfg) -> dict:
     wave with r0 drained at the 8th submission and r1's pool corrupted at
     the 16th: r1 reaped with a postmortem, re-dispatch exactly once, r2's
     sentinel clean; (c) r2's trace against its counters; (d) ragged
-    launches = 32 x every replica's model steps; (e) times."""
+    launches = L x every replica's model steps; (e) times."""
     from paddle_tpu_torch.ops.kernels import ragged_paged_attention as rpa
     from paddle_tpu_torch.serving import ServingEngine
     from paddle_tpu_torch.serving.fleet import GONE, ServingFleet
@@ -3573,17 +3626,22 @@ def fleet_phase(params, cfg) -> dict:
 # the worker-process serving fleet (phase 17)
 # ---------------------------------------------------------------------------
 
-# every worker of phase 17 comes from one WorkerSpec: llama3_8b in bf16
-# drawn from seed 0 on the card (bitwise phase 4's params, which the
-# parent keeps as its reference) and phase 16's engine geometry
-# (FLEET_GEOM), warmed before it reports ready. A worker holds its own
-# 16 GB of weights and a 640 MiB pool: at most two live at a time beside
-# the parent's 16 GB, and each fleet closes before the next starts.
+# every worker of phase 17 comes from one WorkerSpec: llama3_8b at
+# SERVE_LAYERS layers in bf16 drawn from seed 0 on the card (bitwise phase
+# 13's params, which the parent keeps as its reference) and phase 16's
+# engine geometry (FLEET_GEOM), warmed before it reports ready. A worker
+# holds its own 5.6 GB of weights and a 160 MiB pool: at most two live at
+# a time, and each fleet closes before the next starts.
 PROC_START_S = 300.0     # a worker's bring-up limit, spawn to ready
-PROC_KILL_N = 10         # (c): requests of 12-40 new tokens
+PROC_KILL_N = 6          # (c): requests of 12-40 new tokens (cut from 10
+# for the smoke's time: the pairs before the kill, the victim and its
+# partner)
 PROC_KILL_NEW = 64       # (c): the victim's new tokens
 PROC_KILL_AT = 8         # (c): w0 dies once its request streamed these
-PROC_FREED_GIB = 15      # (c): card memory back within 30 s of the kill
+# (c): card memory back within 30 s of the kill, this share of the worker's
+# bf16 weight bytes (about the 15 GiB once set for a 32-layer worker's
+# 16.1 GB)
+PROC_FREED_FRAC = 0.9
 PROC_PINGS = 50
 
 
@@ -3694,18 +3752,18 @@ def _wave_tok_s(submit, prompts, new) -> tuple:
 
 
 def proc_fleet_phase(params, cfg) -> dict:
-    """Phase 17: the worker-process fleet at llama3_8b's full width and
-    depth, every worker from ``proc_spec``. (a) two general workers,
-    round robin, phase 4's 16 requests in pairs (each alone on its
-    worker): every stream equals the parent's engine bitwise, launches =
-    32 x model steps in each worker, the merged scrape; the wave as a
-    burst for tok/s; (c) on the same fleet, armed: 10 requests, each
-    alone on its worker, worker 0 SIGKILLed mid-stream and its request
-    re-decoded alone on worker 1, every handle equal to the parent's
-    engine, crashes 1, no failed re-dispatch, its card memory back; (b)
-    roles [prefill, decode], auto_migrate, 8-page chunks: four 1040-token
-    sessions on the prefill worker, their 65-page chains handed to the
-    decode worker, turn 2 routed there (routed_migrated 4, 1040 adopted
+    """Phase 17: the worker-process fleet at llama3_8b's widths (``cfg``'s
+    depth, the params the workers draw from seed 0), every worker from
+    ``proc_spec``. (a) two general workers, round robin, phase 4's 16
+    requests in pairs (each alone on its worker): every stream equals the
+    parent's engine bitwise, launches = L x model steps in each worker,
+    the merged scrape; the wave as a burst for tok/s; (c) on the same fleet,
+    armed: ``PROC_KILL_N`` requests, each alone on its worker, worker 0
+    SIGKILLed mid-stream and its request re-decoded alone on worker 1, every
+    handle equal to the parent's engine, crashes 1, no failed re-dispatch, its
+    card memory back; (b) roles [prefill, decode], auto_migrate, 8-page chunks:
+    four 1040-token sessions on the prefill worker, their 65-page chains handed
+    to the decode worker, turn 2 routed there (routed_migrated 4, 1040 adopted
     tokens each), session 0 equal to the parent's engine bitwise, then a
     fifth chain handed across with both workers idle; (d) times,
     reported."""
@@ -3847,7 +3905,7 @@ def proc_fleet_phase(params, cfg) -> dict:
         t_kill = time.perf_counter()
         fleet.kill_hard("w0", timeout=60)
         while torch.cuda.mem_get_info()[0] - free_k \
-                < PROC_FREED_GIB * 2 ** 30:
+                < PROC_FREED_FRAC * 2 * count_params(cfg):
             assert time.perf_counter() - t_kill < 30, \
                 "the killed worker's card memory did not come back"
             time.sleep(0.05)
@@ -4140,11 +4198,18 @@ def _tensors(tree):
     return [tree]
 
 
-def init_qwen():
-    """The default ``Qwen2MoeConfig()`` (Qwen1.5-MoE-A2.7B's widths, 24
-    layers, bf16) from seed 0 on the card."""
+# phase 14 serves Qwen1.5-MoE-A2.7B's widths at this many of its 24 layers
+# (cut from 24 for the smoke's time: its four engine runs are host-bound,
+# a tick's host time a layer's launches times the depth)
+QWEN_SERVE_LAYERS = 8
+
+
+def init_qwen(layers: int = QWEN_SERVE_LAYERS):
+    """The default ``Qwen2MoeConfig()`` (Qwen1.5-MoE-A2.7B's widths, bf16)
+    at ``layers`` of its 24 layers, from seed 0 on the card."""
     from paddle_tpu_torch.models import qwen2_moe
-    cfg = qwen2_moe.Qwen2MoeConfig()
+    cfg = dataclasses.replace(qwen2_moe.Qwen2MoeConfig(),
+                              num_hidden_layers=layers)
     t0 = time.perf_counter()
     params = qwen2_moe.init_params(cfg, torch.Generator(device="cuda")
                                    .manual_seed(0))
@@ -4210,7 +4275,8 @@ QWEN_INT8_LENS = [32 + 480 * i // 31 for i in range(32)]
 # pinned, 24 random 2048-wide layers whose ~19 products a token are each
 # quantized read 1.18 x std (and 0.79 x the logit scale with the routing
 # free: 37% of the routing decisions flip) on an H100 80GB HBM3 (700 W)
-# with this script; its reading is reported beside this check.
+# with this script at all 24 layers; its reading is reported beside this
+# check.
 QWEN_INT8_GREEDY_MIN = 0.6
 
 
@@ -4242,7 +4308,8 @@ def qwen_int8_tick_run(params, qparams, cfg) -> dict:
 
 
 def qwen_serving_phase() -> dict:
-    """Phase 14: Qwen2-MoE serving at full width and depth. (a) decode
+    """Phase 14: Qwen2-MoE serving at full width, ``QWEN_SERVE_LAYERS``
+    deep. (a) decode
     attention at G = 1, (b) int8 at Qwen's shapes, (c) the bf16 engine
     (phase 4's wave, the mixed tick kernel vs plain, ``generate()``'s
     tokens reported), ``serving_decode_block``, one seeded sampled
@@ -5393,7 +5460,7 @@ ZOO_SITES = {
     "inception_v3": (94, 40, 0),
 }
 ZOO_B = 8
-ZOO_REPS = 10
+ZOO_REPS = 5             # cut from 10 for the smoke's time
 # folded vs unfolded, phase 12's bounds: f32 (TF32 off) within
 # RESNET_F32_LOGITS_REL of the logit scale, top-1 equal; bf16 within
 # RESNET_BF16_LOGITS_REL (and the folded model on the kernel vs on the
@@ -6515,6 +6582,9 @@ def deployment_phase() -> dict:
 # ---------------------------------------------------------------------------
 
 CAPTURE_LAYERS = 2       # layers of (b), (d), (e) and of (c)'s inductor tick
+# layers of (c)'s aot_eager tick: phase 4's params cut to their first 2
+# (all 32 took 32.6 s to capture; cut for the smoke's time)
+CAPTURE_TICK_LAYERS = 2
 # (b): inductor's gradients against the eager step's, by the norm
 # ratio and the cosine of each gradient tensor. Inductor fuses the eager
 # ops between the kernels into kernels that keep f32 where eager rounds
@@ -6824,12 +6894,16 @@ def capture_qwen_train_run() -> dict:
 
 
 def capture_tick_run(params, cfg) -> dict:
-    """21 (c): phase 4's mixed tick on its 32-layer params, eager and
-    captured (``aot_eager``): logits and both pools bitwise, 32 ragged
-    launches each; then inductor on the first 2 layers' tick."""
+    """21 (c): phase 4's mixed tick on the first ``CAPTURE_TICK_LAYERS``
+    layers of its params, eager and captured (``aot_eager``): logits and
+    both pools bitwise, a ragged launch a layer each; then inductor on
+    the first 2 layers' tick."""
     from paddle_tpu_torch import jit
     from paddle_tpu_torch.models import llama
     smi = nvidia_smi_line()
+    params = dict(params, layers={k: v[:CAPTURE_TICK_LAYERS]
+                                  for k, v in params["layers"].items()})
+    cfg = dataclasses.replace(cfg, num_hidden_layers=CAPTURE_TICK_LAYERS)
     L = cfg.num_hidden_layers
     pools, tok, meta = tick_state(cfg, TICK_DECODE, TICK_SPANS)
 
@@ -7606,7 +7680,8 @@ def profiler_engine_run(params, cfg) -> dict:
         run["window_launches"], (len(kernels), L, run["window_steps"],
                                  run["window_launches"])
     mib = os.path.getsize(p.trace_paths[0]) / 2 ** 20
-    log(f"23 (a) profiler on the 8B engine ({PROF_REQUESTS} requests alone, "
+    log(f"23 (a) profiler on the 8B engine at {L} layers ({PROF_REQUESTS} "
+        f"requests alone, "
         f"steps {PROF_WINDOW} recorded): tokens = the unprofiled run's; "
         f"window: {n} tick ranges in the Chrome trace ({mib:.1f} MiB) = "
         f"{n} engine ticks = {run['window_spans']} bridged spans; "
@@ -7977,20 +8052,25 @@ def phase23() -> dict:
 PAR_LAYERS = 2
 PAR_T = 2048
 PAR_SEED = 24
+# (d) times its steps from the second on, the collectives alone
 PAR_STEPS = {"tp": 2, "zero": 2, "hybrid": 3}
+# (c)'s ZeRO stages by rank pair: 0-2 on ranks 2-3 while (b) and then 0
+# and 3 run on ranks 0-1, each pair's later stages held bitwise to its own
+# stage 0 and the two stage 0 runs to each other
+PAR_ZERO_STAGES = {(2, 3): (0, 1, 2), (0, 1): (0, 3)}
 # the per-rank kernel shapes at tp 2: half of the 8B heads, and the
 # sequence-sharded stream's T / tp rows
 TP_GEOM = dict(TRAIN_GEOM, H=16, Hkv=4)
 TP_ROWS = PAR_T // 2
 TP_KERNELS = tuple(k for k in TRAIN_KERNELS
                    if not k[0].startswith("fused_rms_norm_bwd_d"))
-# (b) tp 2 against the one-device step, f32 with TF32 off, 2 steps from
-# one state: the same math in other reduction orders (row-parallel
-# partial sums, the vocab-parallel cross entropy), so each loss within
-# 1e-5 relative. AdamW's first updates are +-lr wherever |g| >> eps, so
-# an element whose gradient is within rounding of zero can move by up to
-# 2 lr a step either way: each leaf's elements within lr / 10 of the
-# witness but for at most PAR_TP_FRAC of them, and all within two
+# (b) tp 2 (and phase 26 (c)'s cp 2 x tp 2) against the one-device step,
+# f32 with TF32 off, up to 2 steps from one state: the same math in other
+# reduction orders (row-parallel partial sums, the vocab-parallel cross
+# entropy), so each loss within 1e-5 relative. AdamW's first updates are +-lr
+# wherever |g| >> eps, so an element whose gradient is within rounding of zero
+# can move by up to 2 lr a step either way: each leaf's elements within lr / 10
+# of the witness but for at most PAR_TP_FRAC of them, and all within two
 # updates' largest gap (4 lr; the bias-corrected Adam ratio stays below
 # 1.0003 over two steps at b1 0.9, b2 0.95) plus weight decay.
 PAR_TP_LOSS_REL = 1e-5
@@ -8070,9 +8150,9 @@ def tp_kernel_phase() -> dict:
 
 
 def tp_witness(out_dir: str) -> dict:
-    """Phase 24 (b)'s witness: the one-device step (f32, TF32 off), 2
-    steps from the phase's seeded state; its final params are written to
-    ``out_dir`` one ``.npy`` a leaf, and the card is freed."""
+    """Phase 24 (b)'s witness: the one-device step (f32, TF32 off),
+    ``PAR_STEPS["tp"]`` steps from the phase's seeded state; its final params
+    are written to ``out_dir`` one ``.npy`` a leaf, and the card is freed."""
     from paddle_tpu_torch.models import llama
     cfg = par_cfg(torch.float32)
     t0 = time.perf_counter()
@@ -8148,16 +8228,18 @@ def _par_tp(hm, witness_dir: str) -> dict:
             / 2 ** 30}
 
 
-def _par_zero(hm) -> dict:
-    """(c) on this rank: dp 2, bf16, ZeRO 0-3, 2 steps each from one
-    seeded state; each stage's params against stage 0's, bitwise."""
+def _par_zero(hm, stages) -> dict:
+    """(c) on this rank: dp 2, bf16, ZeRO ``stages`` (0 first),
+    ``PAR_STEPS`` steps each from one seeded state; each later stage's
+    params against stage 0's, bitwise."""
     from paddle_tpu_torch import distributed as dist
     from paddle_tpu_torch.distributed.communication import all_gather_cat
     from paddle_tpu_torch.models import llama
     from paddle_tpu_torch.models.llama import _tree_leaves
     cfg = par_cfg(torch.bfloat16)
+    assert stages[0] == 0, stages
     ref, out = None, {}
-    for stage in range(4):
+    for stage in stages:
         gc.collect()
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
@@ -8201,7 +8283,7 @@ def _par_zero(hm) -> dict:
 
 
 def _par_hybrid(hm) -> dict:
-    """(d) on this rank: dp 2 x tp 2, bf16, ZeRO 1, 3 steps; the
+    """(d) on this rank: dp 2 x tp 2, bf16, ZeRO 1, ``PAR_STEPS`` steps; the
     collectives timed alone from step 2 on."""
     from paddle_tpu_torch import distributed as dist
     from paddle_tpu_torch.models import llama
@@ -8355,8 +8437,8 @@ def _pipe_named_leaves(params, cfg, mesh) -> list:
 
 def pipe_witness(out_dir: str) -> dict:
     """Phase 25 (a)'s witness: the one-device step (f32, TF32 off) at B
-    ``PIPE_B["a"]``, 2 steps from the phase's seeded state, its params
-    written to ``out_dir``, the card freed."""
+    ``PIPE_B["a"]``, ``PIPE_STEPS`` steps from the phase's seeded state, its
+    params written to ``out_dir``, the card freed."""
     from paddle_tpu_torch.models import llama
     cfg = pipe_cfg(torch.float32)
     step, init = llama.make_train_step(cfg)
@@ -8452,8 +8534,8 @@ def _zb_vs_async_grads(hm) -> dict:
 
 
 def _pipe_a(hm, wdir: str) -> dict:
-    """(a) on this rank: pp 4, f32, each schedule 2 steps; its leaves
-    against the witness's; 1f1b and zb against 1f1b_async bitwise."""
+    """(a) on this rank: pp 4, f32, each schedule ``PIPE_STEPS`` steps; its
+    leaves against the witness's; 1f1b and zb against 1f1b_async bitwise."""
     out, ref = {}, None
     for sched in PIPE_SCHEDULES:
         cfg = pipe_cfg(torch.float32, 4, sched)
@@ -8487,7 +8569,7 @@ def _pipe_a(hm, wdir: str) -> dict:
 
 
 def _pipe_b(hm) -> dict:
-    """(b) on this rank: pp 2 x tp 2, bf16, zb, 2 steps."""
+    """(b) on this rank: pp 2 x tp 2, bf16, zb, ``PIPE_STEPS`` steps."""
     rec, state = _pipe_run(hm, pipe_cfg(torch.bfloat16, 2, "zb"),
                            PIPE_B["b"])
     del state
@@ -8496,7 +8578,8 @@ def _pipe_b(hm) -> dict:
 
 def _pipe_c(hm) -> dict:
     """(c) on this rank: pp 2 x dp 2, bf16, 1f1b_async with VPP 2, ZeRO
-    0, 1 and 2, 2 steps each; stages 1-2 against stage 0 bitwise."""
+    0, 1 and 2, ``PIPE_STEPS`` steps each; stages 1-2 against stage 0
+    bitwise."""
     from paddle_tpu_torch.models.llama import _tree_leaves
     cfg = pipe_cfg(torch.bfloat16, 2, "1f1b_async", vpp=2)
     out, ref = {}, None
@@ -8600,15 +8683,578 @@ def pipe_report(world: list, witness: dict) -> dict:
             "zb_bitwise": all(x["zb"]["bitwise_async"] for x in a)}
 
 
+# ---------------------------------------------------------------------------
+# phase 26: context-parallel training on one card
+# ---------------------------------------------------------------------------
+
+# llama3_8b widths at PAR_LAYERS of 32 layers, in phase 24's spawned world.
+# Every hop of every ring below has a rank part of CP_TL = 2048 tokens:
+# (b)'s cp 4 over CP_T_ATTN = 8192 and (c)-(d)'s cp 2 over CP_T = 4096.
+# So (a)'s three non-causal hop shapes are every off-diagonal call's:
+# (Tl, Tl) the contiguous ring's src < r, (Tl/2, Tl/2) twice zigzag's
+# src < r, (Tl/2, Tl) zigzag's src > r; the diagonal is phase 5's causal
+# (2048, 2048). CP_T: the one-device f32 witness (whole model, AdamW)
+# holds T 4096 in ~35 GiB, a cp 2 x tp 2 rank a quarter of its
+# activations (its 1024 rows of the stream, 2048-row cells in attention);
+# the whole model's f32 state alone (~24 GB a rank) keeps cp 4 ranks
+# from training on one card, so cp 4 runs at the attention level.
+CP_T_ATTN = 8192
+CP_T = 4096
+CP_R = 4
+CP_TL = 2048
+CP_SEED = 26
+CP_STEPS = 2
+CP_HOPS = {"full": (CP_TL, CP_TL), "half": (CP_TL // 2, CP_TL // 2),
+           "tail": (CP_TL // 2, CP_TL)}
+# (a) the loopback ring (R = 4) and Ulysses' call against the one-device
+# causal kernel on the whole 8192-token sequence, ulps of the dtype at
+# each row's scale (dq per head, over all T rows, as phase 5). Each side
+# is within phase 5's exact bound of the exact value (1 bf16 ulp; f32:
+# o 16, dq 32, dk and dv 64); the ring also rounds each hop's output (o)
+# or partial gradient (dq, dk, dv) to the dtype before summing them in
+# f32 (half an ulp at the hop's own scale): a hop's o is a softmax-weighted
+# part of the row's, so its roundings weigh at most half an ulp together
+# (+ 1 for partial sums over a quarter of the keys reaching twice the
+# row's scale); the R = 4 partial gradients at most R / 2 ulps. Hence bf16
+# o 1 + 1 + 1.5 + 0.5 (the final rounding) = 4, gradients 1 + 1 + 2 + 0.5
+# -> 5; f32 the two sides' bounds plus R.
+CP_LOOP_BOUNDS = {torch.float32: {"o": 36, "dq": 68, "dk": 132, "dv": 132},
+                  torch.bfloat16: {"o": 4, "dq": 5, "dk": 5, "dv": 5}}
+CP_KINDS = ("ring", "zigzag", "ulysses")
+CP_FLASH = ("flash_attention_fwd", "flash_attention_bwd_dq",
+            "flash_attention_bwd_dkv")
+# (a)'s non-causal checks, per hop shape: phase 5's bounds, but the f32
+# forward's at the full and tail shapes. A non-causal row sums all S keys
+# where phase 5's causal rows average S/2, so its output is a smaller part
+# of the sum of |p v| it is made of. The f32 forward's ulps from f64 over
+# seeds 260-267 (tools/torch_flash_noncausal_ulps.py, an H100 80GB HBM3 at
+# 700 W): full 15.9-18.3, half 11.8-15.4, tail 15.1-17.6; the plain
+# version's own f32 evaluation 32.9-37.6, 23.7-37.5, 28.2-37.1. The bound
+# is 1.25 x the largest reading, rounded up, where that reading passes
+# phase 5's 16; the half shape keeps 16.
+CP_NONCAUSAL_BOUNDS = {"full": {**TRAIN_BOUNDS, ("o", "f32"): 23},
+                       "half": TRAIN_BOUNDS,
+                       "tail": {**TRAIN_BOUNDS, ("o", "f32"): 23}}
+
+
+def cp_layout(kind: str) -> str:
+    return "zigzag" if kind == "zigzag" else "contiguous"
+
+
+def cp_step_launches(L: int, r: int, R: int, kind: str) -> dict:
+    """Each kernel's launches on cp rank ``r`` of R in one train step:
+    phase 6's formula, with a layer's attention (its forward, remat
+    recompute and backward) ``hop_launches`` kernel calls under the
+    rings and one under Ulysses."""
+    from paddle_tpu_torch.parallel.context_parallel import hop_launches
+    n = 1 if kind == "ulysses" else hop_launches(r, R, cp_layout(kind))
+    out = per_step_launches(L)
+    for k in ("flash_attention_fwd", "flash_attention_bwd_dq",
+              "flash_attention_bwd_dkv"):
+        out[k] *= n
+    return out
+
+
+def cp_hop_calls(r: int, R: int, Tl: int, kind: str) -> dict:
+    """Rank ``r``'s kernel calls in one attention's forward (its backward
+    makes as many dq and dkv calls) by ``(Tq, Tk, causal)``, from
+    ``hop_schedule``; Ulysses one causal call on the whole sequence."""
+    from paddle_tpu_torch.parallel.context_parallel import hop_schedule
+    if kind == "ulysses":
+        return {(R * Tl, R * Tl, True): 1}
+    out = {}
+    for s in range(R):
+        for c in hop_schedule(r, s, R, Tl, cp_layout(kind)):
+            key = (c.q.stop - c.q.start, c.kv.stop - c.kv.start, c.causal)
+            out[key] = out.get(key, 0) + 1
+    return out
+
+
+def cp_calls_by_shape(calls: dict, launches: dict, times: dict) -> dict:
+    """``{kernel: {(Tq, Tk, causal): launches}}``: ``calls`` (one
+    attention's, ``cp_hop_calls``) times each kernel's attentions in the
+    run (``times``); their sum must be the kernel's counted
+    ``launches``."""
+    out = {}
+    for name, n in times.items():
+        out[name] = {key: c * n for key, c in calls.items()}
+        assert sum(out[name].values()) == launches[name], (name, out,
+                                                           launches)
+    return out
+
+
+def cp_ring_bytes(R: int, chunk: int, acc: int) -> int:
+    """Bytes a rank sends in one ring attention's forward and backward:
+    k and v (``chunk`` bytes each) R - 1 times forward, R - 1 times
+    backward with the f32 dk / dv accumulators (``acc`` bytes each), the
+    accumulators once more home."""
+    return (R - 1) * 2 * chunk + (R - 1) * 2 * (chunk + acc) + 2 * acc
+
+
+def cp_hop_bounds(T: int, S: int, gm=TRAIN_GEOM) -> dict:
+    """Least time of the non-causal flash kernels at (T, S), bf16, B 1:
+    bytes over 3.35 TB/s against operations (every pair visible) over
+    the bf16 peak."""
+    H, Hkv, Dh = gm["H"], gm["Hkv"], gm["Dh"]
+    pairs = H * T * S
+    qb, kb, st = T * H * Dh * 2, S * Hkv * Dh * 2, H * T * 4
+
+    def bound(nbytes, flops):
+        tb = nbytes / H100_BYTES_PER_S * 1e3
+        to = flops / H100_BF16_FLOPS * 1e3
+        return (max(tb, to), "bytes" if tb >= to else "operations")
+
+    return {"fwd": bound(2 * qb + 2 * kb + st, 4 * Dh * pairs),
+            "dq": bound(3 * qb + 2 * kb + 2 * st, 6 * Dh * pairs),
+            "dkv": bound(2 * qb + 4 * kb + 2 * st, 8 * Dh * pairs)}
+
+
+def cp_hop_times(T: int, S: int, gm=TRAIN_GEOM) -> dict:
+    """bf16 non-causal fwd / dq / dkv kernel, plain-version and library
+    ms at (T, S). Library (a yardstick; the port calls none): SDPA
+    non-causal with GQA, forward and its whole backward."""
+    import torch.nn.functional as F
+    from paddle_tpu_torch.ops.kernels import flash_attention as fa
+    H, Hkv, Dh = gm["H"], gm["Hkv"], gm["Dh"]
+    bf = torch.bfloat16
+    gen = torch.Generator(device="cuda").manual_seed(CP_SEED + 7)
+    q = _randn((1, T, H, Dh), gen).to(bf)
+    k = _randn((1, S, Hkv, Dh), gen).to(bf)
+    v = _randn((1, S, Hkv, Dh), gen).to(bf)
+    do = _randn((1, T, H, Dh), gen).to(bf)
+    scale = 1.0 / math.sqrt(Dh)
+    qs = fa.prescale_q(q, scale)
+    o, lse = fa.flash_attention_fwd(qs, k, v, False)
+    _, delta = fa.flash_attention_bwd_dq(qs, k, v, o, do, lse, False, scale)
+    leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+    po = fa._dense_reference(*leaves, False, scale)
+    tq, tk, tv, tdo = (t.transpose(1, 2).contiguous() for t in (q, k, v, do))
+    sl = [t.detach().requires_grad_() for t in (tq, tk, tv)]
+    so = F.scaled_dot_product_attention(*sl, enable_gqa=True)
+    with torch.no_grad():
+        fwd = (time_ms(lambda: fa.flash_attention_fwd(qs, k, v, False)),
+               time_ms(lambda: fa._dense_reference(q, k, v, False, scale),
+                       reps=5),
+               time_ms(lambda: F.scaled_dot_product_attention(
+                   tq, tk, tv, enable_gqa=True)))
+    plain_bwd = time_ms(lambda: torch.autograd.grad(
+        po, leaves, do, retain_graph=True), reps=5)
+    lib_bwd = time_ms(lambda: torch.autograd.grad(so, sl, tdo,
+                                                  retain_graph=True))
+    out = {"fwd": fwd,
+           "dq": (time_ms(lambda: fa.flash_attention_bwd_dq(
+               qs, k, v, o, do, lse, False, scale)), plain_bwd, lib_bwd),
+           "dkv": (time_ms(lambda: fa.flash_attention_bwd_dkv(
+               qs, k, v, do, lse, delta, False)), plain_bwd, lib_bwd)}
+    del po, so, leaves, sl
+    torch.cuda.empty_cache()
+    return out
+
+
+def _loop_run(q, k, v, do, scale, layout):
+    """o and (dq, dk, dv) of the loopback ring of ``CP_R`` virtual ranks
+    on the kernels."""
+    from paddle_tpu_torch.parallel.context_parallel import ring_loopback
+    leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+    o = ring_loopback(*leaves, CP_R, causal=True, sm_scale=scale,
+                      layout=layout, impl="kernel")
+    return (o.detach(),) + tuple(torch.autograd.grad(o, leaves, do))
+
+
+def _ulysses_calls(q, k, v, do, scale):
+    """Ulysses' kernel calls of ``CP_R`` ranks in one process: the causal
+    flash kernel on the whole sequence for each head group, the groups'
+    outputs and gradients put back in head order."""
+    H, Hkv = q.shape[2], k.shape[2]
+    h, g = H // CP_R, Hkv // CP_R
+    parts = [_flash_run(q[:, :, j * h:(j + 1) * h].contiguous(),
+                        k[:, :, j * g:(j + 1) * g].contiguous(),
+                        v[:, :, j * g:(j + 1) * g].contiguous(),
+                        do[:, :, j * h:(j + 1) * h].contiguous(), "kernel",
+                        scale) for j in range(CP_R)]
+    return tuple(torch.cat(x, 2) for x in zip(*parts))
+
+
+def _ring_errs(got, ref, T, Dh, eps) -> dict:
+    """Row-scale ulps of (o, dq, dk, dv) against ``ref`` (dq per head)."""
+    out = {}
+    for n, a, b in zip(("o", "dq", "dk", "dv"), got, ref):
+        assert torch.isfinite(a).all(), f"{n}: non-finite"
+        if n == "dq":
+            a, b = (x.transpose(1, 2).contiguous() for x in (a, b))
+            out[n] = row_ulps(a, b, T * Dh, eps)
+        else:
+            out[n] = row_ulps(a, b, Dh, eps)
+    return out
+
+
+def cp_kernel_phase(out_dir: str) -> dict:
+    """Phase 26 (a): the flash kernels' non-causal mode at the three hop
+    shapes against the plain version (``CP_NONCAUSAL_BOUNDS``, bitwise
+    backward), with times; then the loopback ring (contiguous, zigzag)
+    and Ulysses' calls against the one-device causal kernel on the whole
+    ``CP_T_ATTN`` sequence, f32 and bf16 (``CP_LOOP_BOUNDS``; Ulysses'
+    calls bitwise). The bf16 references for (b) go to ``out_dir``."""
+    rec = {"errs": {}, "times": {}, "bounds": {}}
+    t0 = time.perf_counter()
+    for name, (T, S) in CP_HOPS.items():
+        e = check_flash(T, S, seed=260 + len(rec["errs"]), causal=False)
+        log(f"26 (a) flash non-causal {name} (T={T}, S={S}): " + " ".join(
+            f"{a}/{b}={v:.4g}" for (a, b), v in e.items()))
+        check_bounds(f"flash non-causal {name}", e,
+                     CP_NONCAUSAL_BOUNDS[name])
+        rec["errs"][name] = e
+        rec["times"][name] = cp_hop_times(T, S)
+        rec["bounds"][name] = cp_hop_bounds(T, S)
+        for kern, (ms, plain, lib) in rec["times"][name].items():
+            b, by = rec["bounds"][name][kern]
+            log(f"26 (a) kernel {kern} non-causal {name} bf16: {ms:.4f} ms, "
+                f"plain {plain:.4f} ms, SDPA {lib:.4f} ms, bound {b:.4f} ms "
+                f"({by})")
+    log(f"26 (a) non-causal backward: two launches bitwise equal (dq, dk, "
+        f"dv); the three shapes checked and timed in "
+        f"{time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    H, Hkv, Dh = TRAIN_GEOM["H"], TRAIN_GEOM["Hkv"], TRAIN_GEOM["Dh"]
+    T = CP_T_ATTN
+    gen = torch.Generator(device="cuda").manual_seed(CP_SEED)
+    base = [_randn((1, T, H, Dh), gen), _randn((1, T, Hkv, Dh), gen),
+            _randn((1, T, Hkv, Dh), gen), _randn((1, T, H, Dh), gen)]
+    scale = 1.0 / math.sqrt(Dh)
+    rec["loop"] = {}
+    for dt in (torch.float32, torch.bfloat16):
+        ins = [t.to(dt) for t in base]
+        eps = F32_EPS if dt == torch.float32 else BF16_EPS
+        one = _flash_run(*ins, "kernel", scale)
+        tag = "f32" if dt == torch.float32 else "bf16"
+        for layout in ("contiguous", "zigzag"):
+            got = _loop_run(*ins, scale, layout)
+            again = _loop_run(*ins, scale, layout)
+            assert all(torch.equal(a, b) for a, b in zip(got, again)), \
+                f"loopback {layout} {tag} not deterministic"
+            e = _ring_errs(got, one, T, Dh, eps)
+            bad = {n: (x, CP_LOOP_BOUNDS[dt][n]) for n, x in e.items()
+                   if not x <= CP_LOOP_BOUNDS[dt][n]}
+            assert not bad, (layout, tag, bad)
+            rec["loop"][(layout, tag)] = e
+            log(f"26 (a) loopback ring R {CP_R} {layout} {tag} vs the "
+                f"one-device kernel (T {T}): " + " ".join(
+                    f"{n}={x:.3g}" for n, x in e.items())
+                + f" ulps (bounds {CP_LOOP_BOUNDS[dt]}); bitwise run to run")
+            if dt == torch.bfloat16:
+                torch.save([x.cpu() for x in got],
+                           os.path.join(out_dir, f"loop_{layout}.pt"))
+            del got, again
+        uly = _ulysses_calls(*ins, scale)
+        same = all(torch.equal(a, b) for a, b in zip(uly, one))
+        assert same, f"Ulysses' calls {tag} differ from the one-device kernel"
+        log(f"26 (a) Ulysses' {CP_R} head-group calls {tag} = the one-device "
+            f"kernel bitwise (o, dq, dk, dv)")
+        if dt == torch.bfloat16:
+            torch.save([x.cpu() for x in one],
+                       os.path.join(out_dir, "one.pt"))
+        del one, uly, ins
+    del base
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"26 (a) loopback and Ulysses checks in "
+        f"{time.perf_counter() - t0:.1f} s")
+    return rec
+
+
+def cp_witness(out_dir: str) -> dict:
+    """Phase 26 (c)'s witness: the one-device step (f32, TF32 off) at T
+    ``CP_T``, 2 steps from the phase's seeded state, its params written
+    to ``out_dir``, the card freed."""
+    from paddle_tpu_torch.models import llama
+    cfg = par_cfg(torch.float32)
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    step, init = llama.make_train_step(cfg)
+    state = init(torch.Generator(device="cuda").manual_seed(CP_SEED))
+    batch = llama.make_batch(
+        cfg, 1, CP_T,
+        generator=torch.Generator(device="cuda").manual_seed(CP_SEED + 1))
+    losses = []
+    for _ in range(CP_STEPS):
+        state, loss = step(state, batch)
+        losses.append(float(loss))
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    log(f"26 (c) witness: {CP_STEPS} steps in {time.perf_counter() - t0:.1f} "
+        f"s")
+    os.makedirs(out_dir, exist_ok=True)
+    for name, leaf in _named_leaves(state["params"]):
+        np.save(os.path.join(out_dir, name + ".npy"),
+                leaf.detach().cpu().numpy())
+    del state, batch, step, init
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"losses": losses, "peak_gib": peak}
+
+
+def _cp_inputs(hm, kind):
+    """(b)'s bf16 q, k, v, do on this rank: the same seeded draws as
+    (a)'s, laid out for ``kind``, this rank's cp part."""
+    H, Hkv, Dh = TRAIN_GEOM["H"], TRAIN_GEOM["Hkv"], TRAIN_GEOM["Dh"]
+    T = CP_T_ATTN
+    gen = torch.Generator(device="cuda").manual_seed(CP_SEED)
+    base = [_randn((1, T, H, Dh), gen), _randn((1, T, Hkv, Dh), gen),
+            _randn((1, T, Hkv, Dh), gen), _randn((1, T, H, Dh), gen)]
+    return [_cp_part(t.to(torch.bfloat16), hm, kind) for t in base]
+
+
+def _cp_part(x, hm, kind):
+    from paddle_tpu_torch.parallel.context_parallel import zigzag_global_perm
+    if kind == "zigzag":
+        x = x[:, torch.as_tensor(zigzag_global_perm(x.shape[1], CP_R),
+                                 device=x.device)]
+    n = x.shape[1] // CP_R
+    r = hm.axis_index("cp")
+    return x[:, r * n:(r + 1) * n].contiguous()
+
+
+def _cp_attn(hm, wdir: str) -> dict:
+    """(b) on this rank: cp 4 over the whole ``CP_T_ATTN`` sequence, bf16,
+    the kernels strict: ring and zigzag each = (a)'s loopback bitwise,
+    Ulysses = the one-device kernel bitwise, forward and gradients; each
+    kernel's launches = the schedule's, the ring's p2p bytes =
+    ``cp_ring_bytes``."""
+    from paddle_tpu_torch import distributed as dist
+    from paddle_tpu_torch.parallel.context_parallel import (
+        context_parallel_attention, hop_launches)
+    gc.collect()
+    torch.cuda.empty_cache()
+    r = hm.axis_index("cp")
+    scale = 1.0 / math.sqrt(TRAIN_GEOM["Dh"])
+    out = {}
+    for kind in CP_KINDS:
+        q, k, v, do = _cp_inputs(hm, kind)
+        leaves = [t.requires_grad_() for t in (q, k, v)]
+        _zero_counters()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        o = context_parallel_attention(*leaves, hm, impl=kind,
+                                       sm_scale=scale, attn_impl="kernel")
+        grads = torch.autograd.grad(o, leaves, do)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        launches, stats = _launches(), dist.collective_stats()
+        n = 1 if kind == "ulysses" else hop_launches(r, CP_R,
+                                                     cp_layout(kind))
+        for name in CP_FLASH:
+            assert launches[name] == n, (kind, r, launches)
+        ref = torch.load(os.path.join(
+            wdir, "one.pt" if kind == "ulysses"
+            else f"loop_{cp_layout(kind)}.pt"))
+        same = [torch.equal(a, _cp_part(b.to(a.device), hm, kind))
+                for a, b in zip((o.detach(),) + tuple(grads), ref)]
+        assert all(same), (kind, r, same)
+        sent = stats.get("send", {}).get("bytes", 0)
+        if kind != "ulysses":
+            chunk = k.numel() * k.element_size()
+            assert sent == cp_ring_bytes(CP_R, chunk, 2 * chunk), (kind,
+                                                                   sent)
+        out[kind] = {"ms": ms, "launches": launches["flash_attention_fwd"],
+                     "sent": sent, "stats": stats,
+                     "by_shape": cp_calls_by_shape(
+                         cp_hop_calls(r, CP_R, CP_TL, kind), launches,
+                         dict.fromkeys(CP_FLASH, 1))}
+        del q, k, v, do, leaves, o, grads, ref
+    return out
+
+
+def _cp_cfg(dtype, kind):
+    return dataclasses.replace(par_cfg(dtype), context_parallel=kind)
+
+
+def _cp_steps(hm, cfg) -> tuple:
+    """``CP_STEPS`` steps of ``make_train_step(cfg, mesh=hm)`` at B 1, T
+    ``CP_T`` from the phase's seeded state; launches held to
+    ``cp_step_launches``. Returns the record and the state."""
+    from paddle_tpu_torch import distributed as dist
+    from paddle_tpu_torch.models import llama
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    step, init = llama.make_train_step(cfg, mesh=hm)
+    state = init(torch.Generator(device="cuda").manual_seed(CP_SEED))
+    batch = llama.make_batch(
+        cfg, 1, CP_T, mesh=hm,
+        generator=torch.Generator(device="cuda").manual_seed(CP_SEED + 1))
+    _zero_counters()
+    losses, times = [], []
+    for _ in range(CP_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, loss = step(state, batch)
+        losses.append(float(loss))
+        times.append(time.perf_counter() - t0)
+    launches, stats = _launches(), dist.collective_stats()
+    r, R = hm.axis_index("cp"), hm.cp_degree
+    want = {n: c * CP_STEPS for n, c in cp_step_launches(
+        cfg.num_hidden_layers, r, R, cfg.context_parallel).items()}
+    assert launches == want, (cfg.context_parallel, r, launches, want)
+    sent = stats.get("send", {}).get("bytes", 0)
+    if cfg.context_parallel != "ulysses":
+        # k and v of this rank's tp heads and cp cell, a layer's forward,
+        # remat recompute and backward
+        chunk = CP_T // R * (cfg.num_key_value_heads // hm.tp_degree) * \
+            cfg.head_dim * (torch.finfo(cfg.dtype).bits // 8)
+        acc = chunk * 4 // (torch.finfo(cfg.dtype).bits // 8)
+        per_layer = 2 * (R - 1) * 2 * chunk + cp_ring_bytes(R, chunk, acc) \
+            - (R - 1) * 2 * chunk
+        assert sent == CP_STEPS * cfg.num_hidden_layers * per_layer, (
+            sent, per_layer)
+    per_step = per_step_launches(cfg.num_hidden_layers)
+    by_shape = cp_calls_by_shape(
+        cp_hop_calls(r, R, CP_T // R, cfg.context_parallel), launches,
+        {n: per_step[n] * CP_STEPS for n in CP_FLASH})
+    rec = {"losses": losses, "step_ms": [t * 1e3 for t in times],
+           "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+           "launches": launches, "sent": sent, "stats": stats, "cp": r,
+           "by_shape": by_shape}
+    return rec, state
+
+
+def _cp_f32(hm, wdir: str) -> dict:
+    """(c) on this rank: cp 2 x tp 2, f32, ring and zigzag, against the
+    witness's params (``PAR_TP_*``)."""
+    from paddle_tpu_torch.models.llama import _shard
+    out = {}
+    for kind in ("ring", "zigzag"):
+        rec, state = _cp_steps(hm, _cp_cfg(torch.float32, kind))
+        errs = {}
+        for name, leaf in _named_leaves(state["params"]):
+            # this rank's shard read from the mapped file, not the whole
+            # (copy-on-write: writable, so torch takes it without a copy)
+            w = np.load(os.path.join(wdir, name + ".npy"), mmap_mode="c")
+            part = _shard(torch.from_numpy(w), _leaf_spec(name), hm)
+            d = (leaf.detach() - part.to(leaf.device)).abs()
+            errs[name] = (float(d.max()),
+                          float((d > PAR_TP_ATOL).float().mean()))
+            del d, part, w
+        rec["errs"] = errs
+        out[kind] = rec
+        del state
+    return out
+
+
+def _cp_bf16(hm) -> dict:
+    """(d) on this rank: cp 2 x tp 2, bf16, zigzag and Ulysses."""
+    out = {}
+    for kind in ("zigzag", "ulysses"):
+        rec, state = _cp_steps(hm, _cp_cfg(torch.bfloat16, kind))
+        out[kind] = rec
+        del state
+    return out
+
+
+def phase26_report(world: list, witness: dict, kern: dict) -> dict:
+    """Phase 26 (b)-(d)'s checks on the ranks' records, and its log
+    lines; returns the kernel records for the kernels line."""
+    # (b)
+    for kind in CP_KINDS:
+        recs = [w["cp_attn"][kind] for w in world]
+        log(f"26 (b) cp 4 {kind} bf16 (T {CP_T_ATTN}, 8B heads): = "
+            + ("the one-device kernel" if kind == "ulysses"
+               else "(a)'s loopback") + " bitwise on every rank (o, dq, dk, "
+            "dv); fwd + bwd ms " + ", ".join(f"{x['ms']:.1f}" for x in recs)
+            + "; flash launches a rank (each of fwd, dq, dkv) "
+            + ", ".join(str(x["launches"]) for x in recs)
+            + "; p2p MiB sent a rank " + ", ".join(
+                f"{x['sent'] / 2 ** 20:.0f}" for x in recs))
+    # (c)
+    cw = witness
+    losses = {}
+    for kind in ("ring", "zigzag"):
+        recs = [w["cp_f32"][kind] for w in world]
+        for x in recs[1:]:
+            assert x["losses"] == recs[0]["losses"], kind
+        for got, want in zip(recs[0]["losses"], cw["losses"]):
+            assert abs(got - want) / abs(want) <= PAR_TP_LOSS_REL, (
+                kind, recs[0]["losses"], cw["losses"])
+        worst = {}
+        for x in recs:
+            for name, (mx, frac) in x["errs"].items():
+                assert frac <= PAR_TP_FRAC and mx <= PAR_TP_MAX, (
+                    kind, name, mx, frac)
+                w0 = worst.get(name, (0.0, 0.0))
+                worst[name] = (max(w0[0], mx), max(w0[1], frac))
+        top = sorted(worst.items(), key=lambda kv: -kv[1][0])[:3]
+        losses[kind] = recs[0]["losses"]
+        log(f"26 (c) cp 2 x tp 2 {kind} f32 vs one device (T {CP_T}): "
+            f"losses {recs[0]['losses']} vs {cw['losses']}; largest |diff| "
+            + ", ".join(f"{n} {mx:.3g} ({frac:.2e} over {PAR_TP_ATOL:g})"
+                        for n, (mx, frac) in top)
+            + "; step ms " + "; ".join(_fmt_ms(x["step_ms"]) for x in recs)
+            + f"; peak GiB " + ", ".join(f"{x['peak_gib']:.2f}"
+                                         for x in recs)
+            + f" (witness {cw['peak_gib']:.2f}); ring p2p MiB a step a rank "
+            + ", ".join(f"{x['sent'] / CP_STEPS / 2 ** 20:.1f}"
+                        for x in recs))
+    for a, b in zip(losses["zigzag"], losses["ring"]):
+        assert abs(a - b) / abs(b) <= PAR_TP_LOSS_REL, losses
+    # (d)
+    for kind in ("zigzag", "ulysses"):
+        recs = [w["cp_bf16"][kind] for w in world]
+        for x in recs:
+            assert all(math.isfinite(v) for v in x["losses"]), x["losses"]
+            assert x["losses"] == recs[0]["losses"], kind
+        assert recs[0]["losses"][-1] < recs[0]["losses"][0], recs[0]
+        log(f"26 (d) cp 2 x tp 2 {kind} bf16: losses {recs[0]['losses']}; "
+            "step ms " + "; ".join(_fmt_ms(x["step_ms"]) for x in recs)
+            + "; peak GiB " + ", ".join(f"{x['peak_gib']:.2f}"
+                                        for x in recs)
+            + "; p2p MiB a step a rank " + ", ".join(
+                f"{x['sent'] / CP_STEPS / 2 ** 20:.1f}" for x in recs)
+            + "; flash launches a step a rank (fwd) " + ", ".join(
+                str(x["launches"]["flash_attention_fwd"] // CP_STEPS)
+                for x in recs)
+            + f"; collectives rank 0: {_fmt_stats(recs[0]['stats'])}")
+    # the kernels line: each non-causal hop shape's record, its launches
+    # those at that (Tq, Tk) in (b)-(d) on every rank (the 8B heads in
+    # (b), tp 2's half in (c)-(d)), tallied from the schedule and summing
+    # with the causal calls to each rank's counts
+    at = {}
+    for w in world:
+        for part in PHASE26_PARTS:
+            for rec in w[part].values():
+                for name, shapes in rec["by_shape"].items():
+                    for (tq, tk, causal), n in shapes.items():
+                        if not causal:
+                            key = (name, tq, tk)
+                            at[key] = at.get(key, 0) + n
+    names = {"fwd": "flash_attention_fwd", "dq": "flash_attention_bwd_dq",
+             "dkv": "flash_attention_bwd_dkv"}
+    out = []
+    for shape, (T, S) in CP_HOPS.items():
+        e = kern["errs"][shape]
+        err = {"fwd": e[("o", "max_abs_err")],
+               "dq": e[("dq", "max_abs_err")],
+               "dkv": max(e[("dk", "max_abs_err")],
+                          e[("dv", "max_abs_err")])}
+        for kk, name in names.items():
+            ms, plain, lib = kern["times"][shape][kk]
+            b, by = kern["bounds"][shape][kk]
+            out.append(dict(name=f"{name}_cp_{T}x{S}",
+                            launches=at[(name, T, S)],
+                            max_abs_err=err[kk], ms=ms, plain_ms=plain,
+                            bound_ms=b, bound_by=by, library_ms=lib))
+    return out
+
+
 PHASE24_PARTS = ("tp", "zero", "hybrid")
+PHASE26_PARTS = ("cp_attn", "cp_f32", "cp_bf16")
 PHASE25_PARTS = ("pipe_a", "pipe_b", "pipe_c")
 
 
-def par_rank(witness_dir: str, parts=PHASE24_PARTS + PHASE25_PARTS) -> dict:
-    """One rank of phases 24 (b)-(d) and 25 (a)-(c) (``parts``), spawned
-    by ``paddle_tpu_torch.distributed.spawn``; every rank computes on
-    the one card. The witnesses' params are under ``witness_dir``'s
-    ``tp`` and ``pipe``."""
+def par_rank(witness_dir: str,
+             parts=PHASE24_PARTS + PHASE25_PARTS + PHASE26_PARTS) -> dict:
+    """One rank of phases 24 (b)-(d), 25 (a)-(c) and 26 (b)-(d)
+    (``parts``), spawned by ``paddle_tpu_torch.distributed.spawn``;
+    every rank computes on the one card. The witnesses' params are under
+    ``witness_dir``'s ``tp``, ``pipe`` and ``cp`` (with phase 26 (a)'s
+    attention references)."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     from paddle_tpu_torch import distributed as dist
@@ -8621,17 +9267,24 @@ def par_rank(witness_dir: str, parts=PHASE24_PARTS + PHASE25_PARTS) -> dict:
     (a @ a).float().sum().item()
     tp_dir = os.path.join(witness_dir, "tp")
     pipe_dir = os.path.join(witness_dir, "pipe")
+    cp_dir = os.path.join(witness_dir, "cp")
     # every mesh first (each rank makes every group in one order), so (b)
-    # on ranks 0-1 and (c) on ranks 2-3 run at once
+    # on ranks 0-1 and (c)'s first stages on ranks 2-3 run at once
     meshes = [(part, init_hybrid_mesh(**shape, set_global=False), fn)
               for part, shape, fn in (
                   ("tp", dict(tp=2, ranks=(0, 1)),
                    lambda hm: _par_tp(hm, tp_dir)),
-                  ("zero", dict(dp=2, ranks=(2, 3)), _par_zero),
+                  *(("zero", dict(dp=2, ranks=rk),
+                     lambda hm, st=st: _par_zero(hm, st))
+                    for rk, st in PAR_ZERO_STAGES.items()),
                   ("hybrid", dict(dp=2, tp=2), _par_hybrid),
                   ("pipe_a", dict(pp=4), lambda hm: _pipe_a(hm, pipe_dir)),
                   ("pipe_b", dict(pp=2, tp=2), _pipe_b),
-                  ("pipe_c", dict(dp=2, pp=2), _pipe_c))
+                  ("pipe_c", dict(dp=2, pp=2), _pipe_c),
+                  ("cp_attn", dict(cp=CP_R), lambda hm: _cp_attn(hm, cp_dir)),
+                  ("cp_f32", dict(cp=2, tp=2),
+                   lambda hm: _cp_f32(hm, cp_dir)),
+                  ("cp_bf16", dict(cp=2, tp=2), _cp_bf16))
               if part in parts]
     seconds = {}
     for part, hm, fn in meshes:
@@ -8649,12 +9302,14 @@ def _fmt_stats(stats: dict) -> str:
                      for k, v in sorted(stats.items()))
 
 
-def parallel_phase(phase24: bool = True, phase25: bool = True) -> dict:
-    """Phases 24 and 25 in one spawned world. 24: (a) the kernels at tp
-    2's per-rank shapes, then four ranks on the card
+def parallel_phase(phase24: bool = True, phase25: bool = True,
+                   phase26: bool = True) -> dict:
+    """Phases 24, 25 and 26 in one spawned world. 24: (a) the kernels at
+    tp 2's per-rank shapes, then four ranks on the card
     (``distributed.spawn``, gloo): (b) tp 2 against the one-device step,
     (c) dp 2 at ZeRO 0-3, (d) dp 2 x tp 2 at ZeRO 1. 25: the pipeline
-    (a)-(c) on the same ranks (see the module docstring)."""
+    (a)-(c) on the same ranks; 26: context parallelism, (a) in the
+    parent, (b)-(d) on the same ranks (see the module docstring)."""
     from paddle_tpu_torch.distributed import spawn
     t_phase = time.perf_counter()
     kern = None
@@ -8666,7 +9321,7 @@ def parallel_phase(phase24: bool = True, phase25: bool = True) -> dict:
         torch.cuda.empty_cache()
     wdir = tempfile.mkdtemp(prefix="chip_smoke_witness_")
     try:
-        witness = pwit = None
+        witness = pwit = cwit = cp_kern = None
         if phase24:
             os.makedirs(os.path.join(wdir, "tp"))
             witness = tp_witness(os.path.join(wdir, "tp"))
@@ -8677,14 +9332,28 @@ def parallel_phase(phase24: bool = True, phase25: bool = True) -> dict:
             log(f"25 (a) witness: one-device f32 B {PIPE_B['a']} losses "
                 f"{pwit['losses']} in {time.perf_counter() - t0:.1f} s")
         t25 = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        if phase26:
+            log(f"26: context parallelism, llama3_8b widths cut to "
+                f"{PAR_LAYERS} of 32 layers; attention T {CP_T_ATTN} at cp "
+                f"{CP_R}, the train step T {CP_T} at cp 2 x tp 2")
+            os.makedirs(os.path.join(wdir, "cp"))
+            cp_kern = cp_kernel_phase(os.path.join(wdir, "cp"))
+            t1 = time.perf_counter()
+            cwit = cp_witness(os.path.join(wdir, "cp"))
+            log(f"26 (c) witness: one-device f32 T {CP_T} losses "
+                f"{cwit['losses']}, peak {cwit['peak_gib']:.2f} GiB, in "
+                f"{time.perf_counter() - t1:.1f} s")
+        t26 = time.perf_counter() - t0
         gc.collect()
         torch.cuda.empty_cache()
-        log(f"24-25: the parent holds "
+        log(f"24-26: the parent holds "
             f"{torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB on the card "
             f"({torch.cuda.memory_reserved() / 2 ** 30:.2f} reserved) as "
             f"the ranks start")
         parts = (PHASE24_PARTS if phase24 else ()) + (
-            PHASE25_PARTS if phase25 else ())
+            PHASE25_PARTS if phase25 else ()) + (
+            PHASE26_PARTS if phase26 else ())
         t0 = time.perf_counter()
         world = spawn(par_rank, (wdir, parts), nprocs=4)
         t_world = time.perf_counter() - t0
@@ -8693,7 +9362,7 @@ def parallel_phase(phase24: bool = True, phase25: bool = True) -> dict:
         shutil.rmtree(wdir, ignore_errors=True)
     for w in world:
         assert w["backend"] == "gloo" and w["device"] == "cuda:0", w
-    log(f"24-25: 4 ranks on {world[0]['device']} over {world[0]['backend']} "
+    log(f"24-26: 4 ranks on {world[0]['device']} over {world[0]['backend']} "
         f"in {t_world:.1f} s (spawn to join; " + "; ".join(
             f"rank {w['rank']}: " + ", ".join(
                 f"{k} {v:.1f} s" for k, v in w["seconds"].items())
@@ -8714,7 +9383,11 @@ def parallel_phase(phase24: bool = True, phase25: bool = True) -> dict:
         log(f"phase 25 in {t25 + took(PHASE25_PARTS):.1f} s (witness and "
             f"ranks' parts, spawn aside; four ranks share the card's SMs, so "
             f"their times and idle ticks are not those of a card a stage)")
-    log(f"phases 24-25 in {time.perf_counter() - t_phase:.1f} s")
+    if phase26:
+        out["cp"] = phase26_report(world, cwit, cp_kern)
+        log(f"phase 26 in {t26 + took(PHASE26_PARTS):.1f} s (the parent's "
+            f"(a) and witness, and the ranks' parts, spawn aside)")
+    log(f"phases 24-26 in {time.perf_counter() - t_phase:.1f} s")
     return out
 
 
@@ -8742,9 +9415,13 @@ def phase24_report(world: list, witness: dict) -> dict:
             for n, (mx, frac) in top)
         + f"; peak {max(t['peak_gib'] for t in tp):.2f} GiB a rank; "
         f"collectives a rank: {_fmt_stats(tp[0]['stats'])}")
-    # (c), on ranks 2-3
-    zs = [world[r]["zero"] for r in (2, 3)]
+    # (c), each stage on its pair of PAR_ZERO_STAGES; the pairs' stage 0
+    # runs equal
+    z0 = [world[rk[0]]["zero"][0] for rk in PAR_ZERO_STAGES]
+    assert all(z["losses"] == z0[0]["losses"] for z in z0), z0
     for stage in range(4):
+        rk = next(rk for rk, st in PAR_ZERO_STAGES.items() if stage in st)
+        zs = [world[r]["zero"] for r in rk]
         a, b = zs[0][stage], zs[1][stage]
         assert a["losses"] == b["losses"] == zs[0][0]["losses"], (stage, a,
                                                                   b)
@@ -8769,7 +9446,8 @@ def phase24_report(world: list, witness: dict) -> dict:
                 assert b0["bytes"] < s["all_gather"]["bytes"] <= \
                     PAR_STEPS["zero"] * 4 * p0 + b0["bytes"], s
         log(f"24 (c) ZeRO {stage}: losses {a['losses']}; peak "
-            f"{a['peak_gib']:.2f} / {b['peak_gib']:.2f} GiB (ranks 2 / 3), "
+            f"{a['peak_gib']:.2f} / {b['peak_gib']:.2f} GiB (ranks {rk[0]} / "
+            f"{rk[1]}), "
             f"at rest params {a['param_bytes'] / 2 ** 30:.3f} GiB, moments "
             f"{a['moment_bytes'] / 2 ** 30:.3f} GiB a rank; step ms "
             + ", ".join(f"{t:.1f}" for t in a["step_ms"])
@@ -8784,7 +9462,8 @@ def phase24_report(world: list, witness: dict) -> dict:
         log(f"24 (d) dp 2 x tp 2 ZeRO 1 rank {r}: losses {h['losses']}; "
             f"step ms " + ", ".join(f"{t:.1f}" for t in h["step_ms"])
             + f"; collectives {h['coll_ms_a_step']:.1f} ms a step "
-            f"({h['coll_share']:.3f} of steps 2-3, synchronized); peak "
+            f"({h['coll_share']:.3f} of steps 2-{PAR_STEPS['hybrid']}, "
+            f"synchronized); peak "
             f"{h['peak_gib']:.2f} GiB; at rest params "
             f"{h['param_bytes'] / 2 ** 30:.3f} GiB, moments "
             f"{h['moment_bytes'] / 2 ** 30:.3f} GiB; launches a step "
@@ -8847,11 +9526,6 @@ def main() -> int:
     int8_rec = timed("phase 7 (int8)", int8_kernel_phase)
     params, cfg = init_8b()
     serving = timed("phase 4", serving_phase, params, cfg)
-    # phase 23 (a): the profiler over the engine while the 8B weights live
-    t23 = time.perf_counter()
-    profiled = profiler_engine_run(params, cfg)
-    t23 = time.perf_counter() - t23
-    log(f"phase 23 (a) in {t23:.1f} s")
     paths = timed("phase 8", paged_paths_phase, params, cfg)
     # phase 20 (c): the ragged batcher while the 8B weights are alive
     ragged = timed("phase 20 (c)", ragged_batcher_run, params, cfg)
@@ -8862,19 +9536,26 @@ def main() -> int:
                            decode=capture_decode_run(params, cfg))
     t21 = time.perf_counter() - t21
     log(f"phase 21 (c), (d) in {t21:.1f} s")
-    timed("phase 13", sampling_phase, params, cfg)
+    # phases 13, 16, 17 and 23 (a) on SERVE_LAYERS of the 8B's layers
+    params_s, cfg_s = init_8b(SERVE_LAYERS)
+    # phase 23 (a): the profiler over the engine
+    profiled = timed("phase 23 (a)", profiler_engine_run, params_s, cfg_s)
+    timed("phase 13", sampling_phase, params_s, cfg_s)
     adopted_rec = adopted_kernel_case()
     migration = timed("phase 15", migration_phase, params, cfg)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
     fleet_case = fleet_kernel_case()
-    fleet = timed("phase 16", fleet_phase, params, cfg)
+    fleet = timed("phase 16", fleet_phase, params_s, cfg_s)
     # phase 17: the same kernel check at the decode worker's shapes, then
     # the worker-process fleet (phase 16's engines closed, the parent's
     # cached blocks returned before the workers spawn)
     proc_case = fleet_kernel_case()
-    proc = timed("phase 17", proc_fleet_phase, params, cfg)
+    proc = timed("phase 17", proc_fleet_phase, params_s, cfg_s)
     # free the 8B serving state before Qwen2-MoE's 43 GB of weights and
     # the train step's 61 GiB peak
-    del params
+    del params_s
     gc.collect()
     torch.cuda.empty_cache()
     qwen_serve = timed("phase 14", qwen_serving_phase)
@@ -9114,6 +9795,14 @@ def main() -> int:
             max_abs_err=r["max_abs_err"], ms=r["ms"],
             plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
             bound_by=r["bound_by"], library_ms=r["library_ms"]))
+    # phase 26: row 5's non-causal mode at the ring's three off-diagonal
+    # hop shapes; launches: a rank whose schedule makes that call, over
+    # (c)'s ring (the (2048, 2048) hop) or (d)'s zigzag run
+    for r in par["cp"]:
+        kernels.append(dict(
+            r, route="cuda",
+            source="paddle_tpu_torch/csrc/flash_attention.cu",
+            replaces="paddle_tpu/ops/pallas/flash_attention.py:83"))
     for k in kernels:     # every kernel of the line ran on its path
         assert k["launches"] > 0, k
     log(f"chip_smoke: all phases passed in "

@@ -36,8 +36,10 @@ Port of ``paddle_tpu/models/llama.py``:
   int8 matmul kernel (``ops/kernels/int8_matmul``).
 
 * the training path ``forward`` -> ``loss_fn`` -> ``make_train_step``
-  (one device, or a dp x pp x tp mesh over ``torch.distributed``: see
-  ``param_specs`` and ``_mesh_trainer``; pipelines under GPipe,
+  (one device, or a dp x pp x cp x tp mesh over ``torch.distributed``:
+  see ``param_specs`` and ``_mesh_trainer``; context parallelism under
+  ring, zigzag or Ulysses attention, ``parallel/context_parallel``;
+  pipelines under GPipe,
   lockstep 1F1B, rank-asymmetric 1F1B with interleaved VPP, or zero
   bubble, ``grads_1f1b``): per-layer remat through
   ``torch.utils.checkpoint``, the fused RMSNorm / RoPE kernels
@@ -125,6 +127,11 @@ class LlamaConfig:
     # use_fused_norm_rope=False runs the unfused rms_norm / rope instead.
     use_flash_attention: Any = True
     use_fused_norm_rope: Any = "auto"
+    # context parallelism over a mesh's cp axis: "none" | "ring" |
+    # "zigzag" | "ulysses" (parallel/context_parallel). "zigzag" is the
+    # causal-balanced ring: the tokens are laid out so every cp rank
+    # holds one early and one late cell.
+    context_parallel: str = "none"
 
     @property
     def head_dim(self) -> int:
@@ -1146,19 +1153,33 @@ def serving_decode_block(params, tok, lengths, tables, k_pages, v_pages,
 # training: forward, loss, AdamW, the train step
 # ---------------------------------------------------------------------------
 
-def _train_attn_fn(cfg: LlamaConfig):
+def _cp_on(cfg: LlamaConfig, mesh) -> bool:
+    return mesh is not None and mesh.cp_degree > 1 \
+        and cfg.context_parallel != "none"
+
+
+def _train_attn_fn(cfg: LlamaConfig, mesh=None):
+    """The training path's attention: over the cp line of ``mesh``
+    (``cfg.context_parallel``) when it has one, else the flash kernel on
+    this rank's heads."""
     impl = _kernel_impl(cfg.use_flash_attention)
+    if _cp_on(cfg, mesh):
+        from ..parallel.context_parallel import context_parallel_attention
+        return lambda q, k, v: context_parallel_attention(
+            q, k, v, mesh, impl=cfg.context_parallel, attn_impl=impl)
     return lambda q, k, v: flash_attention(q, k, v, causal=True, impl=impl)
 
 
-def decoder_layer(lp, h, cfg: LlamaConfig, positions=None):
+def decoder_layer(lp, h, cfg: LlamaConfig, positions=None, mesh=None):
     """One transformer block of the training path on ``[B, T, D]``;
     ``lp`` holds this layer's weights, ``positions`` defaults to
-    ``arange(T)`` per row."""
+    ``arange(T)`` per row (a cp part passes its global positions, the
+    zigzag layout's included); ``mesh`` with a cp axis runs the
+    attention over its cp line."""
     B, T, _ = h.shape
     if positions is None:
         positions = torch.arange(T, device=h.device).expand(B, T)
-    return _block(lp, h, positions, cfg, _train_attn_fn(cfg),
+    return _block(lp, h, positions, cfg, _train_attn_fn(cfg, mesh),
                   nr_impl=_fused_nr_on(cfg))
 
 
@@ -1178,10 +1199,12 @@ def _scan_layers(params, h, cfg: LlamaConfig, remat: bool = False,
 
 def forward(params, tokens, cfg: LlamaConfig, mesh=None):
     """tokens ``[B, T]`` -> logits ``[B, T, V]`` in ``cfg.dtype`` (one
-    device, one pipeline stage). With ``mesh`` (a dp x pp x tp
+    device, one pipeline stage). With ``mesh`` (a dp x pp x cp x tp
     ``HybridMesh``), ``params`` are this rank's shards, ``tokens`` its
-    dp rows, and the logits ``[B/dp, T, V/tp]`` its vocab shard's; under
-    a pipeline see ``forward_pipelined``."""
+    dp rows, and the logits ``[B/dp, T/cp, V/tp]`` its vocab shard's
+    over its cp part of the sequence (under zigzag, of the sequence laid
+    out by ``zigzag_global_perm``; ``loss_fn`` lays the labels out
+    alike); under a pipeline see ``forward_pipelined``."""
     if mesh is not None:
         _check_mesh(cfg, mesh)
         if mesh.pp_degree > 1:
@@ -1203,9 +1226,10 @@ def loss_fn(params, batch, cfg: LlamaConfig, mesh=None):
     ``AdamW.update_`` stays eager (the JAX step jits the optimizer too;
     a captured optimizer is not built here).
 
-    With ``mesh``: the mean over this rank's dp rows of ``batch`` (the
-    same on every tp rank), through the vocab-parallel cross entropy at
-    tp > 1; the mesh step averages it over dp. Under a pipeline, GPipe
+    With ``mesh``: the mean over this rank's dp rows of ``batch`` and its
+    cp part of the sequence (the same on every tp rank), through the
+    vocab-parallel cross entropy at tp > 1; the mesh step averages it
+    over dp and cp. Under a pipeline, GPipe
     (whatever ``pp_schedule``, as in the JAX package) over the rows of
     ``_pipe_rows``: the value on the last pp rank, a 0-d zero that
     carries the backward on the others."""
@@ -1363,12 +1387,15 @@ def make_train_step(cfg: LlamaConfig, *, mesh=None, zero_stage: int = 0,
     before the update as a 0-d f32 tensor.
 
     With no mesh the step runs on one device. With ``mesh``
-    (``parallel.init_hybrid_mesh(dp=..., pp=..., tp=...)``) it runs on
-    this rank's part of a dp x pp x tp layout over ``torch.distributed``,
-    one process a rank: see ``_mesh_trainer``; a pp axis must equal
+    (``parallel.init_hybrid_mesh(dp=..., pp=..., cp=..., tp=...)``) it
+    runs on this rank's part of a dp x pp x cp x tp layout over
+    ``torch.distributed``, one process a rank: see ``_mesh_trainer``;
+    a pp axis must equal
     ``cfg.pp_stages`` and runs ``cfg.pp_schedule`` over
-    ``cfg.num_microbatches``. ``zero_stage`` (0-3) needs a mesh; a mesh
-    with context or expert axes raises ``NotImplementedError``.
+    ``cfg.num_microbatches``; a cp axis splits the sequence and runs
+    ``cfg.context_parallel``'s attention over it. ``zero_stage`` (0-3)
+    needs a mesh; a mesh with an expert axis, or cp with a pipeline,
+    raises ``NotImplementedError``.
     """
     if zero_stage not in (0, 1, 2, 3):
         raise ValueError(f"zero_stage must be 0..3, got {zero_stage}")
@@ -1418,16 +1445,19 @@ def make_batch(cfg: LlamaConfig, batch_size: int, seq_len: int,
     on the device when none is given). With ``mesh`` the batch is still
     the global one (every rank draws the same), as a mesh step takes it;
     B must divide over dp (over dp · ``num_microbatches`` under a
-    pipeline) and T over tp."""
+    pipeline) and T over cp · tp (2 · cp · tp under zigzag)."""
     if mesh is not None:
         rows = mesh.dp_degree * (cfg.num_microbatches
                                  if mesh.pp_degree > 1 else 1)
-        if batch_size % rows or seq_len % mesh.tp_degree:
+        parts = mesh.cp_degree * mesh.tp_degree * (
+            2 if _zigzag_on(cfg, mesh) else 1)
+        if batch_size % rows or seq_len % parts:
             raise ValueError(
                 f"batch [{batch_size}, {seq_len}] does not split over "
                 f"{rows} rows (dp={mesh.dp_degree}, "
-                f"M={cfg.num_microbatches}) and tp={mesh.tp_degree} "
-                f"sequence parts")
+                f"M={cfg.num_microbatches}) and {parts} sequence parts "
+                f"(cp={mesh.cp_degree}, tp={mesh.tp_degree}"
+                f"{', zigzag' if _zigzag_on(cfg, mesh) else ''})")
     dev = resolve_device(device)
     if generator is None:
         generator = torch.Generator(device=dev).manual_seed(0)
@@ -1439,7 +1469,8 @@ def make_batch(cfg: LlamaConfig, batch_size: int, seq_len: int,
 
 
 # ---------------------------------------------------------------------------
-# parallel training: a dp x tp mesh over torch.distributed, Megatron tensor
+# parallel training: a dp x cp x tp mesh over torch.distributed (context
+# parallelism over cp: each rank its part of the sequence), Megatron tensor
 # parallelism with sequence parallelism, vocab-parallel cross entropy and
 # ZeRO stages 0-3 (one process a rank)
 # ---------------------------------------------------------------------------
@@ -1452,7 +1483,8 @@ def param_specs(cfg: LlamaConfig) -> Dict[str, Any]:
     ``P(None, "tp")``; a stacked layer leaf's leading axis is the
     layer's, on ``pp`` when ``cfg.pp_stages > 1`` (each pipeline rank
     holds its stage's layers, ``_stage_layers``; the embedding lives on
-    the first rank and the head on the last)."""
+    the first rank and the head on the last). Every leaf is replicated
+    over dp (but ZeRO's slices, ``train_state_specs``) and over cp."""
     from ..parallel.mesh import P
     pp = "pp" if getattr(cfg, "pp_stages", 1) > 1 else None
     layers = {
@@ -1525,7 +1557,7 @@ def _check_pipeline(cfg: LlamaConfig, mesh) -> None:
     if cfg.pp_stages != S:
         raise ValueError(f"LlamaConfig.pp_stages={cfg.pp_stages} but the "
                          f"mesh's pp axis is {S}")
-    if mesh.cp_degree > 1:
+    if mesh.cp_degree > 1 or cfg.context_parallel != "none":
         raise NotImplementedError(
             "context_parallel with pp_stages > 1 is not supported yet: the "
             "pipeline stage loop would need the cp exchange nested inside "
@@ -1545,11 +1577,19 @@ def _check_pipeline(cfg: LlamaConfig, mesh) -> None:
 
 
 def _check_mesh(cfg: LlamaConfig, mesh) -> None:
+    from ..parallel.context_parallel import CP_KINDS
+    if cfg.context_parallel not in ("none",) + CP_KINDS:
+        raise ValueError(f"context_parallel must be 'none' or one of "
+                         f"{CP_KINDS}, got {cfg.context_parallel!r}")
     _check_pipeline(cfg, mesh)
-    if mesh.cp_degree > 1 or mesh.ep_degree > 1:
+    if mesh.ep_degree > 1:
         raise NotImplementedError(
-            "context (cp) and expert (ep) parallelism come in a later "
-            "slice of the port; this step trains over dp x pp x tp")
+            "expert (ep) parallelism comes in a later slice of the port; "
+            "this step trains over dp x pp x cp x tp")
+    if mesh.cp_degree > 1 and cfg.context_parallel == "none":
+        raise ValueError(
+            f"a cp={mesh.cp_degree} axis splits the sequence: set "
+            f"LlamaConfig.context_parallel to one of {CP_KINDS}")
     tp = mesh.tp_degree
     bad = {k: n for k, n in dict(
         heads=cfg.num_attention_heads, kv_heads=cfg.num_key_value_heads,
@@ -1729,7 +1769,10 @@ def _sp_layer(lp, h, cfg: LlamaConfig, mesh, positions):
     """One block on tp-local weights over the sequence-sharded stream
     ``[B, T/tp, D]``: norm (local rows) -> all-gather the sequence ->
     q/k/v on the local heads -> rope -> flash attention -> ``wo`` ->
-    reduce-scatter the sequence; the same for the MLP."""
+    reduce-scatter the sequence; the same for the MLP. Under cp, T is
+    this rank's cp part (``positions`` its global positions) and the
+    attention runs over the cp line: sequence parallelism inside each
+    cp part."""
     from ..distributed.sequence_parallel import (all_gather_sequence,
                                                  reduce_scatter_sequence)
     from ..ops.kernels.fused_norm_rope import fused_rope_sharded
@@ -1750,17 +1793,19 @@ def _sp_layer(lp, h, cfg: LlamaConfig, mesh, positions):
         spec = P(None, None, "tp", None)
         q, k = fused_rope_sharded(q, k, positions, spec, spec,
                                   cfg.rope_theta, nr)
-    o = _train_attn_fn(cfg)(q, k, v)
+    o = _train_attn_fn(cfg, mesh)(q, k, v)
     h = h + reduce_scatter_sequence(o.reshape(B, T, Hl * Dh) @ lp["wo"], g)
     x = all_gather_sequence(_sp_norm(cfg, nr, h, lp["mlp_norm"], mesh), g)
     return h + reduce_scatter_sequence(
         (F.silu(x @ lp["w_gate"]) * (x @ lp["w_up"])) @ lp["w_down"], g)
 
 
-def _dp_layer(lp, h, cfg: LlamaConfig):
+def _dp_layer(lp, h, cfg: LlamaConfig, mesh, positions):
     """One block of the tp = 1 mesh step: the one-device block on this
-    rank's rows (ZeRO-3 slices gathered at use)."""
-    return decoder_layer({k: _full(v) for k, v in lp.items()}, h, cfg)
+    rank's rows (ZeRO-3 slices gathered at use), its attention over the
+    cp line under cp."""
+    return decoder_layer({k: _full(v) for k, v in lp.items()}, h, cfg,
+                         positions, mesh)
 
 
 def _mesh_embed(embed, tokens, cfg: LlamaConfig, mesh):
@@ -1791,7 +1836,7 @@ def _mesh_block(lp, h, cfg: LlamaConfig, mesh, positions):
     ``_sp_layer`` above; checkpointed (per-layer remat) under
     ``cfg.remat`` while autograd records."""
     if mesh.tp_degree == 1:
-        fn, args = _dp_layer, (lp, h, cfg)
+        fn, args = _dp_layer, (lp, h, cfg, mesh, positions)
     else:
         fn, args = _sp_layer, (lp, h, cfg, mesh, positions)
     if cfg.remat and torch.is_grad_enabled():
@@ -1822,12 +1867,48 @@ def _mesh_nll(logits, labels, mesh):
                                         mesh.group("tp")).mean()
 
 
+def _zigzag_on(cfg: LlamaConfig, mesh) -> bool:
+    return cfg.context_parallel == "zigzag" and mesh.cp_degree > 1
+
+
+def _cp_part(x, cfg: LlamaConfig, mesh):
+    """This rank's cp part ``[B', T/cp, ...]`` of rows ``[B', T, ...]``
+    of the sequence (laid out by ``zigzag_global_perm`` first under
+    zigzag); the rows themselves at cp 1."""
+    cp = mesh.cp_degree
+    if cp == 1:
+        return x
+    T = x.shape[1]
+    if T % cp:
+        raise ValueError(f"sequence length {T} does not divide over "
+                         f"cp={cp}")
+    if _zigzag_on(cfg, mesh):
+        from ..parallel.context_parallel import zigzag_global_perm
+        x = x[:, torch.as_tensor(zigzag_global_perm(T, cp),
+                                 device=x.device)]
+    n, i = T // cp, mesh.axis_index("cp")
+    return x[:, i * n:(i + 1) * n]
+
+
+def _cp_positions(cfg: LlamaConfig, mesh, B: int, Tl: int, device):
+    """Global positions ``[B, Tl]`` of this rank's cp part (``arange``
+    at cp 1)."""
+    if mesh.cp_degree == 1:
+        return torch.arange(Tl, device=device).expand(B, Tl)
+    from ..parallel.context_parallel import chunk_positions
+    pos = chunk_positions(mesh.axis_index("cp"), mesh.cp_degree, Tl,
+                          "zigzag" if _zigzag_on(cfg, mesh)
+                          else "contiguous")
+    return torch.as_tensor(pos, device=device).long().expand(B, Tl)
+
+
 def _mesh_logits(params, tokens, cfg: LlamaConfig, mesh):
-    """This rank's rows ``[B/dp, T]`` -> logits ``[B/dp, T, V/tp]``, the
-    classes of this rank's vocab shard."""
+    """This rank's rows ``[B/dp, T]`` -> logits ``[B/dp, T/cp, V/tp]``
+    over its cp part, the classes of this rank's vocab shard."""
+    tokens = _cp_part(tokens, cfg, mesh)
     h = _mesh_embed(params["embed"], tokens, cfg, mesh)
     B, T = tokens.shape
-    positions = torch.arange(T, device=h.device).expand(B, T)
+    positions = _cp_positions(cfg, mesh, B, T, h.device)
     for i in range(cfg.num_hidden_layers):
         h = _mesh_block(_layer(params, i), h, cfg, mesh, positions)
     return _mesh_head_logits(params["final_norm"], params["lm_head"], h,
@@ -1835,13 +1916,14 @@ def _mesh_logits(params, tokens, cfg: LlamaConfig, mesh):
 
 
 def _mesh_loss(params, batch, cfg: LlamaConfig, mesh):
-    """Mean NLL over this rank's rows (every tp rank of a dp row gets the
-    same value). Under a pipeline: GPipe (``_gpipe``), the value on the
-    last pp rank and a 0-d zero carrying the backward on the others."""
+    """Mean NLL over this rank's rows and cp part (every tp rank of them
+    gets the same value). Under a pipeline: GPipe (``_gpipe``), the value
+    on the last pp rank and a 0-d zero carrying the backward on the
+    others."""
     if mesh.pp_degree > 1:
         return _gpipe(params, batch, cfg, mesh)
     logits = _mesh_logits(params, batch["tokens"], cfg, mesh)
-    return _mesh_nll(logits, batch["labels"], mesh)
+    return _mesh_nll(logits, _cp_part(batch["labels"], cfg, mesh), mesh)
 
 
 # ---------------------------------------------------------------------------
@@ -2027,16 +2109,20 @@ def _zero_dims(specs) -> Any:
 
 def _mesh_trainer(cfg: LlamaConfig, mesh, zero_stage: int, device,
                   optimizer):
-    """``(step_fn, init_fn)`` of the dp x pp x tp step on this rank.
+    """``(step_fn, init_fn)`` of the dp x pp x cp x tp step on this
+    rank.
 
     ``init_fn(source)`` shards the global params (a ``torch.Generator``
     draws them as ``init_params`` does, on every rank alike) by
     ``param_specs`` into this rank's tp shards (per-layer leaves; under
     a pipeline only its stage's, ``_held``) and places the state by
     ``train_state_specs``. ``step_fn(state, batch)`` takes the GLOBAL
-    batch, reads this rank's dp rows, and returns the global mean loss,
-    the same on every rank. Gradients of the local mean are reduced over
-    dp and scaled by 1/dp:
+    batch, reads this rank's dp rows (and cp part of the sequence), and
+    returns the global mean loss, the same on every rank. The params are
+    replicated over cp, and each cp rank's tokens are separate loss
+    terms: gradients of the local mean are reduced over dp and over cp
+    (an all-reduce of the gradient, or of its dp slice at ZeRO 2-3,
+    after the dp treatment below) and scaled by 1/(dp·cp):
 
     * stage 0: all-reduced, each rank updates the whole tp shard;
     * stage 1: all-reduced; the moments are this rank's ``zero_spec``
@@ -2067,6 +2153,7 @@ def _mesh_trainer(cfg: LlamaConfig, mesh, zero_stage: int, device,
     dev = resolve_device(device)
     opt = default_train_optimizer() if optimizer is None else optimizer
     dp, dp_g = mesh.dp_degree, mesh.group("dp")
+    cp, cp_g = mesh.cp_degree, mesh.group("cp")
     pipe = mesh.pp_degree > 1
     specs = train_state_specs(cfg, mesh, zero_stage=zero_stage)
     dims = _zero_dims(specs["opt"]["mu"])
@@ -2136,7 +2223,7 @@ def _mesh_trainer(cfg: LlamaConfig, mesh, zero_stage: int, device,
         st["count"] = count
 
     def mesh_grad(i, p, d):
-        scale = float(torch.tensor(1.0 / dp, dtype=p.dtype))
+        scale = float(torch.tensor(1.0 / (dp * cp), dtype=p.dtype))
         if zero_stage == 2 and d is not None:
             g = p.__dict__.pop("zero_grad_piece")
         else:
@@ -2145,7 +2232,9 @@ def _mesh_trainer(cfg: LlamaConfig, mesh, zero_stage: int, device,
                 raise RuntimeError("a parameter has no grad")
             if dp > 1 and (d is None or zero_stage < 3):
                 C.all_reduce(g, C.ReduceOp.SUM, dp_g)
-        if dp > 1:
+        if cp > 1:
+            C.all_reduce(g, C.ReduceOp.SUM, cp_g)
+        if dp * cp > 1:
             g.mul_(scale)
         return g
 
@@ -2201,6 +2290,8 @@ def _mesh_trainer(cfg: LlamaConfig, mesh, zero_stage: int, device,
         loss = value.detach().clone()
         if dp > 1:
             C.all_reduce(loss, C.ReduceOp.AVG, dp_g)
+        if cp > 1:
+            C.all_reduce(loss, C.ReduceOp.AVG, cp_g)
         state["step"] += 1
         return state, loss
 

@@ -110,7 +110,7 @@ REFUSALS = [
                                 vpp_chunks=3, num_microbatches=2),
      _mesh(pp=2), ValueError, "not divisible by stages\\*chunks 6"),
     ("ep_with_pp", dict(pp_stages=2), _mesh(pp=2, ep=2),
-     NotImplementedError, "context \\(cp\\) and expert \\(ep\\)"),
+     NotImplementedError, "expert \\(ep\\) parallelism"),
     ("stages_vs_mesh", dict(pp_stages=4), _mesh(pp=2),
      ValueError, "pp_stages=4 but the mesh's pp axis is 2"),
 ]
