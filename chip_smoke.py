@@ -6,9 +6,9 @@ and the train step), the deployment front end (``jit.save`` →
 ``create_predictor``, ``DynamicBatcher``, ``to_static``), the
 capture of the Llama and Qwen2-MoE paths, the high-level trainer
 (``hapi.Model`` on ResNet-50 fed by ``io.DataLoader``), ONNX, ``amp``
-and the profiler, and data-, tensor-, pipeline- and context-parallel Llama
-training (ranks spawned on the card over ``torch.distributed``) on one
-NVIDIA H100 and check them.
+and the profiler, data-, tensor-, pipeline- and context-parallel Llama
+training and expert-parallel Qwen2-MoE training (ranks spawned on the
+card over ``torch.distributed``) on one NVIDIA H100 and check them.
 
 Run from the repository root with no arguments:
 
@@ -348,8 +348,9 @@ Phases (any failed check raises; nothing is caught):
    on phase 4's params) one mixed tick at phase 4's geometry through
    their first ``CAPTURE_TICK_LAYERS`` layers captured (``aot_eager``):
    tokens, logits and both page pools equal eager's bitwise, a ragged
-   launch a layer; inductor on the first 2
-   layers' tick within ``LOGITS_REL_TOL``; (d) (there too)
+   launch a layer; inductor on the first
+   ``CAPTURE_INDUCTOR_TICK_LAYERS`` layers' tick within
+   ``LOGITS_REL_TOL``; (d) (there too)
    ``generate_paged``'s decode step on phase 8's int8 weights (their
    first 2 layers) at the bench mix, captured once (``n_tail`` a 0-d
    tensor) for 4 steps: logits bitwise, tokens equal, paged and int8
@@ -507,10 +508,33 @@ Phases (any failed check raises; nothing is caught):
    launches at that non-causal (T, S) over (b)-(d) on every rank, each
    rank's calls tallied by shape from ``hop_schedule``
    (``cp_hop_calls``) and summing with its causal ones to its counts.
+27. expert-parallel Qwen2-MoE training at Qwen1.5-MoE-A2.7B's widths
+   (``Qwen2MoeConfig()``: D 2048, 60 experts, top-4, Fm 1408, Fs 5632, V
+   151936, H = Hkv = 16) cut to ``PAR_LAYERS`` of 24 layers, T 2048: in
+   the parent, the flash kernels at each mesh's per-rank heads (G = 1:
+   H 8 at tp 2, H 16, phase 9's check) against the plain version to
+   phase 9's G = 1 bounds, with kernel, plain, bound and SDPA times;
+   then, on phase 24's
+   ranks after phase 26's parts, (a) ``qwen2_moe.make_train_step(mesh=
+   init_hybrid_mesh(ep=2, tp=2))``, f32, TF32 off, B 1, ``QWEN_EP_STEPS``
+   steps from the seeded state of a one-device witness on the einsum path
+   the parent runs first: losses within ``PAR_TP_LOSS_REL`` and every
+   leaf within ``PAR_TP_*``, each rank holding under half the whole
+   model's bytes (every leaf cut to the rank's shard as it is drawn);
+   (b) dp 2 x ep 2, bf16, B 2, ``QWEN_EP_STEPS`` steps: finite losses
+   equal on every rank, every replicated leaf bitwise equal across ep
+   peers (SHA-256 of its bytes), every expert leaf moved, the dropped
+   (token, slot) pairs of the global batch a layer equal on every rank.
+   On every rank each kernel's launches = ``qwen_ep_launches`` x steps
+   (flash only: the block's norm and rope are the plain ones). Printed:
+   step ms, peak and init-peak memory, params at rest a rank, dropped
+   counts and the collectives' calls and bytes. The kernels line's
+   ``*_ep_tp2`` and ``*_ep`` entries are rank 0's flash launches in (a)
+   and (b).
 
 Phases run in the order 1, 2, 3, 5, 7, 4, 8, 20 (c), 21 (c), 21 (d),
 23 (a), 13, 15, 16, 17, 14, 6, 9, 10, 11, 12, 18, 19, 20, 21, 22, 23, 24,
-25, 26:
+25, 26, 27:
 phase 14 starts
 after the 8B serving state is freed, phase 6 after phase 14's, phases 9
 and 10 after phase 6's.
@@ -1617,13 +1641,40 @@ def train_kernel_times(gm=TRAIN_GEOM, rows: int = 2048,
     Library calls (yardsticks only; the port calls none of them):
     ``scaled_dot_product_attention`` causal with GQA, forward and its
     backward; ``F.rms_norm``, forward and its backward; RoPE has none."""
+    from paddle_tpu_torch.ops.kernels import fused_norm_rope as nr
+    import torch.nn.functional as F
+    D, T, bf = gm["D"], 2048, torch.bfloat16
+    gen = torch.Generator(device="cuda").manual_seed(20)
+    out, q, k = flash_train_times(gm, gen)
+    x = _randn((rows, D), gen, 2.0).to(bf)
+    w = (1.0 + _randn((D,), gen, 0.1)).to(bf)
+    with torch.no_grad():
+        out["fused_rms_norm_fwd"] = (
+            time_ms(lambda: nr.rms_norm_fwd(x, w, 1e-5, "kernel")),
+            time_ms(lambda: nr.rms_norm_fwd(x, w, 1e-5, "reference")),
+            time_ms(lambda: F.rms_norm(x, (D,), w, 1e-5)))
+    out["fused_rms_norm_bwd"] = rms_bwd_times(rows, D, gen)
+    for d in widths:
+        out[f"fused_rms_norm_bwd_d{d}"] = rms_bwd_times(rows, d, gen)
+    pos = torch.arange(T, dtype=torch.int32, device="cuda")[None]
+    th = gm["theta"]
+    out["fused_rope"] = (
+        time_ms(lambda: nr.rope_rotate(q, k, pos, th, "kernel")),
+        time_ms(lambda: nr.rope_rotate(q, k, pos, th, "reference")),
+        None)
+    torch.cuda.empty_cache()
+    return out
+
+
+def flash_train_times(gm, gen) -> tuple:
+    """The flash kernels' part of ``train_kernel_times``: ``({name: (ms,
+    plain_ms, library_ms)}, q, k)`` at T = S = 2048 with ``gm``'s heads,
+    q, k, v and the cotangent drawn from ``gen`` in bf16."""
     import torch.nn.functional as F
     from paddle_tpu_torch.ops.kernels import flash_attention as fa
-    from paddle_tpu_torch.ops.kernels import fused_norm_rope as nr
-    H, Hkv, Dh, D = gm["H"], gm["Hkv"], gm["Dh"], gm["D"]
+    H, Hkv, Dh = gm["H"], gm["Hkv"], gm["Dh"]
     T = 2048
     bf = torch.bfloat16
-    gen = torch.Generator(device="cuda").manual_seed(20)
     q = _randn((1, T, H, Dh), gen).to(bf)
     k = _randn((1, T, Hkv, Dh), gen).to(bf)
     v = _randn((1, T, Hkv, Dh), gen).to(bf)
@@ -1659,24 +1710,7 @@ def train_kernel_times(gm=TRAIN_GEOM, rows: int = 2048,
                                                    True)),
         plain_bwd, lib_bwd)
     del po, so, leaves, sl
-    x = _randn((rows, D), gen, 2.0).to(bf)
-    w = (1.0 + _randn((D,), gen, 0.1)).to(bf)
-    with torch.no_grad():
-        out["fused_rms_norm_fwd"] = (
-            time_ms(lambda: nr.rms_norm_fwd(x, w, 1e-5, "kernel")),
-            time_ms(lambda: nr.rms_norm_fwd(x, w, 1e-5, "reference")),
-            time_ms(lambda: F.rms_norm(x, (D,), w, 1e-5)))
-    out["fused_rms_norm_bwd"] = rms_bwd_times(rows, D, gen)
-    for d in widths:
-        out[f"fused_rms_norm_bwd_d{d}"] = rms_bwd_times(rows, d, gen)
-    pos = torch.arange(T, dtype=torch.int32, device="cuda")[None]
-    th = gm["theta"]
-    out["fused_rope"] = (
-        time_ms(lambda: nr.rope_rotate(q, k, pos, th, "kernel")),
-        time_ms(lambda: nr.rope_rotate(q, k, pos, th, "reference")),
-        None)
-    torch.cuda.empty_cache()
-    return out
+    return out, q, k
 
 
 TRAIN_KERNELS = (
@@ -6581,10 +6615,13 @@ def deployment_phase() -> dict:
 # of the Llama and Qwen2-MoE paths, static.nn inside a captured program
 # ---------------------------------------------------------------------------
 
-CAPTURE_LAYERS = 2       # layers of (b), (d), (e) and of (c)'s inductor tick
+CAPTURE_LAYERS = 2       # layers of (b), (d), (e)
 # layers of (c)'s aot_eager tick: phase 4's params cut to their first 2
 # (all 32 took 32.6 s to capture; cut for the smoke's time)
 CAPTURE_TICK_LAYERS = 2
+# layers of (c)'s inductor tick: inductor compiled the 2-layer tick in
+# 34.9 s; the aot_eager tick above holds the per-layer indexing over 2
+CAPTURE_INDUCTOR_TICK_LAYERS = 1
 # (b): inductor's gradients against the eager step's, by the norm
 # ratio and the cosine of each gradient tensor. Inductor fuses the eager
 # ops between the kernels into kernels that keep f32 where eager rounds
@@ -6935,11 +6972,12 @@ def capture_tick_run(params, cfg) -> dict:
                                                  cvp, cfg)))
     del ekp, evp, ckp, cvp, ckp2, tick
 
-    # inductor on the first 2 layers' tick
-    p2 = dict(params, layers={k: v[:CAPTURE_LAYERS]
+    # inductor on the first CAPTURE_INDUCTOR_TICK_LAYERS layers' tick
+    Li = CAPTURE_INDUCTOR_TICK_LAYERS
+    p2 = dict(params, layers={k: v[:Li]
                               for k, v in params["layers"].items()})
-    c2 = dataclasses.replace(cfg, num_hidden_layers=CAPTURE_LAYERS)
-    kp2, vp2 = (t[:CAPTURE_LAYERS].clone() for t in pools.values())
+    c2 = dataclasses.replace(cfg, num_hidden_layers=Li)
+    kp2, vp2 = (t[:Li].clone() for t in pools.values())
     (_, want, _, _), _ = run(llama.serving_tick, p2, c2, kp2.clone(),
                              vp2.clone())
     ind = jit.to_static(llama.serving_tick)
@@ -6948,15 +6986,15 @@ def capture_tick_run(params, cfg) -> dict:
     rec["inductor_compile_s"] = time.perf_counter() - t0
     st = ind.graph_break_stats
     assert st["segments"] == 1 and st["graph_breaks"] == 0, st
-    assert n2 == CAPTURE_LAYERS, n2
+    assert n2 == Li, n2
     live = meta["q_len"] > 0
     diff = float((got - want)[live].abs().max())
     scale = float(want[live].abs().max())
     assert diff <= LOGITS_REL_TOL * scale, (diff, scale)
     rec.update(inductor_rel=diff / scale)
-    rec.update(_timing("eager_2l", lambda: llama.serving_tick(
+    rec.update(_timing("eager_cut", lambda: llama.serving_tick(
         p2, tok, meta, kp2, vp2, c2)))
-    rec.update(_timing("inductor_2l", lambda: ind(p2, tok, meta, kp2, vp2,
+    rec.update(_timing("inductor_cut", lambda: ind(p2, tok, meta, kp2, vp2,
                                                   c2)))
     del pools, kp2, vp2, ind
     torch.cuda.empty_cache()
@@ -6967,14 +7005,14 @@ def capture_tick_run(params, cfg) -> dict:
         f"{rec['aot_eager_busy_ms']:.2f}, idle {rec['aot_eager_idle']:.3f})"
         f" against eager {rec['eager_ms']:.2f} ms (busy "
         f"{rec['eager_busy_ms']:.2f}, idle {rec['eager_idle']:.3f}); "
-        f"inductor on {CAPTURE_LAYERS} layers: logits within "
+        f"inductor on {Li} layer(s): logits within "
         f"{diff / scale:.3g} of their scale of eager's (bound "
         f"{LOGITS_REL_TOL}), compile {rec['inductor_compile_s']:.1f} s, "
-        f"{rec['inductor_2l_ms']:.2f} ms (busy "
-        f"{rec['inductor_2l_busy_ms']:.2f}, idle "
-        f"{rec['inductor_2l_idle']:.3f}) against eager "
-        f"{rec['eager_2l_ms']:.2f} ms (busy {rec['eager_2l_busy_ms']:.2f}, "
-        f"idle {rec['eager_2l_idle']:.3f}); [{smi}]")
+        f"{rec['inductor_cut_ms']:.2f} ms (busy "
+        f"{rec['inductor_cut_busy_ms']:.2f}, idle "
+        f"{rec['inductor_cut_idle']:.3f}) against eager "
+        f"{rec['eager_cut_ms']:.2f} ms (busy {rec['eager_cut_busy_ms']:.2f}, "
+        f"idle {rec['eager_cut_idle']:.3f}); [{smi}]")
     return rec
 
 
@@ -8052,8 +8090,9 @@ def phase23() -> dict:
 PAR_LAYERS = 2
 PAR_T = 2048
 PAR_SEED = 24
-# (d) times its steps from the second on, the collectives alone
-PAR_STEPS = {"tp": 2, "zero": 2, "hybrid": 3}
+# (d) times its steps from the second on, the collectives alone: one
+# timed step (a third step did not fit the smoke's time beside phase 27)
+PAR_STEPS = {"tp": 2, "zero": 2, "hybrid": 2}
 # (c)'s ZeRO stages by rank pair: 0-2 on ranks 2-3 while (b) and then 0
 # and 3 run on ranks 0-1, each pair's later stages held bitwise to its own
 # stage 0 and the two stage 0 runs to each other
@@ -9243,18 +9282,375 @@ def phase26_report(world: list, witness: dict, kern: dict) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 27: expert-parallel Qwen2-MoE training on one card
+# ---------------------------------------------------------------------------
+
+# Qwen1.5-MoE-A2.7B's widths (Qwen2MoeConfig()) cut to PAR_LAYERS of its
+# 24 layers (1.763 B parameters: the f32 witness's state is 28 GB, a rank
+# of (a) holds about a quarter of it), T 2048, in phase 24's spawned world:
+# (a) ep 2 x tp 2, f32, B 1 against a one-device witness on the einsum
+# path; (b) dp 2 x ep 2, bf16, B 2. Phase 10 trains 12 layers dropless on
+# one device.
+QWEN_EP_T = 2048
+QWEN_EP_SEED = 27
+QWEN_EP_STEPS = 2
+# the flash kernels at each mesh's per-rank heads (G = 1): tp 2's half of
+# the 16 heads in (a), all 16 in (b)
+QWEN_EP_GEOM = {"tp2": dict(H=8, Hkv=8, Dh=128, D=2048, theta=1e6),
+                "tp1": dict(H=16, Hkv=16, Dh=128, D=2048, theta=1e6)}
+EP_FLASH = ("flash_attention_fwd", "flash_attention_bwd_dq",
+            "flash_attention_bwd_dkv")
+
+
+def qwen_ep_cfg(dtype):
+    from paddle_tpu_torch.models import qwen2_moe
+    return qwen2_moe.Qwen2MoeConfig(num_hidden_layers=PAR_LAYERS,
+                                    dtype=dtype, use_flash_attention="kernel")
+
+
+def qwen_ep_launches(L: int) -> dict:
+    """Launches of every training kernel in one Qwen2-MoE step with
+    per-layer remat: flash forward twice a layer (forward, recompute),
+    dq and dkv once; no fused norm or rope (the plain ones, as in the
+    JAX block)."""
+    return {n: {"flash_attention_fwd": 2 * L, "flash_attention_bwd_dq": L,
+                "flash_attention_bwd_dkv": L}.get(n, 0)
+            for n in train_launches()}
+
+
+def _qwen_named_leaves(params) -> list:
+    """``[(name, tensor)]`` of a trainer's Qwen2-MoE params (per-layer
+    leaves, the experts and the shared expert nested)."""
+    out = [(k, params[k]) for k in ("embed", "final_norm", "lm_head")]
+    for i, lp in enumerate(params["layers"]):
+        for k, v in sorted(lp.items()):
+            if isinstance(v, dict):
+                out += [(f"layers.{i}.{k}.{kk}", vv)
+                        for kk, vv in sorted(v.items())]
+            else:
+                out.append((f"layers.{i}.{k}", v))
+    return out
+
+
+def _qwen_leaf_spec(name: str):
+    from paddle_tpu_torch.models import qwen2_moe
+    from paddle_tpu_torch.models.llama import _layer_spec
+    specs = qwen2_moe.param_specs(None)
+    if not name.startswith("layers."):
+        return specs[name]
+    sp = specs["layers"]
+    for k in name.split(".")[2:]:
+        sp = sp[k]
+    return _layer_spec(sp)
+
+
+class moe_routing:
+    """Phase 27 (a)'s routing trace and pin, over
+    ``incubate.moe.functional._slots`` (the top-k of every gating, one
+    device or mesh). Unpinned, each call's experts ``[S, k]`` (pick
+    order) go to ``trace``. With ``pin`` (a trace of the same calls in
+    the same order) each call routes every token to the pinned experts,
+    its gate values from its own softmax, and counts in ``flips`` the
+    tokens whose own top-k differs: a token whose 4th and 5th router
+    probabilities sit within an upstream rounding of each other moves to
+    another expert, a discrete step that ``PAR_TP_*`` does not describe
+    (phase 14 pins its Qwen ticks for the same reason), so the pinned run
+    measures the two runs' numerics and the flips are reported."""
+
+    def __init__(self, pin=None):
+        self.pin, self.trace = pin, []
+        self.flips = self.decisions = self.used = 0
+
+    def __enter__(self):
+        from paddle_tpu_torch.incubate.moe import functional as moe_f
+        self._mod, self._orig = moe_f, moe_f._slots
+        pinned = None if self.pin is None else iter(self.pin)
+
+        def slots(logits, top_k, key, second_policy, dp_g):
+            raw, masks, gvs, top1 = self._orig(logits, top_k, key,
+                                               second_policy, dp_g)
+            own = torch.stack([m.argmax(-1) for m in masks], -1)
+            if pinned is None:
+                self.trace.append(own.cpu())
+                return raw, masks, gvs, top1
+            idx = next(pinned).to(own.device)
+            self.flips += int((own != idx).any(-1).sum())
+            self.decisions += idx.shape[0]
+            self.used += 1
+            masks = [moe_f._one_hot(idx[:, i], logits.shape[1])
+                     for i in range(top_k)]
+            return raw, masks, [(raw * m).sum(-1) for m in masks], idx[:, 0]
+
+        moe_f._slots = slots
+        return self
+
+    def __exit__(self, *exc):
+        self._mod._slots = self._orig
+        return False
+
+
+def ep_kernel_phase(g1_errs=None) -> dict:
+    """Phase 27's kernel part, in the parent: flash attention at each
+    mesh's per-rank heads (G = 1, T = S = 2048) against the plain version
+    to phase 9's G = 1 bounds, with kernel, plain, bound and library
+    times. ``g1_errs``: phase 9's check at H = Hkv = 16, the tp 1 shape,
+    taken instead of checking it again."""
+    rec = {}
+    for tag, gm in QWEN_EP_GEOM.items():
+        if tag == "tp1" and g1_errs is not None:
+            errs = g1_errs
+            log("27 flash tp1 (H = Hkv = 16, T=S=2048): phase 9's check")
+        else:
+            errs = check_flash(QWEN_EP_T, QWEN_EP_T, seed=270, gm=gm)
+            log(f"27 flash {tag} (H = Hkv = {gm['H']}, T=S=2048): "
+                + " ".join(f"{a}/{b}={v:.4g}" for (a, b), v in errs.items()))
+        check_bounds(f"27 flash {tag}", errs, QWEN_FLASH_BOUNDS)
+        times, _, _ = flash_train_times(
+            gm, torch.Generator(device="cuda").manual_seed(271))
+        bounds = train_kernel_bounds(gm, QWEN_EP_T, ())
+        err = {"flash_attention_fwd": errs[("o", "max_abs_err")],
+               "flash_attention_bwd_dq": errs[("dq", "max_abs_err")],
+               "flash_attention_bwd_dkv": max(errs[("dk", "max_abs_err")],
+                                              errs[("dv", "max_abs_err")])}
+        rec[tag] = {}
+        for name in EP_FLASH:
+            ms, plain, lib = times[name]
+            b, by, _ = bounds[name]
+            rec[tag][name] = dict(ms=ms, plain_ms=plain, library_ms=lib,
+                                  bound_ms=b, bound_by=by,
+                                  max_abs_err=err[name])
+            log(f"kernel {name} 27 {tag} bf16: time_ms {ms:.4f}, plain "
+                f"{plain:.4f} ms, library {lib:.4f} ms, bound {b:.4f} ms "
+                f"({by}), max |err| vs plain {err[name]:.4g}")
+        torch.cuda.empty_cache()
+    return rec
+
+
+def ep_witness(out_dir: str) -> dict:
+    """Phase 27 (a)'s witness: the one-device f32 step (TF32 off, the
+    einsum MoE), ``QWEN_EP_STEPS`` steps from the phase's seeded state;
+    its params written to ``out_dir`` one ``.npy`` a leaf, the card
+    freed."""
+    from paddle_tpu_torch.models import qwen2_moe
+    cfg = qwen_ep_cfg(torch.float32)
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    step, init = qwen2_moe.make_train_step(cfg)
+    state = init(torch.Generator(device="cuda").manual_seed(QWEN_EP_SEED))
+    batch = qwen2_moe.make_batch(
+        cfg, 1, QWEN_EP_T, generator=torch.Generator(
+            device="cuda").manual_seed(QWEN_EP_SEED + 1))
+    n = sum(p.numel() for _, p in _qwen_named_leaves(state["params"]))
+    losses = []
+    with moe_routing() as routing:
+        for _ in range(QWEN_EP_STEPS):
+            state, loss = step(state, batch)
+            losses.append(float(loss))
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    t1 = time.perf_counter()
+    os.makedirs(out_dir, exist_ok=True)
+    torch.save(routing.trace, os.path.join(out_dir, "routing.pt"))
+    for name, leaf in _qwen_named_leaves(state["params"]):
+        np.save(os.path.join(out_dir, name + ".npy"),
+                leaf.detach().cpu().numpy())
+    del state, batch, step, init
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"27 (a) witness: one-device f32, {n / 1e9:.3f} B params, losses "
+        f"{losses}, peak {peak:.2f} GiB, {t1 - t0:.1f} s; params written in "
+        f"{time.perf_counter() - t1:.1f} s")
+    return {"losses": losses, "peak_gib": peak, "params": n}
+
+
+def _ep_steps(hm, cfg, batch_size: int, seed: int, keep=None,
+              pin=None) -> tuple:
+    """``QWEN_EP_STEPS`` steps of ``qwen2_moe.make_train_step(cfg,
+    mesh=hm)`` from the phase's seeded state (``keep(state)`` before
+    them goes to the record's ``"kept"``; ``pin``: a routing trace the
+    steps follow, ``moe_routing``); the first step's forward records its
+    dropped counts (one a layer), every kernel's launches are held to
+    ``qwen_ep_launches``. Returns the record and the state."""
+    from paddle_tpu_torch import distributed as dist
+    from paddle_tpu_torch.incubate.moe import record_dropped
+    from paddle_tpu_torch.models import qwen2_moe
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    step, init = qwen2_moe.make_train_step(cfg, mesh=hm)
+    state = init(torch.Generator(device="cuda").manual_seed(QWEN_EP_SEED))
+    torch.cuda.synchronize()
+    rec = {"param_bytes": _state_bytes(state["params"]),
+           "init_peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+           "kept": None if keep is None else keep(state)}
+    batch = qwen2_moe.make_batch(
+        cfg, batch_size, QWEN_EP_T, mesh=hm, generator=torch.Generator(
+            device="cuda").manual_seed(seed))
+    _zero_counters()
+    losses, times = [], []
+    with moe_routing(pin) as routing:
+        for i in range(QWEN_EP_STEPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            if i == 0:
+                with record_dropped() as drops:
+                    state, loss = step(state, batch)
+            else:
+                state, loss = step(state, batch)
+            losses.append(float(loss))
+            times.append(time.perf_counter() - t0)
+    if pin is not None:
+        assert routing.used == len(pin), (routing.used, len(pin))
+        rec.update(flips=routing.flips, decisions=routing.decisions)
+    launches = _launches()
+    want = {n: c * QWEN_EP_STEPS
+            for n, c in qwen_ep_launches(cfg.num_hidden_layers).items()}
+    assert launches == want, (launches, want)
+    rec.update(losses=losses, step_ms=[t * 1e3 for t in times],
+               launches=launches, stats=dist.collective_stats(),
+               dropped=[float(d) for d in drops[:cfg.num_hidden_layers]],
+               peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+               coords=hm.coords)
+    return rec, state
+
+
+def _ep_f32(hm, wdir: str) -> dict:
+    """(a) on this rank: ep 2 x tp 2, f32, B 1, routed as the witness
+    routed (``moe_routing``), against the witness's params
+    (``PAR_TP_*``)."""
+    from paddle_tpu_torch.models.llama import _shard
+    rec, state = _ep_steps(hm, qwen_ep_cfg(torch.float32), 1,
+                           QWEN_EP_SEED + 1,
+                           pin=torch.load(os.path.join(wdir, "routing.pt")))
+    del rec["kept"]
+    errs = {}
+    for name, leaf in _qwen_named_leaves(state["params"]):
+        w = np.load(os.path.join(wdir, name + ".npy"), mmap_mode="c")
+        part = _shard(torch.from_numpy(w), _qwen_leaf_spec(name), hm)
+        d = (leaf.detach() - part.to(leaf.device)).abs()
+        errs[name] = (float(d.max()), float((d > PAR_TP_ATOL).float().mean()))
+        del d, part, w
+    rec["errs"] = errs
+    del state
+    return rec
+
+
+def _ep_bf16(hm) -> dict:
+    """(b) on this rank: dp 2 x ep 2, bf16, B 2; a digest of every
+    replicated leaf (its bytes' SHA-256) for the bitwise check across ep
+    peers, and whether each expert leaf moved from its initial value."""
+    import hashlib
+    rec, state = _ep_steps(
+        hm, qwen_ep_cfg(torch.bfloat16), 2, QWEN_EP_SEED + 2,
+        keep=lambda st: {n: p.detach().clone() for n, p in
+                         _qwen_named_leaves(st["params"])
+                         if ".experts." in n})
+    start = rec.pop("kept")
+    digests, moved = {}, {}
+    for name, leaf in _qwen_named_leaves(state["params"]):
+        if name in start:
+            moved[name] = not torch.equal(leaf.detach(), start.pop(name))
+        else:
+            digests[name] = hashlib.sha256(
+                leaf.detach().view(torch.uint8).cpu().numpy().tobytes()
+            ).hexdigest()
+    rec.update(digests=digests, moved=moved)
+    del state
+    return rec
+
+
+def phase27_report(world: list, witness: dict, kern: dict) -> list:
+    """Phase 27 (a)-(b)'s checks on the ranks' records and its log lines;
+    returns its kernel records for the kernels line: the flash kernels at
+    each mesh's per-rank heads, launched by (a)'s (``_ep_tp2``) and (b)'s
+    (``_ep``) rank 0."""
+    # (a)
+    a = [w["ep_f32"] for w in world]
+    for x in a:
+        assert x["losses"] == a[0]["losses"], [y["losses"] for y in a]
+    for got, want in zip(a[0]["losses"], witness["losses"]):
+        assert abs(got - want) / abs(want) <= PAR_TP_LOSS_REL, (
+            a[0]["losses"], witness["losses"])
+    worst = {}
+    for x in a:
+        for name, (mx, frac) in x["errs"].items():
+            assert frac <= PAR_TP_FRAC and mx <= PAR_TP_MAX, (name, mx, frac)
+            w0 = worst.get(name, (0.0, 0.0))
+            worst[name] = (max(w0[0], mx), max(w0[1], frac))
+    top = sorted(worst.items(), key=lambda kv: -kv[1][0])[:4]
+    whole = witness["params"] * 4
+    log(f"27 (a) ep 2 x tp 2 f32 vs one device (T {QWEN_EP_T}), routed as "
+        f"the witness routed: losses "
+        f"{a[0]['losses']} vs {witness['losses']} (bound {PAR_TP_LOSS_REL} "
+        f"relative); its own top-k differed on " + ", ".join(
+            f"{x['flips']}" for x in a)
+        + f" of {a[0]['decisions']} token-layer decisions (ranks 0-3; "
+        f"reported); params: {len(worst)} leaves, largest |diff| "
+        + ", ".join(f"{n} {mx:.3g} ({frac:.2e} over {PAR_TP_ATOL:g})"
+                    for n, (mx, frac) in top)
+        + "; params at rest a rank (GiB) " + ", ".join(
+            f"{x['param_bytes'] / 2 ** 30:.3f}" for x in a)
+        + f" of the whole {whole / 2 ** 30:.3f}; init peak GiB " + ", ".join(
+            f"{x['init_peak_gib']:.2f}" for x in a)
+        + "; peak GiB " + ", ".join(f"{x['peak_gib']:.2f}" for x in a)
+        + f" (witness {witness['peak_gib']:.2f}); dropped a layer "
+        f"{a[0]['dropped']}; step ms " + "; ".join(
+            _fmt_ms(x["step_ms"]) for x in a)
+        + f"; collectives rank 0: {_fmt_stats(a[0]['stats'])}")
+    for x in a:
+        assert x["param_bytes"] < whole / 2, x["param_bytes"]
+    # (b)
+    b = [w["ep_bf16"] for w in world]
+    for x in b:
+        assert all(math.isfinite(v) for v in x["losses"]), x["losses"]
+        assert x["losses"] == b[0]["losses"], [y["losses"] for y in b]
+        assert x["dropped"] == b[0]["dropped"], [y["dropped"] for y in b]
+        assert x["moved"] and all(x["moved"].values()), x["moved"]
+    peers = {}
+    for x in b:
+        dp_i = x["coords"][0]
+        peers.setdefault(dp_i, []).append(x)
+    for dp_i, ps in peers.items():
+        assert len(ps) == 2, ps
+        assert ps[0]["digests"] == ps[1]["digests"], dp_i
+    log(f"27 (b) dp 2 x ep 2 bf16 (B 2, T {QWEN_EP_T}): losses "
+        f"{b[0]['losses']}; {len(b[0]['digests'])} replicated leaves bitwise "
+        f"equal across ep peers, all {len(b[0]['moved'])} expert leaves "
+        f"moved; dropped (token, slot) pairs a layer of the global batch "
+        f"{b[0]['dropped']} (capacity from S = {2 * QWEN_EP_T}); step ms "
+        + "; ".join(_fmt_ms(x["step_ms"]) for x in b)
+        + "; peak GiB " + ", ".join(f"{x['peak_gib']:.2f}" for x in b)
+        + "; params at rest a rank (GiB) " + ", ".join(
+            f"{x['param_bytes'] / 2 ** 30:.3f}" for x in b)
+        + f"; collectives rank 0 over {QWEN_EP_STEPS} steps: "
+        f"{_fmt_stats(b[0]['stats'])}; flash launches a step "
+        + ", ".join(f"{n}={c // QWEN_EP_STEPS}"
+                    for n, c in b[0]["launches"].items() if c))
+    out = []
+    for tag, part in (("tp2", a), ("tp1", b)):
+        for name in EP_FLASH:
+            r = kern[tag][name]
+            out.append(dict(name=name + ("_ep_tp2" if tag == "tp2"
+                                         else "_ep"),
+                            launches=part[0]["launches"][name], **r))
+    return out
+
+
 PHASE24_PARTS = ("tp", "zero", "hybrid")
 PHASE26_PARTS = ("cp_attn", "cp_f32", "cp_bf16")
 PHASE25_PARTS = ("pipe_a", "pipe_b", "pipe_c")
+PHASE27_PARTS = ("ep_f32", "ep_bf16")
 
 
 def par_rank(witness_dir: str,
-             parts=PHASE24_PARTS + PHASE25_PARTS + PHASE26_PARTS) -> dict:
-    """One rank of phases 24 (b)-(d), 25 (a)-(c) and 26 (b)-(d)
-    (``parts``), spawned by ``paddle_tpu_torch.distributed.spawn``;
-    every rank computes on the one card. The witnesses' params are under
-    ``witness_dir``'s ``tp``, ``pipe`` and ``cp`` (with phase 26 (a)'s
-    attention references)."""
+             parts=PHASE24_PARTS + PHASE25_PARTS + PHASE26_PARTS
+             + PHASE27_PARTS) -> dict:
+    """One rank of phases 24 (b)-(d), 25 (a)-(c), 26 (b)-(d) and 27
+    (a)-(b) (``parts``), spawned by
+    ``paddle_tpu_torch.distributed.spawn``; every rank computes on the one
+    card. The witnesses' params are under ``witness_dir``'s ``tp``,
+    ``pipe``, ``cp`` (with phase 26 (a)'s attention references) and
+    ``ep``."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     from paddle_tpu_torch import distributed as dist
@@ -9268,6 +9664,7 @@ def par_rank(witness_dir: str,
     tp_dir = os.path.join(witness_dir, "tp")
     pipe_dir = os.path.join(witness_dir, "pipe")
     cp_dir = os.path.join(witness_dir, "cp")
+    ep_dir = os.path.join(witness_dir, "ep")
     # every mesh first (each rank makes every group in one order), so (b)
     # on ranks 0-1 and (c)'s first stages on ranks 2-3 run at once
     meshes = [(part, init_hybrid_mesh(**shape, set_global=False), fn)
@@ -9284,7 +9681,10 @@ def par_rank(witness_dir: str,
                   ("cp_attn", dict(cp=CP_R), lambda hm: _cp_attn(hm, cp_dir)),
                   ("cp_f32", dict(cp=2, tp=2),
                    lambda hm: _cp_f32(hm, cp_dir)),
-                  ("cp_bf16", dict(cp=2, tp=2), _cp_bf16))
+                  ("cp_bf16", dict(cp=2, tp=2), _cp_bf16),
+                  ("ep_f32", dict(ep=2, tp=2),
+                   lambda hm: _ep_f32(hm, ep_dir)),
+                  ("ep_bf16", dict(dp=2, ep=2), _ep_bf16))
               if part in parts]
     seconds = {}
     for part, hm, fn in meshes:
@@ -9303,13 +9703,17 @@ def _fmt_stats(stats: dict) -> str:
 
 
 def parallel_phase(phase24: bool = True, phase25: bool = True,
-                   phase26: bool = True) -> dict:
-    """Phases 24, 25 and 26 in one spawned world. 24: (a) the kernels at
+                   phase26: bool = True, phase27: bool = True,
+                   g1_errs=None) -> dict:
+    """Phases 24-27 in one spawned world. 24: (a) the kernels at
     tp 2's per-rank shapes, then four ranks on the card
     (``distributed.spawn``, gloo): (b) tp 2 against the one-device step,
     (c) dp 2 at ZeRO 0-3, (d) dp 2 x tp 2 at ZeRO 1. 25: the pipeline
     (a)-(c) on the same ranks; 26: context parallelism, (a) in the
-    parent, (b)-(d) on the same ranks (see the module docstring)."""
+    parent, (b)-(d) on the same ranks; 27: expert-parallel Qwen2-MoE,
+    the kernels (``g1_errs``: phase 9's flash check at G = 1, see
+    ``ep_kernel_phase``) and the witness in the parent, (a)-(b) on the
+    same ranks (see the module docstring)."""
     from paddle_tpu_torch.distributed import spawn
     t_phase = time.perf_counter()
     kern = None
@@ -9321,7 +9725,7 @@ def parallel_phase(phase24: bool = True, phase25: bool = True,
         torch.cuda.empty_cache()
     wdir = tempfile.mkdtemp(prefix="chip_smoke_witness_")
     try:
-        witness = pwit = cwit = cp_kern = None
+        witness = pwit = cwit = cp_kern = ewit = ep_kern = None
         if phase24:
             os.makedirs(os.path.join(wdir, "tp"))
             witness = tp_witness(os.path.join(wdir, "tp"))
@@ -9347,13 +9751,24 @@ def parallel_phase(phase24: bool = True, phase25: bool = True,
         t26 = time.perf_counter() - t0
         gc.collect()
         torch.cuda.empty_cache()
-        log(f"24-26: the parent holds "
+        t0 = time.perf_counter()
+        if phase27:
+            log(f"27: expert-parallel Qwen2-MoE, Qwen1.5-MoE-A2.7B widths cut "
+                f"to {PAR_LAYERS} of 24 layers, T {QWEN_EP_T}: (a) ep 2 x tp "
+                f"2 f32, (b) dp 2 x ep 2 bf16")
+            ep_kern = ep_kernel_phase(g1_errs)
+            ewit = ep_witness(os.path.join(wdir, "ep"))
+        t27 = time.perf_counter() - t0
+        gc.collect()
+        torch.cuda.empty_cache()
+        log(f"24-27: the parent holds "
             f"{torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB on the card "
             f"({torch.cuda.memory_reserved() / 2 ** 30:.2f} reserved) as "
             f"the ranks start")
         parts = (PHASE24_PARTS if phase24 else ()) + (
             PHASE25_PARTS if phase25 else ()) + (
-            PHASE26_PARTS if phase26 else ())
+            PHASE26_PARTS if phase26 else ()) + (
+            PHASE27_PARTS if phase27 else ())
         t0 = time.perf_counter()
         world = spawn(par_rank, (wdir, parts), nprocs=4)
         t_world = time.perf_counter() - t0
@@ -9362,7 +9777,7 @@ def parallel_phase(phase24: bool = True, phase25: bool = True,
         shutil.rmtree(wdir, ignore_errors=True)
     for w in world:
         assert w["backend"] == "gloo" and w["device"] == "cuda:0", w
-    log(f"24-26: 4 ranks on {world[0]['device']} over {world[0]['backend']} "
+    log(f"24-27: 4 ranks on {world[0]['device']} over {world[0]['backend']} "
         f"in {t_world:.1f} s (spawn to join; " + "; ".join(
             f"rank {w['rank']}: " + ", ".join(
                 f"{k} {v:.1f} s" for k, v in w["seconds"].items())
@@ -9387,7 +9802,11 @@ def parallel_phase(phase24: bool = True, phase25: bool = True,
         out["cp"] = phase26_report(world, cwit, cp_kern)
         log(f"phase 26 in {t26 + took(PHASE26_PARTS):.1f} s (the parent's "
             f"(a) and witness, and the ranks' parts, spawn aside)")
-    log(f"phases 24-26 in {time.perf_counter() - t_phase:.1f} s")
+    if phase27:
+        out["ep"] = phase27_report(world, ewit, ep_kern)
+        log(f"phase 27 in {t27 + took(PHASE27_PARTS):.1f} s (the parent's "
+            f"kernels and witness, and the ranks' parts, spawn aside)")
+    log(f"phases 24-27 in {time.perf_counter() - t_phase:.1f} s")
     return out
 
 
@@ -9462,7 +9881,7 @@ def phase24_report(world: list, witness: dict) -> dict:
         log(f"24 (d) dp 2 x tp 2 ZeRO 1 rank {r}: losses {h['losses']}; "
             f"step ms " + ", ".join(f"{t:.1f}" for t in h["step_ms"])
             + f"; collectives {h['coll_ms_a_step']:.1f} ms a step "
-            f"({h['coll_share']:.3f} of steps 2-{PAR_STEPS['hybrid']}, "
+            f"({h['coll_share']:.3f} of step 2 on, "
             f"synchronized); peak "
             f"{h['peak_gib']:.2f} GiB; at rest params "
             f"{h['param_bytes'] / 2 ** 30:.3f} GiB, moments "
@@ -9597,7 +10016,7 @@ def main() -> int:
     p23 = phase23()
     gc.collect()
     torch.cuda.empty_cache()
-    par = parallel_phase()
+    par = parallel_phase(g1_errs=gmm_rec["all"]["flash_g1"])
 
     a = rec["a_serving_mix"]
     kernels = [{
@@ -9799,6 +10218,13 @@ def main() -> int:
     # hop shapes; launches: a rank whose schedule makes that call, over
     # (c)'s ring (the (2048, 2048) hop) or (d)'s zigzag run
     for r in par["cp"]:
+        kernels.append(dict(
+            r, route="cuda",
+            source="paddle_tpu_torch/csrc/flash_attention.cu",
+            replaces="paddle_tpu/ops/pallas/flash_attention.py:83"))
+    # phase 27: row 5 at each expert-parallel mesh's per-rank heads (G =
+    # 1), launched by rank 0 of (a) (ep 2 x tp 2) and of (b) (dp 2 x ep 2)
+    for r in par["ep"]:
         kernels.append(dict(
             r, route="cuda",
             source="paddle_tpu_torch/csrc/flash_attention.cu",

@@ -1,1 +1,2 @@
-"""Port of ``paddle_tpu.incubate``: the functional MoE (``moe``)."""
+"""Port of ``paddle_tpu.incubate``: the MoE (``moe``: the functional
+API, ``MoELayer`` and its gates)."""

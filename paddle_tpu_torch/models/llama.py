@@ -322,7 +322,7 @@ def _kernel_impl(flag) -> str:
 def _fused_nr_on(cfg: LlamaConfig) -> Optional[str]:
     """The fused rmsnorm/rope kernels' ``impl`` for the training path, or
     None for the unfused formulation (``use_fused_norm_rope=False``)."""
-    v = cfg.use_fused_norm_rope
+    v = getattr(cfg, "use_fused_norm_rope", False)   # Qwen2-MoE: plain
     if v is False or v == "off":
         return None
     return _kernel_impl(v)
@@ -1584,8 +1584,9 @@ def _check_mesh(cfg: LlamaConfig, mesh) -> None:
     _check_pipeline(cfg, mesh)
     if mesh.ep_degree > 1:
         raise NotImplementedError(
-            "expert (ep) parallelism comes in a later slice of the port; "
-            "this step trains over dp x pp x cp x tp")
+            "expert (ep) parallelism shards experts, and Llama has none "
+            "(qwen2_moe.make_train_step trains over ep); this step trains "
+            "over dp x pp x cp x tp")
     if mesh.cp_degree > 1 and cfg.context_parallel == "none":
         raise ValueError(
             f"a cp={mesh.cp_degree} axis splits the sequence: set "
@@ -1765,19 +1766,17 @@ def _sp_norm(cfg: LlamaConfig, nr_impl, x, w, mesh):
                                   cfg.rms_norm_eps, nr_impl, mesh=mesh)
 
 
-def _sp_layer(lp, h, cfg: LlamaConfig, mesh, positions):
-    """One block on tp-local weights over the sequence-sharded stream
-    ``[B, T/tp, D]``: norm (local rows) -> all-gather the sequence ->
-    q/k/v on the local heads -> rope -> flash attention -> ``wo`` ->
-    reduce-scatter the sequence; the same for the MLP. Under cp, T is
-    this rank's cp part (``positions`` its global positions) and the
-    attention runs over the cp line: sequence parallelism inside each
-    cp part."""
+def _sp_attention(lp, h, cfg, mesh, positions):
+    """The attention half of ``_sp_layer`` on tp-local weights (``lp``
+    with ``attn_norm``, ``wq``, ``wk``, ``wv``, ``wo``): norm (local rows)
+    -> all-gather the sequence -> q/k/v on the local heads -> rope ->
+    flash attention -> ``wo`` -> reduce-scatter the sequence, added to
+    the stream; the unfused norm and rope where ``_fused_nr_on`` says
+    so (Qwen2-MoE's block, as in the JAX package)."""
     from ..distributed.sequence_parallel import (all_gather_sequence,
                                                  reduce_scatter_sequence)
     from ..ops.kernels.fused_norm_rope import fused_rope_sharded
     from ..parallel.mesh import P
-    lp = {k: _full(v) for k, v in lp.items()}
     g = mesh.group("tp")
     B, T = positions.shape
     Dh = cfg.head_dim
@@ -1794,7 +1793,23 @@ def _sp_layer(lp, h, cfg: LlamaConfig, mesh, positions):
         q, k = fused_rope_sharded(q, k, positions, spec, spec,
                                   cfg.rope_theta, nr)
     o = _train_attn_fn(cfg, mesh)(q, k, v)
-    h = h + reduce_scatter_sequence(o.reshape(B, T, Hl * Dh) @ lp["wo"], g)
+    return h + reduce_scatter_sequence(o.reshape(B, T, Hl * Dh) @ lp["wo"],
+                                       g)
+
+
+def _sp_layer(lp, h, cfg: LlamaConfig, mesh, positions):
+    """One block on tp-local weights over the sequence-sharded stream
+    ``[B, T/tp, D]``: ``_sp_attention``, then the MLP the same way (norm
+    -> all-gather -> column-parallel ``w_gate`` / ``w_up`` -> row-parallel
+    ``w_down`` -> reduce-scatter). Under cp, T is this rank's cp part
+    (``positions`` its global positions) and the attention runs over the
+    cp line: sequence parallelism inside each cp part."""
+    from ..distributed.sequence_parallel import (all_gather_sequence,
+                                                 reduce_scatter_sequence)
+    lp = {k: _full(v) for k, v in lp.items()}
+    h = _sp_attention(lp, h, cfg, mesh, positions)
+    g = mesh.group("tp")
+    nr = _fused_nr_on(cfg)
     x = all_gather_sequence(_sp_norm(cfg, nr, h, lp["mlp_norm"], mesh), g)
     return h + reduce_scatter_sequence(
         (F.silu(x @ lp["w_gate"]) * (x @ lp["w_up"])) @ lp["w_down"], g)

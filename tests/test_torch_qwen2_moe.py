@@ -115,7 +115,9 @@ def test_dropless_equals_einsum_when_nothing_drops():
 
 
 def test_one_device_refusals():
-    """Expert parallelism and meshes are refused; a key under moe_ffn's
+    """Expert parallelism needs a global mesh whose ep axis has more than
+    one rank, and a mesh must be a ``HybridMesh`` (the mesh paths are held
+    to JAX in test_torch_expert_parallel*.py); a key under moe_ffn's
     default gating policy draws nothing, as in the JAX package (the
     random policy is held to JAX in test_torch_qwen2_moe_serving.py)."""
     from paddle_tpu_torch import prng
@@ -123,10 +125,10 @@ def test_one_device_refusals():
     a = [_t(v) for v in (x, gate_w, *ws)]
     for got, want in zip(TF.moe_ffn(*a, key=prng.key(3)), TF.moe_ffn(*a)):
         assert torch.equal(got, want)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="ep_axis='ep'"):
         TF.moe_ffn(*a, ep_axis="ep")
     cfg = TQ.Qwen2MoeConfig.tiny(dtype=torch.float32)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(TypeError, match="HybridMesh"):
         TQ.make_train_step(cfg, device="cpu", mesh=object())
     with pytest.raises(ValueError, match="moe_impl"):
         TQ.forward({}, torch.zeros(1, 2, dtype=torch.int32),
