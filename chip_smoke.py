@@ -450,8 +450,10 @@ Phases (any failed check raises; nothing is caught):
    runs' losses equal), moments halved from stage 1 and
    parameters at stage 3, no whole-gradient all-reduce at stages 2-3,
    stage 3's all-gather bytes within ``tests/test_zero_sharding.py``'s
-   bound; (d) dp 2 x tp 2, bf16, ZeRO 1, ``PAR_STEPS`` steps: finite
-   losses equal on every rank; on every rank of (b)-(d) each kernel's
+   bound; (d) dp 2 x tp 2, bf16, ZeRO 1, ``PAR_STEPS`` steps, step k
+   on the batch of ``PAR_SEED + 3 + k`` (phase 28 (b)'s uninterrupted
+   run): finite losses equal on every rank; on every rank of (b)-(d)
+   each kernel's
    launches = phase 6's per-step formula at the local depth x steps.
    Printed: per-rank peak memory and state bytes, the collectives' calls and
    bytes by kind, step ms and the share of it in the collectives (timed alone,
@@ -531,10 +533,38 @@ Phases (any failed check raises; nothing is caught):
    counts and the collectives' calls and bytes. The kernels line's
    ``*_ep_tp2`` and ``*_ep`` entries are rank 0's flash launches in (a)
    and (b).
+28. train-state checkpoints and elastic restarts at ``llama3_8b`` widths
+   cut to ``PAR_LAYERS`` layers, T 2048, bf16, the kernels strict, each
+   job started by ``python -m paddle_tpu_torch.distributed.launch
+   --max_restarts 1`` on this script's ``ckpt-worker`` mode: a check of
+   the disk's free space first (two checkpoints and slack, or the phase
+   fails); (a) one rank, B 1, four steps from ``CKPT_SEED`` (step k's
+   batch from ``CKPT_SEED + 1 + k``), ``save_checkpoint`` after steps 2
+   and 4 (async, keep 1); on attempt 0 the rank runs step 3 while step
+   2's checkpoint is written, waits for its commit and exits; attempt 1
+   resumes at step 3: losses 3-4 and the final params bitwise a one-device
+   witness the parent runs first, the loaded state (params and moments)
+   bitwise the witness's after step 2 (SHA-256 a leaf); (b) four ranks,
+   dp 2 x tp 2, ZeRO 1, phase 24 (d)'s seeds and batches: on attempt 0
+   rank 2 stops heartbeating after step 2's checkpoint commits and its
+   ``Watchdog(CKPT_WD_S, "abort")`` aborts it (the other ranks, blocked
+   in step 3 behind it, watch with a longer timeout); the launcher tears
+   the job down and restarts it; losses 3-4 on every rank bitwise phase
+   24 (d)'s; (c) (b)'s step 4 checkpoint loaded into a one-device state
+   in the parent, each param leaf's SHA-256 equal to (b)'s
+   ``gather_params`` on rank 0. On every rank of (a) and (b) each kernel's
+   launches = phase 6's per-step formula at ``PAR_LAYERS`` x the steps
+   the attempt ran (each rank writes its counts after every step).
+   Printed: the checkpoint's bytes on disk, the save's time to return
+   and to commit, the load's time and GB/s, the watchdog's stall to
+   abort and the restart's seconds, and the auto-tuner's
+   ``estimate_memory`` beside the measured peaks (recorded, not
+   enforced). The kernels line's ``*_ckpt`` entries are (a)'s launches
+   over both attempts, ``*_ckpt_tp2`` (b)'s rank 0's.
 
 Phases run in the order 1, 2, 3, 5, 7, 4, 8, 20 (c), 21 (c), 21 (d),
 23 (a), 13, 15, 16, 17, 14, 6, 9, 10, 11, 12, 18, 19, 20, 21, 22, 23, 24,
-25, 26, 27:
+25, 26, 27, 28:
 phase 14 starts
 after the 8B serving state is freed, phase 6 after phase 14's, phases 9
 and 10 after phase 6's.
@@ -8090,9 +8120,10 @@ def phase23() -> dict:
 PAR_LAYERS = 2
 PAR_T = 2048
 PAR_SEED = 24
-# (d) times its steps from the second on, the collectives alone: one
-# timed step (a third step did not fit the smoke's time beside phase 27)
-PAR_STEPS = {"tp": 2, "zero": 2, "hybrid": 2}
+# (d) times its steps from the second on, the collectives alone; its four
+# steps, each on the batch of PAR_SEED + 3 + step, are phase 28 (b)'s
+# uninterrupted run
+PAR_STEPS = {"tp": 2, "zero": 2, "hybrid": 4}
 # (c)'s ZeRO stages by rank pair: 0-2 on ranks 2-3 while (b) and then 0
 # and 3 run on ranks 0-1, each pair's later stages held bitwise to its own
 # stage 0 and the two stage 0 runs to each other
@@ -8321,6 +8352,15 @@ def _par_zero(hm, stages) -> dict:
     return out
 
 
+def hybrid_batch(cfg, hm, i: int) -> dict:
+    """(d)'s (and phase 28 (b)'s) global batch of step ``i`` (0-based),
+    drawn from ``PAR_SEED + 3 + i``: a resumed run sees the same data."""
+    from paddle_tpu_torch.models import llama
+    return llama.make_batch(
+        cfg, 2, PAR_T, mesh=hm, generator=torch.Generator(
+            device="cuda").manual_seed(PAR_SEED + 3 + i))
+
+
 def _par_hybrid(hm) -> dict:
     """(d) on this rank: dp 2 x tp 2, bf16, ZeRO 1, ``PAR_STEPS`` steps; the
     collectives timed alone from step 2 on."""
@@ -8332,9 +8372,6 @@ def _par_hybrid(hm) -> dict:
     torch.cuda.reset_peak_memory_stats()
     step, init = llama.make_train_step(cfg, mesh=hm, zero_stage=1)
     state = init(torch.Generator(device="cuda").manual_seed(PAR_SEED))
-    batch = llama.make_batch(
-        cfg, 2, PAR_T, mesh=hm,
-        generator=torch.Generator(device="cuda").manual_seed(PAR_SEED + 3))
     _zero_counters()
     losses, times, coll = [], [], 0.0
     for i in range(PAR_STEPS["hybrid"]):
@@ -8342,6 +8379,7 @@ def _par_hybrid(hm) -> dict:
             stats = dist.collective_stats()
             dist.reset_collective_stats()
             dist.set_collective_timing(True)
+        batch = hybrid_batch(cfg, hm, i)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         state, loss = step(state, batch)
@@ -9791,6 +9829,7 @@ def parallel_phase(phase24: bool = True, phase25: bool = True,
     out = {"kernels": kern}
     if phase24:
         out["launches"] = phase24_report(world, witness)
+        out["hybrid"] = world[0]["hybrid"]
         log(f"phase 24 in {t24 + took(PHASE24_PARTS):.1f} s (ranks' parts, "
             f"spawn aside)")
     if phase25:
@@ -9891,6 +9930,433 @@ def phase24_report(world: list, witness: dict) -> dict:
             + f"; collectives: {_fmt_stats(h['stats'])}")
     return hy[0]["launches"]
 
+
+# ---------------------------------------------------------------------------
+# phase 28: train-state checkpoints, the launcher's restarts, the watchdog
+# ---------------------------------------------------------------------------
+
+# (a) one rank and (b) dp 2 x tp 2 ZeRO 1 at phase 24's widths and depth
+# (llama3_8b at PAR_LAYERS of 32 layers, T PAR_T, bf16, the kernels
+# strict), each launched by ``python -m paddle_tpu_torch.distributed.launch
+# --max_restarts 1``: four steps, checkpoints after steps 2 and 4 (async,
+# keep 1); on attempt 0 (a)'s rank exits right after step 2's checkpoint
+# commits, step 3 having run while it was written, and (b)'s rank 2 stops
+# heartbeating after it (its watchdog aborts the process)
+CKPT_SEED = 28
+CKPT_STEPS = 4
+CKPT_SAVES = (2, 4)
+# (b)'s stalled rank's watchdog; the other ranks, blocked in step 3's
+# collectives behind it, watch with CKPT_WD_OTHERS x as long, so the
+# stalled one fires first
+CKPT_WD_S = 10.0
+CKPT_WD_OTHERS = 3.0
+CKPT_CRASH_CODE = 17
+# a launched job's limit (both attempts)
+CKPT_JOB_S = 300
+# free disk the phase needs beyond two checkpoints (keep 1: the old step
+# and the one in flight): logs and slack
+CKPT_DISK_SLACK = 4 * 2 ** 30
+
+
+def leaf_digests(tree) -> dict:
+    """The SHA-256 of every tensor (or numpy) leaf's bytes, by path; the
+    host copies and digests run on threads (both release the GIL)."""
+    import hashlib
+    from concurrent.futures import ThreadPoolExecutor
+    from paddle_tpu_torch.distributed.checkpoint import _flatten
+
+    def one(x):
+        if isinstance(x, torch.Tensor):
+            x = x.detach().reshape(-1).view(torch.uint8).cpu().numpy()
+        return hashlib.sha256(memoryview(np.ascontiguousarray(x)).cast(
+            "B")).hexdigest()
+
+    leaves = [(p, x) for p, x in _flatten(tree)
+              if isinstance(x, (torch.Tensor, np.ndarray))]
+    with ThreadPoolExecutor(8) as ex:
+        return dict(zip([p for p, _ in leaves],
+                        ex.map(one, [x for _, x in leaves])))
+
+
+def _train_state(state) -> dict:
+    return {"params": state["params"], "mu": state["opt"]["mu"],
+            "nu": state["opt"]["nu"]}
+
+
+def ckpt_state_bytes(cfg) -> int:
+    """Params and two AdamW moments of ``cfg``'s train state, bytes."""
+    from paddle_tpu_torch.models.llama import _global_shapes
+    sh = _global_shapes(cfg)
+    n = sum(math.prod(s) for k, s in sh.items() if k != "layer")
+    n += cfg.num_hidden_layers * sum(math.prod(s)
+                                     for s in sh["layer"].values())
+    return 3 * n * torch.tensor([], dtype=cfg.dtype).element_size()
+
+
+def ckpt_batch(cfg, i: int) -> dict:
+    """(a)'s batch of step ``i`` (0-based), from ``CKPT_SEED + 1 + i``."""
+    from paddle_tpu_torch.models import llama
+    return llama.make_batch(cfg, 1, PAR_T, generator=torch.Generator(
+        device="cuda").manual_seed(CKPT_SEED + 1 + i))
+
+
+def ckpt_witness() -> dict:
+    """(a)'s uninterrupted run in the parent: losses, the digests of the
+    state after step 2 and of the params after step 4, the peak."""
+    from paddle_tpu_torch.models import llama
+    cfg = par_cfg(torch.bfloat16)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    step, init = llama.make_train_step(cfg)
+    state = init(torch.Generator(device="cuda").manual_seed(CKPT_SEED))
+    losses, out = [], {}
+    for i in range(CKPT_STEPS):
+        state, loss = step(state, ckpt_batch(cfg, i))
+        losses.append(float(loss))
+        if i + 1 == 2:
+            out["state_2"] = leaf_digests(_train_state(state))
+    out.update(losses=losses, params_4=leaf_digests(state["params"]),
+               peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
+    del state, step, init
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def _ckpt_dump(path: str, obj) -> None:
+    with open(path + ".tmp", "w") as f:
+        json.dump(obj, f)
+    os.replace(path + ".tmp", path)
+
+
+def ckpt_worker(mode: str, wdir: str) -> int:
+    """One rank of phase 28 (a) (``mode`` "a", one device) or (b) ("b",
+    dp 2 x tp 2 ZeRO 1), started by the launcher. Writes its record
+    (``rec.<rank>.<attempt>.json``) and, after every step, its kernels'
+    launches (``counts.<rank>.<attempt>.json``) under ``wdir``."""
+    import resource
+    from paddle_tpu_torch import distributed as dist
+    from paddle_tpu_torch.distributed import checkpoint as C
+    from paddle_tpu_torch.distributed.watchdog import Watchdog
+    from paddle_tpu_torch.models import llama
+    from paddle_tpu_torch.parallel import init_hybrid_mesh
+    # an aborted rank holding GBs of the card's memory writes no core
+    resource.setrlimit(resource.RLIMIT_CORE, (0, 0))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t_start = time.time()
+    attempt = C.restart_attempt()
+    cfg = par_cfg(torch.bfloat16)
+    hm = None
+    if mode == "b":
+        dist.init_parallel_env()
+        hm = init_hybrid_mesh(dp=2, tp=2, set_global=False)
+        step, init = llama.make_train_step(cfg, mesh=hm, zero_stage=1)
+        seed, batch = PAR_SEED, lambda i: hybrid_batch(cfg, hm, i)
+    else:
+        step, init = llama.make_train_step(cfg)
+        seed, batch = CKPT_SEED, lambda i: ckpt_batch(cfg, i)
+    rank = dist.get_rank()
+    tag = f"{rank}.{attempt}"
+    state = init(torch.Generator(device="cuda").manual_seed(seed))
+    layout = llama.checkpoint_layout(state, cfg, hm)
+    root = os.path.join(wdir, "ckpt")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    # the steps done: the newest checkpoint's step (-1: none)
+    start = max(C.load_latest_checkpoint(state, root, layout=layout), 0)
+    torch.cuda.synchronize()
+    rec = {"rank": rank, "attempt": attempt, "start": start,
+           "t_start": t_start, "load_s": time.perf_counter() - t0,
+           "t_resumed": time.time(), "losses": {}, "saves": {}}
+    if start and mode == "a":
+        rec["loaded"] = leaf_digests(_train_state(state))
+    stall = mode == "b" and attempt == 0 and rank == 2
+    wd = Watchdog(timeout=CKPT_WD_S * (1 if stall else CKPT_WD_OTHERS),
+                  on_timeout="abort")
+    wd.start()
+    _zero_counters()
+    pending, t_save = None, {}
+
+    def finish(name):
+        pending.wait_until_finished()
+        sv = rec["saves"][name]
+        sv["commit_s"] = pending.finished_at - t_save[name]
+        sv["bytes"] = sum(f.stat().st_size for f in
+                          Path(root, name).iterdir())
+
+    for i in range(start, CKPT_STEPS):
+        state, loss = step(state, batch(i))
+        rec["losses"][i + 1] = float(loss)
+        _ckpt_dump(os.path.join(wdir, f"counts.{tag}.json"),
+                   {"steps": i + 1 - start, "launches": _launches()})
+        if i + 1 in CKPT_SAVES:
+            if pending is not None:
+                finish(f"step_{i - 1}")
+            torch.cuda.synchronize()
+            name = f"step_{i + 1}"
+            t_save[name] = time.perf_counter()
+            pending = C.save_checkpoint(state, root, i + 1, keep=1,
+                                        async_save=True, layout=layout)
+            rec["saves"][name] = {
+                "return_s": time.perf_counter() - t_save[name]}
+        wd.heartbeat(i + 1)
+        if attempt == 0 and mode == "a" and i + 1 == 3:
+            # step 3 ran while step 2's checkpoint was written: wait for
+            # its commit, then crash
+            finish("step_2")
+            _ckpt_dump(os.path.join(wdir, f"rec.{tag}.json"), rec)
+            os._exit(CKPT_CRASH_CODE)
+        if stall and i + 1 == 2:
+            finish("step_2")
+            wd.heartbeat(2)
+            rec["t_stall"] = time.time()
+            _ckpt_dump(os.path.join(wdir, f"rec.{tag}.json"), rec)
+            while True:             # outside any collective
+                time.sleep(1.0)
+    wd.stop()
+    finish(f"step_{CKPT_STEPS}")
+    if mode == "a":
+        rec["params_4"] = leaf_digests(state["params"])
+    else:
+        rec["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+        whole = llama.gather_params(state, cfg, hm)
+        if rank == 0:
+            rec["gathered_4"] = leaf_digests(whole)
+        del whole
+        dist.destroy_process_group()
+    _ckpt_dump(os.path.join(wdir, f"rec.{tag}.json"), rec)
+    return 0
+
+
+class LaunchedJob:
+    """``python -m paddle_tpu_torch.distributed.launch --nproc N
+    --max_restarts 1`` on ``ckpt_worker(mode)``, started at once; the
+    launcher and its workers run in a process group of their own.
+    ``result()`` waits (killing the group whole if the job outlives
+    ``CKPT_JOB_S``) and returns the launcher's lines to standard error
+    with their arrival times, the workers' records, counts and logs;
+    ``kill()`` stops the group."""
+
+    def __init__(self, mode: str, nproc: int, wdir: Path):
+        here = Path(__file__).resolve().parent
+        env = {k: v for k, v in os.environ.items()
+               if k not in ("PADDLE_INIT_METHOD", "MASTER_ADDR",
+                            "MASTER_PORT", "RANK", "WORLD_SIZE",
+                            "LOCAL_RANK")}
+        env["PYTHONPATH"] = str(here) + os.pathsep + env.get("PYTHONPATH",
+                                                             "")
+        wdir.mkdir(parents=True, exist_ok=True)
+        self.mode, self.wdir, self.lines = mode, wdir, []
+        self.t0 = time.time()
+        self.proc = subprocess.Popen(
+            [sys.executable, "-m", "paddle_tpu_torch.distributed.launch",
+             "--nproc", str(nproc), "--max_restarts", "1", "--log_dir",
+             str(wdir / "logs"), str(here / "chip_smoke.py"),
+             "ckpt-worker", mode, str(wdir)],
+            cwd=here, env=env, stdout=subprocess.DEVNULL,
+            stderr=subprocess.PIPE, text=True, start_new_session=True)
+        self.reader = threading.Thread(target=self._read, daemon=True)
+        self.reader.start()
+
+    def _read(self):
+        for ln in self.proc.stderr:
+            self.lines.append((time.time(), ln.rstrip()))
+
+    def kill(self) -> None:
+        import signal
+        if self.proc.poll() is None:
+            os.killpg(self.proc.pid, signal.SIGKILL)
+            self.proc.wait()
+
+    def result(self) -> dict:
+        try:
+            rc = self.proc.wait(timeout=max(
+                1.0, CKPT_JOB_S - (time.time() - self.t0)))
+        finally:
+            self.kill()
+            self.reader.join(timeout=10)
+        seconds = time.time() - self.t0
+        logs = {p.name: p.read_text(errors="replace")
+                for p in sorted((self.wdir / "logs").glob("workerlog.*"))}
+        assert rc == 0, (self.mode, rc, self.lines,
+                         {k: v[-3000:] for k, v in logs.items()})
+
+        def load(kind):
+            out = {}
+            for p in self.wdir.glob(f"{kind}.*.json"):
+                r, a = p.name.split(".")[1:3]
+                out[(int(r), int(a))] = json.loads(p.read_text())
+            return out
+
+        return {"seconds": seconds, "lines": self.lines, "logs": logs,
+                "recs": load("rec"), "counts": load("counts")}
+
+
+def _ckpt_launches(job, nproc: int, steps_by_attempt: dict) -> dict:
+    """Each rank's kernel launches in each attempt, held to phase 6's
+    per-step formula at PAR_LAYERS x the steps the attempt ran; returns
+    rank 0's total over the attempts."""
+    per = per_step_launches(PAR_LAYERS)
+    total = {n: 0 for n in per}
+    for r in range(nproc):
+        for a, steps in steps_by_attempt.items():
+            c = job["counts"][(r, a)]
+            assert c["steps"] == steps, (r, a, c)
+            want = {n: k * steps for n, k in per.items()}
+            assert c["launches"] == want, (r, a, c["launches"], want)
+            if r == 0:
+                for n in per:
+                    total[n] += c["launches"][n]
+    return total
+
+
+def _save_line(recs) -> str:
+    """Each checkpoint's bytes on disk and one rank's save times: the
+    call's return (async) and the commit, from the call."""
+    out = []
+    for name in (f"step_{s}" for s in CKPT_SAVES):
+        sv, who = next(((rec["saves"][name], k) for k, rec in sorted(
+            recs.items(), key=lambda kv: kv[0][::-1])
+            if "bytes" in rec["saves"].get(name, {})), (None, None))
+        if sv is not None:
+            out.append(
+                f"{name} (rank {who[0]}, attempt {who[1]}): "
+                f"{sv['bytes'] / 1e9:.3f} GB, returned in "
+                f"{sv['return_s']:.3f} s, committed in {sv['commit_s']:.2f} s "
+                f"({sv['bytes'] / sv['commit_s'] / 1e9:.2f} GB/s)")
+    return "; ".join(out)
+
+
+def _failed_at(job, rank: int, code: int) -> float:
+    want = f"rank {rank} exited with code {code}"
+    hit = [t for t, ln in job["lines"] if want in ln]
+    assert hit, (want, job["lines"])
+    return hit[0]
+
+
+def ckpt_phase(hybrid: dict) -> dict:
+    """Phase 28: (a) one rank and (b) dp 2 x tp 2 ZeRO 1 launched at once,
+    each crashed once (an exit, a watchdog abort) and resumed from its
+    checkpoint bitwise against its uninterrupted run ((a): a witness the
+    parent runs while the jobs run; (b): phase 24 (d), ``hybrid``); (c)
+    (b)'s newest checkpoint loaded into one device in the parent, its
+    params' digests = (b)'s gathered params'. Returns rows 5-8's
+    launches in (a)'s and (b)'s rank 0 workers."""
+    import shutil
+    from paddle_tpu_torch.distributed import auto_tuner as AT
+    from paddle_tpu_torch.distributed import checkpoint as C
+    from paddle_tpu_torch.models import llama
+    t_phase = time.perf_counter()
+    cfg = par_cfg(torch.bfloat16)
+    wdir = Path(__file__).resolve().parent / "build" / "phase28"
+    shutil.rmtree(wdir, ignore_errors=True)
+    wdir.mkdir(parents=True)
+    nbytes = ckpt_state_bytes(cfg)
+    free = shutil.disk_usage(wdir).free
+    # two jobs, each with its old checkpoint and the one in flight
+    need = 4 * nbytes + CKPT_DISK_SLACK
+    if free < need:
+        raise RuntimeError(f"phase 28 needs {need / 1e9:.1f} GB free under "
+                           f"{wdir}, has {free / 1e9:.1f} GB")
+    log(f"28: llama3_8b widths at {PAR_LAYERS} of 32 layers, T {PAR_T}, "
+        f"bf16; a train state of {nbytes / 1e9:.3f} GB; {free / 1e9:.1f} GB "
+        f"free under {wdir}; (a) and (b) run at once, beside (a)'s witness")
+    jobs = []
+    try:
+        jobs = [LaunchedJob("a", 1, wdir / "a"), LaunchedJob("b", 4,
+                                                             wdir / "b")]
+        t0 = time.perf_counter()
+        wit = ckpt_witness()
+        t_wit = time.perf_counter() - t0
+        ja, jb = (j.result() for j in jobs)
+        # (a)
+        a0, a1 = ja["recs"][(0, 0)], ja["recs"][(0, 1)]
+        assert a0["start"] == 0 and a1["start"] == 2, (a0, a1)
+        assert [a0["losses"][str(s)] for s in (1, 2, 3)] == wit["losses"][:3]
+        assert [a1["losses"][str(s)] for s in (3, 4)] == wit["losses"][2:], (
+            a1["losses"], wit["losses"])
+        # the checkpoint written while step 3 updated the state in place
+        # holds step 2's bits
+        assert a1["loaded"] == wit["state_2"]
+        assert a1["params_4"] == wit["params_4"]
+        t_fail = _failed_at(ja, 0, CKPT_CRASH_CODE)
+        launches_a = _ckpt_launches(ja, 1, {0: 3, 1: 2})
+        log(f"28 (a) one rank: losses {wit['losses']} (the witness, peak "
+            f"{wit['peak_gib']:.2f} GiB, {t_wit:.1f} s beside the jobs); "
+            f"attempt 0 steps 1-3 then exit {CKPT_CRASH_CODE}, attempt 1 "
+            f"resumed at step 3: losses 3-4 and the final params bitwise the "
+            f"witness's, the loaded state bitwise step 2's; restart "
+            f"{a1['t_resumed'] - t_fail:.1f} s (exit seen -> state loaded; "
+            f"load {a1['load_s']:.2f} s, {nbytes / a1['load_s'] / 1e9:.2f} "
+            f"GB/s); " + _save_line(ja["recs"])
+            + f"; the job {ja['seconds']:.1f} s")
+        # (b)
+        t_fail = _failed_at(jb, 2, -6)
+        assert "paddle_tpu_torch watchdog" in jb["logs"]["workerlog.2"]
+        stall = jb["recs"][(2, 0)]["t_stall"]
+        want = hybrid["losses"]
+        resumed = []
+        for r in range(4):
+            b0, b1 = jb["recs"].get((r, 0)), jb["recs"][(r, 1)]
+            if b0 is not None:
+                assert [b0["losses"][str(s)] for s in (1, 2)] == want[:2]
+            assert b1["start"] == 2, b1
+            got = [b1["losses"][str(s)] for s in (3, 4)]
+            assert got == want[2:], (r, got, want)
+            resumed.append(b1["t_resumed"])
+        launches_b = _ckpt_launches(jb, 4, {0: 2, 1: 2})
+        peaks = [jb["recs"][(r, 1)]["peak_gib"] for r in range(4)]
+        log(f"28 (b) dp 2 x tp 2 ZeRO 1, 4 ranks: rank 2 stalled after "
+            f"step 2's checkpoint; its watchdog ({CKPT_WD_S:g} s) aborted it "
+            f"{t_fail - stall:.1f} s after the stall (abort seen by the "
+            f"launcher); restart {max(resumed) - t_fail:.1f} s (abort seen -> "
+            f"every rank's state loaded; load "
+            + ", ".join(f"{jb['recs'][(r, 1)]['load_s']:.2f}"
+                        for r in range(4))
+            + " s); losses 3-4 on every rank bitwise phase 24 (d)'s "
+            f"{want[2:]}; peak " + ", ".join(f"{p:.2f}" for p in peaks)
+            + " GiB a rank; " + _save_line(jb["recs"])
+            + f"; the job {jb['seconds']:.1f} s")
+        # (c)
+        t0 = time.perf_counter()
+        step, init = llama.make_train_step(cfg)
+        state = init(torch.Generator(device="cuda").manual_seed(0))
+        at = C.load_latest_checkpoint(state, str(wdir / "b" / "ckpt"))
+        torch.cuda.synchronize()
+        t_load = time.perf_counter() - t0
+        assert at == 4 and state["step"] == 4 and \
+            state["opt"]["count"] == 4, (at, state["step"])
+        got = leaf_digests(llama.params_to_numpy(state["params"]))
+        assert got == jb["recs"][(0, 1)]["gathered_4"]
+        del state, step, init
+        gc.collect()
+        torch.cuda.empty_cache()
+        log(f"28 (c) (b)'s step_4 (dp 2 x tp 2 ZeRO 1) loaded into one "
+            f"device in {t_load:.2f} s (with the state's init): "
+            f"{len(got)} leaves' SHA-256 = (b)'s gather_params'")
+        # the tuner's memory model beside the measured peaks (recorded)
+        m = AT.ModelDesc(
+            hidden=cfg.hidden_size, layers=cfg.num_hidden_layers,
+            ffn=cfg.intermediate_size, vocab=cfg.vocab_size,
+            heads=cfg.num_attention_heads,
+            kv_heads=cfg.num_key_value_heads, seq_len=PAR_T, global_batch=1)
+        est_a = AT.estimate_memory(m, AT.Candidate(dp=1, tp=1, pp=1, zero=0))
+        m.global_batch = 2
+        est_b = AT.estimate_memory(m, AT.Candidate(dp=2, tp=2, pp=1,
+                                                   zero=1))
+        log(f"28 tuner: estimate_memory {est_a / 2 ** 30:.2f} GiB for one "
+            f"device B 1 vs the witness's peak {wit['peak_gib']:.2f} GiB; "
+            f"{est_b / 2 ** 30:.2f} GiB a rank for dp 2 x tp 2 ZeRO 1 B 2 vs "
+            f"phase 24 (d)'s peak {hybrid['peak_gib']:.2f} GiB and (b)'s "
+            f"{max(peaks):.2f} GiB (recorded, not enforced)")
+    finally:
+        for j in jobs:
+            j.kill()
+        shutil.rmtree(wdir, ignore_errors=True)
+    log(f"phase 28 in {time.perf_counter() - t_phase:.1f} s")
+    return {"a": launches_a, "b": launches_b}
 
 def timed(tag: str, fn, *args):
     """``fn(*args)``, logging its wall time as ``<tag> in N s``."""
@@ -10017,6 +10483,9 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     par = parallel_phase(g1_errs=gmm_rec["all"]["flash_g1"])
+    gc.collect()
+    torch.cuda.empty_cache()
+    ckpt = ckpt_phase(par["hybrid"])
 
     a = rec["a_serving_mix"]
     kernels = [{
@@ -10229,6 +10698,19 @@ def main() -> int:
             r, route="cuda",
             source="paddle_tpu_torch/csrc/flash_attention.cu",
             replaces="paddle_tpu/ops/pallas/flash_attention.py:83"))
+    # phase 28: rows 5-8 inside the launched workers, over both attempts:
+    # (a)'s rank at the one-device shapes (phase 5's times), (b)'s rank 0
+    # at tp 2's per-rank shapes (phase 24 (a)'s times)
+    for name, source, replaces in TP_KERNELS:
+        for suffix, launches, r in (
+                ("_ckpt", ckpt["a"][name], train_rec[name]),
+                ("_ckpt_tp2", ckpt["b"][name], par["kernels"][name])):
+            kernels.append(dict(
+                name=name + suffix, route="cuda", source=source,
+                replaces=replaces, launches=launches,
+                max_abs_err=r["max_abs_err"], ms=r["ms"],
+                plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
+                bound_by=r["bound_by"], library_ms=r["library_ms"]))
     for k in kernels:     # every kernel of the line ran on its path
         assert k["launches"] > 0, k
     log(f"chip_smoke: all phases passed in "
@@ -10242,4 +10724,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["ckpt-worker"]:    # a rank of phase 28
+        sys.exit(ckpt_worker(*sys.argv[2:4]))
     sys.exit(main())

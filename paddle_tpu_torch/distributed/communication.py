@@ -49,7 +49,8 @@ __all__ = ["ReduceOp", "Group", "new_group", "get_group", "all_reduce",
            "broadcast_object_list", "scatter_object_list",
            "collective_stats", "reset_collective_stats",
            "set_collective_timing", "all_gather_cat", "reduce_scatter_dim",
-           "rank_part", "exchange"]
+           "rank_part", "exchange", "gloo_init_parallel_env",
+           "gloo_barrier", "gloo_release"]
 
 
 class ReduceOp:
@@ -493,3 +494,22 @@ def scatter_object_list(out_object_list: list, in_object_list=None,
     per = len(objs) // g.nranks
     out_object_list[:] = objs[g.rank * per:(g.rank + 1) * per]
     return out_object_list
+
+
+def gloo_init_parallel_env(rank_id: int, rank_num: int,
+                           server_endpoint: str) -> None:
+    """Join a gloo process group of ``rank_num`` ranks as ``rank_id``, at
+    the rendezvous ``server_endpoint`` (``host:port``; rank 0 serves it)
+    — the reference's CPU bootstrap. A no-op when already joined."""
+    if is_initialized():
+        return
+    dist.init_process_group("gloo", init_method=f"tcp://{server_endpoint}",
+                            rank=int(rank_id), world_size=int(rank_num))
+
+
+def gloo_barrier() -> None:
+    barrier()
+
+
+def gloo_release() -> None:
+    destroy_process_group()

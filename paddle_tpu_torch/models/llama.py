@@ -89,7 +89,8 @@ __all__ = ["LlamaConfig", "init_params", "params_from_jax", "rms_norm",
            "make_train_step", "make_batch", "params_to_numpy", "normal_init",
            "one_device_trainer", "param_specs", "shard_params",
            "gather_params", "train_state_specs", "forward_pipelined",
-           "grads_1f1b", "PIPE_SCHEDULES", "SERVING_KERNELS"]
+           "grads_1f1b", "checkpoint_layout", "PIPE_SCHEDULES",
+           "SERVING_KERNELS"]
 
 # the kernel libraries serving_tick and serving_tick_block load on a CUDA
 # device (ops/kernels/_build.py names); int8 weights add int8_matmul
@@ -2311,6 +2312,37 @@ def _mesh_trainer(cfg: LlamaConfig, mesh, zero_stage: int, device,
         return state, loss
 
     return step_fn, init_fn
+
+
+def checkpoint_layout(state, cfg: LlamaConfig, mesh=None) -> Dict:
+    """``distributed.checkpoint``'s layout of a train state
+    (``make_train_step``'s ``init_fn``): none for one device (every leaf
+    whole); on a mesh each param and moment leaf's slice by
+    ``train_state_specs`` at the state's ZeRO stage, a pipeline rank's
+    layers under their global indices (``_held``), and
+    ``state["zero"]`` the rank's own (not saved). Global names are the
+    one-device state's paths, so a checkpoint loads on any mesh."""
+    from ..distributed.checkpoint import spec_layout
+    if mesh is None:
+        return {}
+    specs = train_state_specs(cfg, mesh,
+                              zero_stage=state["zero"]["stage"])
+    own = _held(cfg, mesh)[1]
+
+    def global_name(path):
+        parts = path.split("/")
+        if "layers" in parts:
+            i = parts.index("layers")
+            parts[i + 1] = str(own[int(parts[i + 1])])
+        return "/".join(parts)
+
+    tree = {"params": state["params"], "opt": {k: state["opt"][k]
+                                               for k in ("mu", "nu")}}
+    spec_tree = {"params": specs["params"],
+                 "opt": {k: specs["opt"][k] for k in ("mu", "nu")}}
+    out = spec_layout(tree, spec_tree, mesh, global_name)
+    out["zero"] = None
+    return out
 
 
 def _pipe_assemble(mine, cfg: LlamaConfig, mesh) -> Dict:

@@ -80,7 +80,7 @@ __all__ = ["Qwen2MoeConfig", "init_params", "params_from_jax",
            "init_kv_cache", "forward_with_cache", "generate",
            "init_serving_pages", "serving_prefill", "serving_prefill_chunk",
            "serving_decode_step", "serving_decode_block", "serving_tick",
-           "serving_tick_block", "SERVING_KERNELS"]
+           "serving_tick_block", "checkpoint_layout", "SERVING_KERNELS"]
 
 params_from_jax = llama.params_from_jax
 # the serving ticks' kernel libraries: the routed experts run as plain
@@ -432,6 +432,21 @@ def gather_params(state_or_params, cfg: Qwen2MoeConfig, mesh) -> Dict:
 
     return llama.params_to_numpy(
         llama._map_trees(whole, params, _spec_tree(params, cfg)))
+
+
+def checkpoint_layout(state, cfg: Qwen2MoeConfig, mesh=None) -> Dict:
+    """``distributed.checkpoint``'s layout of a train state: none for
+    one device; on a mesh each param and moment leaf's slice by
+    ``param_specs`` (experts at this rank's offset on E, tp shards),
+    written by one rank of the axes that replicate it."""
+    from ..distributed.checkpoint import spec_layout
+    if mesh is None:
+        return {}
+    specs = _spec_tree(state["params"], cfg)
+    return spec_layout(
+        {"params": state["params"],
+         "opt": {k: state["opt"][k] for k in ("mu", "nu")}},
+        {"params": specs, "opt": {"mu": specs, "nu": specs}}, mesh)
 
 
 class _GatherPair(torch.autograd.Function):

@@ -90,6 +90,12 @@ from paddle_tpu_torch.distributed import (
     DataParallel, communication, env, fleet, functional, group_sharded_parallel,
     mpu, sequence_parallel, sharding, spawn)
 from paddle_tpu_torch.distributed import parallel as _dist_parallel
+from paddle_tpu_torch.distributed import (
+    TCPStore, Watchdog, auto_tuner, checkpoint, extras, io as _dist_io,
+    launch, load_state_dict, save_state_dict, store, watchdog)
+from paddle_tpu_torch.distributed.launch import build_parser
+from paddle_tpu_torch.models.llama import checkpoint_layout
+from paddle_tpu_torch.models.qwen2_moe import checkpoint_layout
 from paddle_tpu_torch.parallel import mesh, mp_ops
 from paddle_tpu_torch.parallel import (Schedule, build_schedule,
                                        pipeline_spmd, pipeline_train_1f1b,
